@@ -1,0 +1,63 @@
+"""Module registry: ModuleSpec names → torch module factories (the subset of
+`mmtpu/models/registry.py` this port has so far)."""
+
+from __future__ import annotations
+
+import inspect
+import logging
+from typing import Any, Callable, Dict
+
+from mmtpu_torch.config.spec import ModuleSpec
+
+logger = logging.getLogger(__name__)
+
+
+def _build_nested(kwargs: Dict[str, Any]) -> Dict[str, Any]:
+    """Build nested ModuleSpecs (e.g. encoders inside fusion models)."""
+    out = {}
+    for k, v in kwargs.items():
+        if isinstance(v, ModuleSpec):
+            out[k] = v.build()
+        elif isinstance(v, dict):
+            out[k] = _build_nested(v)
+        else:
+            out[k] = v
+    return out
+
+
+def _tolerant(cls) -> Callable[..., Any]:
+    """Mirror reference constructors that absorb unknown kwargs via
+    **kwargs: drop keys the constructor does not take, logging each drop so
+    config typos stay visible."""
+    accepted = set(inspect.signature(cls.__init__).parameters) - {"self"}
+
+    def factory(**kwargs):
+        dropped = sorted(k for k in kwargs if k not in accepted)
+        if dropped:
+            logger.info(f"{cls.__name__}: ignoring extra config kwargs {dropped}")
+        return cls(**{k: v for k, v in kwargs.items() if k in accepted})
+
+    return factory
+
+
+def _factories() -> Dict[str, Callable[..., Any]]:
+    from mmtpu_torch.models import avmnist, resnet
+
+    return {
+        "resnet18": resnet.ResNet18,
+        "resnet34": resnet.ResNet34,
+        "resnet50": resnet.ResNet50,
+        "resnetencoder": resnet.ResNetEncoder,
+        "avmnist": _tolerant(avmnist.AVMNIST),
+        "monomodal_encoder": avmnist.MonomodalEncoder,
+    }
+
+
+def build_module(name: str, **kwargs: Any) -> Any:
+    reg = _factories()
+    key = name.lower()
+    if key not in reg:
+        raise ValueError(
+            f"Module {name!r} is not ported to mmtpu_torch yet. Available: {sorted(reg)}"
+        )
+    return reg[key](**_build_nested(kwargs))

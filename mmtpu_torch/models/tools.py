@@ -1,0 +1,36 @@
+"""Seeded weight initialisation (counterpart of mmtpu's flax initialisers).
+
+`seeded_init` draws every weight from one explicit `torch.Generator`, on
+the CPU, so the same seed gives the same weights on any device. The
+distributions follow the flax modules' initialisers: convolutions
+He-normal over fan-out, Linear weights LeCun-normal (untruncated), biases
+zero, BatchNorm scale 1 / shift 0 with running mean 0 and variance 1.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+
+@torch.no_grad()
+def seeded_init(model: nn.Module, seed: int) -> nn.Module:
+    g = torch.Generator(device="cpu").manual_seed(int(seed))
+    for m in model.modules():
+        if isinstance(m, nn.Conv2d):
+            fan_out = m.out_channels * m.kernel_size[0] * m.kernel_size[1]
+            w = torch.empty(m.weight.shape).normal_(0.0, math.sqrt(2.0 / fan_out), generator=g)
+            m.weight.copy_(w)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, nn.Linear):
+            w = torch.empty(m.weight.shape).normal_(
+                0.0, math.sqrt(1.0 / m.in_features), generator=g
+            )
+            m.weight.copy_(w)
+            m.bias.zero_()
+        elif isinstance(m, nn.BatchNorm2d):
+            m.reset_parameters()
+    return model
