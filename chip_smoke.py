@@ -3,20 +3,30 @@
 
     python3 chip_smoke.py
 
-Drives the port's serving path at the full width of the AVMNIST late-fusion
-model (ResNet18 audio encoder, hidden 64; ResNet34 image encoder, hidden
-128; head 192→128→64→10), from seeded random weights:
+Drives the port's serving paths at the full width of two models, from seeded
+random weights: the AVMNIST late-fusion model (ResNet18 audio encoder,
+hidden 64; ResNet34 image encoder, hidden 128; head 192→128→64→10) and the
+MOSI UttFusion model at its published widths (LSTM 5→64 audio, LSTM 20→64
+video, pooling 'last'; TextCNN 768→64 with 128 channels, heights 3/4/5;
+FcClassifier 192→[192, 64, 32]→3; batch 32, aligned T = 50):
 
-1. build   — compiles every kernel of the path from `mmtpu_torch/ops/csrc`;
+1. build   — compiles every kernel from `mmtpu_torch/ops/csrc`, one nvcc per
+             source, all started together;
 2. kernels — each kernel against its plain PyTorch version on the card, at
-             the shapes the path gives it, with timings (CUDA events);
-3. predict — the `predict` entry over a synthetic test split (1000 samples ×
-             patterns ai/a/i, batch 128); logits checked against the port on
-             the CPU; the kernel's launch count must grow;
-4. serve   — the HTTP server in process: concurrent /predict requests (some
-             with the image or the audio zeroed) and one /predict_batch,
-             each answer checked against the Predictor; the kernel's launch
-             count must grow again.
+             the shapes the paths give it, with timings (CUDA events and
+             profiler device time); the LSTM also against `torch.nn.LSTM`
+             as the library's call, and its gradient against autograd
+             through the plain scan;
+3. predict — the `predict` entry over a synthetic test split, once per
+             model (AVMNIST: 1000 samples × ai/a/i, batch 128; UttFusion:
+             686 samples × 7 patterns = 4802 visits, batch 32); logits
+             checked against the port on the CPU; the model's kernel must be
+             launched exactly once per batch;
+4. serve   — the HTTP server in process, once per model: concurrent /predict
+             requests (some with a modality zeroed) and one /predict_batch,
+             each answer checked against the Predictor; a request that
+             lacks an input key must get 400; the same requests against a
+             server with no model give the host's ceiling.
 
 Prints a `kernels` JSON line, the card's name and power limit, and as the
 last line `{"ok": true, "device": {...}}`. Any failure exits non-zero
@@ -34,6 +44,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import urllib.error
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -44,6 +55,10 @@ ROOT = Path(__file__).resolve().parent
 SEED = 42
 HEAD_DIMS = [192, 128, 64, 10]
 KERNEL_TOL = 1e-5  # fp32; kernel and cuBLAS sum in different orders
+LSTM_TOL_LONG = 1e-4  # T = 400: rounding differences pass through 400 dependent steps
+LSTM_GRAD_TOL = 1e-4  # kernel forward + plain recompute vs autograd through the plain scan
+LIBRARY_TOL = 1e-3  # nn.LSTM (cuDNN, fp32) vs projection + kernel: the yardstick's sanity
+LSTM_GATE_OPS = 20  # per (row, step, unit): 3 σ (4 ops each), 2 tanh, 3 ·, 1 +, and the freeze
 CPU_TOL = 1e-3  # GPU (TF32 off) vs CPU forward of the full model
 SERVE_TOL = 1e-4  # micro-batched rows vs a direct Predictor call
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
@@ -144,8 +159,105 @@ def smoke_config(num_samples: int = 1000, batch_size: int = 128,
     }
 
 
+def mosi_smoke_config(num_samples: int = 686, batch_size: int = 32, seq_len: int = 50,
+                      out_root: str = "./experiments_output") -> dict:
+    """The plain-dict twin of configs/mosi/synthetic_utt_fusion.yaml with the
+    model at its published widths (LSTM hidden 64 and pooling 'last', TextCNN
+    with 128 channels, FcClassifier 192→[192, 64, 32]→3); the test split's
+    size is this run's (686 is the size of the real MOSI test split), the
+    rest is the file's."""
+    def split(name, n, rates, **extra):
+        return {
+            "dataset": "synthetic_mosi",
+            "data_fp": "unused",
+            "split": name,
+            "target_modality": "MULTIMODAL",
+            "batch_size": batch_size,
+            **extra,
+            "kwargs": {"num_samples": n, **({"seq_len": seq_len} if seq_len != 50 else {})},
+            "missing_patterns": {"modalities": rates},
+        }
+
+    present = {m: {"missing_rate": 0.0} for m in ("audio", "video", "text")}
+    dropped = {
+        "audio": {"missing_rate": 0.2, "apply_to": ["atv"]},
+        "video": {"missing_rate": 0.2, "apply_to": ["atv"]},
+        "text": {"missing_rate": 0.0},
+    }
+    train = split("train", 128, dropped, shuffle=True)
+    train["missing_patterns"]["selected_patterns"] = ["atv"]
+    name = "Synthetic_MOSI_UttFusion"
+    return {
+        "experiment": {"name": name, "seed": SEED, "device": "tpu",
+                       "is_train": True, "is_test": True},
+        "model": {
+            "name": "UttFusion",
+            "model_type": "utt-fusion",
+            "netA": {"__module_spec__": "lstmencoder", "input_size": 5,
+                     "hidden_size": 64, "embd_method": "last"},
+            "netV": {"__module_spec__": "lstmencoder", "input_size": 20,
+                     "hidden_size": 64, "embd_method": "last"},
+            "netT": {"__module_spec__": "textcnn", "input_size": 768, "embd_size": 64,
+                     "in_channels": 1, "out_channels": 128,
+                     "kernel_heights": [3, 4, 5], "dropout": 0.5},
+            "netC": {"__module_spec__": "fcclassifier", "input_dim": 192,
+                     "layers": [192, 64, 32], "output_dim": 3, "dropout": 0.5},
+            "clip": 0.5,
+        },
+        "training": {
+            "epochs": 2,
+            "early_stopping": False,
+            "early_stopping_patience": 5,
+            "num_modalities": 3,
+            "optimizer": {"name": "Adam",
+                          "default_kwargs": {"lr": 0.001, "weight_decay": 0.0001}},
+            "loss_functions": {
+                "cross_entropy": {"loss_name": "cross_entropy", "loss_args": {},
+                                  "weight": 1.0},
+            },
+        },
+        "data": {
+            "datasets": {
+                "train": train,
+                "validation": split("valid", 64, present),
+                "test": split("test", num_samples, present),
+            },
+        },
+        "metrics": {
+            "metrics": {
+                "MSA": {"function": "metrics.msa_binary_classification", "kwargs": {}},
+                "accuracy": {"function": "sklearn.metrics.accuracy_score", "kwargs": {}},
+            },
+            "groups": {"classification": ["MSA", "accuracy"]},
+        },
+        "logging": {
+            "log_path": f"{out_root}/{{experiment_name}}/logs/{{run_id}}",
+            "model_output_path": f"{out_root}/{{experiment_name}}/models/{{run_id}}",
+            "metrics_path": f"{out_root}/{{experiment_name}}/metrics/{{run_id}}",
+            "save_metric": "loss",
+        },
+        "monitoring": {"enabled": False},
+    }
+
+
 def say(msg: str) -> None:
     print(msg, flush=True)
+
+
+def kernel_counters() -> dict:
+    """Kernel name → the wrapper that counts its launches."""
+    from mmtpu_torch.ops import fused_mlp, lstm_sequence_stacked
+
+    return {"fused_mlp": fused_mlp, "lstm": lstm_sequence_stacked}
+
+
+def reset_counts() -> None:
+    for wrapper in kernel_counters().values():
+        wrapper.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: wrapper.launches for name, wrapper in kernel_counters().items()}
 
 
 def event_ms(fn, iters: int = 200, repeats: int = 7, warmup: int = 20) -> float:
@@ -171,8 +283,8 @@ def event_ms(fn, iters: int = 200, repeats: int = 7, warmup: int = 20) -> float:
 
 def device_breakdown(fn, top: int = 6) -> dict:
     """Run `fn` once under torch.profiler: device time summed over every
-    kernel, the host wall time of the profiled run, and the kernels that
-    took the most device time."""
+    kernel, the host wall time of the profiled run, the device time of the
+    port's own kernels, and the kernels that took the most device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -192,23 +304,44 @@ def device_breakdown(fn, top: int = 6) -> dict:
     return {
         "device_ms": total_ms,
         "profiled_wall_ms": wall_ms,
-        "fused_mlp_device_ms": sum(v for k, v in dev_us.items() if "fused_mlp" in k) / 1e3,
+        # by the names of the __global__ functions in mmtpu_torch/ops/csrc
+        "own_ms": {name: sum(v for k, v in dev_us.items() if f"{name}_kernel" in k) / 1e3
+                   for name in kernel_counters()},
         "top": [(e.key[:70], round(dev_us[e.key] / 1e3, 4), e.count) for e in ranked],
         "top_host": [(e.key[:50], round(e.self_cpu_time_total / 1e3, 3), e.count)
                      for e in host_ops],
     }
 
 
-def mlp_bound_ms(batch: int, dims) -> tuple:
-    """Least time for the chain on an H100: bytes moved (x, weights, biases
-    read once, logits written once) over HBM rate, FLOPs over the float32
-    rate; the larger of the two, and which one it is."""
-    params = sum(i * o + o for i, o in zip(dims[:-1], dims[1:]))
-    nbytes = 4 * (batch * dims[0] + params + batch * dims[-1])
-    flops = 2 * batch * sum(i * o for i, o in zip(dims[:-1], dims[1:]))
+def _bound(nbytes: float, flops: float) -> tuple:
+    """The larger of bytes over the HBM rate and FLOPs over the float32
+    rate, in ms, and which one it is."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOP_PER_S * 1e3
     return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
+def mlp_bound_ms(batch: int, dims) -> tuple:
+    """Least time for the chain on an H100: bytes moved (x, weights, biases
+    read once, logits written once) and the chain's FLOPs."""
+    params = sum(i * o + o for i, o in zip(dims[:-1], dims[1:]))
+    nbytes = 4 * (batch * dims[0] + params + batch * dims[-1])
+    flops = 2 * batch * sum(i * o for i, o in zip(dims[:-1], dims[1:]))
+    return _bound(nbytes, flops)
+
+
+def lstm_bound_ms(G: int, B: int, T: int, H: int, lengths=None) -> tuple:
+    """Least time for the recurrence on an H100. Bytes: xw read for every
+    live step, wh, h0, c0 read once, outputs, hT, cT written once (and the
+    lengths). FLOPs: per live (row, step) the h·wh product, 2·H·4H, and the
+    gate pass, LSTM_GATE_OPS·H. A row frozen by its length needs neither
+    its xw nor any arithmetic, so with lengths only Σ min(len, T) steps count."""
+    live = G * B * T if lengths is None else int(lengths.clamp(max=T).sum().item())
+    nbytes = 4 * (live * 4 * H + G * H * 4 * H + 4 * G * B * H + G * B * T * H)
+    if lengths is not None:
+        nbytes += 4 * G * B
+    flops = live * (2 * H * 4 * H + LSTM_GATE_OPS * H)
+    return _bound(nbytes, flops)
 
 
 def phase_build() -> None:
@@ -217,13 +350,13 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     logs = _build.build(KERNELS)
     say(f"[build] {list(KERNELS)} in {time.perf_counter() - t0:.2f} s "
-        f"(nvcc, sm_90a) → {_build.BUILD_DIR}")
+        f"(one nvcc per source, together; sm_90a) → {_build.BUILD_DIR}")
     for name, log in logs.items():
         for line in log.strip().splitlines():
             say(f"[build] {name}: {line.strip()}")
 
 
-def phase_kernels(dev) -> dict:
+def phase_kernels_mlp(dev) -> dict:
     """fused_mlp vs fused_mlp_reference on the card; timings at the batch
     sizes the path uses (predict batch 128, and 1024)."""
     import torch
@@ -279,41 +412,211 @@ def phase_kernels(dev) -> dict:
     return {"max_err": max_err, "timings": timings}
 
 
-def phase_predict(dev, work: Path, cfg_path: Path) -> dict:
+# LSTM shapes: (G, B, T, H, lengths in [0, T], non-zero h0/c0, tolerance, timed)
+LSTM_CASES = [
+    (1, 32, 50, 64, False, False, KERNEL_TOL, True),
+    (2, 32, 50, 64, False, False, KERNEL_TOL, True),   # the UttFusion forward
+    (1, 128, 50, 32, False, False, KERNEL_TOL, True),
+    (1, 32, 400, 64, True, False, LSTM_TOL_LONG, True),
+    (1, 5, 7, 24, False, True, KERNEL_TOL, False),
+    (1, 32, 50, 128, False, False, KERNEL_TOL, True),
+    (2, 64, 50, 64, False, False, KERNEL_TOL, False),  # the server's largest micro-batch
+]
+LSTM_MAIN = (2, 32, 50, 64)
+LSTM_INPUT_SIZES = (5, 20)  # MOSI audio and video feature widths, by group
+
+
+def _lstm_inputs(dev, G, B, T, H, with_len, with_state, seed):
+    import torch
+
+    g = np.random.default_rng(seed)
+    xw = g.normal(size=(G, B, T, 4 * H)).astype(np.float32)
+    wh = (g.normal(size=(G, H, 4 * H)) / np.sqrt(H)).astype(np.float32)
+    state = (0.5 * g.normal(size=(2, G, B, H))).astype(np.float32) * float(with_state)
+    lengths = g.integers(0, T + 1, size=(G, B)).astype(np.int32) if with_len else None
+    to = lambda a: None if a is None else torch.from_numpy(a).to(dev)  # noqa: E731
+    return to(xw), to(wh), to(state[0]), to(state[1]), to(lengths)
+
+
+def _lstm_library(dev, G, B, T, H, seed):
+    """The library's call for the same function without lengths: per group a
+    `torch.nn.LSTM` holding the weights of an `nn.Linear` projection and a
+    recurrent matrix `wh`. Unlike the kernel it includes the projection
+    x·Wi + b, so it is set against projection + kernel. Returns (library
+    call, projection + kernel call, max |difference| of their outputs)."""
+    import torch
+    from torch import nn
+
+    from mmtpu_torch.ops import lstm_sequence_stacked
+
+    gen = torch.Generator().manual_seed(seed)
+    xs, wis, whs, rnns = [], [], [], []
+    for g in range(G):
+        size = LSTM_INPUT_SIZES[g % len(LSTM_INPUT_SIZES)]
+        wi = nn.Linear(size, 4 * H)
+        wh = torch.randn(H, 4 * H, generator=gen) / H ** 0.5
+        rnn = nn.LSTM(size, H, batch_first=True)
+        with torch.no_grad():  # same gate order [i, f, g, o]; matrices transposed
+            rnn.weight_ih_l0.copy_(wi.weight)
+            rnn.bias_ih_l0.copy_(wi.bias)
+            rnn.weight_hh_l0.copy_(wh.t())
+            rnn.bias_hh_l0.zero_()
+        xs.append(torch.randn(B, T, size, generator=gen).to(dev))
+        wis.append(wi.to(dev))
+        whs.append(wh.to(dev))
+        rnns.append(rnn.to(dev).eval())
+    h0 = torch.zeros(G, B, H, device=dev)
+
+    @torch.no_grad()
+    def library():
+        return [rnn(x)[0] for rnn, x in zip(rnns, xs)]
+
+    @torch.no_grad()
+    def ours():
+        return lstm_sequence_stacked([wi(x) for wi, x in zip(wis, xs)], whs, h0, h0)[0]
+
+    diff = max((a - b).abs().max().item() for a, b in zip(library(), ours()))
+    return library, ours, diff
+
+
+def phase_kernels_lstm(dev) -> dict:
+    """lstm kernel vs the plain scan on the card (outputs, hT, cT), its
+    gradient vs autograd through the plain scan, and timings per call beside
+    the plain scan and nn.LSTM."""
+    import torch
+
+    from mmtpu_torch.ops import lstm_sequence_stacked, lstm_stacked_reference
+
+    torch.backends.cudnn.allow_tf32 = False  # nn.LSTM in fp32, as the kernel
+    max_err = 0.0
+    timings = {}
+    for seed, (G, B, T, H, with_len, with_state, tol, timed) in enumerate(LSTM_CASES):
+        xw, wh, h0, c0, lengths = _lstm_inputs(dev, G, B, T, H, with_len, with_state, seed)
+        with torch.no_grad():
+            out, (h, c) = lstm_sequence_stacked(list(xw), list(wh), h0, c0, lengths)
+            want, (want_h, want_c) = lstm_stacked_reference(xw, wh, h0, c0, lengths)
+        torch.cuda.synchronize()
+        if out.shape != (G, B, T, H) or not all(torch.isfinite(t).all() for t in (out, h, c)):
+            raise AssertionError(f"lstm G={G} B={B} T={T} H={H}: bad output {out.shape}")
+        errs = [(a - b).abs().max().item() for a, b in ((out, want), (h, want_h), (c, want_c))]
+        shape = f"G={G} B={B} T={T} H={H}" + (" lengths" if with_len else "") \
+            + (" h0/c0≠0" if with_state else "")
+        say(f"[kernels] lstm {shape}: max |kernel - plain| outputs {errs[0]:.3e}, "
+            f"hT {errs[1]:.3e}, cT {errs[2]:.3e} (tolerance {tol})")
+        if max(errs) > tol:
+            raise AssertionError(f"lstm {shape}: error {max(errs)} > {tol}")
+        max_err = max(max_err, *errs)
+        if not timed:
+            continue
+
+        def kernel():
+            return lstm_sequence_stacked(list(xw), list(wh), h0, c0, lengths)
+
+        def plain():
+            return lstm_stacked_reference(xw, wh, h0, c0, lengths)
+
+        slow = dict(iters=10, repeats=3, warmup=2)  # the scan is ~10 launches per step
+        with torch.no_grad():
+            p1 = event_ms(plain, **slow)
+            k1 = event_ms(kernel)
+            k2 = event_ms(kernel)
+            p2 = event_ms(plain, **slow)
+            kd = device_breakdown(lambda: [kernel() for _ in range(100)])["device_ms"] / 100
+            pd = device_breakdown(lambda: [plain() for _ in range(3)])["device_ms"] / 3
+        bound, bound_by = lstm_bound_ms(G, B, T, H, lengths)
+        t = {"ms": statistics.mean([k1, k2]), "plain_ms": statistics.mean([p1, p2]),
+             "device_ms": kd, "plain_device_ms": pd, "bound_ms": bound,
+             "bound_by": bound_by, "serial_steps": T}
+        line = (f"[kernels] lstm {shape}: per call kernel {k1:.4f}/{k2:.4f} ms, plain "
+                f"{p1:.4f}/{p2:.4f} ms (events); device time kernel {kd} ms, plain {pd} ms "
+                f"(profiler); bound {bound:.6f} ms ({bound_by}); serial chain {T} steps")
+        if not with_len:  # nn.LSTM has no length freeze of this kind
+            library, ours, diff = _lstm_library(dev, G, B, T, H, seed)
+            if diff > LIBRARY_TOL:
+                raise AssertionError(f"lstm {shape}: nn.LSTM differs by {diff}")
+            l1 = event_ms(library)
+            o1 = event_ms(ours)
+            o2 = event_ms(ours)
+            l2 = event_ms(library)
+            ld = device_breakdown(lambda: [library() for _ in range(100)])["device_ms"] / 100
+            t.update(library_ms=statistics.mean([l1, l2]), library_device_ms=ld,
+                     with_projection_ms=statistics.mean([o1, o2]))
+            line += (f"; nn.LSTM ×{G} (projection included) {l1:.4f}/{l2:.4f} ms, device "
+                     f"{ld} ms, vs projection + kernel {o1:.4f}/{o2:.4f} ms, "
+                     f"max |difference| {diff:.3e}")
+        say(line)
+        timings[(G, B, T, H)] = t
+
+    # gradient: kernel forward + plain recompute vs autograd through the plain scan
+    cots = None
+    grads = []
+    for fn in (lstm_sequence_stacked, lstm_stacked_reference):
+        xw, wh, h0, c0, lengths = _lstm_inputs(dev, 2, 9, 11, 24, True, True, 99)
+        leaves = [t.requires_grad_() for t in (xw, wh, h0, c0)]
+        out, (h, c) = fn(*leaves, lengths)
+        if cots is None:
+            gen = torch.Generator().manual_seed(SEED)
+            cots = [torch.randn(t.shape, generator=gen).to(dev) for t in (out, h, c)]
+        grads.append(torch.autograd.grad((out, h, c), leaves, cots))
+    grad_err = max((a - b).abs().max().item() for a, b in zip(*grads))
+    say(f"[kernels] lstm gradient (G=2 B=9 T=11 H=24, lengths, h0/c0≠0): max |autograd.Function "
+        f"- autograd through the plain scan| = {grad_err:.3e} (tolerance {LSTM_GRAD_TOL})")
+    if grad_err > LSTM_GRAD_TOL:
+        raise AssertionError(f"lstm gradient differs by {grad_err}")
+    return {"max_err": max_err, "grad_err": grad_err, "timings": timings}
+
+
+# What the predict and serve phases need to know of each model's path.
+AVMNIST_PATH = {
+    "label": "AVMNIST", "kernel": "fused_mlp", "classes": 10,
+    "patterns": {"ai", "a", "i"}, "keys": ["audio", "image"],
+}
+MOSI_PATH = {
+    "label": "UttFusion", "kernel": "lstm", "classes": 3,
+    "patterns": {"atv", "at", "av", "tv", "a", "t", "v"}, "keys": ["audio", "video", "text"],
+}
+
+
+def phase_predict(dev, work: Path, cfg_path: Path, path: dict) -> dict:
     import torch
 
     from mmtpu_torch.checkpoints import save_pth
     from mmtpu_torch.cli import common, predict
     from mmtpu_torch.models import seeded_init
-    from mmtpu_torch.ops import fused_mlp
     from mmtpu_torch.train.step import make_eval_step
 
+    tag, kernel = f"[predict {path['label']}]", path["kernel"]
     cfg = common.load_config(argparse.Namespace(config=str(cfg_path), run_id=1, seed=None))
     model = seeded_init(common.build_model_from_config(cfg.model), SEED)
     ckpt = save_pth(model, common.checkpoint_path(cfg, "best"))
     n_params = sum(p.numel() for p in model.parameters())
-    say(f"[predict] full-width AVMNIST ({n_params} parameters), seeded weights → {ckpt}")
+    say(f"{tag} full-width model ({n_params} parameters), seeded weights → {ckpt}")
 
-    out_json = work / "predictions_test.json"
+    out_json = work / f"predictions_{path['label']}.json"
     args = predict.arg_parser().parse_args(
         ["--config", str(cfg_path), "--run_id", "1", "--out", str(out_json)]
     )
-    fused_mlp.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     _, records, summary = predict.run(args)
     seconds = time.perf_counter() - t0
-    launches = fused_mlp.launches
+    counts = read_counts()
     data = json.loads(out_json.read_text())
     if set(data) != {"split", "checkpoint", "accuracy_per_pattern", "predictions"}:
         raise AssertionError(f"predictions JSON keys {sorted(data)}")
-    n_test = cfg.data.datasets["test"].kwargs["num_samples"]
-    if len(records) != 3 * n_test or set(summary) != {"ai", "a", "i"}:
+    test = cfg.data.datasets["test"]
+    n_visits = len(path["patterns"]) * test.kwargs["num_samples"]
+    n_batches = -(-n_visits // test.batch_size)
+    if len(records) != n_visits or set(summary) != path["patterns"]:
         raise AssertionError(f"{len(records)} records, patterns {sorted(summary)}")
-    if launches < 1:
-        raise AssertionError("predict: fused_mlp kernel was never launched")
-    say(f"[predict] {len(records)} visits in {seconds:.3f} s through predict.run "
-        f"({len(records) / seconds:.1f} samples/s, start-up included); "
-        f"per-pattern accuracy {summary}; fused_mlp launches {launches}")
+    # one launch per eval forward: none means the path went round the kernel,
+    # more means a route launches it twice
+    if counts[kernel] != n_batches:
+        raise AssertionError(
+            f"predict: {kernel} launched {counts[kernel]} times in {n_batches} batches")
+    say(f"{tag} {len(records)} visits in {n_batches} batches, {seconds:.3f} s through "
+        f"predict.run ({len(records) / seconds:.1f} visits/s, start-up included); "
+        f"per-pattern accuracy {summary}; kernel launches {counts}")
 
     # steady state: the same pass with the model already built and loaded
     task, loader = predict.build_task_and_loader(cfg, args, dev)
@@ -321,21 +624,19 @@ def phase_predict(dev, work: Path, cfg_path: Path) -> dict:
     t0 = time.perf_counter()
     records2, _ = predict.predict_split(task, loader, dev)
     steady = time.perf_counter() - t0
-    say(f"[predict] steady pass: {len(records2)} visits in {steady:.3f} s "
-        f"({len(records2) / steady:.1f} samples/s)")
+    say(f"{tag} steady pass: {len(records2)} visits in {steady:.3f} s "
+        f"({len(records2) / steady:.1f} visits/s)")
     if [r["pred"] for r in records2] != [r["pred"] for r in records]:
         raise AssertionError("two predict passes disagree")
     brk = device_breakdown(lambda: predict.predict_split(task, loader, dev))
-    say(f"[predict] profiled pass: device busy {brk['device_ms']:.3f} ms of "
+    say(f"{tag} profiled pass: device busy {brk['device_ms']:.3f} ms of "
         f"{brk['profiled_wall_ms']:.3f} ms wall ({brk['device_ms'] / (steady * 1e3):.3f} "
-        f"of the unprofiled steady pass); fused_mlp {brk['fused_mlp_device_ms']:.4f} ms; "
+        f"of the unprofiled steady pass); {kernel} {brk['own_ms'][kernel]:.4f} ms; "
         f"top kernels (name, ms, count) {brk['top']}; top host ops by self CPU time "
         f"(name, ms, count) {brk['top_host']}")
 
     # the same batches on the CPU: first two and the padded tail
-    cpu_task, cpu_loader = predict.build_task_and_loader(
-        cfg, args, torch.device("cpu")
-    )
+    cpu_task, _ = predict.build_task_and_loader(cfg, args, torch.device("cpu"))
     batches = list(loader)
     picks = [0, 1, len(batches) - 1]
     gpu_step = make_eval_step(task, dev)
@@ -346,7 +647,8 @@ def phase_predict(dev, work: Path, cfg_path: Path) -> dict:
         c_out = cpu_step(batches[i])
         g_logits = g_out["logits"].cpu()
         c_logits = c_out["logits"]
-        if g_logits.shape != (loader.batch_size, 10) or not torch.isfinite(g_logits).all():
+        if (g_logits.shape != (loader.batch_size, path["classes"])
+                or not torch.isfinite(g_logits).all()):
             raise AssertionError(f"batch {i}: logits {tuple(g_logits.shape)} not finite")
         err = (g_logits - c_logits).abs().max().item()
         worst = max(worst, err)
@@ -354,12 +656,12 @@ def phase_predict(dev, work: Path, cfg_path: Path) -> dict:
         clear = (top2[:, 0] - top2[:, 1]) > 2 * CPU_TOL
         if not torch.equal(g_out["preds"].cpu()[clear], c_out["preds"][clear]):
             raise AssertionError(f"batch {i}: GPU and CPU predictions differ")
-    say(f"[predict] GPU vs CPU logits on batches {picks}: max |diff| = {worst:.3e} "
+    say(f"{tag} GPU vs CPU logits on batches {picks}: max |diff| = {worst:.3e} "
         f"(tolerance {CPU_TOL}, TF32 off)")
     if worst > CPU_TOL:
         raise AssertionError(f"GPU vs CPU logits differ by {worst}")
-    return {"launches": launches, "samples_per_s": len(records) / seconds,
-            "steady_samples_per_s": len(records2) / steady}
+    return {"launches": counts[kernel], "visits_per_s": len(records) / seconds,
+            "steady_visits_per_s": len(records2) / steady}
 
 
 def _post(url: str, body: bytes) -> dict:
@@ -375,23 +677,17 @@ def _get(url: str) -> dict:
         return json.loads(r.read())
 
 
-def phase_serve(cfg_path: Path) -> dict:
+def phase_serve(cfg_path: Path, path: dict, inputs: dict) -> dict:
+    """`inputs`: input key → (n, ...) array, one row per request, in the
+    model's key order; a missing modality is a zeroed row."""
     from mmtpu_torch.cli import serve
-    from mmtpu_torch.data import SyntheticAVMNIST
-    from mmtpu_torch.modalities import Modality
-    from mmtpu_torch.ops import fused_mlp
 
+    tag, kernel, keys = f"[serve {path['label']}]", path["kernel"], path["keys"]
     args = serve.arg_parser().parse_args(["--config", str(cfg_path), "--run_id", "1"])
     predictor, meta = serve.load_model(args)
-    ds = SyntheticAVMNIST(split="test", num_samples=48, seed=SEED + 1)
-    audio = ds.arrays[Modality.AUDIO].copy()
-    image = ds.arrays[Modality.IMAGE].copy()
-    image[0::3] = 0.0  # image missing
-    audio[1::3] = 0.0  # audio missing
-    n = len(audio)
-
-    bodies = [json.dumps({"audio": audio[i].tolist(), "image": image[i].tolist()}).encode()
-              for i in range(n)]
+    n = len(inputs[keys[0]])
+    bodies = [json.dumps({k: inputs[k][i].tolist() for k in keys}).encode() for i in range(n)]
+    say(f"{tag} {n} requests of {len(bodies[0]) / 1e3:.1f} KB of JSON each")
 
     def round_trip(url):
         """n concurrent /predict requests (16 clients); (answers, seconds)."""
@@ -400,39 +696,53 @@ def phase_serve(cfg_path: Path) -> dict:
             answers = list(pool.map(lambda b: _post(url, b), bodies))
         return answers, time.perf_counter() - t0
 
-    def null_model(a, i):  # the HTTP/JSON path's ceiling: no model at all
-        return {"logits": np.zeros((len(a), 10), np.float32),
-                "preds": np.zeros(len(a), np.int64),
-                "probs": np.full((len(a), 10), 0.1, np.float32)}
+    classes = path["classes"]
+
+    def null_model(*arrays):  # the HTTP/JSON path's ceiling: no model at all
+        rows = len(arrays[0])
+        return {"logits": np.zeros((rows, classes), np.float32),
+                "preds": np.zeros(rows, np.int64),
+                "probs": np.full((rows, classes), 1.0 / classes, np.float32)}
 
     with serve.ServerThread(null_model, meta, max_batch=64, max_wait_ms=5.0) as st:
         _, null_cold = round_trip(f"{st.url}/predict")
         _, null_s = round_trip(f"{st.url}/predict")
-    say(f"[serve] the same {n} requests to a server with no model: {null_cold:.3f} s "
+    say(f"{tag} the same {n} requests to a server with no model: {null_cold:.3f} s "
         f"first round, {null_s:.3f} s second round ({n / null_s:.1f} requests/s, "
         f"host HTTP/JSON only)")
 
-    fused_mlp.launches = 0
+    reset_counts()
     with serve.ServerThread(predictor, meta, max_batch=64, max_wait_ms=5.0) as st:
         health = _get(f"{st.url}/health")
         got_meta = _get(f"{st.url}/meta")
         _, cold = round_trip(f"{st.url}/predict")  # first use of each batch bucket
         answers, seconds = round_trip(f"{st.url}/predict")
         batch_answer = _post(f"{st.url}/predict_batch", json.dumps(
-            {"audio": audio[:8].tolist(), "image": image[:8].tolist()}).encode())
+            {k: inputs[k][:8].tolist() for k in keys}).encode())
+        try:  # a request that lacks an input key is refused, not filled in
+            _post(f"{st.url}/predict", json.dumps(
+                {k: inputs[k][0].tolist() for k in keys[:-1]}).encode())
+            refused = None
+        except urllib.error.HTTPError as e:
+            refused = e.code
+            e.close()
         stats = _get(f"{st.url}/stats")
-        launches = fused_mlp.launches
-    if health.get("status") != "ok" or got_meta["input_keys"] != ["audio", "image"]:
+        launches = read_counts()[kernel]
+    if health.get("status") != "ok" or got_meta["input_keys"] != keys:
         raise AssertionError(f"/health {health}, /meta {got_meta}")
-    say(f"[serve] {n} concurrent /predict (16 clients): {cold:.3f} s first round, "
+    if refused != 400:
+        raise AssertionError(f"a request without {keys[-1]!r} got {refused}, expected 400")
+    say(f"{tag} {n} concurrent /predict (16 clients): {cold:.3f} s first round, "
         f"{seconds:.3f} s second round ({n / seconds:.1f} requests/s); /stats {stats}; "
-        f"fused_mlp launches while serving {launches}")
-    if launches < 1:
-        raise AssertionError("serve: fused_mlp kernel was never launched")
+        f"{kernel} launches while serving {launches}; request without {keys[-1]!r} → 400")
+    # one launch per micro-batch, and one for /predict_batch
+    if launches != stats["batches"] + 1:
+        raise AssertionError(
+            f"serve: {kernel} launched {launches} times for {stats['batches']} batches + 1")
     if stats["requests"] != 2 * n:
         raise AssertionError(f"/stats counted {stats['requests']} requests, sent {2 * n}")
 
-    direct = predictor(audio=audio, image=image)
+    direct = predictor(**inputs)
     worst = 0.0
     for i, ans in enumerate(answers):
         diff = float(np.abs(np.asarray(ans["logits"]) - direct["logits"][i]).max())
@@ -444,12 +754,62 @@ def phase_serve(cfg_path: Path) -> dict:
     for i in range(8):
         diff = float(np.abs(np.asarray(batch_answer["logits"][i]) - direct["logits"][i]).max())
         worst = max(worst, diff)
-    say(f"[serve] answers vs Predictor called directly: max |logit diff| = {worst:.3e} "
+    say(f"{tag} answers vs Predictor called directly: max |logit diff| = {worst:.3e} "
         f"(tolerance {SERVE_TOL})")
     if worst > SERVE_TOL:
         raise AssertionError(f"served logits differ from the Predictor by {worst}")
     return {"launches": launches, "requests_per_s": n / seconds,
             "null_requests_per_s": n / null_s}
+
+
+def avmnist_requests() -> dict:
+    """48 samples: a third with the image zeroed, a third with the audio."""
+    from mmtpu_torch.data import SyntheticAVMNIST
+    from mmtpu_torch.modalities import Modality
+
+    ds = SyntheticAVMNIST(split="test", num_samples=48, seed=SEED + 1)
+    audio = ds.arrays[Modality.AUDIO].copy()
+    image = ds.arrays[Modality.IMAGE].copy()
+    image[0::3] = 0.0
+    audio[1::3] = 0.0
+    return {"audio": audio, "image": image}
+
+
+def mosi_requests() -> dict:
+    """36 samples: a third with the text zeroed, a third with audio and
+    video zeroed, a third whole."""
+    from mmtpu_torch.data import SyntheticMOSI
+    from mmtpu_torch.modalities import Modality
+
+    ds = SyntheticMOSI(split="test", num_samples=36, seed=SEED + 1)
+    audio = ds.arrays[Modality.AUDIO].copy()
+    video = ds.arrays[Modality.VIDEO].copy()
+    text = ds.arrays[Modality.TEXT].copy()
+    text[0::3] = 0.0
+    audio[1::3] = 0.0
+    video[1::3] = 0.0
+    return {"audio": audio, "video": video, "text": text}
+
+
+def kernel_record(name: str, source: str, replaces: str, shape: str, kern: dict, t: dict,
+                  pred: dict, srv: dict) -> dict:
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": source,
+        "replaces": replaces,
+        "launches": pred["launches"],
+        "serve_launches": srv["launches"],
+        "max_abs_err": kern["max_err"],
+        "ms": t["ms"],
+        "plain_ms": t["plain_ms"],
+        "device_ms": t["device_ms"],
+        "plain_device_ms": t["plain_device_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"],
+        "library_ms": t.get("library_ms"),
+        "shape": shape,
+    }
 
 
 def main() -> int:
@@ -459,6 +819,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs only on the GPU",
               file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -468,43 +829,45 @@ def main() -> int:
     say(f"[device] {name}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     phase_build()
-    kern = phase_kernels(dev)
+    mlp = phase_kernels_mlp(dev)
+    lstm = phase_kernels_lstm(dev)
 
     cache = ROOT / ".cache"
     cache.mkdir(exist_ok=True)
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_", dir=cache))
     try:
-        cfg_path = work / "config.json"
-        cfg_path.write_text(json.dumps(smoke_config(out_root=str(work / "out"))))
-        pred = phase_predict(dev, work, cfg_path)
-        srv = phase_serve(cfg_path)
+        av_cfg = work / "avmnist.json"
+        av_cfg.write_text(json.dumps(smoke_config(out_root=str(work / "out"))))
+        av_pred = phase_predict(dev, work, av_cfg, AVMNIST_PATH)
+        av_srv = phase_serve(av_cfg, AVMNIST_PATH, avmnist_requests())
+        mosi_cfg = work / "mosi.json"
+        mosi_cfg.write_text(json.dumps(mosi_smoke_config(out_root=str(work / "out"))))
+        mosi_pred = phase_predict(dev, work, mosi_cfg, MOSI_PATH)
+        mosi_srv = phase_serve(mosi_cfg, MOSI_PATH, mosi_requests())
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    t128 = kern["timings"][128]
-    say(f"[summary] predict {pred['steady_samples_per_s']:.1f} samples/s steady; "
-        f"serve {srv['requests_per_s']:.1f} requests/s (no-model ceiling "
-        f"{srv['null_requests_per_s']:.1f}); fused_mlp B=1024 "
-        f"{json.dumps(kern['timings'][1024])}")
-    print(json.dumps({"kernels": [{
-        "name": "fused_mlp",
-        "route": "cuda",
-        "source": "mmtpu_torch/ops/csrc/fused_mlp.cu",
-        "replaces": "mmtpu/ops/fused_mlp.py:63",
-        "launches": pred["launches"],
-        "serve_launches": srv["launches"],
-        "max_abs_err": kern["max_err"],
-        "max_err": kern["max_err"],
-        "ms": t128["ms"],
-        "kernel_ms": t128["ms"],
-        "plain_ms": t128["plain_ms"],
-        "device_ms": t128["device_ms"],
-        "plain_device_ms": t128["plain_device_ms"],
-        "bound_ms": t128["bound_ms"],
-        "bound_by": t128["bound_by"],
-        "library_ms": None,
-        "shape": "B=128, 192-128-64-10, float32",
-    }]}), flush=True)
+    for label, pred, srv in (("AVMNIST", av_pred, av_srv), ("UttFusion", mosi_pred, mosi_srv)):
+        say(f"[summary] {label}: predict {pred['steady_visits_per_s']:.1f} visits/s steady; "
+            f"serve {srv['requests_per_s']:.1f} requests/s (no-model ceiling "
+            f"{srv['null_requests_per_s']:.1f})")
+    say(f"[summary] fused_mlp B=1024 {json.dumps(mlp['timings'][1024])}")
+    for shape, t in lstm["timings"].items():
+        say(f"[summary] lstm G,B,T,H={shape} {json.dumps(t)}")
+    say(f"[summary] {time.perf_counter() - t_start:.1f} s in all")
+    G, B, T, H = LSTM_MAIN
+    print(json.dumps({"kernels": [
+        kernel_record("fused_mlp", "mmtpu_torch/ops/csrc/fused_mlp.cu",
+                      "mmtpu/ops/fused_mlp.py:63", "B=128, 192-128-64-10, float32",
+                      mlp, mlp["timings"][128], av_pred, av_srv),
+        {**kernel_record("lstm", "mmtpu_torch/ops/csrc/lstm.cu", "mmtpu/ops/lstm.py:61",
+                         f"G={G}, B={B}, T={T}, H={H}, float32; library_ms is {G} nn.LSTM "
+                         "calls, projection included (with_projection_ms is ours with it)",
+                         lstm, lstm["timings"][LSTM_MAIN], mosi_pred, mosi_srv),
+         "with_projection_ms": lstm["timings"][LSTM_MAIN]["with_projection_ms"],
+         "grad_max_abs_err": lstm["grad_err"],
+         "serial_steps": T},
+    ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

@@ -10,14 +10,22 @@ port `state_dict` under the reference's torch key names:
 - conv kernel HWIO → weight OIHW; Dense kernel (in, out) → Linear weight
   (out, in); BatchNorm `scale`/`bias` → `weight`/`bias`;
   batch_stats `mean`/`var` → `running_mean`/`running_var`
-  (and `num_batches_tracked` = 0, which flax does not keep).
+  (and `num_batches_tracked` = 0, which flax does not keep);
+- the raw leaves of a fused `LSTMEncoder`, `wh` (H, 4H) and
+  `attention_vector_weight` (H, 1), keep their name and layout. The port
+  stores an LSTM under mmtpu's fused names — `wi.weight`, `wi.bias`, `wh`,
+  gate order [i, f, g, o], one bias — and not under the reference's
+  `rnn.weight_ih_l0 …` keys, which hold two biases and transposed,
+  [i, f, g, o]-by-rows matrices.
 
 Unlike mmtpu's reader, which keeps a leaf's initial value when it finds no
 source for it, this conversion raises on any leaf it cannot map and — given
 the target — on any target tensor left unfilled or misshapen.
 
-The port writes and reads plain `state_dict` `.pth` files; their keys are
-the layout mmtpu's `load_torch_checkpoint` reads.
+The port writes and reads plain `state_dict` `.pth` files. For the ResNet
+and AVMNIST families their keys are the layout mmtpu's
+`load_torch_checkpoint` reads; an LSTMEncoder's are mmtpu's fused names
+(above), which that reader does not take.
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ _NAME_RULES = (
     ("downsample_bn", "downsample.1"),
 )
 _PARAM_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias"}
+_RAW_LEAVES = {"wh": 2, "attention_vector_weight": 2}  # name → rank, kept as they are
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
 
 
@@ -44,6 +53,11 @@ def _torch_prefix(flax_path: str) -> str:
     for ours, theirs in _NAME_RULES:
         path = path.replace(ours, theirs)
     return path.replace("/", ".")
+
+
+def _key(flax_path: str, name: str) -> str:
+    prefix = _torch_prefix(flax_path)
+    return f"{prefix}.{name}" if prefix else name
 
 
 def _leaves(tree: Mapping[str, Any], prefix: str = ""):
@@ -72,9 +86,14 @@ def from_jax_variables(
         state[key] = torch.from_numpy(np.ascontiguousarray(value))
 
     for path, leaf, value in _leaves(params):
+        value = np.asarray(value, np.float32)
+        if leaf in _RAW_LEAVES:
+            if value.ndim != _RAW_LEAVES[leaf]:
+                raise ValueError(f"mmtpu param {path}/{leaf} has rank {value.ndim}")
+            put(_key(path, leaf), value)
+            continue
         if leaf not in _PARAM_LEAVES:
             raise ValueError(f"mmtpu param {path}/{leaf} has no torch counterpart")
-        value = np.asarray(value, np.float32)
         if leaf == "kernel":
             if value.ndim == 4:  # conv HWIO → OIHW
                 value = value.transpose(3, 2, 0, 1)
@@ -82,15 +101,14 @@ def from_jax_variables(
                 value = value.T
             else:
                 raise ValueError(f"mmtpu kernel {path} has rank {value.ndim}")
-        put(f"{_torch_prefix(path)}.{_PARAM_LEAVES[leaf]}", value)
+        put(_key(path, _PARAM_LEAVES[leaf]), value)
 
     for path, leaf, value in _leaves(batch_stats or {}):
         if leaf not in _STAT_LEAVES:
             raise ValueError(f"mmtpu batch_stats {path}/{leaf} has no torch counterpart")
-        prefix = _torch_prefix(path)
-        put(f"{prefix}.{_STAT_LEAVES[leaf]}", np.asarray(value, np.float32))
+        put(_key(path, _STAT_LEAVES[leaf]), np.asarray(value, np.float32))
         if leaf == "mean":
-            state[f"{prefix}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+            state[_key(path, "num_batches_tracked")] = torch.tensor(0, dtype=torch.long)
 
     if target is not None:
         want = target.state_dict() if isinstance(target, nn.Module) else target

@@ -68,7 +68,13 @@ def build_model_from_config(model_cfg) -> torch.nn.Module:
     return build_module(model_cfg.model_type, **model_cfg.kwargs)
 
 
-_MODALITIES = {"avmnist": [Modality.AUDIO, Modality.IMAGE]}
+_UTT_FUSION = [Modality.AUDIO, Modality.VIDEO, Modality.TEXT]
+_MODALITIES = {
+    "avmnist": [Modality.AUDIO, Modality.IMAGE],
+    "utt-fusion": _UTT_FUSION,
+    "utt_fusion": _UTT_FUSION,
+    "uttfusionmodel": _UTT_FUSION,
+}
 
 
 def modalities_for_model(model_type: str) -> List[Modality]:

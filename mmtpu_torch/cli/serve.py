@@ -8,13 +8,17 @@ Endpoints (JSON over stdlib http.server), the same as mmtpu's:
     GET  /health   {"status": "ok", ...}
     GET  /meta     task metadata (input keys, shapes, dtypes)
     GET  /stats    micro-batcher counters (requests, batches, padded rows)
-    POST /predict  one sample: {"audio": [...], "image": [...]}
+    POST /predict  one sample, one array per input key of the model
+                   ({"audio": [...], "image": [...]} for AVMNIST,
+                   {"audio": [...], "video": [...], "text": [...]} for
+                   UttFusion; a missing modality is sent as zeros, a request
+                   that lacks a key is refused with 400)
                    → {"preds": ..., "probs": [...], "logits": [...]}
     POST /predict_batch  pre-batched arrays, bypasses the batcher
 
 Concurrent /predict requests are grouped by `MicroBatcher` into padded
-power-of-two batches. The model runs on the GPU (the fusion head as one
-kernel) unless `--cpu`. Serving a `jax.export` artifact (mmtpu's
+power-of-two batches. The model runs on the GPU (AVMNIST's fusion head and
+UttFusion's LSTM recurrences each as one kernel) unless `--cpu`. Serving a `jax.export` artifact (mmtpu's
 `--artifact`) is not ported.
 """
 
@@ -140,6 +144,13 @@ class _Handler(BaseHTTPRequestHandler):
             self._send(500, {"error": str(e)})
 
 
+class _Server(ThreadingHTTPServer):
+    # listen backlog: with the default of 5, a burst of more concurrent
+    # clients than that overflows the accept queue and the kernel resets
+    # some of their connections
+    request_queue_size = 128
+
+
 def make_server(
     predict,
     meta: Dict[str, Any],
@@ -168,7 +179,7 @@ def make_server(
         {"batcher": batcher, "predict": staticmethod(predict), "meta": meta,
          "quiet": quiet},
     )
-    server = ThreadingHTTPServer((host, port), handler)
+    server = _Server((host, port), handler)
     return server, batcher
 
 

@@ -26,6 +26,12 @@ MODEL_TAGS: Dict[str, str] = {
     "!ResNet34": "resnet34",
     "!ResNet50": "resnet50",
     "!ResNetEncoder": "resnetencoder",
+    "!FcEncoder": "fcencoder",
+    "!FcClassifier": "fcclassifier",
+    "!LSTMEncoder": "lstmencoder",
+    "!LSTMEncoder2": "lstmencoder2",
+    "!TextCNN": "textcnn",
+    "!UttFusionModel": "utt_fusion",
 }
 
 # Config tags of mmtpu's standard configs; each resolves to a plain mapping.

@@ -7,20 +7,31 @@ from typing import Type
 from mmtpu_torch.data.avmnist import SyntheticAVMNIST
 from mmtpu_torch.data.base import MultimodalArrayDataset
 from mmtpu_torch.data.loader import BatchLoader
+from mmtpu_torch.data.mosi import MOSEI, MOSI, SyntheticMOSI
+
+_DATASETS = {
+    "synthetic_avmnist": SyntheticAVMNIST,
+    "synthetic_mosi": SyntheticMOSI,
+    "mosi": MOSI,
+    "mosei": MOSEI,
+}
 
 
 def resolve_dataset_name(name: str) -> Type[MultimodalArrayDataset]:
     key = name.lower()
-    if key == "synthetic_avmnist":
-        return SyntheticAVMNIST
-    raise ValueError(
-        f"Dataset {name!r} is not ported to mmtpu_torch yet "
-        "(available: synthetic_avmnist)"
-    )
+    if key not in _DATASETS:
+        raise ValueError(
+            f"Dataset {name!r} is not ported to mmtpu_torch yet "
+            f"(available: {', '.join(sorted(_DATASETS))})"
+        )
+    return _DATASETS[key]
 
 
 __all__ = [
+    "MOSEI",
+    "MOSI",
     "SyntheticAVMNIST",
+    "SyntheticMOSI",
     "MultimodalArrayDataset",
     "BatchLoader",
     "resolve_dataset_name",

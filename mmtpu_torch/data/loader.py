@@ -9,6 +9,7 @@ ones mmtpu's loader emits for the same dataset.
 Batch schema:
     {mod}:        raw modality array (B, ...)
     {mod}_mask:   keep-mask (B,) float32
+    {mod}_lengths: (B,) int32, for datasets that carry per-sample lengths
     labels:       (B,) or (B, C)
     sample_idx:   (B,) int32 — source row (0 for padded rows)
     pattern_id:   (B,) int32 into dataset.pattern_vocab()
@@ -157,6 +158,9 @@ class BatchLoader:
                 batch[f"{mod}_mask"] = _keep_mask(
                     ds.mask_stack(mod, np.uint8), pids, idx
                 )
+                lengths = getattr(ds, "lengths", {}).get(mod)
+                if lengths is not None:
+                    batch[f"{mod}_lengths"] = _gather(lengths, idx)
             batch["labels"] = _gather(ds.labels, idx)
             batch["sample_idx"] = np.maximum(idx, 0).astype(np.int32)
             batch["pattern_id"] = pids.astype(np.int32)

@@ -1,6 +1,13 @@
 """Torch model families of the port (counterpart of `mmtpu/models`)."""
 
 from mmtpu_torch.models.avmnist import AVMNIST, MonomodalEncoder
+from mmtpu_torch.models.fc import FcClassifier, FcEncoder, MaxPoolFc, SimpleClassifier
+from mmtpu_torch.models.lstm import (
+    LSTMEncoder,
+    LSTMEncoder2,
+    can_stack_pair,
+    encode_pair_stacked,
+)
 from mmtpu_torch.models.registry import build_module
 from mmtpu_torch.models.resnet import (
     BasicBlock,
@@ -10,7 +17,9 @@ from mmtpu_torch.models.resnet import (
     ResNet50,
     ResNetEncoder,
 )
+from mmtpu_torch.models.textcnn import TextCNN
 from mmtpu_torch.models.tools import seeded_init
+from mmtpu_torch.models.utt_fusion import UttFusionModel
 
 __all__ = [
     "AVMNIST",
@@ -21,6 +30,16 @@ __all__ = [
     "ResNet34",
     "ResNet50",
     "ResNetEncoder",
+    "FcClassifier",
+    "FcEncoder",
+    "MaxPoolFc",
+    "SimpleClassifier",
+    "LSTMEncoder",
+    "LSTMEncoder2",
+    "can_stack_pair",
+    "encode_pair_stacked",
+    "TextCNN",
+    "UttFusionModel",
     "build_module",
     "seeded_init",
 ]

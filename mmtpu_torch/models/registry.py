@@ -41,15 +41,26 @@ def _tolerant(cls) -> Callable[..., Any]:
 
 
 def _factories() -> Dict[str, Callable[..., Any]]:
-    from mmtpu_torch.models import avmnist, resnet
+    from mmtpu_torch.models import avmnist, fc, lstm, resnet, textcnn, utt_fusion
 
     return {
         "resnet18": resnet.ResNet18,
         "resnet34": resnet.ResNet34,
         "resnet50": resnet.ResNet50,
         "resnetencoder": resnet.ResNetEncoder,
+        "fcencoder": fc.FcEncoder,
+        "fcclassifier": fc.FcClassifier,
+        "simpleclassifier": fc.SimpleClassifier,
+        "maxpoolfc": fc.MaxPoolFc,
+        "lstmencoder": lstm.LSTMEncoder,
+        "lstmencoder2": lstm.LSTMEncoder2,
+        "textcnn": textcnn.TextCNN,
         "avmnist": _tolerant(avmnist.AVMNIST),
         "monomodal_encoder": avmnist.MonomodalEncoder,
+        # every spelling mmtpu's registry and CLIs accept
+        "utt_fusion": utt_fusion.UttFusionModel,
+        "utt-fusion": utt_fusion.UttFusionModel,
+        "uttfusionmodel": utt_fusion.UttFusionModel,
     }
 
 

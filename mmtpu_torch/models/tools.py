@@ -4,7 +4,9 @@
 the CPU, so the same seed gives the same weights on any device. The
 distributions follow the flax modules' initialisers: convolutions
 He-normal over fan-out, Linear weights LeCun-normal (untruncated), biases
-zero, BatchNorm scale 1 / shift 0 with running mean 0 and variance 1.
+zero, BatchNorm scale 1 / shift 0 with running mean 0 and variance 1; an
+LSTMEncoder's recurrent matrix orthogonal and its attention vector
+LeCun-normal.
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ import math
 
 import torch
 from torch import nn
+
+from mmtpu_torch.models.lstm import LSTMEncoder
 
 
 @torch.no_grad()
@@ -31,6 +35,12 @@ def seeded_init(model: nn.Module, seed: int) -> nn.Module:
             )
             m.weight.copy_(w)
             m.bias.zero_()
-        elif isinstance(m, nn.BatchNorm2d):
+        elif isinstance(m, nn.modules.batchnorm._BatchNorm):
             m.reset_parameters()
+        elif isinstance(m, LSTMEncoder):  # its raw parameters; `wi` is a Linear
+            nn.init.orthogonal_(m.wh, generator=g)
+            if m.embd_method == "attention":
+                m.attention_vector_weight.normal_(
+                    0.0, math.sqrt(1.0 / m.hidden_size), generator=g
+                )
     return model

@@ -51,8 +51,9 @@ def _resolve_inputs(input_keys: Sequence[str], args, kwargs):
 class Predictor:
     """In-process predictor with host-side (numpy) outputs.
 
-    predict(audio=..., image=...) → dict of numpy arrays. Keyword names are
-    the task's input_keys; positional calls follow the same order."""
+    predict(audio=..., image=...) or predict(audio=..., video=..., text=...)
+    → dict of numpy arrays. Keyword names are the task's input_keys;
+    positional calls follow the same order."""
 
     task: ClassificationTask
     device: torch.device

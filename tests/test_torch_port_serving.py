@@ -273,6 +273,28 @@ def test_http_endpoints(tiny_run):
     np.testing.assert_allclose(batch["logits"], direct["logits"], rtol=TOL, atol=TOL)
 
 
+def test_server_accept_queue_holds_a_burst_of_clients():
+    """A burst of more concurrent clients than the listen backlog makes the
+    kernel reset connections (socketserver's default backlog is 5)."""
+    from mmtpu_torch.cli import serve
+
+    def echo(x):
+        return {"logits": np.asarray(x, np.float32)}
+
+    meta = {"input_keys": ["x"], "input_shapes": [["b", 2]], "input_dtypes": ["float32"]}
+    server, batcher = serve.make_server(echo, meta, port=0, max_batch=64, max_wait_ms=1.0)
+    try:
+        assert server.request_queue_size >= 64
+    finally:
+        server.server_close()
+        batcher.close()
+    with serve.ServerThread(echo, meta, max_batch=64, max_wait_ms=1.0) as st:
+        with ThreadPoolExecutor(max_workers=48) as pool:
+            rows = list(pool.map(
+                lambda i: _post(f"{st.url}/predict", {"x": [float(i), 1.0]}), range(48)))
+    assert [row["logits"] for row in rows] == [[float(i), 1.0] for i in range(48)]
+
+
 def test_port_yaml_tags_leave_mmtpu_loading_alone(tiny_run):
     import yaml
 
