@@ -13,10 +13,12 @@ FcClassifier 192→[192, 64, 32]→3; batch 32, aligned T = 50):
 1. build   — compiles every kernel from `mmtpu_torch/ops/csrc`, one nvcc per
              source, all started together;
 2. kernels — each kernel against its plain PyTorch version on the card, at
-             the shapes the paths give it, with timings (CUDA events and
-             profiler device time); the LSTM also against `torch.nn.LSTM`
-             as the library's call, and its gradient against autograd
-             through the plain scan;
+             the shapes the paths give it (the MLP also with a misaligned
+             weight view and with a chain too wide to stay in shared
+             memory), with timings (CUDA events per call, the host's wall
+             time per launch, profiler device time); the LSTM also against
+             `torch.nn.LSTM` as the library's call, and its gradient against
+             autograd through the plain scan;
 3. predict — the `predict` entry over a synthetic test split, once per
              model (AVMNIST: 1000 samples × ai/a/i, batch 128; UttFusion:
              686 samples × 7 patterns = 4802 visits, batch 32); logits
@@ -281,6 +283,23 @@ def event_ms(fn, iters: int = 200, repeats: int = 7, warmup: int = 20) -> float:
     return statistics.median(times)
 
 
+def host_ms(fn, iters: int = 200, repeats: int = 5) -> float:
+    """Median over `repeats` of the host's wall time per call of `iters`
+    back-to-back calls with no synchronisation: what a launch costs the
+    caller's thread (checks, allocation, the launch itself)."""
+    import torch
+
+    times = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        times.append((time.perf_counter() - t0) * 1e3 / iters)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
 def device_breakdown(fn, top: int = 6) -> dict:
     """Run `fn` once under torch.profiler: device time summed over every
     kernel, the host wall time of the profiled run, the device time of the
@@ -307,10 +326,26 @@ def device_breakdown(fn, top: int = 6) -> dict:
         # by the names of the __global__ functions in mmtpu_torch/ops/csrc
         "own_ms": {name: sum(v for k, v in dev_us.items() if f"{name}_kernel" in k) / 1e3
                    for name in kernel_counters()},
+        "own_calls": {name: sum(e.count for e in kernels if f"{name}_kernel" in e.key)
+                      for name in kernel_counters()},
         "top": [(e.key[:70], round(dev_us[e.key] / 1e3, 4), e.count) for e in ranked],
         "top_host": [(e.key[:50], round(e.self_cpu_time_total / 1e3, 3), e.count)
                      for e in host_ops],
     }
+
+
+def own_device_ms(fn, name: str, calls: int = 100) -> float:
+    """Mean device time of one launch of the port's kernel `name` while `fn`
+    runs `calls` times under the profiler: its summed time over the launches
+    the profiler recorded. (Now and then the profiler keeps fewer events than
+    were launched; a sum over a fixed count would then read low.)"""
+    brk = device_breakdown(lambda: [fn() for _ in range(calls)])
+    recorded = brk["own_calls"][name]
+    if not recorded:
+        raise AssertionError(f"the profiler recorded no {name} kernel in {calls} calls")
+    if recorded != calls:
+        say(f"[kernels] (the profiler kept {recorded} of {calls} {name} launches)")
+    return brk["own_ms"][name] / recorded
 
 
 def _bound(nbytes: float, flops: float) -> tuple:
@@ -362,8 +397,10 @@ def phase_kernels_mlp(dev) -> dict:
     import torch
 
     from mmtpu_torch.ops import fused_mlp, fused_mlp_reference
+    from mmtpu_torch.ops.fused_mlp import bulk_copy_ok, chain_plan
 
     g = torch.Generator().manual_seed(SEED)
+    num_sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def layers(dims):
         ws = [(torch.randn(o, i, generator=g) / i ** 0.5).to(dev)
@@ -371,20 +408,41 @@ def phase_kernels_mlp(dev) -> dict:
         bs = [(0.1 * torch.randn(o, generator=g)).to(dev) for o in dims[1:]]
         return ws, bs
 
+    def misaligned(w):
+        """The same matrix, contiguous, 4 bytes into a buffer of its own: no
+        bulk copy can bring it, the kernel copies it with plain loads."""
+        buf = torch.empty(w.numel() + 1, device=dev)
+        buf[1:].copy_(w.reshape(-1))
+        return buf[1:].view_as(w)
+
     max_err = 0.0
-    cases = [(HEAD_DIMS, b) for b in (1, 37, 64, 128, 1024)] + [([100, 300, 7], 37)]
-    for dims, batch in cases:
+    # (dims, batch, what is special): the head at the path's batch sizes, odd
+    # widths, layer 1 off the 16-byte grid, and a chain too wide to stay in
+    # shared memory (16.8 MB of weights, streamed through it)
+    cases = [(HEAD_DIMS, b, "") for b in (1, 37, 64, 128, 1024)] + [
+        ([100, 300, 7], 37, ""),
+        (HEAD_DIMS, 128, "layer 1 a misaligned view"),
+        ([2048, 2048, 10], 64, "weights streamed"),
+    ]
+    for dims, batch, special in cases:
         ws, bs = layers(dims)
+        if "misaligned" in special:
+            ws[0] = misaligned(ws[0])
+            if bulk_copy_ok(ws[0]) or not bulk_copy_ok(ws[1]):
+                raise AssertionError("the misaligned view is not what it should be")
+        if "streamed" in special and chain_plan(batch, tuple(dims), num_sms).resident:
+            raise AssertionError(f"fused_mlp {dims}: expected a streamed plan")
         x = torch.randn(batch, dims[0], generator=g).to(dev)
         got = fused_mlp(x, ws, bs)
         want = fused_mlp_reference(x, ws, bs)
         torch.cuda.synchronize()
+        label = f"fused_mlp {dims} B={batch}" + (f" ({special})" if special else "")
         if got.shape != want.shape or not torch.isfinite(got).all():
-            raise AssertionError(f"fused_mlp {dims} B={batch}: bad output {got.shape}")
+            raise AssertionError(f"{label}: bad output {got.shape}")
         err = (got - want).abs().max().item()
-        say(f"[kernels] fused_mlp {dims} B={batch}: max |kernel - plain| = {err:.3e}")
+        say(f"[kernels] {label}: max |kernel - plain| = {err:.3e}")
         if err > KERNEL_TOL:
-            raise AssertionError(f"fused_mlp {dims} B={batch}: error {err} > {KERNEL_TOL}")
+            raise AssertionError(f"{label}: error {err} > {KERNEL_TOL}")
         max_err = max(max_err, err)
 
     timings = {}
@@ -396,17 +454,19 @@ def phase_kernels_mlp(dev) -> dict:
         k1 = event_ms(lambda: fused_mlp(x, ws, bs))
         k2 = event_ms(lambda: fused_mlp(x, ws, bs))
         p2 = event_ms(lambda: fused_mlp_reference(x, ws, bs))
-        kd = device_breakdown(lambda: [fused_mlp(x, ws, bs) for _ in range(100)])
+        kh = host_ms(lambda: fused_mlp(x, ws, bs))
+        kd = own_device_ms(lambda: fused_mlp(x, ws, bs), "fused_mlp")
         pd = device_breakdown(lambda: [fused_mlp_reference(x, ws, bs) for _ in range(100)])
-        kd, pd = kd["device_ms"] / 100, pd["device_ms"] / 100
+        pd = pd["device_ms"] / 100
         bound, bound_by = mlp_bound_ms(batch, HEAD_DIMS)
         timings[batch] = {
             "ms": statistics.mean([k1, k2]), "plain_ms": statistics.mean([p1, p2]),
-            "device_ms": kd, "plain_device_ms": pd,
+            "device_ms": kd, "plain_device_ms": pd, "host_ms": kh,
             "bound_ms": bound, "bound_by": bound_by,
         }
         say(f"[kernels] fused_mlp B={batch} {HEAD_DIMS}: per call kernel "
-            f"{k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms (events); device "
+            f"{k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms (events); host per launch "
+            f"{kh:.4f} ms (wall, no sync); device "
             f"time kernel {kd} ms, plain {pd} ms (profiler); bound {bound:.6f} ms "
             f"({bound_by})")
     return {"max_err": max_err, "timings": timings}
@@ -465,15 +525,13 @@ def _lstm_library(dev, G, B, T, H, seed):
         wis.append(wi.to(dev))
         whs.append(wh.to(dev))
         rnns.append(rnn.to(dev).eval())
-    h0 = torch.zeros(G, B, H, device=dev)
-
     @torch.no_grad()
     def library():
         return [rnn(x)[0] for rnn, x in zip(rnns, xs)]
 
     @torch.no_grad()
     def ours():
-        return lstm_sequence_stacked([wi(x) for wi, x in zip(wis, xs)], whs, h0, h0)[0]
+        return lstm_sequence_stacked([wi(x) for wi, x in zip(wis, xs)], whs)[0]
 
     diff = max((a - b).abs().max().item() for a, b in zip(library(), ours()))
     return library, ours, diff
@@ -492,6 +550,8 @@ def phase_kernels_lstm(dev) -> dict:
     timings = {}
     for seed, (G, B, T, H, with_len, with_state, tol, timed) in enumerate(LSTM_CASES):
         xw, wh, h0, c0, lengths = _lstm_inputs(dev, G, B, T, H, with_len, with_state, seed)
+        if not with_state:  # as the encoders call it: no state tensor at all
+            h0 = c0 = None
         with torch.no_grad():
             out, (h, c) = lstm_sequence_stacked(list(xw), list(wh), h0, c0, lengths)
             want, (want_h, want_c) = lstm_stacked_reference(xw, wh, h0, c0, lengths)
@@ -509,8 +569,10 @@ def phase_kernels_lstm(dev) -> dict:
         if not timed:
             continue
 
+        xws, whs = list(xw), list(wh)  # per-group tensors, as the encoders hand them over
+
         def kernel():
-            return lstm_sequence_stacked(list(xw), list(wh), h0, c0, lengths)
+            return lstm_sequence_stacked(xws, whs, h0, c0, lengths)
 
         def plain():
             return lstm_stacked_reference(xw, wh, h0, c0, lengths)
@@ -521,14 +583,16 @@ def phase_kernels_lstm(dev) -> dict:
             k1 = event_ms(kernel)
             k2 = event_ms(kernel)
             p2 = event_ms(plain, **slow)
-            kd = device_breakdown(lambda: [kernel() for _ in range(100)])["device_ms"] / 100
+            kh = host_ms(kernel)
+            kd = own_device_ms(kernel, "lstm")
             pd = device_breakdown(lambda: [plain() for _ in range(3)])["device_ms"] / 3
         bound, bound_by = lstm_bound_ms(G, B, T, H, lengths)
         t = {"ms": statistics.mean([k1, k2]), "plain_ms": statistics.mean([p1, p2]),
-             "device_ms": kd, "plain_device_ms": pd, "bound_ms": bound,
+             "device_ms": kd, "plain_device_ms": pd, "host_ms": kh, "bound_ms": bound,
              "bound_by": bound_by, "serial_steps": T}
         line = (f"[kernels] lstm {shape}: per call kernel {k1:.4f}/{k2:.4f} ms, plain "
-                f"{p1:.4f}/{p2:.4f} ms (events); device time kernel {kd} ms, plain {pd} ms "
+                f"{p1:.4f}/{p2:.4f} ms (events); host per launch {kh:.4f} ms (wall, no sync); "
+                f"device time kernel {kd} ms, plain {pd} ms "
                 f"(profiler); bound {bound:.6f} ms ({bound_by}); serial chain {T} steps")
         if not with_len:  # nn.LSTM has no length freeze of this kind
             library, ours, diff = _lstm_library(dev, G, B, T, H, seed)
@@ -805,6 +869,7 @@ def kernel_record(name: str, source: str, replaces: str, shape: str, kern: dict,
         "plain_ms": t["plain_ms"],
         "device_ms": t["device_ms"],
         "plain_device_ms": t["plain_device_ms"],
+        "host_ms": t["host_ms"],
         "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"],
         "library_ms": t.get("library_ms"),

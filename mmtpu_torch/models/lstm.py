@@ -81,10 +81,8 @@ class LSTMEncoder(nn.Module):
 
     def forward(self, x: torch.Tensor, lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
         xw, wh = self.project(x)
-        h0 = xw.new_zeros((x.shape[0], self.hidden_size))
         outputs, (carry_h, _) = lstm_sequence(
-            xw, wh, h0, h0,
-            lengths.to(torch.int32) if lengths is not None else None,
+            xw, wh, lengths=lengths.to(torch.int32) if lengths is not None else None,
         )
         return self.pool(outputs, carry_h, lengths)
 
@@ -113,6 +111,5 @@ def encode_pair_stacked(netA: LSTMEncoder, netV: LSTMEncoder, A, V):
     buffer. The caller must have checked `can_stack_pair`."""
     xw_a, wh_a = netA.project(A)
     xw_v, wh_v = netV.project(V)
-    h0 = xw_a.new_zeros((2, A.shape[0], netA.hidden_size))
-    outs, (h, _) = lstm_sequence_stacked([xw_a, xw_v], [wh_a, wh_v], h0, h0)
+    outs, (h, _) = lstm_sequence_stacked([xw_a, xw_v], [wh_a, wh_v])
     return netA.pool(outs[0], h[0]), netV.pool(outs[1], h[1])

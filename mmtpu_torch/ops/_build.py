@@ -8,11 +8,13 @@ a stale one is never loaded. `build(names)` starts one nvcc per source, all
 at once, and waits for them together.
 
 Nothing here runs at import time: a CPU-only host imports the port without
-nvcc, and only a launch on a CUDA tensor needs the build.
+nvcc, and only a launch on a CUDA tensor needs the build. Also here: what
+every launch asks of its device (`sm90_device`, `on_device`), kept cheap.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -20,7 +22,9 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Tuple
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / ".cache" / "mmtpu_torch" / "kernels"
@@ -31,6 +35,36 @@ NVCC_FLAGS = [
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_sm_counts: Dict[int, int] = {}  # device index → SMs, for the sm_90 devices seen
+_CURRENT = contextlib.nullcontext()
+
+
+def sm90_device(device: torch.device, kernel: str) -> Tuple[int, int]:
+    """(index, number of SMs) of a CUDA device the kernels are built for;
+    raises on any other architecture. The properties are read once per device."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    sms = _sm_counts.get(index)
+    if sms is None:
+        props = torch.cuda.get_device_properties(index)
+        if (props.major, props.minor) != (9, 0):
+            raise RuntimeError(
+                f"{kernel}: the kernel is built for sm_90a, device is "
+                f"sm_{props.major}{props.minor} ({props.name})"
+            )
+        sms = _sm_counts[index] = props.multi_processor_count
+    return index, sms
+
+
+def current_stream(index: int) -> int:
+    """The raw handle of PyTorch's current stream on device `index`."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)  # no Stream object built
+    return raw(index) if raw is not None else torch.cuda.current_stream(index).cuda_stream
+
+
+def on_device(index: int):
+    """A context in which device `index` is current: nothing to enter when it
+    already is, which is the usual case and costs no device switch."""
+    return _CURRENT if torch.cuda.current_device() == index else torch.cuda.device(index)
 
 
 def nvcc_path() -> str:

@@ -3,7 +3,7 @@
 Counterpart of `mmtpu/ops/fused_mlp.py`; the kernel
 (`csrc/fused_mlp.cu`) replaces the TPU kernel
 `mmtpu/ops/fused_mlp.py::_pallas_forward`. It computes the same function:
-all layers in one launch, activations kept in shared memory, fp32
+all layers in one launch, weights and activations in shared memory, fp32
 accumulation, output in `x.dtype`. What bounds it on the H100 and what its
 design does about that is noted at the top of the CUDA source.
 
@@ -14,7 +14,14 @@ Dispatch, by where `x` lies:
 - CPU tensor → `fused_mlp_reference`, the plain PyTorch chain;
 - CUDA tensor → the kernel, or an error. There is no fallback: a CUDA input
   the kernel does not take (dtype, layout, an architecture other than
-  sm_90, a width too wide for shared memory) raises.
+  sm_90, a width too wide for shared memory) raises. A chain whose weights
+  do not fit shared memory together, a width that is no multiple of 4, or a
+  weight that starts off a 16-byte boundary are all taken by the same kernel
+  (streamed, or copied with plain loads instead of `cp.async.bulk`).
+
+A launch costs the host little beside the launch itself: the device's
+properties are read once, the plan is cached by (batch, dims, SMs), and the
+tables handed over by pointer are preallocated.
 
 Only the forward is a kernel, as in mmtpu. Its backward (`_FusedMLP`) is
 the plain recompute of mmtpu's `_bwd`, so differentiating through the
@@ -24,13 +31,17 @@ kernel gives the right gradient.
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
-from typing import Sequence, Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
+from mmtpu_torch.ops import _build
+
 MAX_LAYERS = 8
-ROWS_PER_THREAD = 4  # MMTPU_MLP_ROWS_PER_THREAD in csrc/fused_mlp.cu
+ROW_TILES = (1, 2, 4, 8)  # batch rows per tile the kernel is built for
+HEADER_BYTES = 64  # MMTPU_MLP_HEADER_BYTES in csrc/fused_mlp.cu: the mbarriers
 SMEM_LIMIT = 232_448  # bytes of shared memory a block may use on sm_90 (227 KB)
 
 
@@ -44,71 +55,126 @@ def fused_mlp_reference(x, weights: Sequence[torch.Tensor], biases: Sequence[tor
     return h
 
 
-def tile_rows(batch: int, dims: Sequence[int], num_sms: int) -> Tuple[int, int]:
-    """(block_rows, shared-memory bytes) for one launch.
+def weight_stride(k: int) -> int:
+    """Floats between a layer's weight rows in shared memory: k rounded up to
+    a multiple of 4, so that every row starts on a 16-byte boundary
+    (`weight_stride` in csrc/fused_mlp.cu). Where k is a multiple of 4 the
+    matrix lies there as in device memory, and one bulk copy brings it."""
+    return -(-k // 4) * 4
 
-    Rows per block are chosen so the grid has about one block per SM (small
-    tiles for small batches, so every SM gets work), a multiple of
-    ROWS_PER_THREAD, and capped so both activation buffers,
-    2 · block_rows · max_dim · 4 B, fit the 227 KB a block may use."""
-    max_dim = max(dims[:-1])
-    bytes_per_row = 2 * max_dim * 4
-    cap = (SMEM_LIMIT // bytes_per_row) // ROWS_PER_THREAD * ROWS_PER_THREAD
-    if cap < ROWS_PER_THREAD:
+
+def bulk_copy_ok(weight: torch.Tensor) -> bool:
+    """Whether the kernel may bring this (out, in) matrix, or a run of its
+    rows, with `cp.async.bulk`: every row must start on a 16-byte boundary
+    and be a multiple of 16 bytes long. Other layers are copied with plain
+    loads."""
+    return weight.data_ptr() % 16 == 0 and (weight.shape[1] * weight.element_size()) % 16 == 0
+
+
+def bias_floats(dims: Sequence[int]) -> int:
+    """Floats the biases of all layers take in shared memory."""
+    return -(-sum(dims[1:]) // 4) * 4
+
+
+class ChainPlan(NamedTuple):
+    """How one launch is laid out (see the top of csrc/fused_mlp.cu)."""
+
+    rows: int        # batch rows per tile
+    grid: int        # blocks; each walks over tiles
+    act_stride: int  # floats between rows of an activation buffer
+    resident: bool   # every layer's weights stay in shared memory together
+    smem_bytes: int
+
+
+@functools.lru_cache(maxsize=256)
+def chain_plan(batch: int, dims: Tuple[int, ...], num_sms: int) -> ChainPlan:
+    """The layout of a launch; computed once per (batch, dims, num_sms) and kept.
+
+    Rows per tile: the smallest of ROW_TILES that gives at most one tile per
+    two SMs, so a small batch spreads over the card, yet not over more blocks
+    than pay for themselves: every block brings all the weights from L2, and
+    at B = 128 on 132 SMs 64 blocks of two rows were measured faster than 128
+    of one or 32 of four (`fused_mlp_sweep`). With the largest tile the grid
+    is one block per tile up to one per SM; beyond 8·SMs rows the blocks walk
+    over several tiles. Shared memory: the header, the biases, two
+    activation buffers of rows × the widest input, and the weights region.
+    When every layer's matrix fits there together the chain is resident; else
+    the region takes what is left and the layers are streamed through it in
+    runs of whole columns, and rows are halved until one weight row of the
+    widest layer fits beside the activations. Raises when even one batch
+    row leaves no room for that."""
+    act_stride = -(-max(dims[:-1]) // 4) * 4
+    rows = next(
+        (r for r in ROW_TILES if -(-batch // r) <= max(num_sms // 2, 1)), ROW_TILES[-1]
+    )
+    grid = min(-(-batch // rows), max(num_sms, 1))
+
+    def fixed(r: int) -> int:
+        return HEADER_BYTES + 4 * bias_floats(dims) + 2 * r * act_stride * 4
+
+    resident = 4 * sum(n * weight_stride(k) for k, n in zip(dims[:-1], dims[1:]))
+    if fixed(rows) + resident <= SMEM_LIMIT:
+        return ChainPlan(rows, grid, act_stride, True, fixed(rows) + resident)
+    one_row = 4 * max(weight_stride(k) for k in dims[:-1])
+    while rows > 1 and fixed(rows) + one_row > SMEM_LIMIT:
+        rows //= 2
+    if fixed(rows) + one_row > SMEM_LIMIT:
         raise ValueError(
-            f"fused_mlp: width {max_dim} does not fit shared memory "
-            f"({ROWS_PER_THREAD} rows need {ROWS_PER_THREAD * bytes_per_row} B "
-            f"of {SMEM_LIMIT} B)"
+            f"fused_mlp: width {max(dims[:-1])} does not fit shared memory (one batch "
+            f"row's activations, the biases and one weight row need {fixed(1) + one_row} B of "
+            f"{SMEM_LIMIT} B)"
         )
-    want = -(-batch // max(num_sms, 1))
-    rows = -(-want // ROWS_PER_THREAD) * ROWS_PER_THREAD
-    rows = min(max(rows, ROWS_PER_THREAD), cap)
-    return rows, rows * bytes_per_row
+    grid = min(-(-batch // rows), max(num_sms, 1))
+    return ChainPlan(rows, grid, act_stride, False, SMEM_LIMIT)
 
 
-def _check(x, weights, biases) -> list:
-    if not (1 <= len(weights) <= MAX_LAYERS) or len(weights) != len(biases):
+def _check(x, weights, biases) -> Tuple[int, ...]:
+    n = len(weights)
+    if not (1 <= n <= MAX_LAYERS) or n != len(biases):
         raise ValueError(
             f"fused_mlp: need 1..{MAX_LAYERS} layers and one bias per weight, "
-            f"got {len(weights)} weights and {len(biases)} biases"
+            f"got {n} weights and {len(biases)} biases"
         )
     if x.dim() != 2:
         raise ValueError(f"fused_mlp: x must be (B, D0), got {tuple(x.shape)}")
     dims = [x.shape[1]]
-    for i, (w, b) in enumerate(zip(weights, biases)):
+    for i in range(n):
+        w, b = weights[i], biases[i]
         if w.dim() != 2 or w.shape[1] != dims[-1]:
             raise ValueError(
                 f"fused_mlp: layer {i} weight {tuple(w.shape)} is not (out, {dims[-1]})"
             )
-        if tuple(b.shape) != (w.shape[0],):
+        if b.shape != (w.shape[0],):
             raise ValueError(f"fused_mlp: layer {i} bias {tuple(b.shape)} != ({w.shape[0]},)")
         dims.append(w.shape[0])
+    dev, f32 = x.device, torch.float32
     for t in (x, *weights, *biases):
-        if t.device != x.device:
+        if t.device != dev:
             raise ValueError("fused_mlp: all tensors must be on one device")
-        if t.dtype != torch.float32:
+        if t.dtype is not f32:
             raise TypeError(f"fused_mlp: the CUDA kernel takes float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError("fused_mlp: the CUDA kernel takes contiguous tensors")
-    return dims
+    return tuple(dims)
 
 
 _launch_lock = threading.Lock()
 _kernel = None
+# what a launch hands over by pointer, written anew under _launch_lock
+_c_dims = (ctypes.c_int * (MAX_LAYERS + 1))()
+_c_w = (ctypes.c_void_p * MAX_LAYERS)()
+_c_b = (ctypes.c_void_p * MAX_LAYERS)()
 
 
 def _kernel_fn():
     """The C entry point, built and bound on first use."""
     global _kernel
     if _kernel is None:
-        from mmtpu_torch.ops import _build
-
         fn = _build.load("fused_mlp").mmtpu_fused_mlp_forward
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_int, ctypes.c_void_p,
-        ]
+        fn.argtypes = (
+            [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
+            + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        )
         fn.restype = ctypes.c_int
         _kernel = fn
     return _kernel
@@ -116,33 +182,31 @@ def _kernel_fn():
 
 def _launch(x, weights, biases) -> torch.Tensor:
     dims = _check(x, weights, biases)
-    props = torch.cuda.get_device_properties(x.device)
-    if (props.major, props.minor) != (9, 0):
-        raise RuntimeError(
-            f"fused_mlp: the kernel is built for sm_90a, device is "
-            f"sm_{props.major}{props.minor} ({props.name})"
-        )
-    batch = x.shape[0]
+    index, num_sms = _build.sm90_device(x.device, "fused_mlp")
+    batch, n = x.shape[0], len(weights)
     out = torch.empty((batch, dims[-1]), device=x.device, dtype=x.dtype)
     if batch == 0:
         return out
-    block_rows, smem = tile_rows(batch, dims, props.multi_processor_count)
-    fn = _kernel_fn()
-    n = len(weights)
-    c_dims = (ctypes.c_int * (n + 1))(*dims)
-    c_w = (ctypes.c_void_p * n)(*[w.data_ptr() for w in weights])
-    c_b = (ctypes.c_void_p * n)(*[b.data_ptr() for b in biases])
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), out.data_ptr(), batch, n, c_dims, c_w, c_b,
-                block_rows, smem, stream)
+    plan = chain_plan(batch, dims, num_sms)
+    fn = _kernel or _kernel_fn()
+    with _launch_lock, _build.on_device(index):
+        bulk_mask = 0
+        for i in range(n):
+            _c_dims[i] = dims[i]
+            _c_w[i] = weights[i].data_ptr()
+            _c_b[i] = biases[i].data_ptr()
+            bulk_mask |= bulk_copy_ok(weights[i]) << i
+        _c_dims[n] = dims[n]
+        rc = fn(x.data_ptr(), out.data_ptr(), batch, n, _c_dims, _c_w, _c_b,
+                plan.rows, plan.grid, plan.act_stride, bulk_mask, plan.resident,
+                plan.smem_bytes, _build.current_stream(index))
+        if rc == 0:
+            fused_mlp.launches += 1
     if rc != 0:
         raise RuntimeError(
             f"fused_mlp: kernel launch failed with CUDA error {rc} "
-            f"(batch {batch}, dims {dims}, block_rows {block_rows}, smem {smem} B)"
+            f"(batch {batch}, dims {dims}, {plan}, bulk mask {bulk_mask:#x})"
         )
-    with _launch_lock:
-        fused_mlp.launches += 1
     return out
 
 

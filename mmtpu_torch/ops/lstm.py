@@ -19,6 +19,9 @@ with a leading G, or a sequence of G per-group tensors, whose base pointers
 go to the kernel as they are — the two encoders' projections are never
 copied into one buffer.
 
+`h0` and `c0` may be None for a zero state: the kernel then reads no state
+at all, and the caller allocates and zero-fills none.
+
 Dispatch, by where `xw` lies:
 - CPU tensors → `lstm_stacked_reference`, the plain PyTorch scan;
 - CUDA tensors → the kernel, or an error. There is no fallback: a CUDA input
@@ -28,6 +31,11 @@ Dispatch, by where `xw` lies:
   one batch row, about 12·H bytes, exceeds the 227 KB of shared memory a
   block may use).
 
+A launch costs the host little beside the launch itself: the device's
+properties are read once, the plan is cached by (G, B, H, SMs), the pointer
+tables are preallocated, and the device is switched only when it is not the
+current one.
+
 Only the forward is a kernel, as in mmtpu. Its backward (`_LSTM`) recomputes
 through the plain scan (`lstm_recompute_grads`, mmtpu's `_bwd`), so
 differentiating through the kernel gives the plain scan's gradient.
@@ -36,10 +44,13 @@ differentiating through the kernel gives the plain scan's gradient.
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
+
+from mmtpu_torch.ops import _build
 
 MAX_GROUPS = 8  # MMTPU_LSTM_MAX_GROUPS in csrc/lstm.cu
 MAX_THREADS = 1024
@@ -55,14 +66,16 @@ def _groups(t: Grouped) -> list:
     return list(t.unbind(0)) if isinstance(t, torch.Tensor) else list(t)
 
 
-def lstm_stacked_reference(xw: Grouped, wh: Grouped, h0, c0, lengths=None):
+def lstm_stacked_reference(xw: Grouped, wh: Grouped, h0=None, c0=None, lengths=None):
     """The plain scan over G groups (mirror of mmtpu's `_xla_lstm` and
-    `lstm_sequence_stacked`): returns (outputs (G, B, T, H), (h, c))."""
+    `lstm_sequence_stacked`): returns (outputs (G, B, T, H), (h, c)). A state
+    given as None is zeros."""
     xw = xw if isinstance(xw, torch.Tensor) else torch.stack(list(xw))
     wh = wh if isinstance(wh, torch.Tensor) else torch.stack(list(wh))
     G, B, T, H4 = xw.shape
     H = H4 // 4
-    h, c = h0, c0
+    h = xw.new_zeros((G, B, H)) if h0 is None else h0
+    c = xw.new_zeros((G, B, H)) if c0 is None else c0
     outs = []
     for t in range(T):
         pre = torch.baddbmm(xw[:, :, t], h, wh)
@@ -82,12 +95,16 @@ def lstm_stacked_reference(xw: Grouped, wh: Grouped, h0, c0, lengths=None):
     return out, (h, c)
 
 
-def lstm_reference(xw, wh, h0, c0, lengths=None):
-    """The plain scan for one LSTM: xw (B, T, 4H), wh (H, 4H), h0/c0 (B, H),
-    lengths (B,) or None → (outputs (B, T, H), (h, c))."""
+def _lead(t):
+    """`t` with a leading group axis of one; None stays None."""
+    return None if t is None else t[None]
+
+
+def lstm_reference(xw, wh, h0=None, c0=None, lengths=None):
+    """The plain scan for one LSTM: xw (B, T, 4H), wh (H, 4H), h0/c0 (B, H) or
+    None for zeros, lengths (B,) or None → (outputs (B, T, H), (h, c))."""
     out, (h, c) = lstm_stacked_reference(
-        xw[None], wh[None], h0[None], c0[None],
-        None if lengths is None else lengths[None],
+        xw[None], wh[None], _lead(h0), _lead(c0), _lead(lengths)
     )
     return out[0], (h[0], c[0])
 
@@ -96,7 +113,7 @@ class LaunchPlan(NamedTuple):
     """How one launch is laid out (see the top of csrc/lstm.cu)."""
 
     rows: int      # batch rows per block
-    kreg: int      # rows of wh held in each thread's registers (0, 32 or 64)
+    kreg: int      # rows of wh held in the quads' registers (0, 32 or 64)
     stage_k: int   # the next rows of wh, staged in shared memory
     h_stride: int  # floats between rows of h in shared memory
     threads: int   # threads per block
@@ -111,17 +128,21 @@ def smem_bytes(rows: int, hidden: int, h_stride: int, stage_k: int) -> int:
     return 4 * (2 * rows * h_stride + rows * hidden + 4 * stage_k * hidden + rows)
 
 
+@functools.lru_cache(maxsize=256)
 def launch_plan(groups: int, batch: int, hidden: int, num_sms: int) -> LaunchPlan:
-    """The layout of a launch over (groups, batch) rows of hidden size H.
+    """The layout of a launch over (groups, batch) rows of hidden size H;
+    computed once per (groups, batch, hidden, num_sms) and kept.
 
-    Threads: one per gate column, up to MAX_THREADS (a loop over columns
-    beyond). Register rows of wh: 32 or 64 when a thread owns one column and
-    the block has at most KREG_THREADS threads (H ≤ 128), else none. Rows per
-    block: the smallest tile that gives at most one block per SM, so a small
-    batch spreads over many SMs and each block's serial step stays short;
-    halved while the block's state does not fit. As many of the remaining
-    rows of wh as fit beside the state are staged in shared memory (all of
-    them up to H = 128); the rest is read through L1/L2 every step."""
+    Threads: four per hidden unit (a quad), up to MAX_THREADS (a loop over
+    columns beyond); at 32 < H ≤ 64 with one or two rows per block a quad
+    serves two units, so half as many. Register rows of wh: the first 32 or
+    64, split over the quad's four lanes, when every unit has its quad and
+    the block has at most KREG_THREADS threads (H ≤ 128), else none. Rows
+    per block: the smallest tile that gives at most one block per SM, so a
+    small batch spreads over many SMs and each block's serial step stays
+    short; halved while the block's state does not fit. As many of the
+    remaining rows of wh as fit beside the state are staged in shared memory
+    (all of them up to H = 128); the rest is read through L1/L2 every step."""
     threads = min(-(-4 * hidden // 32) * 32, MAX_THREADS)
     kreg = 0
     if 4 * hidden <= threads <= KREG_THREADS:
@@ -130,6 +151,8 @@ def launch_plan(groups: int, batch: int, hidden: int, num_sms: int) -> LaunchPla
     rows = next(
         (r for r in ROW_TILES if groups * -(-batch // r) <= num_sms), ROW_TILES[-1]
     )
+    if 32 < hidden <= 64 and rows <= 2:  # two units per quad: half the warps
+        threads = -(-4 * -(-hidden // 2) // 32) * 32
     while rows > 1 and smem_bytes(rows, hidden, h_stride, 0) > SMEM_LIMIT:
         rows //= 2
     state = smem_bytes(rows, hidden, h_stride, 0)
@@ -143,37 +166,43 @@ def launch_plan(groups: int, batch: int, hidden: int, num_sms: int) -> LaunchPla
 
 
 def _check(xws, whs, h0, c0, lengths) -> Tuple[int, int, int, int]:
-    """Shapes, dtypes, devices and layouts the kernel takes → (G, B, T, H)."""
+    """Shapes, dtypes, devices and layouts the kernel takes → (G, B, T, H).
+    `h0` and `c0` may each be None (zeros)."""
     G = len(xws)
     if not 1 <= G <= MAX_GROUPS or len(whs) != G:
         raise ValueError(
             f"lstm: need 1..{MAX_GROUPS} groups and one wh per xw, got "
             f"{G} xw and {len(whs)} wh"
         )
-    if xws[0].dim() != 3 or xws[0].shape[2] % 4:
-        raise ValueError(f"lstm: xw must be (B, T, 4H) per group, got {tuple(xws[0].shape)}")
-    B, T, H4 = xws[0].shape
+    first = xws[0]
+    if first.dim() != 3 or first.shape[2] % 4:
+        raise ValueError(f"lstm: xw must be (B, T, 4H) per group, got {tuple(first.shape)}")
+    B, T, H4 = xw_shape = first.shape
     H = H4 // 4
-    for g, (xw, wh) in enumerate(zip(xws, whs)):
-        if tuple(xw.shape) != (B, T, H4):
+    wh_shape, state_shape = (H, H4), (G, B, H)
+    dev, f32 = first.device, torch.float32
+    for g in range(G):
+        xw, wh = xws[g], whs[g]
+        if xw.shape != xw_shape:
             raise ValueError(f"lstm: group {g} xw {tuple(xw.shape)} != {(B, T, H4)}")
-        if tuple(wh.shape) != (H, H4):
-            raise ValueError(f"lstm: group {g} wh {tuple(wh.shape)} != {(H, H4)}")
-    for name, s in (("h0", h0), ("c0", c0)):
-        if tuple(s.shape) != (G, B, H):
-            raise ValueError(f"lstm: {name} {tuple(s.shape)} != {(G, B, H)}")
-    dev = xws[0].device
+        if wh.shape != wh_shape:
+            raise ValueError(f"lstm: group {g} wh {tuple(wh.shape)} != {wh_shape}")
+    for name, t in (("h0", h0), ("c0", c0)):
+        if t is not None and t.shape != state_shape:
+            raise ValueError(f"lstm: {name} {tuple(t.shape)} != {state_shape}")
     for t in (*xws, *whs, h0, c0):
+        if t is None:
+            continue
         if t.device != dev:
             raise ValueError("lstm: all tensors must be on one device")
-        if t.dtype != torch.float32:
+        if t.dtype is not f32:
             raise TypeError(f"lstm: the CUDA kernel takes float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError("lstm: the CUDA kernel takes contiguous tensors")
     if lengths is not None:
-        if tuple(lengths.shape) != (G, B):
+        if lengths.shape != (G, B):
             raise ValueError(f"lstm: lengths {tuple(lengths.shape)} != {(G, B)}")
-        if lengths.dtype != torch.int32:
+        if lengths.dtype is not torch.int32:
             raise TypeError(f"lstm: lengths must be int32, got {lengths.dtype}")
         if lengths.device != dev or not lengths.is_contiguous():
             raise ValueError("lstm: lengths must be contiguous and on the inputs' device")
@@ -182,14 +211,15 @@ def _check(xws, whs, h0, c0, lengths) -> Tuple[int, int, int, int]:
 
 _launch_lock = threading.Lock()
 _kernel = None
+# the two pointer tables a launch hands over, written anew under _launch_lock
+_c_xw = (ctypes.c_void_p * MAX_GROUPS)()
+_c_wh = (ctypes.c_void_p * MAX_GROUPS)()
 
 
 def _kernel_fn():
     """The C entry point, built and bound on first use."""
     global _kernel
     if _kernel is None:
-        from mmtpu_torch.ops import _build
-
         fn = _build.load("lstm").mmtpu_lstm_forward
         fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -200,43 +230,49 @@ def _kernel_fn():
 def _launch(xws, whs, h0, c0, lengths):
     """One kernel launch over all groups → (out (G, B, T, H), hT, cT)."""
     G, B, T, H = _check(xws, whs, h0, c0, lengths)
-    dev = h0.device
-    props = torch.cuda.get_device_properties(dev)
-    if (props.major, props.minor) != (9, 0):
-        raise RuntimeError(
-            f"lstm: the kernel is built for sm_90a, device is "
-            f"sm_{props.major}{props.minor} ({props.name})"
-        )
+    dev = xws[0].device
+    index, num_sms = _build.sm90_device(dev, "lstm")
     out = torch.empty((G, B, T, H), device=dev, dtype=torch.float32)
+    hT = torch.empty((G, B, H), device=dev, dtype=torch.float32)
+    cT = torch.empty((G, B, H), device=dev, dtype=torch.float32)
     if B == 0 or T == 0:  # nothing to advance: the state is the initial one
-        return out, h0.clone(), c0.clone()
-    hT = torch.empty_like(h0)
-    cT = torch.empty_like(c0)
-    plan = launch_plan(G, B, H, props.multi_processor_count)
-    fn = _kernel_fn()
-    c_xw = (ctypes.c_void_p * G)(*[t.data_ptr() for t in xws])
-    c_wh = (ctypes.c_void_p * G)(*[t.data_ptr() for t in whs])
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        rc = fn(c_xw, c_wh, h0.data_ptr(), c0.data_ptr(),
+        for dst, src in ((hT, h0), (cT, c0)):
+            if src is None:
+                dst.zero_()
+            else:
+                dst.copy_(src)
+        return out, hT, cT
+    plan = launch_plan(G, B, H, num_sms)
+    fn = _kernel or _kernel_fn()
+    with _launch_lock, _build.on_device(index):
+        for g in range(G):
+            _c_xw[g] = xws[g].data_ptr()
+            _c_wh[g] = whs[g].data_ptr()
+        rc = fn(_c_xw, _c_wh,
+                None if h0 is None else h0.data_ptr(),
+                None if c0 is None else c0.data_ptr(),
                 None if lengths is None else lengths.data_ptr(),
                 out.data_ptr(), hT.data_ptr(), cT.data_ptr(),
-                G, B, T, H, *plan, stream)
+                G, B, T, H, *plan, _build.current_stream(index))
+        if rc == 0:
+            lstm_sequence_stacked.launches += 1
     if rc != 0:
         raise RuntimeError(
             f"lstm: kernel launch failed with CUDA error {rc} (G={G}, B={B}, T={T}, "
             f"H={H}, {plan}, smem {plan.smem_bytes(H)} B)"
         )
-    with _launch_lock:
-        lstm_sequence_stacked.launches += 1
     return out, hT, cT
 
 
 def lstm_recompute_grads(xw, wh, h0, c0, lengths, g_out, g_h, g_c):
     """(dxw, dwh, dh0, dc0) of one LSTM for the cotangents of (outputs, h, c),
     differentiating the plain scan on the saved inputs (mmtpu's `_bwd`)."""
+    B, H = xw.shape[0], wh.shape[0]
     with torch.enable_grad():
-        ins = [t.detach().requires_grad_() for t in (xw, wh, h0, c0)]
+        ins = [
+            (xw.new_zeros((B, H)) if t is None else t.detach()).requires_grad_()
+            for t in (xw, wh, h0, c0)
+        ]
         out, (h, c) = lstm_reference(*ins, lengths)
         grads = torch.autograd.grad(
             (out, h, c), ins, (g_out, g_h, g_c), allow_unused=True
@@ -252,7 +288,7 @@ class _LSTM(torch.autograd.Function):
         ctx.groups = groups
         ctx.lengths = lengths
         ctx.save_for_backward(h0, c0, *xw_wh)
-        return _launch(xw_wh[:groups], xw_wh[groups:], h0, c0, lengths)
+        return _launch(list(xw_wh[:groups]), list(xw_wh[groups:]), h0, c0, lengths)
 
     @staticmethod
     def backward(ctx, g_out, g_h, g_c):
@@ -260,34 +296,41 @@ class _LSTM(torch.autograd.Function):
         G = ctx.groups
         per_group = [
             lstm_recompute_grads(
-                xw_wh[g], xw_wh[G + g], h0[g], c0[g],
+                xw_wh[g], xw_wh[G + g],
+                None if h0 is None else h0[g], None if c0 is None else c0[g],
                 None if ctx.lengths is None else ctx.lengths[g],
                 g_out[g], g_h[g], g_c[g],
             )
             for g in range(G)
         ]
         dxw, dwh, dh0, dc0 = zip(*per_group)
-        return (None, None, torch.stack(dh0), torch.stack(dc0), *dxw, *dwh)
+        return (None, None,
+                None if h0 is None else torch.stack(dh0),
+                None if c0 is None else torch.stack(dc0), *dxw, *dwh)
 
 
 def lstm_sequence_stacked(
-    xw: Grouped, wh: Grouped, h0: torch.Tensor, c0: torch.Tensor,
-    lengths: Optional[torch.Tensor] = None,
+    xw: Grouped, wh: Grouped, h0: Optional[torch.Tensor] = None,
+    c0: Optional[torch.Tensor] = None, lengths: Optional[torch.Tensor] = None,
 ):
     """G independent LSTMs advanced together.
 
     xw: (G, B, T, 4H) pre-projected inputs, or G tensors (B, T, 4H); wh:
-    (G, H, 4H), or G tensors (H, 4H); h0/c0: (G, B, H); lengths: optional
-    (G, B) int32. Returns (outputs (G, B, T, H), (h, c)).
+    (G, H, 4H), or G tensors (H, 4H); h0/c0: (G, B, H), or None for a zero
+    state (nothing is allocated for it); lengths: optional (G, B) int32.
+    Returns (outputs (G, B, T, H), (h, c)).
 
     CPU tensors take the plain scan; CUDA tensors launch the kernel once for
     all groups (counted in `lstm_sequence_stacked.launches`) or raise."""
-    if h0.device.type == "cpu":
-        return lstm_stacked_reference(xw, wh, h0, c0, lengths)
-    if h0.device.type != "cuda":
-        raise ValueError(f"lstm: no kernel for device {h0.device}")
     xws, whs = _groups(xw), _groups(wh)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (*xws, *whs, h0, c0)):
+    device = xws[0].device
+    if device.type == "cpu":
+        return lstm_stacked_reference(xw, wh, h0, c0, lengths)
+    if device.type != "cuda":
+        raise ValueError(f"lstm: no kernel for device {device}")
+    if torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (*xws, *whs, h0, c0)
+    ):
         out, h, c = _LSTM.apply(len(xws), lengths, h0, c0, *xws, *whs)
     else:
         out, h, c = _launch(xws, whs, h0, c0, lengths)
@@ -298,15 +341,14 @@ lstm_sequence_stacked.launches = 0
 
 
 def lstm_sequence(
-    xw: torch.Tensor, wh: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
-    lengths: Optional[torch.Tensor] = None,
+    xw: torch.Tensor, wh: torch.Tensor, h0: Optional[torch.Tensor] = None,
+    c0: Optional[torch.Tensor] = None, lengths: Optional[torch.Tensor] = None,
 ):
-    """One LSTM: xw (B, T, 4H) pre-projected inputs, wh (H, 4H), h0/c0 (B, H),
-    lengths optional (B,) int32. Returns (outputs (B, T, H), (h, c)).
+    """One LSTM: xw (B, T, 4H) pre-projected inputs, wh (H, 4H), h0/c0 (B, H)
+    or None for a zero state, lengths optional (B,) int32. Returns (outputs
+    (B, T, H), (h, c)).
 
     The G = 1 call of `lstm_sequence_stacked` (views, no copy): the same
     kernel, counted in the same `launches`."""
-    out, (h, c) = lstm_sequence_stacked(
-        [xw], [wh], h0[None], c0[None], None if lengths is None else lengths[None]
-    )
+    out, (h, c) = lstm_sequence_stacked([xw], [wh], _lead(h0), _lead(c0), _lead(lengths))
     return out[0], (h[0], c[0])

@@ -164,7 +164,9 @@ def test_recompute_grads_match_jax_vjp(case):
 
 @pytest.mark.parametrize("groups,batch,hidden,sms,want", [
     # want: (rows, register rows of wh, rows staged in shared memory, h stride, threads)
-    (2, 32, 64, 132, (1, 64, 0, 64, 256)),      # the UttFusion call: 64 one-row blocks
+    (2, 32, 64, 132, (1, 64, 0, 64, 128)),      # the UttFusion call: 64 one-row blocks,
+                                                #   two units per quad
+    (1, 200, 48, 132, (2, 64, 0, 64, 96)),      # 24 quads for 48 units
     (1, 128, 32, 132, (1, 32, 0, 32, 128)),
     (1, 1024, 64, 132, (8, 64, 0, 64, 256)),    # 128 eight-row blocks
     (2, 1024, 64, 132, (8, 64, 0, 64, 256)),    # more blocks than SMs: the largest tile
@@ -178,12 +180,66 @@ def test_launch_plan(groups, batch, hidden, sms, want):
     assert tuple(plan) == want
     assert plan.rows in ROW_TILES and plan.threads % 32 == 0 and plan.h_stride % 4 == 0
     assert plan.h_stride >= max(hidden, plan.kreg)
-    if plan.kreg:  # one column per thread
-        assert 4 * hidden <= plan.threads <= KREG_THREADS
+    if plan.kreg:  # a quad per unit, or per two units with at most two rows
+        units_per_quad = 2 if 32 < hidden <= 64 and plan.rows <= 2 else 1
+        assert 4 * hidden <= units_per_quad * plan.threads <= units_per_quad * KREG_THREADS
     on_chip = plan.kreg + plan.stage_k
     assert on_chip <= max(hidden, plan.kreg) and plan.smem_bytes(hidden) <= SMEM_LIMIT
     assert on_chip >= hidden or smem_bytes(
         plan.rows, hidden, plan.h_stride, plan.stage_k + 1) > SMEM_LIMIT
+
+
+def test_launch_plan_is_cached_by_groups_batch_hidden_and_sms():
+    plan = launch_plan(2, 32, 64, 132)
+    assert launch_plan(2, 32, 64, 132) is plan
+    assert launch_plan(2, 32, 64, 16).rows == 4 != plan.rows     # fewer SMs: larger tiles
+    assert launch_plan(2, 1024, 64, 132).rows == 8 != plan.rows  # a larger batch too
+    assert launch_plan(2, 32, 32, 132).kreg == 32 != plan.kreg
+
+
+@pytest.mark.parametrize("case", CASES, ids=_ids)
+@pytest.mark.parametrize("none", ["h0", "c0", "both"])
+def test_cpu_none_state_is_zero_state(case, none):
+    """h0=None / c0=None against mmtpu's lstm_sequence on explicit zeros,
+    through both public functions."""
+    import jax.numpy as jnp
+
+    from mmtpu.ops.lstm import lstm_sequence as jax_lstm_sequence
+
+    B, T, H, with_len, with_state = case
+    xw, wh, h0, c0, lengths = _single(_inputs(1, B, T, H, with_len, with_state, seed=8))
+    if none in ("h0", "both"):
+        h0 = None
+    if none in ("c0", "both"):
+        c0 = None
+    zeros = np.zeros((B, H), np.float32)
+    want_out, (want_h, want_c) = jax_lstm_sequence(
+        *[jnp.asarray(zeros if a is None else a) for a in (xw, wh, h0, c0)],
+        None if lengths is None else jnp.asarray(lengths),
+    )
+    txw, twh, th0, tc0, tl = _t((xw, wh, h0, c0, lengths))
+    lead = lambda t: None if t is None else t[None]  # noqa: E731
+    results = [
+        lstm_sequence(txw, twh, th0, tc0, tl),
+        lstm_sequence_stacked([txw], [twh], lead(th0), lead(tc0), lead(tl)),
+    ]
+    for i, (out, (h, c)) in enumerate(results):
+        if i:
+            out, h, c = out[0], h[0], c[0]
+        np.testing.assert_allclose(out.numpy(), np.asarray(want_out), rtol=TOL, atol=TOL)
+        np.testing.assert_allclose(h.numpy(), np.asarray(want_h), rtol=TOL, atol=TOL)
+        np.testing.assert_allclose(c.numpy(), np.asarray(want_c), rtol=TOL, atol=TOL)
+
+
+def test_recompute_grads_with_none_state():
+    """A state given as None has zero-state gradients for xw and wh."""
+    xw, wh, h0, c0, lengths = _t(_single(_inputs(1, 3, 5, 8, True, False, seed=9)))
+    g = np.random.default_rng(10)
+    cots = _t([g.normal(size=s).astype(np.float32) for s in ((3, 5, 8), (3, 8), (3, 8))])
+    want = lstm_recompute_grads(xw, wh, h0, c0, lengths, *cots)
+    got = lstm_recompute_grads(xw, wh, None, None, lengths, *cots)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
 def test_launch_plan_raises_when_one_row_does_not_fit():
@@ -195,6 +251,9 @@ def test_check_rejects_what_the_kernel_does_not_take():
     xw, wh, h0, c0, lengths = _t(_inputs(2, 3, 4, 8, True, False))
     groups = lambda t: list(t.unbind(0))  # noqa: E731
     assert _check(groups(xw), groups(wh), h0, c0, lengths) == (2, 3, 4, 8)
+    assert _check(groups(xw), groups(wh), None, None, None) == (2, 3, 4, 8)
+    with pytest.raises(ValueError, match="c0"):
+        _check(groups(xw), groups(wh), None, c0[:, :2], lengths)
     with pytest.raises(TypeError, match="float32"):
         _check(groups(xw.double()), groups(wh), h0, c0, lengths)
     with pytest.raises(TypeError, match="int32"):
@@ -239,6 +298,14 @@ CARD_CASES = [
     (1, 3, 10, 300, True, True, 1e-5),    # more gate columns than threads
     (1, 6, 12, 200, True, True, 1e-5),    # 800 threads: no rows of wh in registers
     (1, 70, 9, 20, True, True, 1e-5),     # H below the register rows, ragged last warp
+    (8, 1, 13, 32, True, True, 1e-5),     # eight groups of one row
+    (8, 5, 6, 24, False, True, 1e-5),
+    (1, 128, 50, 32, True, True, 1e-5),   # one quad per unit, four warps
+    (2, 70, 30, 64, True, True, 1e-5),    # two-row tiles: lanes 0 and 1 of a quad update
+    (1, 300, 12, 32, True, True, 1e-5),   # four-row tiles with a ragged tail
+    (1, 300, 12, 128, True, True, 1e-5),  # register rows and staged rows together
+    (2, 5, 9, 200, False, True, 1e-5),
+    (1, 1, 25, 300, True, False, 1e-5),
 ]
 
 
@@ -261,6 +328,40 @@ def test_kernel_matches_plain_on_card(cuda_device, case):
                                          None if lengths is None else lengths[0])
         assert lstm_sequence_stacked.launches == before + 2
         assert torch.equal(single, out[0]) and torch.equal(sh, h[0]) and torch.equal(sc, c[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lens", ["zero", "full", "mixed"])
+def test_kernel_length_edges_on_card(cuda_device, lens):
+    """Rows of length 0 keep the initial state for all T; rows of length T
+    never freeze."""
+    G, B, T, H = 2, 9, 11, 64
+    xw, wh, h0, c0, lengths = _t(_inputs(G, B, T, H, True, True, seed=11), device=cuda_device)
+    if lens == "zero":
+        lengths.zero_()
+    elif lens == "full":
+        lengths.fill_(T)
+    else:
+        lengths[:, 0::3], lengths[:, 1::3] = 0, T
+    out, (h, c) = lstm_sequence_stacked(xw, wh, h0, c0, lengths)
+    want, (want_h, want_c) = lstm_stacked_reference(xw, wh, h0, c0, lengths)
+    for a, b in ((out, want), (h, want_h), (c, want_c)):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+    if lens == "zero":
+        assert torch.equal(h, h0) and torch.equal(c, c0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("none", ["h0", "c0", "both"])
+def test_kernel_none_state_on_card(cuda_device, none):
+    """A null state pointer reads as zeros in the kernel."""
+    xw, wh, h0, c0, lengths = _t(_inputs(2, 32, 50, 64, True, True, seed=12), device=cuda_device)
+    h0 = None if none in ("h0", "both") else h0
+    c0 = None if none in ("c0", "both") else c0
+    out, (h, c) = lstm_sequence_stacked(list(xw), list(wh), h0, c0, lengths)
+    want, (want_h, want_c) = lstm_stacked_reference(xw, wh, h0, c0, lengths)
+    for a, b in ((out, want), (h, want_h), (c, want_c)):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
 
 
 @pytest.mark.cuda
