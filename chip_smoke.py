@@ -28,7 +28,20 @@ FcClassifier 192→[192, 64, 32]→3; batch 32, aligned T = 50):
              requests (some with a modality zeroed) and one /predict_batch,
              each answer checked against the Predictor; a request that
              lacks an input key must get 400; the same requests against a
-             server with no model give the host's ceiling.
+             server with no model give the host's ceiling;
+5. train   — the AVMNIST pretrain-then-fine-tune pipeline through the
+             training entry points' `main` on the card, at the widths of
+             configs/avmnist/synthetic_mono_audio.yaml and
+             synthetic_multimodal_pretrained.yaml (2048 train samples, 512
+             validation and 512 test, batch 128, 2 epochs): `train_monomodal`
+             writes the audio handoff, `train_multimodal` fine-tunes from it
+             (its audio encoder at epoch 0 must be the handoff's, and
+             `fused_mlp` must run once per validation and test batch and in
+             no train forward), and again from scratch; then a profiled
+             window of train steps, and the first three train steps (and one
+             with a padded tail) on the card against the CPU.
+
+    python3 chip_smoke.py --train-only    # build, then phase 5 alone
 
 Prints a `kernels` JSON line, the card's name and power limit, and as the
 last line `{"ok": true, "device": {...}}`. Any failure exits non-zero
@@ -39,6 +52,7 @@ nothing of JAX or of the `mmtpu` package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import shutil
 import statistics
@@ -855,6 +869,323 @@ def mosi_requests() -> dict:
     return {"audio": audio, "video": video, "text": text}
 
 
+# The training phase: the synthetic configs' widths, models and optimizers;
+# only the sample counts are this run's (the files have 256/96/96 in batches of 64).
+TRAIN_SAMPLES = {"train": 2048, "validation": 512, "test": 512}
+TRAIN_BATCH = 128
+TRAIN_EPOCHS = 2
+TRAIN_LOSS_RTOL = 1e-4  # step 1, GPU (TF32 off) vs CPU
+TRAIN_GRAD_TOL = 1e-3  # of a gradient's norm: float32 parameters above it are counted
+TRAIN_GRAD64_TOL = 1e-6  # of a gradient's norm, GPU vs CPU in float64 (phase_train_check)
+TRAIN_LATER_RTOL = 1e-3  # steps 2-3: Adam's first steps amplify rounding near g = 0
+MONO_NAME = "Synthetic_AVMNIST_Audio_Encoder"
+SCRATCH_NAME = "Synthetic_AVMNIST_Multimodal_Scratch"
+
+
+def train_configs(out_root: str) -> dict:
+    """Plain-dict twins of configs/avmnist/synthetic_mono_audio.yaml ("mono")
+    and synthetic_multimodal_pretrained.yaml ("pretrained"; its handoff named
+    by the `.ckpt` spelling the file uses), and the same fine-tune from
+    scratch ("scratch"), with this run's sample counts and batch."""
+    import copy
+
+    multi = smoke_config(out_root=out_root)
+    multi["model"]["pretrained_encoders"]["audio"] = (
+        f"{out_root}/{MONO_NAME}/models/{{run_id}}/encoder_audio_best.ckpt")
+    multi["training"]["epochs"] = TRAIN_EPOCHS
+    for split, n in TRAIN_SAMPLES.items():
+        multi["data"]["datasets"][split]["batch_size"] = TRAIN_BATCH
+        multi["data"]["datasets"][split]["kwargs"]["num_samples"] = n
+
+    mono = copy.deepcopy(multi)
+    mono["experiment"]["name"] = MONO_NAME
+    mono["model"] = {"name": MONO_NAME, "model_type": "AVMNIST",
+                     "audio_encoder": multi["model"]["audio_encoder"],
+                     "output_dim": 64, "num_classes": 10}
+    training = mono["training"]
+    training["num_modalities"] = 1
+    del training["encoder_optimizer"], training["modality_specific_params"]
+    for split in mono["data"]["datasets"].values():
+        split["missing_patterns"]["selected_patterns"] = ["a"]
+    del mono["metrics"]["metrics"]["ConfusionMatrix"]
+    mono["metrics"]["groups"]["classification"] = ["accuracy", "f1_weighted"]
+
+    scratch = copy.deepcopy(multi)
+    scratch["experiment"]["name"] = scratch["model"]["name"] = SCRATCH_NAME
+    del scratch["model"]["pretrained_encoders"]
+    return {"mono": mono, "pretrained": multi, "scratch": scratch}
+
+
+def say_card(card: str, msg: str) -> None:
+    """A line with a measured number, beside the card's name and power limit."""
+    say(f"{msg} [{card}]")
+
+
+def _run_cli(module, cfg_path: Path, tag: str, out_root: Path, name: str) -> dict:
+    """`module.main` on the card through its normal flags; what it wrote."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rc = module.main(["--config", str(cfg_path), "--run_id", "1"])
+    seconds = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"{tag}: exit code {rc}")
+    metrics = out_root / name / "metrics" / "1"
+    epochs = [e for e in json.loads((metrics / "epoch_metrics.json").read_text()) if "epoch" in e]
+    # train_monomodal writes its train/validation records to report/, as mmtpu's does
+    records = metrics if (metrics / "validation_metrics.json").exists() else metrics / "report"
+    validation = json.loads((records / "validation_metrics.json").read_text())
+    test = json.loads((metrics / "test_metrics.json").read_text())
+    if len(epochs) != TRAIN_EPOCHS or len(validation) != TRAIN_EPOCHS or len(test) != 1:
+        raise AssertionError(f"{tag}: {len(epochs)} epochs, {len(validation)} validation "
+                             f"records, {len(test)} test records")
+    losses = [(e["train"]["loss"], e["validation"]["loss"]) for e in epochs]
+    if not all(np.isfinite(v) for pair in losses for v in pair):
+        raise AssertionError(f"{tag}: losses {losses}")
+    train_s = epochs[-1]["train"]["timing"]["total_time"]
+    return {"seconds": seconds, "peak_bytes": torch.cuda.max_memory_allocated(),
+            "losses": losses, "validation": validation, "test": test[0],
+            "samples_per_s": TRAIN_SAMPLES["train"] / train_s, "epoch_s": train_s,
+            "models": out_root / name / "models" / "1"}
+
+
+def _accuracies(record: dict) -> dict:
+    return {k: round(v, 4) for k, v in record.items() if k.startswith("accuracy")}
+
+
+def _train_batches(cfg_path: Path, n: int):
+    from mmtpu_torch.cli import common
+
+    cfg = common.load_config(argparse.Namespace(config=str(cfg_path), run_id=1, seed=None))
+    loader = cfg.data.build_loader("train", seed=cfg.experiment.seed)
+    it = iter(loader)
+    return cfg, [next(it) for _ in range(n)]
+
+
+def _training_setup(cfg, dev):
+    """Model, state and train step as `train_multimodal` builds them."""
+    from mmtpu_torch.cli import common
+    from mmtpu_torch.train.step import ClassificationTask, make_train_step
+
+    model = common.init_model(common.build_model_from_config(cfg.model), SEED, dev)
+    state = common.make_state(model, cfg.training)
+    task = ClassificationTask(model=model, loss_group=cfg.training.loss_functions,
+                              input_keys=["audio", "image"])
+    return model, state, make_train_step(task, state, dev)
+
+
+def phase_train_profile(dev, card: str, cfg_path: Path, steps: int = 8) -> dict:
+    """A window of fine-tune train steps under the profiler: the device's
+    busy share and the operations that take its time."""
+    import torch
+
+    cfg, batches = _train_batches(cfg_path, 3 + steps)
+    _, _, step = _training_setup(cfg, dev)
+    for b in batches[:3]:  # warm-up: cuDNN plans, allocator
+        step(b)
+    torch.cuda.synchronize()
+    brk = device_breakdown(lambda: [step(b) for b in batches[3:]], top=8)
+    busy = brk["device_ms"] / brk["profiled_wall_ms"]
+    say_card(card, f"[train profile] {steps} fine-tune train steps (B={TRAIN_BATCH}): device "
+             f"busy {brk['device_ms']:.3f} ms of {brk['profiled_wall_ms']:.3f} ms wall, busy "
+             f"share {busy:.3f}; top device operations (name, ms, count) {brk['top']}; top "
+             f"host operations by self CPU time (name, ms, count) {brk['top_host']}")
+    return {"busy_share": busy}
+
+
+def _grad_errors(grads: dict, ref: dict) -> dict:
+    """Per parameter: max |g - ref| / ‖ref‖."""
+    return {n: (grads[n].double() - w.double()).abs().max().item() / max(w.norm().item(), 1e-30)
+            for n, w in ref.items()}
+
+
+def _whole_error(grads: dict, ref: dict) -> float:
+    """‖g - ref‖ / ‖ref‖ over all parameters together."""
+    import torch
+
+    def flat(t):
+        return torch.cat([t[n].double().reshape(-1) for n in sorted(t)])
+
+    return ((flat(grads) - flat(ref)).norm() / flat(ref).norm()).item()
+
+
+def _worst(errs: dict, k: int = 4) -> list:
+    return [(n, float(f"{e:.3e}")) for n, e in sorted(errs.items(), key=lambda t: -t[1])[:k]]
+
+
+def phase_train_check(dev, cfg_path: Path) -> dict:
+    """The fine-tune's first three train steps from the same initial weights
+    (dropout 0) on the card and on the CPU, then a step on a batch with a
+    zero-padded tail from the CPU's weights on both (the pad-aware
+    BatchNorm at full width): the losses in float32. The gradients of
+    step 1 and of the padded step are compared in float64 on both devices:
+    in float32 either device misses the exact gradient by a few 1e-3 of its
+    norm (BatchNorm's backward subtracts nearly equal terms), which would
+    hide a fault; in float64 the same code must agree to rounding."""
+    import torch
+
+    cfg, batches = _train_batches(cfg_path, 3)
+    pad_rows = 28
+    padded = {k: v.copy() for k, v in batches[2].items()}
+    for k in ("audio", "image", "labels", "audio_mask", "image_mask", "sample_mask"):
+        padded[k][TRAIN_BATCH - pad_rows:] = 0
+    cfg.model.kwargs["dropout"] = 0.0
+    cpu = torch.device("cpu")
+
+    def grads_of(model):
+        return {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+
+    def float64_step(device, batch, weights=None):
+        model, _, step = _training_setup(cfg, device)
+        model.double()
+        if weights is not None:
+            model.load_state_dict(weights)
+        with _float64_losses():
+            step(_as_float64(batch))
+        return grads_of(model)
+
+    models, losses, grads32 = {}, {}, {}
+    for label, device in (("gpu", dev), ("cpu", cpu)):
+        model, _, step = _training_setup(cfg, device)
+        losses[label] = []
+        for b in batches:
+            losses[label].append(float(step(b)["loss"]))
+            grads32.setdefault(label, grads_of(model))
+        models[label] = (model, step)
+    weights = models["cpu"][0].state_dict()  # after step 3
+    models["gpu"][0].load_state_dict(weights)
+    pad_loss = {label: float(step(padded)["loss"]) for label, (_, step) in models.items()}
+    grads64 = {label: (float64_step(device, batches[0]), float64_step(device, padded, weights))
+               for label, device in (("gpu", dev), ("cpu", cpu))}
+
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses["gpu"], losses["cpu"])]
+    pad_rel = abs(pad_loss["gpu"] - pad_loss["cpu"]) / abs(pad_loss["cpu"])
+    say(f"[train check] float32 losses of steps 1-3, GPU {losses['gpu']}, CPU {losses['cpu']}: "
+        f"relative differences {rel} (tolerances {TRAIN_LOSS_RTOL}, then {TRAIN_LATER_RTOL}); "
+        f"padded tail of {pad_rows} rows, one step from the same weights: GPU "
+        f"{pad_loss['gpu']}, CPU {pad_loss['cpu']} (relative {pad_rel:.3e}, tolerance "
+        f"{TRAIN_LOSS_RTOL}); TF32 off")
+    err32 = _grad_errors(grads32["gpu"], grads32["cpu"])
+    exact = grads64["cpu"][0]
+    say(f"[train check] step-1 float32 gradients, {len(err32)} parameters: GPU vs CPU worst "
+        f"parameter {max(err32.values()):.3e} of its norm "
+        f"({sum(e > TRAIN_GRAD_TOL for e in err32.values())} above {TRAIN_GRAD_TOL}), worst "
+        f"{_worst(err32)}; whole gradient against the CPU's float64 step: GPU "
+        f"{_whole_error(grads32['gpu'], exact):.3e}, CPU {_whole_error(grads32['cpu'], exact):.3e}")
+    worst = 0.0
+    for i, tag in enumerate(("step 1", "padded step")):
+        err64 = _grad_errors(grads64["gpu"][i], grads64["cpu"][i])
+        worst = max(worst, max(err64.values()))
+        say(f"[train check] {tag} float64 gradients, GPU vs CPU: worst parameter "
+            f"{max(err64.values()):.3e} of its norm (tolerance {TRAIN_GRAD64_TOL}), whole "
+            f"gradient {_whole_error(grads64['gpu'][i], grads64['cpu'][i]):.3e}; worst "
+            f"{_worst(err64)}")
+    if rel[0] > TRAIN_LOSS_RTOL or pad_rel > TRAIN_LOSS_RTOL or max(rel[1:]) > TRAIN_LATER_RTOL:
+        raise AssertionError(f"train check: GPU and CPU losses differ: {rel}, padded {pad_rel}")
+    if worst > TRAIN_GRAD64_TOL:
+        raise AssertionError(f"train check: float64 gradients differ by {worst} of their norm")
+    return {"loss_rel": rel, "pad_loss_rel": pad_rel, "grad64_err": worst}
+
+
+@contextlib.contextmanager
+def _float64_losses():
+    """The criteria cast their inputs to float32, as mmtpu's do; the float64
+    reference step keeps float64 through the loss."""
+    import torch
+
+    from mmtpu_torch.train import losses
+
+    cast = losses._as_float
+    losses._as_float = lambda x: torch.as_tensor(x).double()
+    try:
+        yield
+    finally:
+        losses._as_float = cast
+
+
+def _as_float64(batch: dict) -> dict:
+    return {k: v.astype(np.float64) if v.dtype == np.float32 else v for k, v in batch.items()}
+
+
+def phase_train(dev, card: str, work: Path) -> dict:
+    """Monomodal audio pretraining, the pretrained fine-tune and the same
+    fine-tune from scratch, each through its entry point's `main` on the
+    card; then a profiled window of train steps and the GPU-vs-CPU check."""
+    import torch
+
+    from mmtpu_torch.cli import common, train_monomodal, train_multimodal
+
+    out_root = work / "train"
+    paths = {}
+    for key, cfg in train_configs(str(out_root)).items():
+        paths[key] = work / f"train_{key}.json"
+        paths[key].write_text(json.dumps(cfg))
+
+    mono = _run_cli(train_monomodal, paths["mono"], "[train mono]", out_root, MONO_NAME)
+    handoff = mono["models"] / "encoder_audio_best.pth"
+    if not handoff.exists():
+        raise AssertionError(f"train_monomodal wrote no handoff {handoff}")
+
+    loaded = []
+    real_load = common.load_pretrained_encoders
+
+    def spy(model, pretrained, logging_cfg):  # the fine-tune's audio encoder as loaded
+        out = real_load(model, pretrained, logging_cfg)
+        loaded.append({k: v.detach().cpu().clone()
+                       for k, v in model.audio_encoder.state_dict().items()})
+        return out
+
+    common.load_pretrained_encoders = spy
+    try:
+        reset_counts()
+        pre = _run_cli(train_multimodal, paths["pretrained"], "[train pretrained]", out_root,
+                       "Synthetic_AVMNIST_Multimodal_Pretrained")
+        launches = read_counts()["fused_mlp"]
+        scratch = _run_cli(train_multimodal, paths["scratch"], "[train scratch]", out_root,
+                           SCRATCH_NAME)
+    finally:
+        common.load_pretrained_encoders = real_load
+
+    want = torch.load(handoff, map_location="cpu", weights_only=True)
+    if len(loaded) != 2 or set(loaded[0]) != set(want) or not all(
+            torch.equal(loaded[0][k], v) for k, v in want.items()):
+        raise AssertionError("the fine-tune's audio encoder is not the handoff file's")
+    if loaded[1] and all(torch.equal(loaded[1][k], v) for k, v in want.items()):
+        raise AssertionError("the scratch fine-tune loaded the handoff")
+    patterns = 3
+    per_split = {s: -(-TRAIN_SAMPLES[s] * patterns // TRAIN_BATCH)
+                 for s in ("validation", "test")}
+    expected = TRAIN_EPOCHS * per_split["validation"] + per_split["test"]
+    say(f"[train pretrained] the audio encoder at epoch 0 equals {handoff.name} "
+        f"({len(want)} tensors, statistics included)")
+    if launches != expected:
+        raise AssertionError(f"fused_mlp launched {launches} times in the fine-tune, expected "
+                             f"{TRAIN_EPOCHS} × {per_split['validation']} validation + "
+                             f"{per_split['test']} test batches = {expected}")
+    for tag, run in (("mono", mono), ("pretrained", pre), ("scratch", scratch)):
+        say_card(card, f"[train {tag}] {run['seconds']:.2f} s through main (start-up, data "
+                 f"and checkpoints included); epoch {TRAIN_EPOCHS} train {run['epoch_s']:.3f} s "
+                 f"= {run['samples_per_s']:.1f} samples/s (B={TRAIN_BATCH}); peak device "
+                 f"memory {run['peak_bytes'] / 2**20:.1f} MiB (max_memory_allocated)")
+        for epoch, ((tr, va), rec) in enumerate(zip(run["losses"], run["validation"]), 1):
+            say(f"[train {tag}] epoch {epoch}: train loss {tr:.6f}, validation loss {va:.6f}, "
+                f"validation accuracy {_accuracies(rec)}")
+        say(f"[train {tag}] test {_accuracies(run['test'])}, loss {run['test']['loss']:.6f}")
+    say(f"[train pretrained] fused_mlp launches in the fine-tune: {launches} = "
+        f"{TRAIN_EPOCHS} × {per_split['validation']} validation + {per_split['test']} test "
+        f"batches (none in a train forward)")
+    say(f"[train] first-epoch train loss, pretrained vs scratch: "
+        f"{pre['losses'][0][0]:.6f} vs {scratch['losses'][0][0]:.6f} (synthetic data; "
+        f"no threshold)")
+
+    profile = phase_train_profile(dev, card, paths["pretrained"])
+    check = phase_train_check(dev, paths["pretrained"])
+    return {"launches": launches, "mono": mono, "pretrained": pre, "scratch": scratch,
+            "profile": profile, "check": check}
+
+
 def kernel_record(name: str, source: str, replaces: str, shape: str, kern: dict, t: dict,
                   pred: dict, srv: dict) -> dict:
     return {
@@ -877,9 +1208,14 @@ def kernel_record(name: str, source: str, replaces: str, shape: str, kern: dict,
     }
 
 
-def main() -> int:
+def main(argv=None) -> int:
     import torch
 
+    parser = argparse.ArgumentParser(description="Smoke run of mmtpu_torch on one GPU")
+    parser.add_argument("--train-only", action="store_true",
+                        help="build the kernels and run the training phase alone (no "
+                             "kernels or ok line)")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU",
               file=sys.stderr)
@@ -894,12 +1230,20 @@ def main() -> int:
     say(f"[device] {name}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     phase_build()
-    mlp = phase_kernels_mlp(dev)
-    lstm = phase_kernels_lstm(dev)
-
     cache = ROOT / ".cache"
     cache.mkdir(exist_ok=True)
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_", dir=cache))
+    if args.train_only:
+        try:
+            t0 = time.perf_counter()
+            phase_train(dev, smi, work)
+            say(f"[summary] training phase {time.perf_counter() - t0:.1f} s")
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        return 0
+
+    mlp = phase_kernels_mlp(dev)
+    lstm = phase_kernels_lstm(dev)
     try:
         av_cfg = work / "avmnist.json"
         av_cfg.write_text(json.dumps(smoke_config(out_root=str(work / "out"))))
@@ -909,6 +1253,9 @@ def main() -> int:
         mosi_cfg.write_text(json.dumps(mosi_smoke_config(out_root=str(work / "out"))))
         mosi_pred = phase_predict(dev, work, mosi_cfg, MOSI_PATH)
         mosi_srv = phase_serve(mosi_cfg, MOSI_PATH, mosi_requests())
+        t_train = time.perf_counter()
+        train = phase_train(dev, smi, work)
+        t_train = time.perf_counter() - t_train
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -916,15 +1263,20 @@ def main() -> int:
         say(f"[summary] {label}: predict {pred['steady_visits_per_s']:.1f} visits/s steady; "
             f"serve {srv['requests_per_s']:.1f} requests/s (no-model ceiling "
             f"{srv['null_requests_per_s']:.1f})")
+    say_card(smi, f"[summary] training: mono {train['mono']['samples_per_s']:.1f}, pretrained "
+          f"fine-tune {train['pretrained']['samples_per_s']:.1f}, scratch "
+          f"{train['scratch']['samples_per_s']:.1f} train samples/s (epoch {TRAIN_EPOCHS}); "
+          f"busy share {train['profile']['busy_share']:.3f}; phase {t_train:.1f} s")
     say(f"[summary] fused_mlp B=1024 {json.dumps(mlp['timings'][1024])}")
     for shape, t in lstm["timings"].items():
         say(f"[summary] lstm G,B,T,H={shape} {json.dumps(t)}")
     say(f"[summary] {time.perf_counter() - t_start:.1f} s in all")
     G, B, T, H = LSTM_MAIN
     print(json.dumps({"kernels": [
-        kernel_record("fused_mlp", "mmtpu_torch/ops/csrc/fused_mlp.cu",
-                      "mmtpu/ops/fused_mlp.py:63", "B=128, 192-128-64-10, float32",
-                      mlp, mlp["timings"][128], av_pred, av_srv),
+        {**kernel_record("fused_mlp", "mmtpu_torch/ops/csrc/fused_mlp.cu",
+                         "mmtpu/ops/fused_mlp.py:63", "B=128, 192-128-64-10, float32",
+                         mlp, mlp["timings"][128], av_pred, av_srv),
+         "train_launches": train["launches"]},
         {**kernel_record("lstm", "mmtpu_torch/ops/csrc/lstm.cu", "mmtpu/ops/lstm.py:61",
                          f"G={G}, B={B}, T={T}, H={H}, float32; library_ms is {G} nn.LSTM "
                          "calls, projection included (with_projection_ms is ours with it)",

@@ -22,7 +22,9 @@ Unlike mmtpu's reader, which keeps a leaf's initial value when it finds no
 source for it, this conversion raises on any leaf it cannot map and — given
 the target — on any target tensor left unfilled or misshapen.
 
-The port writes and reads plain `state_dict` `.pth` files. For the ResNet
+The port writes plain `state_dict` `.pth` files (`save_pth`, and the
+encoder handoff) and training checkpoints holding one under "model";
+`load_pth` reads both. For the ResNet
 and AVMNIST families their keys are the layout mmtpu's
 `load_torch_checkpoint` reads; an LSTMEncoder's are mmtpu's fused names
 (above), which that reader does not take.
@@ -58,6 +60,21 @@ def _torch_prefix(flax_path: str) -> str:
 def _key(flax_path: str, name: str) -> str:
     prefix = _torch_prefix(flax_path)
     return f"{prefix}.{name}" if prefix else name
+
+
+def mmtpu_param_path(name: str, param: torch.Tensor) -> str:
+    """The `/`-joined path mmtpu gives the parameter that the port calls
+    `name` (`audio_encoder.layer1.0.conv1.weight` →
+    `audio_encoder/layer1_0/conv1/kernel`): the inverse of the mapping
+    above, so optimizer group regexes written against mmtpu's paths select
+    the same parameters in both packages."""
+    prefix, _, leaf = name.rpartition(".")
+    for ours, theirs in _NAME_RULES:
+        prefix = prefix.replace(theirs, ours)
+    prefix = re.sub(r"layer(\d+)\.(\d+)", r"layer\1_\2", prefix).replace(".", "/")
+    if leaf not in _RAW_LEAVES:
+        leaf = {"bias": "bias", "weight": "kernel" if param.dim() > 1 else "scale"}[leaf]
+    return f"{prefix}/{leaf}" if prefix else leaf
 
 
 def _leaves(tree: Mapping[str, Any], prefix: str = ""):
@@ -140,10 +157,13 @@ def save_pth(model: nn.Module, path: Union[str, Path]) -> Path:
 
 
 def load_pth(model: nn.Module, path: Union[str, Path]) -> nn.Module:
-    """Load a plain state_dict `.pth` into `model` (strict; tensors only —
-    `weights_only=True` never unpickles arbitrary objects)."""
-    state: Dict[str, torch.Tensor] = torch.load(
-        str(path), map_location="cpu", weights_only=True
-    )
+    """Load a `.pth` into `model` (strict). Takes both layouts the port
+    writes: a plain state_dict, and a training checkpoint that holds it
+    under "model" (`best.pth`, `epoch_N.pth`, `last.pth`, see
+    `checkpoints/manager.py`). `weights_only=True`: tensors and plain
+    containers only, never arbitrary objects."""
+    state: Dict[str, Any] = torch.load(str(path), map_location="cpu", weights_only=True)
+    if isinstance(state.get("model"), Mapping):
+        state = state["model"]
     model.load_state_dict(state, strict=True)
     return model

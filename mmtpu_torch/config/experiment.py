@@ -1,12 +1,13 @@
 """Experiment-level configuration (counterpart of
-`mmtpu/config/experiment.py`, the fields the serving path and the AVMNIST
-configs use).
+`mmtpu/config/experiment.py`, the fields the serving and training paths
+read).
 
 `device` is kept so mmtpu configs load unchanged, but the port does not
 read it: its entry points run on `cuda` unless the caller passes `--cpu`.
 `precision` maps onto PyTorch's float32 switches
-(`mmtpu_torch.cli.common.apply_precision`). No global RNG is seeded here;
-weights and data are made from explicit generators seeded with `seed`.
+(`mmtpu_torch.cli.common.apply_precision`). No global RNG is seeded here:
+weights and data are made from explicit generators seeded with `seed`, and
+the training entry points seed torch's generator (dropout) at run start.
 """
 
 from __future__ import annotations
@@ -26,8 +27,13 @@ class ExperimentConfig(BaseConfig):
     run_id: int = field(default_factory=lambda: int(time.time()))
     is_test: bool = True
     is_train: bool = True
+    train_print_interval_epochs: int = 1
+    dry_run: bool = False
+    cross_validation: Optional[int] = None
     precision: Optional[str] = None
 
     def __post_init__(self) -> None:
         if self.seed is None:
             self.seed = int(time.time())
+        if self.train_print_interval_epochs < 1:
+            raise ValueError("train_print_interval_epochs must be >= 1")

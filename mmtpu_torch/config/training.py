@@ -6,8 +6,10 @@ registry (`mmtpu_torch.config.yaml_tags`), or a `.json` file; `from_parsed`
 assembles the same config from a plain dict (model tags spelled
 ``{"__module_spec__": name, ...}``), so a program can build its config
 without PyYAML.
-The optimizer, metrics and monitoring sections are kept as plain mappings:
-the serving path does not read them, and training is not ported yet.
+The optimizer sections become `OptimizerConfig`s and the metrics section a
+`MetricConfig` (whose dotted metric names are resolved when a recorder is
+built, not at load: `predict` and `serve` never read them); the monitoring
+section stays a plain mapping (the monitor is not ported).
 """
 
 from __future__ import annotations
@@ -19,25 +21,28 @@ from mmtpu_torch.config.base import BaseConfig
 from mmtpu_torch.config.data import DataConfig
 from mmtpu_torch.config.experiment import ExperimentConfig
 from mmtpu_torch.config.logging_ import LoggingConfig
+from mmtpu_torch.config.metrics import MetricConfig
 from mmtpu_torch.config.model import ModelConfig
+from mmtpu_torch.config.optim import OptimizerConfig
 from mmtpu_torch.train.losses import LossFunctionGroup
 
 
 @dataclass
 class TrainingConfig(BaseConfig):
-    """The training section as the AVMNIST configs write it. Serving reads
-    only `loss_functions`; the optimizer sections stay plain mappings until
-    training is ported."""
+    """The training section: epochs, the optimizer (and the encoders'
+    optimizer with per-encoder overrides), the scheduler, early stopping and
+    the loss terms."""
 
     epochs: int
     num_modalities: int
-    optimizer: Dict[str, Any]
+    optimizer: OptimizerConfig
     loss_functions: LossFunctionGroup
     scheduler: Optional[str] = None
     scheduler_args: Dict[str, Any] = field(default_factory=dict)
     early_stopping: bool = False
     early_stopping_patience: int = 10
-    encoder_optimizer: Optional[Dict[str, Any]] = None
+    early_stopping_min_delta: float = 0.001
+    encoder_optimizer: Optional[OptimizerConfig] = None
     modality_specific_params: Optional[Dict[str, Dict[str, Any]]] = None
 
     @classmethod
@@ -46,6 +51,9 @@ class TrainingConfig(BaseConfig):
         # YAML uses `scheduler_kwargs`; accept both spellings
         if "scheduler_kwargs" in data and "scheduler_args" not in data:
             data["scheduler_args"] = data.pop("scheduler_kwargs")
+        data["optimizer"] = OptimizerConfig.from_dict(data["optimizer"])
+        if data.get("encoder_optimizer") is not None:
+            data["encoder_optimizer"] = OptimizerConfig.from_dict(data["encoder_optimizer"])
         data["loss_functions"] = LossFunctionGroup.from_dict(
             data.get("loss_functions") or {}
         )
@@ -57,6 +65,9 @@ class TrainingConfig(BaseConfig):
 
     def to_dict(self) -> Dict[str, Any]:
         out = super().to_dict()
+        out["optimizer"] = self.optimizer.to_dict()
+        if self.encoder_optimizer is not None:
+            out["encoder_optimizer"] = self.encoder_optimizer.to_dict()
         out["loss_functions"] = self.loss_functions.to_dict()
         return out
 
@@ -68,7 +79,7 @@ class StandardMultimodalConfig(BaseConfig):
     model: ModelConfig
     logging: LoggingConfig
     training: TrainingConfig
-    metrics: Dict[str, Any] = field(default_factory=dict)
+    metrics: MetricConfig = field(default_factory=MetricConfig)
     monitoring: Dict[str, Any] = field(default_factory=dict)
 
     @classmethod
@@ -99,7 +110,7 @@ class StandardMultimodalConfig(BaseConfig):
             model=ModelConfig.from_dict(raw["model"]),
             logging=logging_cfg,
             training=TrainingConfig.from_dict(raw["training"]),
-            metrics=dict(raw.get("metrics") or {}),
+            metrics=MetricConfig.from_dict(raw.get("metrics") or {}),
             monitoring=dict(raw.get("monitoring") or {}),
         )
 

@@ -4,10 +4,9 @@ FcEncoder: (Linear → ReLU [→ BN] [→ Dropout]) stack. FcClassifier: the sam
 stack + an output Linear. SimpleClassifier / MaxPoolFc: small heads of the
 MSA models. Key names as in mmtpu: `fc_{i}`, `bn_{i}`, `fc_out`, `C`, `fc`.
 
-`use_bn` is `nn.BatchNorm1d`: at eval it normalises with the running
-statistics, as mmtpu does. mmtpu's training statistics leave out zero-padded
-tail rows (mmtpu/models/norm.py); that masking is not ported yet, so these
-modules are for the eval path until training lands.
+`use_bn` is the pad-aware `models/norm.py` BatchNorm: at eval it
+normalises with the running statistics; in training its statistics leave
+out zero-padded tail rows, as mmtpu's do.
 """
 
 from __future__ import annotations
@@ -17,6 +16,8 @@ from typing import Sequence
 import torch
 from torch import nn
 from torch.nn import functional as F
+
+from mmtpu_torch.models.norm import BatchNorm
 
 
 class _FcStack(nn.Module):
@@ -33,7 +34,7 @@ class _FcStack(nn.Module):
         for i, width in enumerate(self.layers):
             setattr(self, f"fc_{i}", nn.Linear(width_in, width))
             if use_bn:
-                setattr(self, f"bn_{i}", nn.BatchNorm1d(width))
+                setattr(self, f"bn_{i}", BatchNorm(width))
             width_in = width
 
     def stack(self, x: torch.Tensor) -> torch.Tensor:

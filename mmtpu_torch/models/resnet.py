@@ -6,8 +6,8 @@ reference's key names (`conv1`, `bn1`, `layer1.0.conv1`, `downsample.0/1`,
 `fc`), so a port `state_dict` is a reference-layout `.pth`.
 
 Inputs are NHWC, as mmtpu's loader emits them ((B, H, W) gets a channel
-axis); the encoder permutes to NCHW inside. BatchNorm: eps 1e-5; flax's
-momentum 0.9 is torch's momentum 0.1.
+axis); the encoder permutes to NCHW inside. BatchNorm is the pad-aware
+`models/norm.py` one: eps 1e-5; flax's momentum 0.9 is torch's momentum 0.1.
 """
 
 from __future__ import annotations
@@ -17,12 +17,11 @@ from typing import Sequence, Type, Union
 import torch
 from torch import nn
 
-BN_EPS = 1e-5
-BN_MOMENTUM = 0.1  # = 1 - flax momentum 0.9
+from mmtpu_torch.models.norm import BatchNorm
 
 
-def _bn(channels: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(channels, eps=BN_EPS, momentum=BN_MOMENTUM)
+def _bn(channels: int) -> BatchNorm:
+    return BatchNorm(channels)
 
 
 class BasicBlock(nn.Module):

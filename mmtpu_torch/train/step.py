@@ -1,21 +1,33 @@
-"""Eval step of the port (counterpart of `apply_missing_mask`,
-`ClassificationTask` and `make_eval_step`, mmtpu/train/step.py).
+"""Train and eval steps of the port (counterpart of `apply_missing_mask`,
+`ClassificationTask`, `train_step_core`, `make_train_step` and
+`make_eval_step`, mmtpu/train/step.py).
 
 A missing modality is zeroed in the RAW input before its encoder, by the
 batch's `{mod}_mask` — not in the embedding: with BatchNorm running
 statistics a zeroed image still gives a non-zero embedding, as in mmtpu.
-In the port the model holds its weights, so the step takes only the batch.
+In the port the model holds its weights, so a step takes only the batch
+(and the train step the `TrainState`). Outputs stay on the device: the
+loop copies them to the host once per epoch.
+
+The train step runs the train-mode forward with the batch's sample mask
+published to BatchNorm (`models/norm.py`), the padded-row-masked loss,
+backward, the optional global-norm clip and `optimizer.step()`. The mask
+is published only when the host batch has padded rows, so a full batch
+takes BatchNorm's fused kernels. The AVMNIST head trains on its plain
+chain, as in mmtpu; its kernel runs in the eval forward.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Mapping, Sequence
+from typing import Callable, Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 
+from mmtpu_torch.models.norm import batch_mask
 from mmtpu_torch.train.losses import LossFunctionGroup
+from mmtpu_torch.train.state import TrainState
 
 
 def apply_missing_mask(x: torch.Tensor, mask) -> torch.Tensor:
@@ -41,19 +53,80 @@ class ClassificationTask:
     loss_group: LossFunctionGroup
     input_keys: Sequence[str] = ("audio", "image")
 
-    def apply(self, batch: Mapping[str, torch.Tensor], *, train: bool) -> torch.Tensor:
-        inputs = [
-            apply_missing_mask(batch[k], batch.get(f"{k}_mask"))
-            for k in self.input_keys
-        ]
+    def inputs(self, batch: Mapping[str, torch.Tensor]):
+        return [apply_missing_mask(batch[k], batch.get(f"{k}_mask")) for k in self.input_keys]
+
+    def apply(self, batch: Mapping[str, torch.Tensor], *, train: bool,
+              bn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The forward; `bn_mask` is published to BatchNorm (train mode)."""
         self.model.train(train)
-        return self.model(*inputs)
+        with batch_mask(bn_mask):
+            return self.model(*self.inputs(batch))
 
     def predictions(self, logits: torch.Tensor) -> torch.Tensor:
         return logits.argmax(dim=-1)
 
     def loss(self, logits, batch, sample_mask=None) -> torch.Tensor:
         return self.loss_group(logits, batch["labels"], sample_mask=sample_mask)["total_loss"]
+
+
+class MonomodalTask(ClassificationTask):
+    """Reads the raw, unmasked modality (monomodal pretraining, as
+    mmtpu/cli/train_monomodal.py:186-197)."""
+
+    def inputs(self, batch: Mapping[str, torch.Tensor]):
+        return [batch[k] for k in self.input_keys]
+
+
+def _outputs(task, batch, loss, logits, sample_mask) -> Dict[str, torch.Tensor]:
+    out = {"loss": loss, "preds": task.predictions(logits), "labels": batch["labels"]}
+    if "pattern_id" in batch:
+        out["pattern_id"] = batch["pattern_id"]
+    if sample_mask is not None:
+        out["sample_mask"] = sample_mask
+    return out
+
+
+def train_step_core(task: ClassificationTask, state: TrainState,
+                    batch: Mapping[str, torch.Tensor], padded: bool = True):
+    """One gradient step on a batch already on the device. `padded`: the
+    batch has padded rows, so BatchNorm gets the sample mask. Returns
+    (loss, logits, sample_mask); the loss is detached."""
+    sample_mask = batch.get("sample_mask")
+    logits = task.apply(batch, train=True, bn_mask=sample_mask if padded else None)
+    loss = task.loss(logits, batch, sample_mask=sample_mask)
+    state.optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    if state.clip:
+        clip_by_global_norm(state.model.parameters(), state.clip)
+    state.optimizer.step()
+    state.step += 1
+    return loss.detach(), logits.detach(), sample_mask
+
+
+def clip_by_global_norm(params, max_norm: float) -> None:
+    """optax.clip_by_global_norm: scale every gradient by max_norm / norm
+    when the global norm is at least max_norm."""
+    grads = [p.grad for p in params if p.grad is not None]
+    norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+    factor = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
+    for g in grads:
+        g.mul_(factor)
+
+
+def make_train_step(task: ClassificationTask, state: TrainState,
+                    device: torch.device) -> Callable:
+    """(numpy batch) → dict of tensors on `device`: loss, preds, labels,
+    and pattern_id / sample_mask when the batch has them."""
+
+    def step(batch: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        mask = batch.get("sample_mask")
+        padded = mask is not None and not np.all(mask > 0)
+        batch = to_device(batch, device)
+        loss, logits, sample_mask = train_step_core(task, state, batch, padded)
+        return _outputs(task, batch, loss, logits, sample_mask)
+
+    return step
 
 
 def make_eval_step(task: ClassificationTask, device: torch.device) -> Callable:
@@ -65,16 +138,7 @@ def make_eval_step(task: ClassificationTask, device: torch.device) -> Callable:
         batch = to_device(batch, device)
         logits = task.apply(batch, train=False)
         sample_mask = batch.get("sample_mask")
-        out = {
-            "loss": task.loss(logits, batch, sample_mask=sample_mask),
-            "preds": task.predictions(logits),
-            "labels": batch["labels"],
-            "logits": logits,
-        }
-        if "pattern_id" in batch:
-            out["pattern_id"] = batch["pattern_id"]
-        if sample_mask is not None:
-            out["sample_mask"] = sample_mask
-        return out
+        loss = task.loss(logits, batch, sample_mask=sample_mask)
+        return {**_outputs(task, batch, loss, logits, sample_mask), "logits": logits}
 
     return step

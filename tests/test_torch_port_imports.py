@@ -2,7 +2,8 @@
 imports JAX, flax, optax, or the `mmtpu` package (the name is matched
 exactly, so `mmtpu_torch` itself passes). The card's machine has none of
 them, and neither has PyYAML, which the port may import only inside its
-YAML loader."""
+YAML loader, nor pandas, sklearn, matplotlib or msgpack, which the port
+never imports (its metrics are its own numpy versions of sklearn's)."""
 
 import ast
 from pathlib import Path
@@ -11,6 +12,7 @@ import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "mmtpu"}
+HOST_ONLY = {"pandas", "sklearn", "matplotlib", "msgpack"}
 PORT_FILES = sorted((REPO / "mmtpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
 
 
@@ -28,6 +30,13 @@ def _imports(tree):
 def test_no_jax_or_mmtpu_imports(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     bad = sorted({name for name, _ in _imports(tree) if name in FORBIDDEN})
+    assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_no_host_only_libraries(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = sorted({name for name, _ in _imports(tree) if name in HOST_ONLY})
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
 
 
