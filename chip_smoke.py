@@ -39,9 +39,19 @@ FcClassifier 192→[192, 64, 32]→3; batch 32, aligned T = 50):
              `fused_mlp` must run once per validation and test batch and in
              no train forward), and again from scratch; then a profiled
              window of train steps, and the first three train steps (and one
-             with a padded tail) on the card against the CPU.
+             with a padded tail) on the card against the CPU;
+6. train utt — MOSI UttFusion training through `train_multimodal.main` at
+             the published widths on synthetic_mosi at CMU-MOSI's split
+             sizes (1284 train, 229 validation, 686 test; T = 50, batch 32,
+             2 epochs, train pattern `atv` with audio and video missing at
+             0.2, evaluation over the seven patterns): `lstm` must launch
+             once per train, validation and test batch; the MSA keys of
+             test_metrics.json; a profiled window of 8 train steps
+             (launches per step, busy share); the first three train steps
+             (where `clip` scales the gradients) and the epoch's padded
+             tail on the card against the CPU.
 
-    python3 chip_smoke.py --train-only    # build, then phase 5 alone
+    python3 chip_smoke.py --train-only    # build, then phases 5 and 6 alone
 
 Prints a `kernels` JSON line, the card's name and power limit, and as the
 last line `{"ok": true, "device": {...}}`. Any failure exits non-zero
@@ -176,12 +186,13 @@ def smoke_config(num_samples: int = 1000, batch_size: int = 128,
 
 
 def mosi_smoke_config(num_samples: int = 686, batch_size: int = 32, seq_len: int = 50,
-                      out_root: str = "./experiments_output") -> dict:
+                      out_root: str = "./experiments_output", train_samples: int = 128,
+                      validation_samples: int = 64) -> dict:
     """The plain-dict twin of configs/mosi/synthetic_utt_fusion.yaml with the
     model at its published widths (LSTM hidden 64 and pooling 'last', TextCNN
-    with 128 channels, FcClassifier 192→[192, 64, 32]→3); the test split's
-    size is this run's (686 is the size of the real MOSI test split), the
-    rest is the file's."""
+    with 128 channels, FcClassifier 192→[192, 64, 32]→3); the split sizes
+    are this run's (686 is the size of the real MOSI test split; the file
+    has 128 / 64 / 64), the rest is the file's."""
     def split(name, n, rates, **extra):
         return {
             "dataset": "synthetic_mosi",
@@ -200,7 +211,7 @@ def mosi_smoke_config(num_samples: int = 686, batch_size: int = 32, seq_len: int
         "video": {"missing_rate": 0.2, "apply_to": ["atv"]},
         "text": {"missing_rate": 0.0},
     }
-    train = split("train", 128, dropped, shuffle=True)
+    train = split("train", train_samples, dropped, shuffle=True)
     train["missing_patterns"]["selected_patterns"] = ["atv"]
     name = "Synthetic_MOSI_UttFusion"
     return {
@@ -235,7 +246,7 @@ def mosi_smoke_config(num_samples: int = 686, batch_size: int = 32, seq_len: int
         "data": {
             "datasets": {
                 "train": train,
-                "validation": split("valid", 64, present),
+                "validation": split("valid", validation_samples, present),
                 "test": split("test", num_samples, present),
             },
         },
@@ -337,6 +348,10 @@ def device_breakdown(fn, top: int = 6) -> dict:
     return {
         "device_ms": total_ms,
         "profiled_wall_ms": wall_ms,
+        # kernels the device ran, and the host's launch calls
+        "kernel_events": sum(e.count for e in kernels),
+        "launch_calls": sum(e.count for e in events if e not in kernels
+                            and "LaunchKernel" in e.key),
         # by the names of the __global__ functions in mmtpu_torch/ops/csrc
         "own_ms": {name: sum(v for k, v in dev_us.items() if f"{name}_kernel" in k) / 1e3
                    for name in kernel_counters()},
@@ -921,7 +936,8 @@ def say_card(card: str, msg: str) -> None:
     say(f"{msg} [{card}]")
 
 
-def _run_cli(module, cfg_path: Path, tag: str, out_root: Path, name: str) -> dict:
+def _run_cli(module, cfg_path: Path, tag: str, out_root: Path, name: str,
+             train_samples: int = TRAIN_SAMPLES["train"]) -> dict:
     """`module.main` on the card through its normal flags; what it wrote."""
     import torch
 
@@ -947,7 +963,7 @@ def _run_cli(module, cfg_path: Path, tag: str, out_root: Path, name: str) -> dic
     train_s = epochs[-1]["train"]["timing"]["total_time"]
     return {"seconds": seconds, "peak_bytes": torch.cuda.max_memory_allocated(),
             "losses": losses, "validation": validation, "test": test[0],
-            "samples_per_s": TRAIN_SAMPLES["train"] / train_s, "epoch_s": train_s,
+            "samples_per_s": train_samples / train_s, "epoch_s": train_s,
             "models": out_root / name / "models" / "1"}
 
 
@@ -965,14 +981,16 @@ def _train_batches(cfg_path: Path, n: int):
 
 
 def _training_setup(cfg, dev):
-    """Model, state and train step as `train_multimodal` builds them."""
+    """Model, state and train step as `train_multimodal` builds them (the
+    model's `clip`, where it has one, as the global-norm clip)."""
     from mmtpu_torch.cli import common
     from mmtpu_torch.train.step import ClassificationTask, make_train_step
 
     model = common.init_model(common.build_model_from_config(cfg.model), SEED, dev)
-    state = common.make_state(model, cfg.training)
-    task = ClassificationTask(model=model, loss_group=cfg.training.loss_functions,
-                              input_keys=["audio", "image"])
+    state = common.make_state(model, cfg.training, clip=cfg.model.kwargs.get("clip"))
+    task = ClassificationTask(
+        model=model, loss_group=cfg.training.loss_functions,
+        input_keys=[str(m) for m in common.modalities_for_model(cfg.model.model_type)])
     return model, state, make_train_step(task, state, dev)
 
 
@@ -1186,6 +1204,221 @@ def phase_train(dev, card: str, work: Path) -> dict:
             "profile": profile, "check": check}
 
 
+# The UttFusion training phase: the published widths (mosi_smoke_config) on
+# synthetic_mosi at CMU-MOSI's split sizes, the file's batch, epochs, train
+# pattern and missing rates.
+UTT_SAMPLES = {"train": 1284, "validation": 229, "test": 686}
+UTT_BATCH = 32
+UTT_PATTERNS = 7  # validation and test: every pattern over {a, t, v}
+UTT_NAME = "Synthetic_MOSI_UttFusion"
+UTT_LOSS_RTOL = 1e-5  # step 1 and the padded step, GPU (TF32 off) vs CPU
+UTT_GRAD_TOL = 1e-4  # of each parameter's gradient norm, step 1, float32
+
+
+def utt_train_config(out_root: str, dropout: bool = True) -> dict:
+    """configs/mosi/synthetic_utt_fusion.yaml at the published widths and
+    CMU-MOSI's split sizes; `dropout=False` sets TextCNN's and
+    FcClassifier's dropout to 0 (the GPU-vs-CPU check)."""
+    cfg = mosi_smoke_config(num_samples=UTT_SAMPLES["test"], batch_size=UTT_BATCH,
+                            out_root=out_root, train_samples=UTT_SAMPLES["train"],
+                            validation_samples=UTT_SAMPLES["validation"])
+    cfg["training"]["epochs"] = TRAIN_EPOCHS
+    if not dropout:
+        for net in ("netT", "netC"):
+            cfg["model"][net]["dropout"] = 0.0
+    return cfg
+
+
+def utt_expected_launches() -> dict:
+    """`lstm` launches of the run: one per train, validation and test batch
+    as the loader forms them (train one pattern, the others seven)."""
+    train = -(-UTT_SAMPLES["train"] // UTT_BATCH)
+    per = {s: -(-UTT_SAMPLES[s] * UTT_PATTERNS // UTT_BATCH) for s in ("validation", "test")}
+    return {"train": train, **per,
+            "total": TRAIN_EPOCHS * (train + per["validation"]) + per["test"]}
+
+
+@contextlib.contextmanager
+def _clip_norms(norms: list):
+    """Record the global gradient norm each train step clips (before the
+    clip), as the step computes it."""
+    import torch
+
+    from mmtpu_torch.train import step as step_mod
+
+    real = step_mod.clip_by_global_norm
+
+    def spy(params, max_norm):
+        params = list(params)
+        norms.append(torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(p.grad) for p in params if p.grad is not None])).item())
+        return real(params, max_norm)
+
+    step_mod.clip_by_global_norm = spy
+    try:
+        yield
+    finally:
+        step_mod.clip_by_global_norm = real
+
+
+def phase_train_utt_profile(dev, card: str, cfg_path: Path, steps: int = 8) -> dict:
+    """A window of UttFusion train steps under the profiler: launches per
+    step, the device's busy share, and the `lstm` launches (one per step)."""
+    import torch
+
+    cfg, batches = _train_batches(cfg_path, 3 + steps)
+    _, _, step = _training_setup(cfg, dev)
+    for b in batches[:3]:
+        step(b)
+    torch.cuda.synchronize()
+    reset_counts()
+    brk = device_breakdown(lambda: [step(b) for b in batches[3:]], top=8)
+    counts = read_counts()
+    busy = brk["device_ms"] / brk["profiled_wall_ms"]
+    say_card(card, f"[train utt profile] {steps} UttFusion train steps (B={UTT_BATCH}, T=50): "
+             f"{brk['kernel_events'] / steps:.1f} device kernels and "
+             f"{brk['launch_calls'] / steps:.1f} host launch calls per step; device busy "
+             f"{brk['device_ms']:.3f} ms of "
+             f"{brk['profiled_wall_ms']:.3f} ms wall, busy share {busy:.3f}; lstm launches "
+             f"{counts['lstm']} (device time {brk['own_ms']['lstm']:.4f} ms, "
+             f"{brk['own_calls']['lstm']} recorded); top device operations (name, ms, count) "
+             f"{brk['top']}; top host operations by self CPU time (name, ms, count) "
+             f"{brk['top_host']}")
+    if counts["lstm"] != steps:
+        raise AssertionError(f"lstm launched {counts['lstm']} times in {steps} train steps")
+    return {"busy_share": busy, "kernels_per_step": brk["kernel_events"] / steps,
+            "launch_calls_per_step": brk["launch_calls"] / steps}
+
+
+def phase_train_utt_check(dev, cfg_path: Path) -> dict:
+    """UttFusion's first three train steps from the same initial weights
+    (dropout 0, TF32 off) on the card and on the CPU, where `clip` scales
+    the gradients, then the epoch's padded tail (4 real rows of 32) from the
+    CPU's weights after step 3 on both: losses, and the step-1 gradients of
+    every parameter against its norm in float32 (no BatchNorm on this path;
+    the kernel takes float32 only). Both devices' float32 gradients are also
+    set against a float64 step on the CPU (plain scan)."""
+    import torch
+
+    cfg, batches = _train_batches(cfg_path, 3)
+    loader = cfg.data.build_loader("train", seed=cfg.experiment.seed)
+    padded = list(loader)[-1]
+    real_rows = int(padded["sample_mask"].sum())
+    if real_rows != UTT_SAMPLES["train"] % UTT_BATCH:
+        raise AssertionError(f"the train split's last batch holds {real_rows} real rows")
+    cpu = torch.device("cpu")
+    clip = float(cfg.model.kwargs["clip"])
+
+    def grads_of(model):
+        return {n: p.grad.detach().cpu().clone() for n, p in model.named_parameters()}
+
+    models, losses, grads32, norms = {}, {}, {}, {}
+    for label, device in (("gpu", dev), ("cpu", cpu)):
+        norms[label] = []
+        with _clip_norms(norms[label]):
+            model, _, step = _training_setup(cfg, device)
+            losses[label] = []
+            for b in batches:
+                losses[label].append(float(step(b)["loss"]))
+                grads32.setdefault(label, grads_of(model))
+            models[label] = (model, step)
+    weights = models["cpu"][0].state_dict()  # after step 3
+    models["gpu"][0].load_state_dict(weights)
+    pad_loss, pad_grads = {}, {}
+    for label, (model, step) in models.items():
+        pad_loss[label] = float(step(padded)["loss"])
+        pad_grads[label] = grads_of(model)
+
+    model64, _, step64 = _training_setup(cfg, cpu)
+    model64.double()
+    with _float64_losses():
+        loss64 = float(step64(_as_float64(batches[0]))["loss"])
+    exact = grads_of(model64)
+
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses["gpu"], losses["cpu"])]
+    pad_rel = abs(pad_loss["gpu"] - pad_loss["cpu"]) / abs(pad_loss["cpu"])
+    say(f"[train utt check] float32 losses of steps 1-3, GPU {losses['gpu']}, CPU "
+        f"{losses['cpu']}: relative differences {rel} (tolerances {UTT_LOSS_RTOL}, then "
+        f"{TRAIN_LATER_RTOL}); float64 CPU step 1 {loss64}; global gradient norms before the "
+        f"clip {clip}: GPU {norms['gpu'][:3]}, CPU {norms['cpu'][:3]}; padded tail of "
+        f"{UTT_BATCH - real_rows} rows, one step from the same weights: GPU {pad_loss['gpu']}, "
+        f"CPU {pad_loss['cpu']} (relative {pad_rel:.3e}, tolerance {UTT_LOSS_RTOL}); TF32 off")
+    err32 = _grad_errors(grads32["gpu"], grads32["cpu"])
+    pad_err = _grad_errors(pad_grads["gpu"], pad_grads["cpu"])
+    against64 = {label: _grad_errors(grads32[label], exact) for label in ("gpu", "cpu")}
+    say(f"[train utt check] step-1 float32 gradients after the clip, {len(err32)} parameters: "
+        f"GPU vs CPU worst parameter {max(err32.values()):.3e} of its norm (tolerance "
+        f"{UTT_GRAD_TOL}; {sum(e > UTT_GRAD_TOL for e in err32.values())} above), whole "
+        f"gradient {_whole_error(grads32['gpu'], grads32['cpu']):.3e}, worst {_worst(err32)}; "
+        f"against the CPU's float64 step: GPU worst parameter "
+        f"{max(against64['gpu'].values()):.3e}, whole {_whole_error(grads32['gpu'], exact):.3e}"
+        f"; CPU worst parameter {max(against64['cpu'].values()):.3e}, whole "
+        f"{_whole_error(grads32['cpu'], exact):.3e}; padded step GPU vs CPU worst parameter "
+        f"{max(pad_err.values()):.3e}, worst {_worst(pad_err)}")
+    if not (norms["gpu"][0] > clip and norms["cpu"][0] > clip):
+        raise AssertionError(f"step 1's gradient norms {norms['gpu'][0]}, {norms['cpu'][0]} do "
+                             f"not exceed clip {clip}: the check would not exercise it")
+    if rel[0] > UTT_LOSS_RTOL or pad_rel > UTT_LOSS_RTOL or max(rel[1:]) > TRAIN_LATER_RTOL:
+        raise AssertionError(f"train utt check: GPU and CPU losses differ: {rel}, padded "
+                             f"{pad_rel}")
+    if max(err32.values()) > UTT_GRAD_TOL:
+        raise AssertionError(f"train utt check: step-1 gradients differ by "
+                             f"{max(err32.values())} of their norm ({_worst(err32)})")
+    return {"loss_rel": rel, "pad_loss_rel": pad_rel, "grad_err": max(err32.values()),
+            "pad_grad_err": max(pad_err.values()), "norm": norms["gpu"][0]}
+
+
+def phase_train_utt(dev, card: str, work: Path) -> dict:
+    """UttFusion training through `train_multimodal.main` on the card: the
+    `lstm` kernel in every train and eval forward (counted against the
+    loader's batches), the MSA keys of test_metrics.json, then a profiled
+    window of train steps and the GPU-vs-CPU check."""
+    from mmtpu_torch.cli import train_multimodal
+
+    out_root = work / "train_utt"
+    cfg_path = work / "train_utt.json"
+    cfg_path.write_text(json.dumps(utt_train_config(str(out_root))))
+    expected = utt_expected_launches()
+    reset_counts()
+    run = _run_cli(train_multimodal, cfg_path, "[train utt]", out_root, UTT_NAME,
+                   train_samples=UTT_SAMPLES["train"])
+    counts = read_counts()
+    if counts["lstm"] != expected["total"] or counts["fused_mlp"]:
+        raise AssertionError(
+            f"UttFusion training launched {counts}; expected lstm {TRAIN_EPOCHS} × "
+            f"({expected['train']} train + {expected['validation']} validation) + "
+            f"{expected['test']} test batches = {expected['total']} and no fused_mlp")
+    msa_keys = sorted(k for k in run["test"] if k.startswith("MSA_"))
+    bad = [k for k in msa_keys if not np.isfinite(run["test"][k])]
+    if len(msa_keys) != 20 * UTT_PATTERNS or bad:
+        raise AssertionError(f"test_metrics.json: {len(msa_keys)} MSA keys, not finite {bad}")
+    epochs = json.loads((out_root / UTT_NAME / "metrics/1/epoch_metrics.json").read_text())
+    if "weighted" not in epochs[0]["validation"]:
+        raise AssertionError("epoch_metrics.json: the MSA keys are not nested as mmtpu nests them")
+    models = sorted(p.name for p in run["models"].iterdir())
+    if not {"best.pth", "last.pth", "epoch_1.pth"} <= set(models):
+        raise AssertionError(f"UttFusion run wrote {models}")
+    say_card(card, f"[train utt] {run['seconds']:.2f} s through main (start-up, data and "
+             f"checkpoints included); epoch {TRAIN_EPOCHS} train {run['epoch_s']:.3f} s = "
+             f"{run['samples_per_s']:.1f} samples/s (B={UTT_BATCH}, T=50, "
+             f"{UTT_SAMPLES['train']} samples); peak device memory "
+             f"{run['peak_bytes'] / 2**20:.1f} MiB (max_memory_allocated)")
+    say(f"[train utt] lstm launches {counts['lstm']} = {TRAIN_EPOCHS} × ({expected['train']} "
+        f"train + {expected['validation']} validation) + {expected['test']} test batches; "
+        f"fused_mlp {counts['fused_mlp']}; checkpoints {models}")
+    for epoch, ((tr, va), rec) in enumerate(zip(run["losses"], run["validation"]), 1):
+        say(f"[train utt] epoch {epoch}: train loss {tr:.6f}, validation loss {va:.6f}, "
+            f"validation accuracy {_accuracies(rec)}")
+    say(f"[train utt] test_metrics.json: {len(msa_keys)} MSA keys ({msa_keys[:3]} …); ATV "
+        f"{ {k: run['test'][k] for k in msa_keys if k.endswith('_ATV')} }; test accuracy "
+        f"{_accuracies(run['test'])}")
+    profile = phase_train_utt_profile(dev, card, cfg_path)
+    check_path = work / "train_utt_check.json"
+    check_path.write_text(json.dumps(utt_train_config(str(out_root), dropout=False)))
+    check = phase_train_utt_check(dev, check_path)
+    return {"launches": counts["lstm"], "run": run, "profile": profile, "check": check}
+
+
 def kernel_record(name: str, source: str, replaces: str, shape: str, kern: dict, t: dict,
                   pred: dict, srv: dict) -> dict:
     return {
@@ -1237,7 +1470,10 @@ def main(argv=None) -> int:
         try:
             t0 = time.perf_counter()
             phase_train(dev, smi, work)
-            say(f"[summary] training phase {time.perf_counter() - t0:.1f} s")
+            t1 = time.perf_counter()
+            phase_train_utt(dev, smi, work)
+            say(f"[summary] training phases: AVMNIST {t1 - t0:.1f} s, UttFusion "
+                f"{time.perf_counter() - t1:.1f} s")
         finally:
             shutil.rmtree(work, ignore_errors=True)
         return 0
@@ -1255,7 +1491,9 @@ def main(argv=None) -> int:
         mosi_srv = phase_serve(mosi_cfg, MOSI_PATH, mosi_requests())
         t_train = time.perf_counter()
         train = phase_train(dev, smi, work)
-        t_train = time.perf_counter() - t_train
+        t_utt = time.perf_counter()
+        utt = phase_train_utt(dev, smi, work)
+        t_train, t_utt = t_utt - t_train, time.perf_counter() - t_utt
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1267,6 +1505,11 @@ def main(argv=None) -> int:
           f"fine-tune {train['pretrained']['samples_per_s']:.1f}, scratch "
           f"{train['scratch']['samples_per_s']:.1f} train samples/s (epoch {TRAIN_EPOCHS}); "
           f"busy share {train['profile']['busy_share']:.3f}; phase {t_train:.1f} s")
+    say_card(smi, f"[summary] UttFusion training: {utt['run']['samples_per_s']:.1f} train "
+             f"samples/s (epoch {TRAIN_EPOCHS}); {utt['profile']['kernels_per_step']:.1f} device "
+             f"kernels per train step, busy share {utt['profile']['busy_share']:.3f}; lstm "
+             f"launches {utt['launches']}; peak {utt['run']['peak_bytes'] / 2**20:.1f} MiB; "
+             f"phase {t_utt:.1f} s")
     say(f"[summary] fused_mlp B=1024 {json.dumps(mlp['timings'][1024])}")
     for shape, t in lstm["timings"].items():
         say(f"[summary] lstm G,B,T,H={shape} {json.dumps(t)}")
@@ -1281,6 +1524,7 @@ def main(argv=None) -> int:
                          f"G={G}, B={B}, T={T}, H={H}, float32; library_ms is {G} nn.LSTM "
                          "calls, projection included (with_projection_ms is ours with it)",
                          lstm, lstm["timings"][LSTM_MAIN], mosi_pred, mosi_srv),
+         "train_launches": utt["launches"],
          "with_projection_ms": lstm["timings"][LSTM_MAIN]["with_projection_ms"],
          "grad_max_abs_err": lstm["grad_err"],
          "serial_steps": T},

@@ -16,7 +16,12 @@ port `state_dict` under the reference's torch key names:
   stores an LSTM under mmtpu's fused names — `wi.weight`, `wi.bias`, `wh`,
   gate order [i, f, g, o], one bias — and not under the reference's
   `rnn.weight_ih_l0 …` keys, which hold two biases and transposed,
-  [i, f, g, o]-by-rows matrices.
+  [i, f, g, o]-by-rows matrices;
+- an `LSTMEncoder(backend='rnn')` keeps flax's per-gate cell,
+  `OptimizedLSTMCell_0/{ii,if,ig,io}/kernel` and `…/{hi,hf,hg,ho}/{kernel,
+  bias}`, which the Dense rule above carries to
+  `OptimizedLSTMCell_0.{gate}.weight` / `.bias` (`if` is a key of a
+  `ModuleDict`, never an attribute).
 
 Unlike mmtpu's reader, which keeps a leaf's initial value when it finds no
 source for it, this conversion raises on any leaf it cannot map and — given

@@ -4,11 +4,15 @@
         [--seed S] [--epochs N] [--dry-run] [--skip-train] [--skip-test] [--resume] [--cpu]
 
 Trains `model_type: AVMNIST` (the late-fusion model, with the pretrained
-encoders the config names), then tests the best checkpoint over the
-missing-modality patterns and writes the reports. Validation and test run
-the eval forward, whose fusion head is the `fused_mlp` kernel on the GPU.
-Other model types, cross-validation and the stacked runs are not ported
-yet and raise.
+encoders the config names) and MOSI UttFusion (`utt-fusion`, `utt_fusion`,
+`UttFusionModel`: audio, video and text, the model's `clip` as the
+global-norm gradient clip), then tests the best checkpoint over the
+missing-modality patterns and writes the reports. On the GPU the AVMNIST
+fusion head runs the `fused_mlp` kernel in validation and test, and
+UttFusion's two LSTM encoders run the `lstm` kernel, one launch per forward,
+in every train and eval step. Other model types (MMIN, RedCore, Self-MM
+among them), cross-validation and the stacked runs are not ported yet and
+raise.
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ from pathlib import Path
 
 from mmtpu_torch.cli import common
 
-PORTED_MODEL_TYPES = ("avmnist",)
+PORTED_MODEL_TYPES = ("avmnist", "utt-fusion", "utt_fusion", "uttfusionmodel")
 
 
 def main(argv=None) -> int:

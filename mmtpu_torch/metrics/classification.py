@@ -5,8 +5,9 @@ name, with sklearn's semantics (the card's machine has no sklearn).
 `precision_score` / `recall_score` / `f1_score` / `fbeta_score` (`average`
 None | 'binary' | 'micro' | 'macro' | 'weighted', `labels`, `pos_label`,
 `zero_division` 'warn' | 0 | 1 | nan) and `balanced_accuracy_score`
-(`adjusted`), over 1-D integer label vectors (binary or multiclass).
-Multilabel and sample-weighted inputs are not covered.
+(`adjusted`), over 1-D integer label vectors (binary or multiclass). Empty
+vectors raise `ValueError`, as in sklearn. Multilabel and sample-weighted
+inputs are not covered.
 """
 
 from __future__ import annotations
@@ -26,6 +27,9 @@ def _vectors(y_true, y_pred):
     if y_true.shape != y_pred.shape:
         raise ValueError(f"inconsistent numbers of samples: {y_true.shape[0]}, "
                          f"{y_pred.shape[0]}")
+    if y_true.shape[0] == 0:  # as sklearn: every metric refuses empty input
+        raise ValueError("Found empty input array (e.g., `y_true` or `y_pred`) while a "
+                         "minimum of 1 sample is required.")
     return y_true, y_pred
 
 

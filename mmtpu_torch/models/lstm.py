@@ -1,19 +1,32 @@
 """LSTM sequence encoder (counterpart of `LSTMEncoder`, `can_stack_pair` and
 `encode_pair_stacked`, mmtpu/models/lstm.py).
 
-mmtpu's fused parameter layout under mmtpu's names: `wi` is the input
-projection `nn.Linear(I, 4H)` (weight and one bias), `wh` a raw (H, 4H)
-recurrent matrix, gate order `[i, f, g, o]`; `attention_layer` and the raw
-(H, 1) `attention_vector_weight` exist only for `embd_method='attention'`.
-The recurrence runs through `mmtpu_torch.ops.lstm`: on CUDA tensors the
-hand-written kernel, on the CPU the plain scan.
+Two parameter layouts, as in mmtpu, under mmtpu's names:
+- `backend='fused'`: `wi` is the input projection `nn.Linear(I, 4H)`
+  (weight and one bias), `wh` a raw (H, 4H) recurrent matrix, gate order
+  `[i, f, g, o]`;
+- `backend='rnn'`: flax's `nn.RNN(OptimizedLSTMCell)`, whose parameters
+  mmtpu's checkpoints hold as a top-level `OptimizedLSTMCell_0` with one
+  Dense per gate: `ii`, `if`, `ig`, `io` over the input (no bias) and `hi`,
+  `hf`, `hg`, `ho` over h (with bias).
+`attention_layer` and the raw (H, 1) `attention_vector_weight` exist only
+for `embd_method='attention'`.
+
+Both layouts compute the same recurrence, so both run through
+`mmtpu_torch.ops.lstm` (on CUDA tensors the hand-written kernel, on the CPU
+the plain scan): the per-gate weights are concatenated into the fused
+layout for each call. The two differ only in how lengths are taken. The
+fused backend freezes h and c once `t ≥ len` (mmtpu's `lstm_sequence`);
+flax's RNN runs every step and returns the carry at index `len - 1`
+(`_select_last_carry`: `len = 0` wraps to the last step, `len > T` clamps to
+it), so the `rnn` backend runs the recurrence without lengths and picks that
+carry from the outputs.
 
 Pooling methods: 'last' (the last state under length masking), 'attention'
 (softmax(u·tanh(W·h))·h), 'maxpool'; padded steps are masked to -inf out of
 the attention and maxpool reductions when lengths are given.
 
-mmtpu's `backend='rnn'` (flax's per-gate layout) and `LSTMClassifier` are
-not ported yet.
+mmtpu's `LSTMClassifier` is not ported yet.
 """
 
 from __future__ import annotations
@@ -21,11 +34,15 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from mmtpu_torch.ops.lstm import lstm_sequence, lstm_sequence_stacked
 
 EMBD_METHODS = ("last", "attention", "maxpool")
+BACKENDS = ("fused", "rnn")
+GATES = ("i", "f", "g", "o")  # the kernel's gate order
+RNN_CELL = "OptimizedLSTMCell_0"  # where mmtpu's checkpoints keep the rnn backend's cell
 
 
 class LSTMEncoder(nn.Module):
@@ -34,18 +51,24 @@ class LSTMEncoder(nn.Module):
         super().__init__()
         if embd_method not in EMBD_METHODS:
             raise ValueError(f"embd_method {embd_method!r} not in {EMBD_METHODS}")
-        if backend != "fused":
-            raise ValueError(
-                f"LSTMEncoder backend {backend!r} is not ported to mmtpu_torch yet "
-                "(only 'fused')"
-            )
+        if backend not in BACKENDS:
+            raise ValueError(f"LSTMEncoder backend {backend!r} not in {BACKENDS}")
         self.input_size = input_size
         self.hidden_size = hidden_size
         self.embd_method = embd_method
         self.backend = backend
-        self.wi = nn.Linear(input_size, 4 * hidden_size)
-        self.wh = nn.Parameter(torch.empty(hidden_size, 4 * hidden_size))
-        nn.init.orthogonal_(self.wh)
+        if backend == "fused":
+            self.wi = nn.Linear(input_size, 4 * hidden_size)
+            self.wh = nn.Parameter(torch.empty(hidden_size, 4 * hidden_size))
+            nn.init.orthogonal_(self.wh)
+        else:
+            cell = nn.ModuleDict()
+            for gate in GATES:
+                cell[f"i{gate}"] = nn.Linear(input_size, hidden_size, bias=False)
+            for gate in GATES:
+                cell[f"h{gate}"] = nn.Linear(hidden_size, hidden_size)
+                nn.init.orthogonal_(cell[f"h{gate}"].weight)
+            self.add_module(RNN_CELL, cell)
         if embd_method == "attention":
             self.attention_layer = nn.Linear(hidden_size, hidden_size)
             self.attention_vector_weight = nn.Parameter(torch.empty(hidden_size, 1))
@@ -56,9 +79,17 @@ class LSTMEncoder(nn.Module):
 
     def project(self, x: torch.Tensor):
         """The input projection x·Wi + b (the parallel GEMM) and the recurrent
-        weights: what a host model needs to advance several encoders'
-        recurrences in one launch."""
-        return self.wi(x), self.wh
+        weights (H, 4H): what a host model needs to advance several encoders'
+        recurrences in one launch. The rnn backend's per-gate weights are
+        concatenated into that layout, gate order [i, f, g, o], with the
+        biases of its h-Dense layers as the one bias."""
+        if self.backend == "fused":
+            return self.wi(x), self.wh
+        cell = getattr(self, RNN_CELL)
+        wi = torch.cat([cell[f"i{gate}"].weight for gate in GATES])
+        bias = torch.cat([cell[f"h{gate}"].bias for gate in GATES])
+        wh = torch.cat([cell[f"h{gate}"].weight.t() for gate in GATES], dim=1)
+        return F.linear(x, wi, bias), wh
 
     def pool(self, outputs: torch.Tensor, carry_h: torch.Tensor,
              lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -81,10 +112,25 @@ class LSTMEncoder(nn.Module):
 
     def forward(self, x: torch.Tensor, lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
         xw, wh = self.project(x)
-        outputs, (carry_h, _) = lstm_sequence(
-            xw, wh, lengths=lengths.to(torch.int32) if lengths is not None else None,
-        )
+        if self.backend == "rnn":
+            outputs, (carry_h, _) = lstm_sequence(xw, wh)
+            if lengths is not None:
+                carry_h = _carry_at(outputs, lengths)
+        else:
+            outputs, (carry_h, _) = lstm_sequence(
+                xw, wh, lengths=lengths.to(torch.int32) if lengths is not None else None,
+            )
         return self.pool(outputs, carry_h, lengths)
+
+
+def _carry_at(outputs: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """flax's `_select_last_carry` for h: row b's output at step len_b - 1,
+    an index of -1 taken from the end and one past T clamped to T - 1, as a
+    JAX gather takes them."""
+    T = outputs.shape[1]
+    idx = lengths.to(device=outputs.device, dtype=torch.long) - 1
+    idx = torch.where(idx < 0, idx + T, idx).clamp(0, T - 1)
+    return outputs[torch.arange(outputs.shape[0], device=outputs.device), idx]
 
 
 # mmtpu registers the reference's near-duplicate LSTMEncoder2 as an alias.
@@ -93,11 +139,13 @@ LSTMEncoder2 = LSTMEncoder
 
 def can_stack_pair(netA: nn.Module, netV: nn.Module, A, V) -> bool:
     """True when two sibling encoders' recurrences can be advanced by one
-    launch: both LSTMEncoders with equal hidden size over aligned (B, T)
-    sequence inputs."""
+    launch: both fused LSTMEncoders with equal hidden size over aligned
+    (B, T) sequence inputs (mmtpu's rule: two `rnn` encoders do not stack,
+    though the arithmetic would come out the same)."""
     return (
         A is not None and V is not None
         and type(netA) is LSTMEncoder and type(netV) is LSTMEncoder
+        and netA.backend == "fused" and netV.backend == "fused"
         and netA.hidden_size == netV.hidden_size
         and A.dim() == 3 and V.dim() == 3
         and A.shape[0] == V.shape[0] and A.shape[1] == V.shape[1]

@@ -5,8 +5,8 @@ the CPU, so the same seed gives the same weights on any device. The
 distributions follow the flax modules' initialisers: convolutions
 He-normal over fan-out, Linear weights LeCun-normal (untruncated), biases
 zero, BatchNorm scale 1 / shift 0 with running mean 0 and variance 1; an
-LSTMEncoder's recurrent matrix orthogonal and its attention vector
-LeCun-normal.
+LSTMEncoder's recurrent matrix orthogonal (the `rnn` backend: each gate's
+recurrent kernel) and its attention vector LeCun-normal.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ import math
 import torch
 from torch import nn
 
-from mmtpu_torch.models.lstm import LSTMEncoder
+from mmtpu_torch.models.lstm import GATES, RNN_CELL, LSTMEncoder
 
 
 @torch.no_grad()
@@ -34,13 +34,20 @@ def seeded_init(model: nn.Module, seed: int) -> nn.Module:
                 0.0, math.sqrt(1.0 / m.in_features), generator=g
             )
             m.weight.copy_(w)
-            m.bias.zero_()
+            if m.bias is not None:
+                m.bias.zero_()
         elif isinstance(m, nn.modules.batchnorm._BatchNorm):
             m.reset_parameters()
         elif isinstance(m, LSTMEncoder):  # its raw parameters; `wi` is a Linear
-            nn.init.orthogonal_(m.wh, generator=g)
+            if m.backend == "fused":
+                nn.init.orthogonal_(m.wh, generator=g)
             if m.embd_method == "attention":
                 m.attention_vector_weight.normal_(
                     0.0, math.sqrt(1.0 / m.hidden_size), generator=g
                 )
+    for m in model.modules():  # after the Linear rule above has drawn them
+        if isinstance(m, LSTMEncoder) and m.backend == "rnn":
+            cell = getattr(m, RNN_CELL)
+            for gate in GATES:
+                nn.init.orthogonal_(cell[f"h{gate}"].weight, generator=g)
     return model

@@ -25,6 +25,18 @@ from mmtpu_torch.config.metrics import MetricConfig
 logger = logging.getLogger(__name__)
 
 
+def _first_seen(batch_of: np.ndarray, ids: np.ndarray) -> list:
+    """The pattern ids in the order mmtpu's recorder first files them (it
+    splits batch by batch): by the first batch that holds each, ties by id.
+    That order is the order of the result keys and of the JSON files."""
+    n = int(ids.max(initial=0)) + 1
+    order = []
+    for key in np.unique(batch_of.astype(np.int64) * n + ids):
+        if key % n not in order:
+            order.append(int(key % n))
+    return order
+
+
 class MetricRecorder:
     def __init__(self, config: MetricConfig) -> None:
         self.config = config
@@ -65,10 +77,12 @@ class MetricRecorder:
                 return torch.cat([torch.as_tensor(it[i]) for it in items]).cpu().numpy()
 
             preds, targets, ids = host(0), host(1), host(2)
+            batch_of = np.repeat(np.arange(len(items)), [it[0].shape[0] for it in items])
             if all(it[4] is not None for it in items):
                 keep = host(4).astype(bool)
                 preds, targets, ids = preds[keep], targets[keep], ids[keep]
-            for pid in np.unique(ids):
+                batch_of = batch_of[keep]
+            for pid in _first_seen(batch_of, ids):
                 sel = ids == pid
                 self.group_data[group][vocab[int(pid)]].append((preds[sel], targets[sel]))
         self._deferred.clear()

@@ -13,8 +13,12 @@ The train step runs the train-mode forward with the batch's sample mask
 published to BatchNorm (`models/norm.py`), the padded-row-masked loss,
 backward, the optional global-norm clip and `optimizer.step()`. The mask
 is published only when the host batch has padded rows, so a full batch
-takes BatchNorm's fused kernels. The AVMNIST head trains on its plain
-chain, as in mmtpu; its kernel runs in the eval forward.
+takes BatchNorm's fused kernels. The clip scales the raw gradients before
+the optimizer adds Adam's coupled L2 term, the order of mmtpu's optax chain.
+The AVMNIST head trains on its plain chain, as in mmtpu; its kernel runs in
+the eval forward. UttFusion's two LSTMs run the `lstm` kernel in the train
+forward as well (one launch for both), differentiated through the plain
+scan's recompute (`ops/lstm.py`).
 """
 
 from __future__ import annotations

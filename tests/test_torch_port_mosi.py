@@ -131,10 +131,83 @@ def test_lstm_encoder_refuses_what_is_not_ported():
     from mmtpu_torch.models import LSTMEncoder, LSTMEncoder2
 
     assert LSTMEncoder2 is LSTMEncoder
-    with pytest.raises(ValueError, match="not ported"):
-        LSTMEncoder(5, 8, backend="rnn")
+    with pytest.raises(ValueError, match="backend"):
+        LSTMEncoder(5, 8, backend="cudnn")
     with pytest.raises(ValueError, match="embd_method"):
         LSTMEncoder(5, 8, embd_method="mean")
+
+
+@pytest.mark.parametrize("with_len", [False, True], ids=["full", "lengths"])
+@pytest.mark.parametrize("embd_method", ["last", "attention", "maxpool"])
+def test_lstm_encoder_rnn_backend_matches_mmtpu(embd_method, with_len):
+    """backend='rnn' (flax's per-gate OptimizedLSTMCell under mmtpu's
+    checkpoint names) through from_jax_variables: outputs and input
+    gradients. Lengths include 0 (flax's carry index -1 wraps to the last
+    step) and lengths past T (clamped), where `last` pooling differs from
+    the fused backend's freeze. Past T, JAX's gather clamps the index in the
+    forward but its transpose drops the cotangent (an out-of-bounds scatter),
+    so those rows get no gradient in mmtpu; no data has such lengths, and
+    the gradients are compared on the other rows."""
+    from mmtpu.models.lstm import LSTMEncoder as JaxLSTMEncoder
+    from mmtpu_torch.models import LSTMEncoder
+
+    g = np.random.default_rng(10)
+    T = 6
+    x = g.normal(size=(8, T, 5)).astype(np.float32)
+    lengths = np.array([0, 1, 3, 6, 7, 9, 2, 5], np.int32) if with_len else None
+    jm = JaxLSTMEncoder(input_size=5, hidden_size=8, embd_method=embd_method, backend="rnn")
+    pm = LSTMEncoder(input_size=5, hidden_size=8, embd_method=embd_method, backend="rnn")
+    v = _carry(jm, pm, x)
+    assert {k for k in pm.state_dict() if k.startswith("OptimizedLSTMCell_0.")} == {
+        f"OptimizedLSTMCell_0.{n}.{leaf}" for n in ("ii", "if", "ig", "io", "hi", "hf", "hg",
+                                                     "ho")
+        for leaf in (("weight", "bias") if n[0] == "h" else ("weight",))}
+    jl = None if lengths is None else jnp.asarray(lengths)
+    want, want_vjp = jax.vjp(lambda xx: jm.apply(v, xx, jl), jnp.asarray(x))
+    xt = torch.from_numpy(x).requires_grad_()
+    got = pm(xt, None if lengths is None else torch.from_numpy(lengths))
+    finite = np.isfinite(np.asarray(want))  # maxpool over no valid step is -inf in both
+    np.testing.assert_array_equal(np.isfinite(got.detach().numpy()), finite)
+    np.testing.assert_allclose(got.detach().numpy()[finite], np.asarray(want)[finite],
+                               rtol=1e-5, atol=1e-5)
+    if embd_method == "attention" and with_len:
+        return  # softmax over no valid step is NaN in both; no gradient to compare
+    cot = np.where(finite, g.normal(size=want.shape), 0.0).astype(np.float32)
+    (want_gx,) = want_vjp(jnp.asarray(cot))
+    (got_gx,) = torch.autograd.grad(got, xt, torch.from_numpy(cot))
+    rows = slice(None) if lengths is None else lengths <= T
+    np.testing.assert_allclose(got_gx.numpy()[rows], np.asarray(want_gx)[rows], rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_rnn_encoders_do_not_stack_and_utt_fusion_matches_mmtpu(monkeypatch):
+    """Two rnn encoders take one recurrence each, as in mmtpu
+    (`can_stack_pair` asks for the fused backend); logits as mmtpu's."""
+    from mmtpu.models import build_module as jbuild
+    from mmtpu_torch.models import build_module as pbuild
+    from mmtpu_torch.models import can_stack_pair
+    from mmtpu_torch.models import lstm as plstm
+
+    def make(build):
+        return build(
+            "utt_fusion",
+            netA=build("lstmencoder", input_size=5, hidden_size=8, backend="rnn"),
+            netV=build("lstmencoder", input_size=20, hidden_size=8, backend="rnn"),
+            netT=build("textcnn", input_size=40, embd_size=6, out_channels=5, dropout=0.5),
+            netC=build("fcclassifier", input_dim=22, layers=[12], output_dim=3, dropout=0.5),
+        )
+
+    calls = []
+    real = plstm.lstm_sequence
+    monkeypatch.setattr(plstm, "lstm_sequence",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    g = np.random.default_rng(11)
+    ins = [g.normal(size=(4, 6, w)).astype(np.float32) for w in (5, 20, 40)]
+    jm, pm = make(jbuild), make(pbuild)
+    v = _carry(jm, pm, *ins)
+    assert not can_stack_pair(pm.netA, pm.netV, *[torch.from_numpy(x) for x in ins[:2]])
+    _close(pm(*[torch.from_numpy(x) for x in ins]), jm.apply(v, *[jnp.asarray(x) for x in ins]))
+    assert len(calls) == 2
 
 
 def test_textcnn_matches_mmtpu():

@@ -9,6 +9,7 @@ statistics 1e-5 absolute after the steps; schedules, stop decisions and
 metric values exactly (metrics to 1e-12)."""
 
 import math
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -44,6 +45,7 @@ from mmtpu_torch.train.step import ClassificationTask, make_train_step
 
 TOL = 1e-5
 CPU = torch.device("cpu")
+REPO = Path(__file__).resolve().parent.parent
 
 
 def _perturb(variables, seed):
@@ -478,6 +480,11 @@ def test_param_path_inverts_the_carry():
         (jax_lstm.LSTMEncoder(input_size=5, hidden_size=8, embd_method="attention"),
          (np.zeros((2, 7, 5), np.float32),),
          build_module("lstmencoder", input_size=5, hidden_size=8, embd_method="attention")),
+        (jax_lstm.LSTMEncoder(input_size=5, hidden_size=8, embd_method="attention",
+                              backend="rnn"),
+         (np.zeros((2, 7, 5), np.float32),),
+         build_module("lstmencoder", input_size=5, hidden_size=8, embd_method="attention",
+                      backend="rnn")),
         (jax_build_module("fcclassifier", **FC), (np.zeros((2, 12), np.float32),),
          build_module("fcclassifier", **FC)),
     ]
@@ -686,9 +693,11 @@ def test_sklearn_names_resolve_to_the_ports_metrics():
     assert import_dotted("sklearn.metrics.f1_score") is classification.f1_score
     assert import_dotted("numpy.mean") is np.mean
     from mmtpu_torch.config.metrics import MetricDef
+    from mmtpu_torch.metrics import msa
 
+    assert MetricDef("metrics.msa_binary_classification").load() is msa.msa_binary_classification
     with pytest.raises(ValueError, match="cannot import"):
-        MetricDef("metrics.msa_binary_classification").load()
+        MetricDef("metrics.no_such_metric").load()
 
 
 def test_recorder_keys_and_values_match_mmtpu():
@@ -740,7 +749,6 @@ def test_train_order_matches_mmtpu_loader_and_schedule():
     from mmtpu.data.avmnist import SyntheticAVMNIST as JaxSynthetic
     from mmtpu.data.loader import BatchLoader as JaxLoader
     from mmtpu.modalities import Modality as JaxModality
-    from mmtpu.train.device_loop import build_schedule
 
     from mmtpu_torch.data import BatchLoader, SyntheticAVMNIST
     from mmtpu_torch.modalities import Modality
@@ -756,13 +764,49 @@ def test_train_order_matches_mmtpu_loader_and_schedule():
     theirs = JaxLoader(jds, batch_size=16, shuffle=True, seed=13)
     keys = ("sample_idx", "pattern_id", "sample_mask", "audio_mask", "image_mask", "labels",
             "audio", "image")
+    _assert_same_train_order(ours, theirs, jds, keys, batches=3, seed=13)
+
+
+def test_mosi_train_order_matches_mmtpu_loader_and_schedule(tmp_path):
+    """The same for MOSI's train split as configs/mosi/synthetic_utt_fusion.yaml
+    builds it in each package (pattern `atv`, audio and video each missing
+    with probability 0.2 by per-sample Bernoulli masks, shuffled), at 45
+    samples in batches of 16 and T = 6."""
+    from mmtpu.config import StandardMultimodalConfig as JaxConfig
+    from mmtpu_torch.config import StandardMultimodalConfig
+
+    text = (REPO / "configs/mosi/synthetic_utt_fusion.yaml").read_text()
+    for old, new in (("num_samples: 128", "num_samples: 45\n        seq_len: 6"),
+                     ("batch_size: 32", "batch_size: 16")):
+        assert old in text
+        text = text.replace(old, new)
+    cfg_path = tmp_path / "utt.yaml"
+    cfg_path.write_text(text.replace("./experiments_output", str(tmp_path)))
+    jcfg, pcfg = JaxConfig.load(cfg_path, run_id=1), StandardMultimodalConfig.load(cfg_path,
+                                                                                   run_id=1)
+    theirs = jcfg.data.build_loader("train", seed=jcfg.experiment.seed)
+    ours = pcfg.data.build_loader("train", seed=pcfg.experiment.seed)
+    assert ours.pattern_vocab == theirs.pattern_vocab == ["atv"]
+    masks = np.stack([ours.dataset.mask_stack(m) for m in ours.dataset.arrays])
+    assert 0 < (masks[:2] == 0).sum() and (masks[2] == 1).all()  # text is never dropped
+    keys = ("sample_idx", "pattern_id", "sample_mask", "audio_mask", "video_mask",
+            "text_mask", "labels", "audio", "video", "text")
+    _assert_same_train_order(ours, theirs, theirs.dataset, keys, batches=3,
+                             seed=pcfg.experiment.seed)
+
+
+def _assert_same_train_order(ours, theirs, jds, keys, batches, seed):
+    """Three epochs of the two loaders batch by batch, and the port's
+    against mmtpu's device-loop schedule."""
+    from mmtpu.train.device_loop import build_schedule
+
     for epoch in range(3):
         got, want = list(ours), list(theirs)
-        assert len(got) == len(want) == 3
+        assert len(got) == len(want) == batches
         for a, b in zip(got, want):
             for k in keys:
                 np.testing.assert_array_equal(a[k], np.asarray(b[k]), err_msg=f"{epoch} {k}")
-        sched = build_schedule(jds, 16, epoch, True, 13, "train")
+        sched = build_schedule(jds, 16, epoch, True, seed, "train")
         np.testing.assert_array_equal(np.stack([b["pattern_id"] for b in got]),
                                       sched["pattern_id"])
         np.testing.assert_array_equal(np.stack([b["sample_mask"] for b in got]),

@@ -1,13 +1,17 @@
 """The port's training path on the card against the same code on the CPU:
-the pad-aware BatchNorm in train mode, and one train step of a small
-AVMNIST (padded tail, missing modalities, dropout 0, TF32 off). These need
-an NVIDIA GPU and skip without one. The module imports neither JAX nor
+the pad-aware BatchNorm in train mode, one train step of a small AVMNIST
+(padded tail, missing modalities, dropout 0, TF32 off), and one train step
+of UttFusion at its published widths, whose LSTM forward is the `lstm`
+kernel on the card and the plain scan on the CPU. These need an NVIDIA GPU
+and skip without one. The module imports neither JAX nor
 mmtpu, so on the card's machine run
 
     python -m pytest tests/test_torch_port_train_card.py -m cuda --noconftest
 
 Tolerances: BatchNorm 1e-5 (fp32, the card sums in another order); the
-train step's loss 1e-4 relative and each gradient within 1e-3 of its norm.
+AVMNIST train step's loss 1e-4 relative and each gradient within 1e-3 of
+its norm; the UttFusion step's loss 1e-5 relative and each gradient within
+1e-4 of its norm (no BatchNorm on that path).
 (`chip_smoke.py` checks the full-width model, whose float32 gradients miss
 a float64 step by more than that on either device, against that float64
 step.)"""
@@ -115,3 +119,92 @@ def test_train_step_on_card_matches_cpu(cuda_device):
         assert err <= 1e-3 * max(w.norm().item(), 1e-12), (n, err)
     for k, w in want_stats.items():
         torch.testing.assert_close(stats[k], w, rtol=1e-4, atol=1e-5, msg=k)
+
+
+def _utt_batch(B=16, T=12, padded_from=12, seed=5):
+    g = np.random.default_rng(seed)
+    labels = g.integers(0, 3, size=B).astype(np.int64)
+    batch = {k: (g.normal(size=(B, T, w)) + 0.3 * labels[:, None, None]).astype(np.float32)
+             for k, w in (("audio", 5), ("video", 20), ("text", 768))}
+    for k in ("audio", "video", "text"):
+        batch[f"{k}_mask"] = np.ones(B, np.float32)
+    batch["audio_mask"][1::4] = 0.0
+    batch["video_mask"][2::4] = 0.0
+    batch["text_mask"][3::4] = 0.0
+    batch.update(labels=labels, pattern_id=np.zeros(B, np.int32),
+                 sample_mask=np.ones(B, np.float32))
+    for k in batch:
+        if k != "pattern_id":
+            batch[k][padded_from:] = 0
+    return batch
+
+
+def _utt_step_on(device, batch):
+    from mmtpu_torch.cli import common
+    from mmtpu_torch.config.training import TrainingConfig
+    from mmtpu_torch.models import build_module
+    from mmtpu_torch.ops import lstm_sequence_stacked
+    from mmtpu_torch.train import losses
+    from mmtpu_torch.train.step import ClassificationTask, make_train_step
+
+    model = build_module(
+        "utt-fusion",
+        netA=build_module("lstmencoder", input_size=5, hidden_size=64),
+        netV=build_module("lstmencoder", input_size=20, hidden_size=64),
+        netT=build_module("textcnn", input_size=768, embd_size=64, out_channels=128,
+                          dropout=0.0),
+        netC=build_module("fcclassifier", input_dim=192, layers=[192, 64, 32], output_dim=3,
+                          dropout=0.0),
+        clip=0.5)
+    model = common.init_model(model, 7, device)
+    training = TrainingConfig.from_dict({
+        "epochs": 1, "num_modalities": 3,
+        "optimizer": {"name": "Adam", "default_kwargs": {"lr": 1e-3, "weight_decay": 1e-4}},
+        "loss_functions": {"ce": {"loss_name": "cross_entropy"}}})
+    state = common.make_state(model, training, clip=model.clip)
+    task = ClassificationTask(model=model, loss_group=losses.LossFunctionGroup.from_dict(
+        {"ce": {"loss_name": "cross_entropy"}}), input_keys=["audio", "video", "text"])
+    before = lstm_sequence_stacked.launches
+    out = make_train_step(task, state, device)(batch)
+    grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+    return float(out["loss"]), grads, lstm_sequence_stacked.launches - before
+
+
+@pytest.mark.cuda
+def test_utt_fusion_train_step_on_card_matches_cpu(cuda_device):
+    """One step launches the kernel once (G = 2) on the card; loss and
+    per-parameter gradients (after the clip) as on the CPU."""
+    batch = _utt_batch()
+    loss, grads, launches = _utt_step_on(cuda_device, batch)
+    want_loss, want_grads, cpu_launches = _utt_step_on(torch.device("cpu"), batch)
+    assert (launches, cpu_launches) == (1, 0)
+    assert abs(loss - want_loss) <= 1e-5 * abs(want_loss)
+    for n, w in want_grads.items():
+        err = (grads[n] - w).abs().max().item()
+        assert err <= 1e-4 * max(w.norm().item(), 1e-12), (n, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("embd_method", ["last", "maxpool"])
+def test_rnn_backend_encoder_on_card_matches_cpu(cuda_device, embd_method):
+    """LSTMEncoder(backend='rnn') runs the same kernel on its concatenated
+    per-gate weights; with lengths (0 and past T among them) its output and
+    the gradients of every per-gate weight as on the CPU."""
+    from mmtpu_torch.models import LSTMEncoder, seeded_init
+
+    g = torch.Generator().manual_seed(9)
+    x = torch.randn(8, 12, 5, generator=g)
+    lengths = torch.tensor([0, 1, 4, 12, 13, 7, 2, 9])
+    cot = torch.randn(8, 64, generator=g)
+    results = []
+    for device in (cuda_device, torch.device("cpu")):
+        enc = seeded_init(LSTMEncoder(5, 64, embd_method, backend="rnn"), 3).to(device)
+        out = enc(x.to(device), lengths.to(device))
+        keep = torch.isfinite(out)
+        loss = (torch.where(keep, out, 0.0) * cot.to(device)).sum()
+        grads = torch.autograd.grad(loss, list(enc.parameters()))
+        results.append((out.detach().cpu(), [gr.cpu() for gr in grads]))
+    (out, grads), (want, want_grads) = results
+    torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)
+    for got, w in zip(grads, want_grads):
+        assert (got - w).abs().max().item() <= 1e-4 * max(w.norm().item(), 1e-12)
