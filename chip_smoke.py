@@ -51,7 +51,23 @@ FcClassifier 192→[192, 64, 32]→3; batch 32, aligned T = 50):
              (where `clip` scales the gradients) and the epoch's padded
              tail on the card against the CPU.
 
+7. reader  — the paper's own fine-tune configs (plain-dict twins of
+             configs/avmnist/multimodal_resnet_{pretrained,scratch}.yaml:
+             ResNet18/ResNet34 at full width, the files' optimizer groups,
+             scheduler and metrics, batch 128) fed by the real AVMNIST
+             reader from `.pt` files this run writes (2048/512/512
+             samples): the arrays checked byte for byte and timed from the
+             files and from the `.npy` sidecars; `train_avmnist` on the
+             pretrained twin from phase 5's audio handoff, 2 epochs, with
+             `--profile` and TensorBoard (the trace and the tfevents file
+             must be written; `fused_mlp` exactly 36 launches); the scratch
+             twin as a two-fold cross-validation (`fold_1/`, `fold_2/`, the
+             three `*_metrics_agg.json`; 72 launches) and as a
+             `--stacked-runs 2` sweep at 512/128/128 samples (runs 1 and 2,
+             seeds 42 and 43; twice one member's launches).
+
     python3 chip_smoke.py --train-only    # build, then phases 5 and 6 alone
+    python3 chip_smoke.py --reader-only   # build, the audio pretraining, phase 7
 
 Prints a `kernels` JSON line, the card's name and power limit, and as the
 last line `{"ok": true, "device": {...}}`. Any failure exits non-zero
@@ -937,14 +953,15 @@ def say_card(card: str, msg: str) -> None:
 
 
 def _run_cli(module, cfg_path: Path, tag: str, out_root: Path, name: str,
-             train_samples: int = TRAIN_SAMPLES["train"]) -> dict:
-    """`module.main` on the card through its normal flags; what it wrote."""
+             train_samples: int = TRAIN_SAMPLES["train"], extra=()) -> dict:
+    """`module.main` on the card through its normal flags (and `extra`);
+    what it wrote."""
     import torch
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    rc = module.main(["--config", str(cfg_path), "--run_id", "1"])
+    rc = module.main(["--config", str(cfg_path), "--run_id", "1", *extra])
     seconds = time.perf_counter() - t0
     if rc != 0:
         raise AssertionError(f"{tag}: exit code {rc}")
@@ -965,6 +982,11 @@ def _run_cli(module, cfg_path: Path, tag: str, out_root: Path, name: str,
             "losses": losses, "validation": validation, "test": test[0],
             "samples_per_s": train_samples / train_s, "epoch_s": train_s,
             "models": out_root / name / "models" / "1"}
+
+
+def _eval_batches(counts: dict, batch: int = TRAIN_BATCH, patterns: int = 3) -> dict:
+    """Eval batches per split: samples × patterns (ai/a/i) in batches."""
+    return {s: -(-counts[s] * patterns // batch) for s in ("validation", "test")}
 
 
 def _accuracies(record: dict) -> dict:
@@ -1172,9 +1194,7 @@ def phase_train(dev, card: str, work: Path) -> dict:
         raise AssertionError("the fine-tune's audio encoder is not the handoff file's")
     if loaded[1] and all(torch.equal(loaded[1][k], v) for k, v in want.items()):
         raise AssertionError("the scratch fine-tune loaded the handoff")
-    patterns = 3
-    per_split = {s: -(-TRAIN_SAMPLES[s] * patterns // TRAIN_BATCH)
-                 for s in ("validation", "test")}
+    per_split = _eval_batches(TRAIN_SAMPLES, TRAIN_BATCH)
     expected = TRAIN_EPOCHS * per_split["validation"] + per_split["test"]
     say(f"[train pretrained] the audio encoder at epoch 0 equals {handoff.name} "
         f"({len(want)} tensors, statistics included)")
@@ -1201,7 +1221,7 @@ def phase_train(dev, card: str, work: Path) -> dict:
     profile = phase_train_profile(dev, card, paths["pretrained"])
     check = phase_train_check(dev, paths["pretrained"])
     return {"launches": launches, "mono": mono, "pretrained": pre, "scratch": scratch,
-            "profile": profile, "check": check}
+            "profile": profile, "check": check, "handoff": handoff}
 
 
 # The UttFusion training phase: the published widths (mosi_smoke_config) on
@@ -1419,6 +1439,281 @@ def phase_train_utt(dev, card: str, work: Path) -> dict:
     return {"launches": counts["lstm"], "run": run, "profile": profile, "check": check}
 
 
+# The reader phase: the paper's own fine-tune configs
+# (configs/avmnist/multimodal_resnet_{pretrained,scratch}.yaml) fed by the
+# real AVMNIST reader from `.pt` files this run writes at the train phase's
+# sample counts; the cross-validation and --stacked-runs drivers on the
+# scratch twin.
+PAPER_NAMES = {"pretrained": "AVMNIST_Resnet_Pretrained", "scratch": "AVMNIST_Resnet_Scratch"}
+READER_SPLITS = ("train", "validation", "test")
+SWEEP_SAMPLES = {"train": 512, "validation": 128, "test": 128}
+SPEC_SHAPES = ((32, 94), (32, 100), (28, 94), (36, 120))  # by sample index mod 4
+
+
+def paper_configs(out_root: str, csvs: dict, handoff: Path) -> dict:
+    """Plain-dict twins of multimodal_resnet_pretrained.yaml and
+    multimodal_resnet_scratch.yaml: ResNet18 audio (hidden 64), ResNet34
+    image (hidden 128), head 192→128→64→10 with dropout 0.5, Adam 5e-4 with
+    L2 1e-4 (the pretrained file's encoder groups at 1e-4, L2 2e-4), the
+    plateau scheduler, early stopping after 10, batch 128, the files'
+    metrics. This run's: the CSVs, the audio handoff (the train phase's
+    monomodal run; no image handoff), a TensorBoard path, the output root."""
+    import copy
+
+    patterns = {"modalities": {"audio": {"missing_rate": 0.0},
+                               "image": {"missing_rate": 0.0}}}
+
+    def split(name, selected, **extra):
+        return {"dataset": "AVMNIST", "data_fp": str(csvs[name]),
+                "split": {"validation": "valid"}.get(name, name),
+                "target_modality": "MULTIMODAL", "batch_size": 128, **extra,
+                "missing_patterns": {**patterns, "selected_patterns": selected}}
+
+    metric_names = ("accuracy", "balanced_accuracy", "f1_macro", "f1_weighted",
+                    "ConfusionMatrix")
+    pretrained = {
+        "experiment": {"name": PAPER_NAMES["pretrained"], "seed": SEED, "device": "tpu",
+                       "is_train": True, "is_test": True},
+        "model": {
+            "name": "AVMNIST_Resnet", "model_type": "AVMNIST",
+            "audio_encoder": {"__module_spec__": "resnet18", "in_channels": 1,
+                              "hidden_dim": 64},
+            "image_encoder": {"__module_spec__": "resnet34", "in_channels": 1,
+                              "hidden_dim": 128},
+            "hidden_dim": 128, "dropout": 0.5, "fusion_fn": "concat",
+            "pretrained_encoders": {"audio": str(handoff)},
+        },
+        "training": {
+            "epochs": 20, "early_stopping": True, "early_stopping_patience": 10,
+            "num_modalities": 2,
+            "optimizer": {"name": "Adam",
+                          "default_kwargs": {"lr": 0.0005, "weight_decay": 0.0001}},
+            "encoder_optimizer": {"name": "Adam",
+                                  "default_kwargs": {"lr": 0.0001, "weight_decay": 0.0001}},
+            "modality_specific_params": {
+                "audio_encoder": {"lr": 0.0001, "weight_decay": 0.0002},
+                "image_encoder": {"lr": 0.0001, "weight_decay": 0.0002},
+            },
+            "scheduler": "plateau",
+            "scheduler_kwargs": {"mode": "min", "factor": 0.5, "patience": 5,
+                                 "min_lr": 0.00001},
+            "loss_functions": {"cross_entropy": {"loss_name": "cross_entropy",
+                                                 "loss_args": {}, "weight": 1.0}},
+        },
+        "data": {"datasets": {
+            "train": split("train", ["ai"], shuffle=True),
+            "validation": split("validation", ["ai", "a", "i"]),
+            "test": split("test", ["ai", "a", "i"]),
+        }},
+        "metrics": {
+            "metrics": {
+                "accuracy": {"function": "sklearn.metrics.accuracy_score", "kwargs": {}},
+                "balanced_accuracy": {"function": "sklearn.metrics.balanced_accuracy_score",
+                                      "kwargs": {}},
+                "f1_macro": {"function": "sklearn.metrics.f1_score",
+                             "kwargs": {"average": "macro", "zero_division": 0}},
+                "f1_weighted": {"function": "sklearn.metrics.f1_score",
+                                "kwargs": {"average": "weighted", "zero_division": 0}},
+                "ConfusionMatrix": {"function": "sklearn.metrics.confusion_matrix",
+                                    "kwargs": {"labels": list(range(10))}},
+            },
+            "groups": {"classification": list(metric_names)},
+        },
+        "logging": {
+            "log_path": f"{out_root}/{{experiment_name}}/logs/{{run_id}}",
+            "model_output_path": f"{out_root}/{{experiment_name}}/models/{{run_id}}",
+            "metrics_path": f"{out_root}/{{experiment_name}}/metrics/{{run_id}}",
+            "tensorboard_path": f"{out_root}/{{experiment_name}}/tensorboard/{{run_id}}",
+            "save_metric": "loss",
+        },
+        "monitoring": {"enabled": False},
+    }
+    scratch = copy.deepcopy(pretrained)
+    scratch["experiment"]["name"] = PAPER_NAMES["scratch"]
+    del scratch["model"]["pretrained_encoders"]
+    del scratch["training"]["encoder_optimizer"], scratch["training"]["modality_specific_params"]
+    return {"pretrained": pretrained, "scratch": scratch}
+
+
+def write_avmnist_files(root: Path, counts: dict, seed: int = SEED) -> dict:
+    """One float32 spectrogram `.pt` (shapes by index: SPEC_SHAPES, so the
+    reader crops and pads) and one uint8 (28, 28) image `.pt` per sample,
+    both depending on the class, and one CSV per split (audio, image,
+    label). Returns the CSV paths and, per split, the arrays the files
+    define once the reader has cropped, padded and mapped them."""
+    import torch
+
+    from mmtpu_torch.data.avmnist import AUDIO_SHAPE, GIST_EARTH_LUMA, IMAGE_SHAPE
+
+    rng = np.random.default_rng(seed)
+    csvs, want = {}, {}
+    for name in READER_SPLITS:
+        n = counts[name]
+        d = root / name
+        d.mkdir(parents=True, exist_ok=True)
+        labels = rng.integers(0, 10, size=n).astype(np.int64)
+        audio = np.zeros((n, *AUDIO_SHAPE), np.float32)
+        image = np.zeros((n, *IMAGE_SHAPE, 1), np.float32)
+        rows = []
+        for i, label in enumerate(labels):
+            h, w = SPEC_SHAPES[i % len(SPEC_SHAPES)]
+            spec = (rng.normal(size=(h, w)) + 0.3 * label).astype(np.float32)
+            img = np.clip(rng.normal(20.0 * label + 30.0, 40.0, size=IMAGE_SHAPE),
+                          0, 255).astype(np.uint8)
+            sp, ip = d / f"spec_{i}.pt", d / f"img_{i}.pt"
+            torch.save(torch.from_numpy(spec), sp)
+            torch.save(img, ip)
+            rows.append(f"{sp},{ip},{label}")
+            hh, ww = min(h, AUDIO_SHAPE[0]), min(w, AUDIO_SHAPE[1])
+            audio[i, :hh, :ww] = spec[:hh, :ww]
+            image[i, :, :, 0] = GIST_EARTH_LUMA[img].astype(np.float32) / 255.0
+        csvs[name] = root / f"{name}.csv"
+        csvs[name].write_text("audio,image,label\n" + "\n".join(rows) + "\n")
+        want[name] = (audio, image, labels)
+    return {"csvs": csvs, "want": want}
+
+
+def phase_reader_build(card: str, data: dict) -> dict:
+    """Each split through the reader twice: first from the `.pt` files (the
+    `.npy` sidecars written), then from the sidecars, both read in full;
+    the arrays byte for byte against what the files define."""
+    from mmtpu_torch.data import AVMNIST
+    from mmtpu_torch.modalities import Modality
+
+    times = {"files": 0.0, "sidecars": 0.0}
+    for name in READER_SPLITS:
+        for source in times:
+            t0 = time.perf_counter()
+            ds = AVMNIST(data["csvs"][name], {"validation": "valid"}.get(name, name))
+            got = (np.array(ds.arrays[Modality.AUDIO]), np.array(ds.arrays[Modality.IMAGE]),
+                   np.array(ds.labels))
+            times[source] += time.perf_counter() - t0
+            mapped = isinstance(ds.arrays[Modality.AUDIO], np.memmap)
+            if source == "sidecars" and not mapped:
+                raise AssertionError(f"[reader] {name}: not served from the .npy sidecars")
+            for g, w, what in zip(got, data["want"][name], ("audio", "image", "labels")):
+                if g.dtype != w.dtype or g.shape != w.shape or g.tobytes() != w.tobytes():
+                    raise AssertionError(f"[reader] {name} {what} ({source}): not the bytes "
+                                         f"the files define")
+    n = sum(len(w[2]) for w in data["want"].values())
+    sidecars = sorted(p.name for p in data["csvs"]["train"].parent.glob("train.*.npy"))
+    say_card(card, f"[reader] {n} samples ({2 * n} .pt files): arrays from the files "
+             f"{times['files']:.3f} s, from the .npy sidecars {times['sidecars']:.3f} s; "
+             f"equal byte for byte to what the files define; sidecars {sidecars}")
+    return {"files_s": times["files"], "sidecars_s": times["sidecars"], "samples": n}
+
+
+def phase_train_reader(dev, card: str, work: Path, handoff: Path) -> dict:
+    """The paper's pretrained fine-tune fed by the reader (train_avmnist,
+    --epochs 2, --profile, TensorBoard on), the scratch twin as a two-fold
+    cross-validation (train_multimodal), and the scratch twin as a
+    --stacked-runs 2 sweep at SWEEP_SAMPLES; `fused_mlp` counted in each."""
+    from mmtpu_torch.cli import common, train_avmnist, train_multimodal
+
+    out_root = work / "reader"
+    data = write_avmnist_files(work / "avmnist_data", TRAIN_SAMPLES)
+    build = phase_reader_build(card, data)
+    cfgs = paper_configs(str(out_root), data["csvs"], handoff)
+    paths = {}
+    for key, cfg in cfgs.items():
+        paths[key] = work / f"paper_{key}.json"
+        paths[key].write_text(json.dumps(cfg))
+    per_split = _eval_batches(TRAIN_SAMPLES)
+    one_run = TRAIN_EPOCHS * per_split["validation"] + per_split["test"]
+
+    reset_counts()
+    run = _run_cli(train_avmnist, paths["pretrained"], "[reader fine-tune]", out_root,
+                   PAPER_NAMES["pretrained"], extra=("--epochs", str(TRAIN_EPOCHS), "--profile"))
+    fine_tune = read_counts()["fused_mlp"]
+    if fine_tune != one_run:
+        raise AssertionError(f"[reader fine-tune] fused_mlp launched {fine_tune} times, expected "
+                             f"{TRAIN_EPOCHS} × {per_split['validation']} validation + "
+                             f"{per_split['test']} test batches = {one_run}")
+    base = out_root / PAPER_NAMES["pretrained"]
+    events = list((base / "tensorboard/1").glob("events.out.tfevents.*"))
+    trace = base / "logs/1/profile/trace.json"
+    if len(events) != 1 or events[0].stat().st_size == 0:
+        raise AssertionError(f"[reader fine-tune] tfevents files {events}")
+    if not trace.exists() or trace.stat().st_size == 0:
+        raise AssertionError(f"[reader fine-tune] no profiler trace at {trace}")
+    if not (base / "metrics/1/1/epoch_metrics.json").exists():
+        raise AssertionError("[reader fine-tune] train_avmnist wrote no test entry under 1/")
+    say_card(card, f"[reader fine-tune] {run['seconds']:.2f} s through main (under --profile; "
+             f"start-up, data and checkpoints included); epoch {TRAIN_EPOCHS} train "
+             f"{run['epoch_s']:.3f} s = {run['samples_per_s']:.1f} samples/s (B=128, "
+             f"{TRAIN_SAMPLES['train']} samples, ResNet18/ResNet34 full width)")
+    say(f"[reader fine-tune] fused_mlp launches {fine_tune} = {TRAIN_EPOCHS} × "
+        f"{per_split['validation']} validation + {per_split['test']} test batches; tfevents "
+        f"{events[0].stat().st_size} bytes; profiler trace {trace.stat().st_size} bytes; "
+        f"losses {run['losses']}; test {_accuracies(run['test'])}")
+
+    cv_cfg = dict(cfgs["scratch"])
+    cv_cfg["experiment"] = {**cv_cfg["experiment"], "cross_validation": 2}
+    paths["cv"] = work / "paper_scratch_cv.json"
+    paths["cv"].write_text(json.dumps(cv_cfg))
+    reset_counts()
+    t0 = time.perf_counter()
+    if train_multimodal.main(["--config", str(paths["cv"]), "--run_id", "1",
+                              "--epochs", str(TRAIN_EPOCHS)]) != 0:
+        raise AssertionError("[reader cv] non-zero exit")
+    cv_s = time.perf_counter() - t0
+    cv_launches = read_counts()["fused_mlp"]
+    metrics = out_root / PAPER_NAMES["scratch"] / "metrics/1"
+    agg = {s: json.loads((metrics / f"{s}_metrics_agg.json").read_text())
+           for s in READER_SPLITS}
+    folds = sorted(p.name for p in metrics.iterdir() if p.is_dir())
+    if folds != ["fold_1", "fold_2"] or [len(agg[s]) for s in READER_SPLITS] != [2, 2, 1]:
+        raise AssertionError(f"[reader cv] fold dirs {folds}, aggregate lengths "
+                             f"{[len(agg[s]) for s in READER_SPLITS]}")
+    if not all(np.isfinite(v) for rec in agg["validation"] for v in rec.values()):
+        raise AssertionError(f"[reader cv] validation aggregate {agg['validation']}")
+    if cv_launches != 2 * one_run:
+        raise AssertionError(f"[reader cv] fused_mlp launched {cv_launches} times, expected "
+                             f"2 folds × {one_run} = {2 * one_run}")
+    say_card(card, f"[reader cv] 2 folds through train_multimodal.main in {cv_s:.2f} s; "
+             f"{folds}; fused_mlp launches {cv_launches} = 2 × {one_run}; test aggregate "
+             f"{_accuracies(agg['test'][0])}")
+
+    sweep_data = write_avmnist_files(work / "avmnist_sweep", SWEEP_SAMPLES, seed=SEED + 1)
+    sweep_cfg = paper_configs(str(out_root / "sweep"), sweep_data["csvs"], handoff)["scratch"]
+    paths["sweep"] = work / "paper_scratch_sweep.json"
+    paths["sweep"].write_text(json.dumps(sweep_cfg))
+    sweep_batches = _eval_batches(SWEEP_SAMPLES)
+    member = TRAIN_EPOCHS * sweep_batches["validation"] + sweep_batches["test"]
+    seeds = []
+    real_init = common.init_model
+
+    def spy(model, seed, device):
+        seeds.append(int(seed))
+        return real_init(model, seed, device)
+
+    common.init_model = spy
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        rc = train_multimodal.main(["--config", str(paths["sweep"]), "--run_id", "1",
+                                    "--epochs", str(TRAIN_EPOCHS), "--stacked-runs", "2"])
+    finally:
+        common.init_model = real_init
+    sweep_s = time.perf_counter() - t0
+    sweep_launches = read_counts()["fused_mlp"]
+    base = out_root / "sweep" / PAPER_NAMES["scratch"]
+    trees = {r: sorted(p.name for p in (base / "metrics" / r).iterdir()) for r in ("1", "2")}
+    if rc != 0 or seeds != [SEED, SEED + 1] or trees["1"] != trees["2"] or \
+            "test_metrics.json" not in trees["2"] or not (base / "models/2/best.pth").exists():
+        raise AssertionError(f"[reader sweep] rc {rc}, seeds {seeds}, trees {trees}")
+    if sweep_launches != 2 * member:
+        raise AssertionError(f"[reader sweep] fused_mlp launched {sweep_launches} times, "
+                             f"expected 2 members × ({TRAIN_EPOCHS} × "
+                             f"{sweep_batches['validation']} + {sweep_batches['test']}) = "
+                             f"{2 * member}")
+    say_card(card, f"[reader sweep] --stacked-runs 2 at {SWEEP_SAMPLES} in {sweep_s:.2f} s; "
+             f"members run 1 and 2 seeded {seeds}; outputs {trees['2']}; fused_mlp launches "
+             f"{sweep_launches} = 2 × {member}")
+    return {"build": build, "run": run, "launches": fine_tune, "cv_launches": cv_launches,
+            "sweep_launches": sweep_launches, "cv_s": cv_s, "sweep_s": sweep_s}
+
+
 def kernel_record(name: str, source: str, replaces: str, shape: str, kern: dict, t: dict,
                   pred: dict, srv: dict) -> dict:
     return {
@@ -1446,8 +1741,11 @@ def main(argv=None) -> int:
 
     parser = argparse.ArgumentParser(description="Smoke run of mmtpu_torch on one GPU")
     parser.add_argument("--train-only", action="store_true",
-                        help="build the kernels and run the training phase alone (no "
+                        help="build the kernels and run the training phases alone (no "
                              "kernels or ok line)")
+    parser.add_argument("--reader-only", action="store_true",
+                        help="build the kernels, pretrain the audio encoder and run the "
+                             "reader phase alone (no kernels or ok line)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU",
@@ -1477,6 +1775,20 @@ def main(argv=None) -> int:
         finally:
             shutil.rmtree(work, ignore_errors=True)
         return 0
+    if args.reader_only:
+        from mmtpu_torch.cli import train_monomodal
+
+        try:
+            out_root = work / "train"
+            mono_path = work / "train_mono.json"
+            mono_path.write_text(json.dumps(train_configs(str(out_root))["mono"]))
+            mono = _run_cli(train_monomodal, mono_path, "[train mono]", out_root, MONO_NAME)
+            t0 = time.perf_counter()
+            phase_train_reader(dev, smi, work, mono["models"] / "encoder_audio_best.pth")
+            say(f"[summary] reader phase {time.perf_counter() - t0:.1f} s")
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        return 0
 
     mlp = phase_kernels_mlp(dev)
     lstm = phase_kernels_lstm(dev)
@@ -1493,7 +1805,10 @@ def main(argv=None) -> int:
         train = phase_train(dev, smi, work)
         t_utt = time.perf_counter()
         utt = phase_train_utt(dev, smi, work)
-        t_train, t_utt = t_utt - t_train, time.perf_counter() - t_utt
+        t_reader = time.perf_counter()
+        reader = phase_train_reader(dev, smi, work, train["handoff"])
+        t_train, t_utt, t_reader = (t_utt - t_train, t_reader - t_utt,
+                                    time.perf_counter() - t_reader)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1510,6 +1825,13 @@ def main(argv=None) -> int:
              f"kernels per train step, busy share {utt['profile']['busy_share']:.3f}; lstm "
              f"launches {utt['launches']}; peak {utt['run']['peak_bytes'] / 2**20:.1f} MiB; "
              f"phase {t_utt:.1f} s")
+    say_card(smi, f"[summary] reader: {reader['build']['samples']} samples from the files "
+             f"{reader['build']['files_s']:.3f} s, from the sidecars "
+             f"{reader['build']['sidecars_s']:.3f} s; reader-fed fine-tune "
+             f"{reader['run']['samples_per_s']:.1f} train samples/s (epoch {TRAIN_EPOCHS}, "
+             f"under --profile); fused_mlp launches fine-tune {reader['launches']}, cv "
+             f"{reader['cv_launches']}, sweep {reader['sweep_launches']}; cv {reader['cv_s']:.1f} "
+             f"s, sweep {reader['sweep_s']:.1f} s; phase {t_reader:.1f} s")
     say(f"[summary] fused_mlp B=1024 {json.dumps(mlp['timings'][1024])}")
     for shape, t in lstm["timings"].items():
         say(f"[summary] lstm G,B,T,H={shape} {json.dumps(t)}")
@@ -1519,7 +1841,8 @@ def main(argv=None) -> int:
         {**kernel_record("fused_mlp", "mmtpu_torch/ops/csrc/fused_mlp.cu",
                          "mmtpu/ops/fused_mlp.py:63", "B=128, 192-128-64-10, float32",
                          mlp, mlp["timings"][128], av_pred, av_srv),
-         "train_launches": train["launches"]},
+         "train_launches": train["launches"], "reader_launches": reader["launches"],
+         "cv_launches": reader["cv_launches"], "sweep_launches": reader["sweep_launches"]},
         {**kernel_record("lstm", "mmtpu_torch/ops/csrc/lstm.cu", "mmtpu/ops/lstm.py:61",
                          f"G={G}, B={B}, T={T}, H={H}, float32; library_ms is {G} nn.LSTM "
                          "calls, projection included (with_projection_ms is ours with it)",

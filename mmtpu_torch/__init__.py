@@ -6,11 +6,13 @@ its public functions keep mmtpu's layouts (NHWC numpy batches, the same
 batch schema, config files and output JSON), and it imports nothing of JAX
 or of `mmtpu`: where it needs a JAX-free host module it keeps its own copy.
 
-Ported so far: the AVMNIST late-fusion serving path — config loading,
-synthetic AVMNIST data and the fixed-shape loader, the ResNet encoders and
-the AVMNIST model, the fused-MLP fusion head as a hand-written CUDA kernel
-(`mmtpu_torch.ops`), the eval step, the in-process predictor, the
-micro-batcher, and the `predict` / `serve` entry points.
+Ported so far: serving and training of the AVMNIST late-fusion model (the
+paper's pipeline: monomodal pretraining, the encoder handoff, the
+fine-tune; ResNet and LeNet encoders; the real AVMNIST reader and the
+synthetic stand-in; cross-validation and sequential --stacked-runs) and of
+MOSI UttFusion; TensorBoard, the run log and the reports; both of mmtpu's
+TPU kernels as hand-written CUDA kernels (`mmtpu_torch.ops`). ROADMAP.md
+lists what is not.
 
 Entry points run on `cuda` unless the caller asks for the CPU (`--cpu`,
 `device="cpu"`); without a GPU they raise instead of falling back.

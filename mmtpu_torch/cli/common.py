@@ -1,8 +1,10 @@
 """Shared assembly for the port's entry points (counterpart of
 `mmtpu/cli/common.py`): device choice, precision, config loading, model
-building, checkpoint paths, and for the training CLIs the flag surface,
-pretrained-encoder loading, the optimizer's encoder groups, and the
-state / scheduler / early-stopping / recorder / checkpoint builders."""
+building, checkpoint paths, and for the training CLIs the flag surface
+(every flag of mmtpu's), the profiler session, the data-parallel check, the
+--stacked-runs member recipe, pretrained-encoder loading, the optimizer's
+encoder groups, and the state / scheduler / early-stopping / recorder /
+checkpoint builders."""
 
 from __future__ import annotations
 
@@ -59,23 +61,47 @@ def apply_precision(cfg) -> str:
     )
 
 
-def load_config(args) -> StandardMultimodalConfig:
-    """Load --config, then apply --seed, --epochs, --dry-run, the precision
-    and the output dirs."""
-    cfg = StandardMultimodalConfig.load(args.config, run_id=args.run_id)
+ROADMAP_SYSTEMS = "ROADMAP.md item 12, the systems layer"
+
+
+def finalize_config(cfg, args):
+    """The post-load wiring every training entry point shares (mmtpu's
+    `finalize_config`): --seed, a sweep member's seed offset, --dry-run,
+    --epochs, --disable_monitoring, the precision, the output dirs and the
+    run log `<log_path>/run_<run_id>.log`. A config that asks for the HDF5
+    monitor raises: it is not ported."""
     if getattr(args, "seed", None) is not None:
         cfg.experiment.seed = args.seed
-    if getattr(args, "epochs", None) is not None:
-        cfg.training.epochs = int(args.epochs)
+    # --stacked-runs member i trains with seed base + i (derive_member_args)
+    offset = int(getattr(args, "seed_offset", 0) or 0)
+    if offset:
+        cfg.experiment.seed = int(cfg.experiment.seed) + offset
     if getattr(args, "dry_run", False):
         cfg.experiment.dry_run = True
+    if getattr(args, "epochs", None) is not None:
+        cfg.training.epochs = int(args.epochs)
+    if getattr(args, "disable_monitoring", False):
+        cfg.monitoring["enabled"] = False
+    if cfg.monitoring.get("enabled"):
+        raise NotImplementedError(
+            "monitoring.enabled: the HDF5 experiment monitor is not ported to mmtpu_torch "
+            f"({ROADMAP_SYSTEMS}); pass --disable_monitoring or set it false")
+    from mmtpu_torch.utils import configure_logger
+
     print(apply_precision(cfg), flush=True)
     cfg.logging.create_directories()
+    configure_logger(cfg.logging.log_path, suffix=f"run_{args.run_id}")
     return cfg
 
 
+def load_config(args) -> StandardMultimodalConfig:
+    """Load --config (run_id templated into the paths) and finalize it."""
+    return finalize_config(StandardMultimodalConfig.load(args.config, run_id=args.run_id), args)
+
+
 def standard_arg_parser(description: str) -> argparse.ArgumentParser:
-    """The training CLIs' flags (the ones of mmtpu's that the port has)."""
+    """The training CLIs' flags: every flag and alias of mmtpu's, and
+    --cpu, each with mmtpu's `dest`, so an mmtpu command line parses."""
     p = argparse.ArgumentParser(description=description)
     p.add_argument("--config", required=True,
                    help="Path to a YAML config, or its plain-dict form as .json")
@@ -85,12 +111,120 @@ def standard_arg_parser(description: str) -> argparse.ArgumentParser:
                    help="Build config, data, model and state, then exit")
     p.add_argument("--skip-train", dest="skip_train", action="store_true")
     p.add_argument("--skip-test", dest="skip_test", action="store_true")
+    p.add_argument("--disable_monitoring", "--disable-monitoring", dest="disable_monitoring",
+                   action="store_true",
+                   help="Set monitoring.enabled false (the HDF5 monitor is not ported: "
+                        "a config that enables it raises without this flag)")
+    p.add_argument("--cpu", action="store_true", help="Run on the CPU instead of CUDA")
+    p.add_argument("--data-parallel", "--data_parallel", dest="data_parallel", type=int,
+                   default=None, metavar="N",
+                   help="Overrides experiment.data_parallel. 1 and -1 run on one device; "
+                        "more than the visible devices raises; any other N > 1 (DDP) is "
+                        "not ported and raises")
+    p.add_argument("--profile", action="store_true",
+                   help="Trace the training phase with torch.profiler into "
+                        "<log_path>/profile/trace.json (a Chrome trace)")
+    p.add_argument("--eval-batch-factor", "--eval_batch_factor", dest="eval_batch_factor",
+                   type=int, default=None, metavar="N",
+                   help="Parsed and stored; no effect in the port. mmtpu fuses the "
+                        "patterns x samples eval product only on its device-resident "
+                        "scan path, which the port does not have; on mmtpu's streaming "
+                        "path the flag has no effect either")
     p.add_argument("--epochs", type=int, default=None, metavar="N",
                    help="Override training.epochs")
     p.add_argument("--resume", action="store_true",
                    help="Continue an interrupted run from its rolling last.pth")
-    p.add_argument("--cpu", action="store_true", help="Run on the CPU instead of CUDA")
+    p.add_argument("--stacked-folds", "--stacked_folds", dest="stacked_folds",
+                   action="store_true",
+                   help="Cross-validation only: mmtpu's vmapped all-folds engine, not "
+                        "ported (raises); with --resume or data_parallel > 1 mmtpu falls "
+                        "back to sequential folds, and so does the port")
+    p.add_argument("--stacked-runs", "--stacked_runs", dest="stacked_runs", type=int,
+                   default=0, metavar="K",
+                   help="Train K repeat runs, run_id..run_id+K-1, member i seeded seed+i, "
+                        "each with its own run_id-scoped outputs, one after another "
+                        "(mmtpu's sequential path, which its vmapped engine equals)")
     return p
+
+
+class ProfilerSession:
+    """A `torch.profiler` trace around the training phase (mmtpu's
+    `ProfilerSession` traces it with the JAX profiler): CPU activity, and
+    CUDA activity when a GPU is visible, written as a Chrome trace to
+    `<log_path>/profile/trace.json` on exit."""
+
+    def __init__(self, enabled: bool, log_path: str) -> None:
+        self.enabled = enabled
+        self.path = Path(log_path) / "profile" / "trace.json"
+        self._prof = None
+
+    def __enter__(self):
+        if self.enabled:
+            from torch.profiler import ProfilerActivity, profile
+
+            activities = [ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                activities.append(ProfilerActivity.CUDA)
+            self.path.parent.mkdir(parents=True, exist_ok=True)
+            self._prof = profile(activities=activities)
+            self._prof.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if self._prof is not None:
+            self._prof.__exit__(*exc)
+            self._prof.export_chrome_trace(str(self.path))
+            print(f"profiler trace: {self.path}", flush=True)
+            self._prof = None
+        return False
+
+
+def resolve_mesh(cfg, args, device: torch.device) -> None:
+    """experiment.data_parallel / --data-parallel, checked by mmtpu's rules:
+    unset, 0, 1 and -1 (all devices) run on `device` alone; N < -1 and
+    N greater than the visible devices raise mmtpu's ValueError; any other
+    N > 1 would shard batches over N devices (DDP), which is not ported."""
+    dp = getattr(args, "data_parallel", None)
+    if dp is None:
+        dp = cfg.experiment.data_parallel
+    if not dp or dp in (-1, 1):
+        return None
+    if dp < -1:
+        raise ValueError(f"data_parallel={dp}: use -1 (all devices) or N >= 1")
+    n = torch.cuda.device_count() if device.type == "cuda" else 1
+    if dp > n:
+        raise ValueError(f"data_parallel={dp} but only {n} devices visible")
+    raise NotImplementedError(
+        f"data_parallel={dp}: data parallelism over several devices (DDP) is not "
+        f"ported to mmtpu_torch ({ROADMAP_SYSTEMS})")
+
+
+def derive_member_args(args, base_run: int, i: int) -> argparse.Namespace:
+    """Member i of a --stacked-runs sweep (mmtpu's one recipe): run_id
+    base + i, seed + i (finalize_config applies `seed_offset`), no further
+    stacking."""
+    sub = argparse.Namespace(**vars(args))
+    sub.run_id = base_run + i
+    sub.stacked_runs = 0
+    sub.seed_offset = i
+    return sub
+
+
+def run_id_sweep(args, run_one) -> int:
+    """--stacked-runs K as mmtpu's sequential sweep (the reference's
+    run_n.sh loop): `run_one` once per derived member, stopping at the
+    first that fails."""
+    runs = int(getattr(args, "stacked_runs", 0) or 0)
+    if runs <= 1:
+        return run_one(args)
+    base_run = int(args.run_id)
+    for i in range(runs):
+        sub = derive_member_args(args, base_run, i)
+        print(f"run {sub.run_id} ({i + 1}/{runs})", flush=True)
+        rc = run_one(sub)
+        if rc != 0:
+            return rc
+    return 0
 
 
 def build_model_from_config(model_cfg) -> torch.nn.Module:
@@ -193,7 +327,8 @@ def make_early_stopping(cfg):
 def make_recorder(cfg):
     from mmtpu_torch.train.recorder import MetricRecorder
 
-    return MetricRecorder(cfg.metrics)
+    return MetricRecorder(cfg.metrics, tensorboard_path=cfg.logging.tensorboard_path,
+                          tb_record_only=cfg.logging.tb_record_only)
 
 
 def make_checkpoint_manager(cfg):

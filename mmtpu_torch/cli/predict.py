@@ -45,6 +45,8 @@ def arg_parser():
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--dry-run", dest="dry_run", action="store_true",
                    help=argparse.SUPPRESS)  # accepted for CLI compatibility
+    # no training here: the monitor setting is not read (as mmtpu's)
+    p.set_defaults(disable_monitoring=True)
     return p
 
 

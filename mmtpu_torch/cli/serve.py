@@ -51,6 +51,8 @@ def arg_parser():
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--dry-run", dest="dry_run", action="store_true",
                    help="Build everything, bind the socket, exit")
+    # no training here: the monitor setting is not read (as mmtpu's)
+    p.set_defaults(disable_monitoring=True)
     return p
 
 

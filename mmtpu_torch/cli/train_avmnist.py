@@ -4,7 +4,8 @@
 
 `train_multimodal` with the AVMNIST nesting of `epoch_metrics.json`: every
 pattern-suffixed metric under its pattern key (AI/A/I), and the test entry
-written to `<metrics>/<run_id>/epoch_metrics.json`.
+written to `<metrics>/<run_id>/epoch_metrics.json`. The same flags, and
+the same cross-validation and --stacked-runs drivers.
 """
 
 from __future__ import annotations
@@ -16,7 +17,9 @@ from mmtpu_torch.cli import common, train_multimodal
 
 def main(argv=None) -> int:
     args = common.standard_arg_parser(__doc__).parse_args(argv)
-    return train_multimodal.route(args, json_nesting="avmnist")
+    device = common.resolve_device(args.cpu)
+    return train_multimodal.route(common.load_config(args), args, device,
+                                  json_nesting="avmnist")
 
 
 if __name__ == "__main__":

@@ -1,12 +1,15 @@
 """Monomodal encoder pretraining (counterpart of `mmtpu/cli/train_monomodal.py`).
 
     python -m mmtpu_torch.cli.train_monomodal --config X.yaml --run_id N \
-        [--seed S] [--epochs N] [--dry-run] [--skip-train] [--skip-test] [--resume] [--cpu]
+        [--seed S] [--epochs N] [--dry-run] [--skip-train] [--skip-test] [--resume] \
+        [--disable_monitoring] [--profile] [--stacked-runs K] [--data-parallel N] [--cpu]
 
 Wraps the config's one encoder in a linear-head classifier, trains it on
 the raw (unmasked) modality, and on every best epoch writes the handoff
 `encoder_{modality}_best.pth` that the multimodal run's
 `pretrained_encoders` loads. Runs on the GPU unless `--cpu`.
+`--stacked-runs K` runs the members run_id..run_id+K-1 (seed + i) one after
+another, as mmtpu's driver does (it has no stacking engine).
 """
 
 from __future__ import annotations
@@ -18,10 +21,12 @@ from mmtpu_torch.cli import common
 
 
 def main(argv=None) -> int:
-    return run(common.standard_arg_parser(__doc__).parse_args(argv))
+    args = common.standard_arg_parser(__doc__).parse_args(argv)
+    return common.run_id_sweep(args, run)
 
 
 def run(args) -> int:
+    """One monomodal run."""
     from mmtpu_torch.models.registry import build_module
     from mmtpu_torch.reports import ExperimentReportGenerator
     from mmtpu_torch.train.loop import TrainLoop
@@ -29,6 +34,7 @@ def run(args) -> int:
 
     device = common.resolve_device(args.cpu)
     cfg = common.load_config(args)
+    common.resolve_mesh(cfg, args, device)
     modality = common.infer_monomodal_modality(cfg)
     encoder_spec = _find_encoder_spec(cfg, modality)
     model = build_module("monomodal_encoder", encoder=encoder_spec,
@@ -50,8 +56,9 @@ def run(args) -> int:
         return metrics
 
     any_loader = next(iter(loaders.values()))
+    recorder = common.make_recorder(cfg)
     loop = TrainLoop(
-        task=task, state=state, loaders=loaders, recorder=common.make_recorder(cfg),
+        task=task, state=state, loaders=loaders, recorder=recorder,
         checkpoint_manager=ckpt, device=device, epochs=cfg.training.epochs,
         save_metric=cfg.logging.save_metric,
         early_stopping=common.make_early_stopping(cfg),
@@ -66,17 +73,20 @@ def run(args) -> int:
         resume=args.resume,
     )
     if cfg.experiment.dry_run:
+        recorder.close()
         print("dry run complete", flush=True)
         return 0
     results = {}
     if not args.skip_train:
-        loop.run()
+        with common.ProfilerSession(getattr(args, "profile", False), cfg.logging.log_path):
+            loop.run()
     if not args.skip_test:
         results = loop.test(splits=[s for s in loaders if s not in ("train", "validation")])
     ExperimentReportGenerator(Path(cfg.logging.metrics_path) / "report",
                               cfg.experiment.name).generate_report(
         metrics_history=loop.metrics_history, timing_history=loop.timing_history,
         model=model, test_metrics=results)
+    recorder.close()
     final = Path(cfg.logging.model_output_path) / f"encoder_{modality}_best.pth"
     print(f"encoder artifact: {final}", flush=True)
     return 0

@@ -5,7 +5,8 @@ read).
 `device` is kept so mmtpu configs load unchanged, but the port does not
 read it: its entry points run on `cuda` unless the caller passes `--cpu`.
 `precision` maps onto PyTorch's float32 switches
-(`mmtpu_torch.cli.common.apply_precision`). No global RNG is seeded here:
+(`mmtpu_torch.cli.common.apply_precision`); `data_parallel` is checked by
+`mmtpu_torch.cli.common.resolve_mesh`. No global RNG is seeded here:
 weights and data are made from explicit generators seeded with `seed`, and
 the training entry points seed torch's generator (dropout) at run start.
 """
@@ -31,6 +32,9 @@ class ExperimentConfig(BaseConfig):
     dry_run: bool = False
     cross_validation: Optional[int] = None
     precision: Optional[str] = None
+    # None/0/1 and -1 run on one device; N > 1 asks for data parallelism
+    # over N devices (`cli.common.resolve_mesh`). --data-parallel overrides it
+    data_parallel: Optional[int] = None
 
     def __post_init__(self) -> None:
         if self.seed is None:

@@ -1,6 +1,8 @@
 """Output path templating + directory creation (counterpart of
 `mmtpu/config/logging_.py`): `$ENV` expansion and partial
-`{experiment_name}/{run_id}/{timestamp}` interpolation."""
+`{experiment_name}/{run_id}/{timestamp}` interpolation of every path field,
+the `save_metric` checkpoint criterion, and `tb_record_only`, the anchored
+regexes that select which metrics go to TensorBoard."""
 
 from __future__ import annotations
 
@@ -8,7 +10,7 @@ import re
 from dataclasses import dataclass, field
 from datetime import datetime
 from pathlib import Path
-from typing import Any, Dict
+from typing import Any, Dict, List, Optional
 
 from mmtpu_torch.config.base import BaseConfig
 from mmtpu_torch.utils import SafeDict, format_path_with_env
@@ -20,13 +22,17 @@ class LoggingConfig(BaseConfig):
     model_output_path: str
     metrics_path: str
     save_metric: str = "loss"
+    monitor_path: Optional[str] = None
+    tensorboard_path: Optional[str] = None
+    tb_record_only: Optional[List[str]] = None
     experiment_name: str = ""
     run_id: int = 1
     timestamp: str = field(
         default_factory=lambda: datetime.now().strftime("%Y%m%d_%H%M%S")
     )
 
-    _PATH_FIELDS = ("log_path", "model_output_path", "metrics_path")
+    _PATH_FIELDS = ("log_path", "model_output_path", "metrics_path", "monitor_path",
+                    "tensorboard_path")
 
     @classmethod
     def from_dict(
@@ -54,8 +60,12 @@ class LoggingConfig(BaseConfig):
 
     def _process_paths(self) -> None:
         for name in self._PATH_FIELDS:
-            setattr(self, name, self.format_path(getattr(self, name)))
+            value = getattr(self, name)
+            if value:
+                setattr(self, name, self.format_path(value))
 
     def create_directories(self) -> None:
         for name in self._PATH_FIELDS:
-            Path(getattr(self, name)).mkdir(parents=True, exist_ok=True)
+            value = getattr(self, name)
+            if value:
+                Path(value).mkdir(parents=True, exist_ok=True)

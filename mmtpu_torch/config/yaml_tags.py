@@ -26,6 +26,9 @@ MODEL_TAGS: Dict[str, str] = {
     "!ResNet34": "resnet34",
     "!ResNet50": "resnet50",
     "!ResNetEncoder": "resnetencoder",
+    "!LeNet5": "lenet5",
+    "!LeNet5Enhanced": "lenet5enhanced",
+    "!LeNetEncoder": "lenetencoder",
     "!FcEncoder": "fcencoder",
     "!FcClassifier": "fcclassifier",
     "!LSTMEncoder": "lstmencoder",

@@ -4,13 +4,15 @@ from __future__ import annotations
 
 from typing import Type
 
-from mmtpu_torch.data.avmnist import SyntheticAVMNIST
+from mmtpu_torch.data.avmnist import AVMNIST, SyntheticAVMNIST
 from mmtpu_torch.data.base import MultimodalArrayDataset
 from mmtpu_torch.data.loader import BatchLoader
 from mmtpu_torch.data.mosi import MOSEI, MOSI, SyntheticMOSI
 
 _DATASETS = {
+    "avmnist": AVMNIST,
     "synthetic_avmnist": SyntheticAVMNIST,
+    "avmnist_synthetic": SyntheticAVMNIST,
     "synthetic_mosi": SyntheticMOSI,
     "mosi": MOSI,
     "mosei": MOSEI,
@@ -28,6 +30,7 @@ def resolve_dataset_name(name: str) -> Type[MultimodalArrayDataset]:
 
 
 __all__ = [
+    "AVMNIST",
     "MOSEI",
     "MOSI",
     "SyntheticAVMNIST",

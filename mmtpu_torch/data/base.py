@@ -72,6 +72,11 @@ class MultimodalArrayDataset:
                 patterns.append("".join(sorted(m[0] for m in combo)))
         return sorted(patterns)
 
+    @classmethod
+    def get_full_modality(cls) -> str:
+        """The pattern with every modality present ("ai" for AVMNIST)."""
+        return "".join(sorted(k[0] for k in cls.AVAILABLE_MODALITIES))
+
     def validate_patterns(self, patterns: Sequence[str]) -> List[str]:
         valid = set(self.get_all_possible_patterns())
         bad = set(patterns) - valid

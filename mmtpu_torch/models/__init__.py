@@ -2,6 +2,7 @@
 
 from mmtpu_torch.models.avmnist import AVMNIST, MonomodalEncoder
 from mmtpu_torch.models.fc import FcClassifier, FcEncoder, MaxPoolFc, SimpleClassifier
+from mmtpu_torch.models.lenet import LeNet5, LeNet5Enhanced, LeNetEncoder
 from mmtpu_torch.models.lstm import (
     LSTMEncoder,
     LSTMEncoder2,
@@ -30,6 +31,9 @@ __all__ = [
     "ResNet34",
     "ResNet50",
     "ResNetEncoder",
+    "LeNet5",
+    "LeNet5Enhanced",
+    "LeNetEncoder",
     "FcClassifier",
     "FcEncoder",
     "MaxPoolFc",

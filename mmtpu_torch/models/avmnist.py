@@ -6,7 +6,8 @@ Linear(hidden/2) → ReLU → Linear(10). The head keeps the reference's key
 names (`fc_fusion`, `fc_intermediate`, `fc_out`). In eval mode on a CUDA
 tensor the whole head runs as ONE kernel (`mmtpu_torch.ops.fused_mlp`),
 as mmtpu runs it as one Pallas kernel on the TPU; in train mode, or on the
-CPU, it runs the plain chain. (mmtpu's embedding inputs and `fused_head`
+CPU, it runs the plain chain. `encode` gives the two embeddings (the
+`embeddings` split's export). (mmtpu's embedding inputs and `fused_head`
 switch serve the C-MAM path, which is not ported yet.)
 """
 
@@ -54,6 +55,11 @@ class AVMNIST(nn.Module):
         x = self.dropout(torch.relu(self.fc_fusion(fused)))
         x = torch.relu(self.fc_intermediate(x))
         return self.fc_out(x)
+
+    def encode(self, A: torch.Tensor, I: torch.Tensor):  # noqa: E741
+        """Per-modality embeddings (audio, image), in the module's current
+        mode (mmtpu's `encode`, the reference's `get_embeddings`)."""
+        return self.audio_encoder(A), self.image_encoder(I)
 
 
 class MonomodalEncoder(nn.Module):

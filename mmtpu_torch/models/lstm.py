@@ -19,8 +19,9 @@ layout for each call. The two differ only in how lengths are taken. The
 fused backend freezes h and c once `t ≥ len` (mmtpu's `lstm_sequence`);
 flax's RNN runs every step and returns the carry at index `len - 1`
 (`_select_last_carry`: `len = 0` wraps to the last step, `len > T` clamps to
-it), so the `rnn` backend runs the recurrence without lengths and picks that
-carry from the outputs.
+it, with no gradient back through the clamped index, as in JAX), so the
+`rnn` backend runs the recurrence without lengths and picks that carry from
+the outputs.
 
 Pooling methods: 'last' (the last state under length masking), 'attention'
 (softmax(u·tanh(W·h))·h), 'maxpool'; padded steps are masked to -inf out of
@@ -125,12 +126,16 @@ class LSTMEncoder(nn.Module):
 
 def _carry_at(outputs: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     """flax's `_select_last_carry` for h: row b's output at step len_b - 1,
-    an index of -1 taken from the end and one past T clamped to T - 1, as a
-    JAX gather takes them."""
+    as a JAX gather takes it and as its transpose gives the gradient back.
+    An index of -1 (len 0) is taken from the end, a normal index, so the
+    gradient reaches the last step. An index past T - 1 is clamped to it in
+    the forward, but the transpose (a scatter-add) drops an out-of-bounds
+    index: those rows get the last step's value and no gradient."""
     T = outputs.shape[1]
     idx = lengths.to(device=outputs.device, dtype=torch.long) - 1
-    idx = torch.where(idx < 0, idx + T, idx).clamp(0, T - 1)
-    return outputs[torch.arange(outputs.shape[0], device=outputs.device), idx]
+    idx = torch.where(idx < 0, idx + T, idx)
+    h = outputs[torch.arange(outputs.shape[0], device=outputs.device), idx.clamp(0, T - 1)]
+    return torch.where((idx > T - 1)[:, None], h.detach(), h)
 
 
 # mmtpu registers the reference's near-duplicate LSTMEncoder2 as an alias.

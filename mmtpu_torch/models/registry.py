@@ -41,13 +41,16 @@ def _tolerant(cls) -> Callable[..., Any]:
 
 
 def _factories() -> Dict[str, Callable[..., Any]]:
-    from mmtpu_torch.models import avmnist, fc, lstm, resnet, textcnn, utt_fusion
+    from mmtpu_torch.models import avmnist, fc, lenet, lstm, resnet, textcnn, utt_fusion
 
     return {
         "resnet18": resnet.ResNet18,
         "resnet34": resnet.ResNet34,
         "resnet50": resnet.ResNet50,
         "resnetencoder": resnet.ResNetEncoder,
+        "lenet5": lenet.LeNet5,
+        "lenet5enhanced": lenet.LeNet5Enhanced,
+        "lenetencoder": lenet.LeNetEncoder,
         "fcencoder": fc.FcEncoder,
         "fcclassifier": fc.FcClassifier,
         "simpleclassifier": fc.SimpleClassifier,

@@ -3,7 +3,8 @@
 `seeded_init` draws every weight from one explicit `torch.Generator`, on
 the CPU, so the same seed gives the same weights on any device. The
 distributions follow the flax modules' initialisers: convolutions
-He-normal over fan-out, Linear weights LeCun-normal (untruncated), biases
+He-normal over fan-out, Linear weights LeCun-normal (untruncated) unless
+the layer names its own `init_std` (LeNet's N(0, 0.01²)), biases
 zero, BatchNorm scale 1 / shift 0 with running mean 0 and variance 1; an
 LSTMEncoder's recurrent matrix orthogonal (the `rnn` backend: each gate's
 recurrent kernel) and its attention vector LeCun-normal.
@@ -30,9 +31,8 @@ def seeded_init(model: nn.Module, seed: int) -> nn.Module:
             if m.bias is not None:
                 m.bias.zero_()
         elif isinstance(m, nn.Linear):
-            w = torch.empty(m.weight.shape).normal_(
-                0.0, math.sqrt(1.0 / m.in_features), generator=g
-            )
+            std = getattr(m, "init_std", None) or math.sqrt(1.0 / m.in_features)
+            w = torch.empty(m.weight.shape).normal_(0.0, std, generator=g)
             m.weight.copy_(w)
             if m.bias is not None:
                 m.bias.zero_()

@@ -1,10 +1,21 @@
 """Experiment reports of the port (counterpart of `mmtpu/reports`)."""
 
 from mmtpu_torch.reports.report import (
+    EmbeddingVisualizationReport,
     ExperimentReportGenerator,
+    LatexReport,
     MetricsReport,
     ModelReport,
     TimingReport,
+    split_missing_conditions,
 )
 
-__all__ = ["ExperimentReportGenerator", "MetricsReport", "ModelReport", "TimingReport"]
+__all__ = [
+    "EmbeddingVisualizationReport",
+    "ExperimentReportGenerator",
+    "LatexReport",
+    "MetricsReport",
+    "ModelReport",
+    "TimingReport",
+    "split_missing_conditions",
+]

@@ -1,1 +1,2 @@
-"""Eval step and losses of the port (training is not ported yet)."""
+"""Training of the port: steps, losses, optimizers, the epoch loop and the
+metric recorder (counterpart of `mmtpu/train`)."""

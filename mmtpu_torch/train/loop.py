@@ -8,7 +8,8 @@ pattern-suffixed metric), early stopping, best checkpoints, the host-side
 LR scale, the rolling resume point, and the test-time restore of the best
 checkpoint. The step's outputs stay on the device until the epoch ends and
 are copied to the host once (the recorder's `_materialize`). mmtpu's
-device-resident scan and the monitor are not ported.
+device-resident scan (and with it `--eval-batch-factor`'s fused eval) and
+the monitor are not ported.
 """
 
 from __future__ import annotations
@@ -186,9 +187,11 @@ class TrainLoop:
     def eval_epoch(self, split: str) -> float:
         return self._epoch(split, self.eval_step)
 
-    def _metrics(self, loss: float, epoch: Optional[int] = None) -> Dict[str, Any]:
+    def _metrics(self, loss: float, epoch: Optional[int] = None,
+                 skip_tensorboard: bool = False) -> Dict[str, Any]:
         """The recorder's flattened results with the loss, post-processed."""
-        metrics = flatten_leaves(self.recorder.calculate_all_groups(epoch=epoch, loss=loss))
+        metrics = flatten_leaves(self.recorder.calculate_all_groups(
+            epoch=epoch, loss=loss, skip_tensorboard=skip_tensorboard))
         metrics["loss"] = loss
         if self.metrics_postprocess is not None:
             metrics = self.metrics_postprocess(metrics)
@@ -320,7 +323,7 @@ class TrainLoop:
             t0 = time.time()
             loss = self.eval_epoch(split)
             elapsed = time.time() - t0
-            metrics = self._metrics(loss)
+            metrics = self._metrics(loss, skip_tensorboard=True)
             results[split] = metrics
             if self.metrics_path is None:
                 continue

@@ -1,6 +1,5 @@
 """MetricRecorder — per-(group, pattern) accumulation, epoch-end compute
-(counterpart of `mmtpu/train/recorder.py`; TensorBoard logging is not
-ported yet).
+(counterpart of `mmtpu/train/recorder.py`).
 
 `update_group_ids` stores the step's device tensors untouched — no copy to
 the host in the hot loop. At epoch end `calculate_*` concatenates each
@@ -9,11 +8,18 @@ padded rows, splits them by pattern, and feeds each pattern's rows to the
 metric functions the config names. Result keys are
 ``{metric}[_{subkey}]_{PATTERN}``, the pattern upper-cased with 'z'
 stripped, as in mmtpu and the reference.
+
+With a `tensorboard_path`, every scalar result of a train or validation
+epoch goes to a tfevents file (`utils/tb_writer.py`) as mmtpu writes it:
+tag ``{group}_{key}``, step the epoch, keys containing 'loss' left out,
+and, with `tb_record_only`, only keys that one of its regexes matches at
+the start (`re.match`). The test pass writes nothing there.
 """
 
 from __future__ import annotations
 
 import logging
+import re
 from collections import defaultdict
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
@@ -38,7 +44,8 @@ def _first_seen(batch_of: np.ndarray, ids: np.ndarray) -> list:
 
 
 class MetricRecorder:
-    def __init__(self, config: MetricConfig) -> None:
+    def __init__(self, config: MetricConfig, tensorboard_path: Optional[str] = None,
+                 tb_record_only: Optional[List[str]] = None) -> None:
         self.config = config
         self.metrics: Dict[str, Callable] = {
             name: mdef.load() for name, mdef in config.metrics.items()
@@ -51,6 +58,12 @@ class MetricRecorder:
         # group → list of (preds, targets, pattern_ids, vocab, mask), on the device
         self._deferred: Dict[str, List] = defaultdict(list)
         self.current_results: Dict[str, Dict[str, Any]] = {}
+        self.tb_record_only = tb_record_only
+        self.writer = None
+        if tensorboard_path:
+            from mmtpu_torch.utils.tb_writer import SummaryWriter
+
+            self.writer = SummaryWriter(log_dir=str(tensorboard_path))
 
     def _check_group(self, group_name: str) -> None:
         if group_name not in self.config.groups:
@@ -88,7 +101,8 @@ class MetricRecorder:
         self._deferred.clear()
 
     def calculate_metrics_for_group(self, group_name: str, epoch: Optional[int] = None,
-                                    loss: Optional[float] = None) -> Dict[str, Any]:
+                                    loss: Optional[float] = None,
+                                    skip_tensorboard: bool = False) -> Dict[str, Any]:
         self._check_group(group_name)
         self._materialize()
         group_metrics = self.config.get_group_metrics(group_name)
@@ -115,15 +129,35 @@ class MetricRecorder:
                     if isinstance(value, np.ndarray):
                         value = value.tolist()
                     results[f"{metric_name}_{pattern_key}"] = value
+        if self.writer is not None and not skip_tensorboard:
+            self._log_tensorboard(results, group_name, epoch)
         self.current_results[group_name] = results
         return results
 
-    def calculate_all_groups(self, epoch: Optional[int] = None,
-                             loss: Optional[float] = None) -> Dict[str, Dict[str, Any]]:
-        return {group: self.calculate_metrics_for_group(group, epoch=epoch, loss=loss)
+    def calculate_all_groups(self, epoch: Optional[int] = None, loss: Optional[float] = None,
+                             skip_tensorboard: bool = False) -> Dict[str, Dict[str, Any]]:
+        return {group: self.calculate_metrics_for_group(group, epoch=epoch, loss=loss,
+                                                        skip_tensorboard=skip_tensorboard)
                 for group in self.config.groups}
 
     def reset(self) -> None:
         self.group_data.clear()
         self._deferred.clear()
         self.current_results.clear()
+
+    def _log_tensorboard(self, results: Dict[str, Any], group_name: str,
+                         epoch: Optional[int]) -> None:
+        for key, value in results.items():
+            if isinstance(value, (list, dict)) or "loss" in key:
+                continue
+            if self.tb_record_only and not any(re.match(p, key) for p in self.tb_record_only):
+                continue
+            try:
+                scalar = float(value)
+            except (TypeError, ValueError):  # a non-scalar metric value
+                continue
+            self.writer.add_scalar(f"{group_name}_{key}", scalar, epoch or 0)
+
+    def close(self) -> None:
+        if self.writer is not None:
+            self.writer.close()

@@ -1,13 +1,14 @@
 """Helpers (own copy of the pieces of `mmtpu/utils/utils.py` the port
 needs): path templating, the reference's metric flatten, checkpoint
-retention."""
+retention, the run log file. `tb_writer` is the TensorBoard event writer."""
 
 from __future__ import annotations
 
+import logging
 import os
 import re
 from pathlib import Path
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 
 class SafeDict(dict):
@@ -60,3 +61,23 @@ def clean_checkpoints(directory) -> int:
         f.unlink()
     files[-1].rename(directory / f"{files[-1].stem}_last.pth")
     return len(files) - 1
+
+
+def configure_logger(log_path: Optional[str] = None, suffix: Optional[str] = None,
+                     level: int = logging.INFO) -> logging.Logger:
+    """(Re)configure the package's logger, as mmtpu's `configure_logger`:
+    with a `log_path`, its records go to `<log_path>/<suffix>.log` (the
+    training CLIs pass `run_<run_id>`); an earlier call's file is closed."""
+    logger = logging.getLogger("mmtpu_torch")
+    logger.setLevel(level)
+    for handler in list(logger.handlers):
+        logger.removeHandler(handler)
+        handler.close()
+    if log_path is not None:
+        path = Path(log_path)
+        path.mkdir(parents=True, exist_ok=True)
+        handler = logging.FileHandler(path / (f"{suffix}.log" if suffix else "mmtpu_torch.log"))
+        handler.setFormatter(logging.Formatter(
+            "%(asctime)s | %(levelname)s | %(name)s | %(message)s"))
+        logger.addHandler(handler)
+    return logger

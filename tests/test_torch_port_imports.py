@@ -3,7 +3,8 @@ imports JAX, flax, optax, or the `mmtpu` package (the name is matched
 exactly, so `mmtpu_torch` itself passes). The card's machine has none of
 them, and neither has PyYAML, which the port may import only inside its
 YAML loader, nor pandas, sklearn, matplotlib or msgpack, which the port
-never imports (its metrics are its own numpy versions of sklearn's)."""
+never imports (its metrics are its own numpy versions of sklearn's), except
+matplotlib inside the embedding report's plotting function."""
 
 import ast
 from pathlib import Path
@@ -33,11 +34,18 @@ def test_no_jax_or_mmtpu_imports(path):
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
 
 
+# the one exception: the embedding report draws its plots with matplotlib,
+# imported inside the function that draws them, as mmtpu's does
+LAZY_HOST_ONLY = {("mmtpu_torch/reports/report.py", "matplotlib")}
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
 def test_no_host_only_libraries(path):
     tree = ast.parse(path.read_text(), filename=str(path))
-    bad = sorted({name for name, _ in _imports(tree) if name in HOST_ONLY})
-    assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+    rel = path.relative_to(REPO).as_posix()
+    bad = sorted({name for name, node in _imports(tree) if name in HOST_ONLY
+                  and not ((rel, name) in LAZY_HOST_ONLY and node.col_offset > 0)})
+    assert not bad, f"{rel} imports {bad}"
 
 
 def test_yaml_is_imported_only_inside_the_yaml_loader():

@@ -208,3 +208,70 @@ def test_rnn_backend_encoder_on_card_matches_cpu(cuda_device, embd_method):
     torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)
     for got, w in zip(grads, want_grads):
         assert (got - w).abs().max().item() <= 1e-4 * max(w.norm().item(), 1e-12)
+
+
+def _write_reader_files(root, counts, seed=8):
+    """`.pt` spectrograms and images that depend on the class, and one CSV
+    per split, in the real AVMNIST reader's format."""
+    rng = np.random.default_rng(seed)
+    csvs = {}
+    for split, n in counts.items():
+        lines = ["audio,image,label"]
+        for i, label in enumerate(rng.integers(0, 10, size=n)):
+            sp, ip = root / f"{split}_spec_{i}.pt", root / f"{split}_img_{i}.pt"
+            torch.save(torch.from_numpy((rng.normal(size=(32, 94)) + 0.3 * label)
+                                        .astype(np.float32)), sp)
+            torch.save(np.clip(rng.normal(20.0 * label + 30, 40, size=(28, 28)), 0, 255)
+                       .astype(np.uint8), ip)
+            lines.append(f"{sp},{ip},{label}")
+        csvs[split] = root / f"{split}.csv"
+        csvs[split].write_text("\n".join(lines) + "\n")
+    return csvs
+
+
+@pytest.mark.cuda
+def test_reader_fed_full_width_fine_tune_on_card(cuda_device, tmp_path):
+    """`train_avmnist` for one epoch at the paper's widths (ResNet18 audio,
+    hidden 64; ResNet34 image, hidden 128; head 192→128→64→10), fed by the
+    AVMNIST reader from `.pt` files: `fused_mlp` runs once per validation
+    and test batch (ai/a/i, batch 128) and in no train forward."""
+    import json
+
+    from mmtpu_torch.cli import train_avmnist
+    from mmtpu_torch.ops import fused_mlp
+
+    counts = {"train": 256, "validation": 128, "test": 128}
+    csvs = _write_reader_files(tmp_path, counts)
+    patterns = {"modalities": {"audio": {"missing_rate": 0.0}, "image": {"missing_rate": 0.0}}}
+
+    def split(name, selected):
+        return {"dataset": "AVMNIST", "data_fp": str(csvs[name]),
+                "split": {"validation": "valid"}.get(name, name), "batch_size": 128,
+                "shuffle": name == "train",
+                "missing_patterns": {**patterns, "selected_patterns": selected}}
+
+    out = tmp_path / "out"
+    cfg = {
+        "experiment": {"name": "Reader_Card", "seed": 42},
+        "model": {"name": "AVMNIST_Resnet", "model_type": "AVMNIST",
+                  "audio_encoder": {"__module_spec__": "resnet18", "hidden_dim": 64},
+                  "image_encoder": {"__module_spec__": "resnet34", "hidden_dim": 128},
+                  "hidden_dim": 128, "dropout": 0.5},
+        "training": {"epochs": 1, "num_modalities": 2,
+                     "optimizer": {"name": "Adam", "default_kwargs": {"lr": 0.0005}},
+                     "loss_functions": {"cross_entropy": {"loss_name": "cross_entropy"}}},
+        "data": {"datasets": {"train": split("train", ["ai"]),
+                              "validation": split("validation", ["ai", "a", "i"]),
+                              "test": split("test", ["ai", "a", "i"])}},
+        "metrics": {"metrics": {"accuracy": {"function": "sklearn.metrics.accuracy_score"}},
+                    "groups": {"classification": ["accuracy"]}},
+        "logging": {"log_path": f"{out}/logs", "model_output_path": f"{out}/models",
+                    "metrics_path": f"{out}/metrics"},
+    }
+    path = tmp_path / "reader_card.json"
+    path.write_text(json.dumps(cfg))
+    fused_mlp.launches = 0
+    assert train_avmnist.main(["--config", str(path), "--run_id", "1"]) == 0
+    assert fused_mlp.launches == 3 + 3  # 1 epoch × 3 validation + 3 test batches
+    test = json.loads((out / "metrics/test_metrics.json").read_text())[0]
+    assert all(np.isfinite(test[k]) for k in ("loss", "accuracy_AI", "accuracy_A", "accuracy_I"))

@@ -241,6 +241,50 @@ def test_lstm_function_backward_at_utt_fusion_shapes(embd_method, monkeypatch):
         torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
 
 
+def test_rnn_backend_weight_gradients_match_mmtpu_with_lengths_past_t():
+    """backend='rnn' with lengths {0, 3, T, T + 5}: every encoder weight's
+    gradient within 1e-5 of its norm of `jax.grad` through mmtpu's encoder.
+    Past T, JAX's gather clamps the carry index forward and its transpose
+    drops the cotangent; the port gives those rows the same value and no
+    gradient through the carry."""
+    from mmtpu.models.lstm import LSTMEncoder as JaxLSTMEncoder
+    from mmtpu_torch.models import LSTMEncoder
+
+    g = np.random.default_rng(21)
+    x = g.normal(size=(8, T, 5)).astype(np.float32)
+    lengths = np.array([0, 3, T, T + 5, T + 5, 3, T, 0], np.int32)
+    cot = g.normal(size=(8, H)).astype(np.float32)
+    jm = JaxLSTMEncoder(input_size=5, hidden_size=H, embd_method="last", backend="rnn")
+    pm = LSTMEncoder(input_size=5, hidden_size=H, embd_method="last", backend="rnn")
+    v = jax.tree_util.tree_map(np.asarray, dict(jm.init(jax.random.PRNGKey(3), jnp.asarray(x))))
+    flat = flatten_dict(v["params"])
+    v = {"params": unflatten_dict({k: (a + 0.1 * g.normal(size=a.shape)).astype(np.float32)
+                                   for k, a in flat.items()})}
+    pm.load_state_dict(from_jax_variables(v["params"], target=pm), strict=True)
+
+    def loss(params):
+        return jnp.sum(jm.apply({"params": params}, jnp.asarray(x), jnp.asarray(lengths))
+                       * cot)
+
+    want = from_jax_variables(jax.tree_util.tree_map(np.asarray,
+                                                     jax.grad(loss)(v["params"])))
+    out = pm(torch.from_numpy(x), torch.from_numpy(lengths))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(
+        jm.apply(v, jnp.asarray(x), jnp.asarray(lengths))), rtol=TOL, atol=TOL)
+    names, params = zip(*pm.named_parameters())
+    got = torch.autograd.grad((out * torch.from_numpy(cot)).sum(), params)
+    assert set(names) == set(want)
+    for name, gr in zip(names, got):
+        w = want[name].numpy()
+        err = np.abs(gr.numpy() - w).max()
+        assert err <= TOL * max(np.linalg.norm(w), 1e-12), (name, err)
+    # the rows past T alone: no gradient reaches the weights through them
+    rows = lengths > T
+    past = torch.autograd.grad((pm(torch.from_numpy(x[rows]), torch.from_numpy(lengths[rows]))
+                                * torch.from_numpy(cot[rows])).sum(), params)
+    assert all(float(gr.abs().max()) == 0.0 for gr in past)
+
+
 def test_dropout_is_live_in_train_mode_only():
     """TextCNN's and FcClassifier's dropout draw in a train forward and not
     in an eval forward."""
