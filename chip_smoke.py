@@ -66,8 +66,28 @@ FcClassifier 192→[192, 64, 32]→3; batch 32, aligned T = 50):
              `--stacked-runs 2` sweep at 512/128/128 samples (runs 1 and 2,
              seeds 42 and 43; twice one member's launches).
 
+8. shipped — the shipped-weights flow (plain-dict twins of
+             configs/avmnist/shipped_wheights_{finetune,finetune_audiofix,
+             scratch}.yaml: MNISTAudio and MNISTImage, 32/64 channels,
+             hidden 64; head 128→128→64→10, dropout 0.5; the files' Adam
+             groups and plateau scheduler; batch 128) on phase 7's `.pt`
+             files: a reference-layout image-encoder `.pth` written from the
+             seed (30 tensors, wrapped in `model_state_dict` with a
+             `module.` prefix) loads byte for byte and replays the reference
+             module within 1e-4 on the card; `train_multimodal.main` runs
+             the three twins for 2 epochs (the image encoder at epoch 0 the
+             file's in two of them; the audiofix groups at 5e-4 / 1e-4;
+             `fused_mlp` exactly 36 launches each; mmtpu's test keys);
+             predict on the fine-tune's best.pth against the CPU; a
+             profiled window of 8 fine-tune train steps; three
+             train steps with each of rmsprop (with and without momentum),
+             adagrad, adadelta, adamax, asgd and sparse_adam on the card
+             against the CPU, and lbfgs raising on both. The kernels phase
+             also holds `fused_mlp` at the head's dims [128, 128, 64, 10].
+
     python3 chip_smoke.py --train-only    # build, then phases 5 and 6 alone
     python3 chip_smoke.py --reader-only   # build, the audio pretraining, phase 7
+    python3 chip_smoke.py --shipped-only  # build, phase 7's .pt files, phase 8
 
 Prints a `kernels` JSON line, the card's name and power limit, and as the
 last line `{"ok": true, "device": {...}}`. Any failure exits non-zero
@@ -460,11 +480,12 @@ def phase_kernels_mlp(dev) -> dict:
         buf[1:].copy_(w.reshape(-1))
         return buf[1:].view_as(w)
 
-    max_err = 0.0
+    max_err = shipped_err = 0.0
     # (dims, batch, what is special): the head at the path's batch sizes, odd
     # widths, layer 1 off the 16-byte grid, and a chain too wide to stay in
     # shared memory (16.8 MB of weights, streamed through it)
     cases = [(HEAD_DIMS, b, "") for b in (1, 37, 64, 128, 1024)] + [
+        (SHIPPED_HEAD_DIMS, b, "") for b in (128, 1024)] + [
         ([100, 300, 7], 37, ""),
         (HEAD_DIMS, 128, "layer 1 a misaligned view"),
         ([2048, 2048, 10], 64, "weights streamed"),
@@ -489,32 +510,37 @@ def phase_kernels_mlp(dev) -> dict:
         if err > KERNEL_TOL:
             raise AssertionError(f"{label}: error {err} > {KERNEL_TOL}")
         max_err = max(max_err, err)
+        if dims == SHIPPED_HEAD_DIMS:
+            shipped_err = max(shipped_err, err)
 
     timings = {}
-    ws, bs = layers(HEAD_DIMS)
-    for batch in (128, 1024):
-        x = torch.randn(batch, HEAD_DIMS[0], generator=g).to(dev)
-        # turns: plain, kernel, kernel, plain
-        p1 = event_ms(lambda: fused_mlp_reference(x, ws, bs))
-        k1 = event_ms(lambda: fused_mlp(x, ws, bs))
-        k2 = event_ms(lambda: fused_mlp(x, ws, bs))
-        p2 = event_ms(lambda: fused_mlp_reference(x, ws, bs))
-        kh = host_ms(lambda: fused_mlp(x, ws, bs))
-        kd = own_device_ms(lambda: fused_mlp(x, ws, bs), "fused_mlp")
-        pd = device_breakdown(lambda: [fused_mlp_reference(x, ws, bs) for _ in range(100)])
-        pd = pd["device_ms"] / 100
-        bound, bound_by = mlp_bound_ms(batch, HEAD_DIMS)
-        timings[batch] = {
-            "ms": statistics.mean([k1, k2]), "plain_ms": statistics.mean([p1, p2]),
-            "device_ms": kd, "plain_device_ms": pd, "host_ms": kh,
-            "bound_ms": bound, "bound_by": bound_by,
-        }
-        say(f"[kernels] fused_mlp B={batch} {HEAD_DIMS}: per call kernel "
-            f"{k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms (events); host per launch "
-            f"{kh:.4f} ms (wall, no sync); device "
-            f"time kernel {kd} ms, plain {pd} ms (profiler); bound {bound:.6f} ms "
-            f"({bound_by})")
-    return {"max_err": max_err, "timings": timings}
+    for dims in (HEAD_DIMS, SHIPPED_HEAD_DIMS):
+        ws, bs = layers(dims)
+        for batch in (128, 1024):
+            x = torch.randn(batch, dims[0], generator=g).to(dev)
+            # turns: plain, kernel, kernel, plain
+            p1 = event_ms(lambda: fused_mlp_reference(x, ws, bs))
+            k1 = event_ms(lambda: fused_mlp(x, ws, bs))
+            k2 = event_ms(lambda: fused_mlp(x, ws, bs))
+            p2 = event_ms(lambda: fused_mlp_reference(x, ws, bs))
+            kh = host_ms(lambda: fused_mlp(x, ws, bs))
+            kd = own_device_ms(lambda: fused_mlp(x, ws, bs), "fused_mlp")
+            pd = device_breakdown(lambda: [fused_mlp_reference(x, ws, bs) for _ in range(100)])
+            pd = pd["device_ms"] / 100
+            bound, bound_by = mlp_bound_ms(batch, dims)
+            timings[(dims[0], batch)] = {
+                "ms": statistics.mean([k1, k2]), "plain_ms": statistics.mean([p1, p2]),
+                "device_ms": kd, "plain_device_ms": pd, "host_ms": kh,
+                "bound_ms": bound, "bound_by": bound_by,
+            }
+            say(f"[kernels] fused_mlp B={batch} {dims}: per call kernel "
+                f"{k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms (events); host per launch "
+                f"{kh:.4f} ms (wall, no sync); device "
+                f"time kernel {kd} ms, plain {pd} ms (profiler); bound {bound:.6f} ms "
+                f"({bound_by})")
+    return {"max_err": max_err, "shipped_err": shipped_err,
+            "timings": {b: timings[(HEAD_DIMS[0], b)] for b in (128, 1024)},
+            "shipped": {b: timings[(SHIPPED_HEAD_DIMS[0], b)] for b in (128, 1024)}}
 
 
 # LSTM shapes: (G, B, T, H, lengths in [0, T], non-zero h0/c0, tolerance, timed)
@@ -1016,9 +1042,10 @@ def _training_setup(cfg, dev):
     return model, state, make_train_step(task, state, dev)
 
 
-def phase_train_profile(dev, card: str, cfg_path: Path, steps: int = 8) -> dict:
+def phase_train_profile(dev, card: str, cfg_path: Path, steps: int = 8,
+                        tag: str = "[train profile]") -> dict:
     """A window of fine-tune train steps under the profiler: the device's
-    busy share and the operations that take its time."""
+    busy share, its kernels per step and the operations that take its time."""
     import torch
 
     cfg, batches = _train_batches(cfg_path, 3 + steps)
@@ -1028,11 +1055,14 @@ def phase_train_profile(dev, card: str, cfg_path: Path, steps: int = 8) -> dict:
     torch.cuda.synchronize()
     brk = device_breakdown(lambda: [step(b) for b in batches[3:]], top=8)
     busy = brk["device_ms"] / brk["profiled_wall_ms"]
-    say_card(card, f"[train profile] {steps} fine-tune train steps (B={TRAIN_BATCH}): device "
+    say_card(card, f"{tag} {steps} fine-tune train steps (B={TRAIN_BATCH}): device "
              f"busy {brk['device_ms']:.3f} ms of {brk['profiled_wall_ms']:.3f} ms wall, busy "
-             f"share {busy:.3f}; top device operations (name, ms, count) {brk['top']}; top "
-             f"host operations by self CPU time (name, ms, count) {brk['top_host']}")
-    return {"busy_share": busy}
+             f"share {busy:.3f}; {brk['kernel_events'] / steps:.1f} device kernels and "
+             f"{brk['launch_calls'] / steps:.1f} launch calls per step; top device operations "
+             f"(name, ms, count) {brk['top']}; top host operations by self CPU time (name, "
+             f"ms, count) {brk['top_host']}")
+    return {"busy_share": busy, "kernels_per_step": brk["kernel_events"] / steps,
+            "device_ms_per_step": brk["device_ms"] / steps}
 
 
 def _grad_errors(grads: dict, ref: dict) -> dict:
@@ -1710,8 +1740,307 @@ def phase_train_reader(dev, card: str, work: Path, handoff: Path) -> dict:
     say_card(card, f"[reader sweep] --stacked-runs 2 at {SWEEP_SAMPLES} in {sweep_s:.2f} s; "
              f"members run 1 and 2 seeded {seeds}; outputs {trees['2']}; fused_mlp launches "
              f"{sweep_launches} = 2 × {member}")
-    return {"build": build, "run": run, "launches": fine_tune, "cv_launches": cv_launches,
+    return {"csvs": data["csvs"], "build": build, "run": run, "launches": fine_tune,
+            "cv_launches": cv_launches,
             "sweep_launches": sweep_launches, "cv_s": cv_s, "sweep_s": sweep_s}
+
+
+# The shipped-weights phase: plain-dict twins of
+# configs/avmnist/shipped_wheights_{finetune,finetune_audiofix,scratch}.yaml
+# (MNISTAudio and MNISTImage, 32/64 channels, hidden 64; head 128→128→64→10,
+# dropout 0.5; the files' Adam groups and plateau scheduler) fed by phase 7's
+# `.pt` files, the image encoder of two of them from a reference-layout `.pth`
+# this run writes from the seed.
+SHIPPED_NAMES = {"finetune": "AVMNIST_ShippedWheights_Finetune",
+                 "audiofix": "AVMNIST_ShippedWheights_Finetune_AudioFix",
+                 "scratch": "AVMNIST_ShippedWheights_Scratch"}
+SHIPPED_HEAD_DIMS = [128, 128, 64, 10]
+SHIPPED_CONVS = ((1, 32), (32, 32), (32, 64), (64, 64))
+SHIPPED_LOAD_TOL = 1e-4  # the loaded encoder vs a functional replay of the reference module
+SHIPPED_OPTIMIZERS = {
+    "rmsprop": {"alpha": 0.99, "eps": 1e-8},
+    "rmsprop_momentum": {"alpha": 0.99, "eps": 1e-8, "momentum": 0.9},
+    "adagrad": {},
+    "adadelta": {"rho": 0.9, "eps": 1e-6},
+    "adamax": {"betas": [0.9, 0.999]},
+    "asgd": {},
+    "sparse_adam": {},
+}
+
+
+def shipped_state(seed: int = SEED) -> dict:
+    """A reference-layout MNISTImage state dict (the reference's Sequential
+    net.0 … net.5: 30 tensors, net.5 3136→64), a plain dict of tensors from
+    the seed, built without the port's module."""
+    import torch
+
+    g = np.random.default_rng(seed)
+    sd = {}
+    for slot, convs in ((0, SHIPPED_CONVS[:2]), (2, SHIPPED_CONVS[2:])):
+        for which, (cin, cout) in zip(("one", "two"), convs):
+            conv, bn = f"net.{slot}.conv_{which}", f"net.{slot}.batch_norm_{which}"
+            sd[f"{conv}.weight"] = g.normal(size=(cout, cin, 3, 3)) / np.sqrt(9 * cin)
+            sd[f"{conv}.bias"] = 0.1 * g.normal(size=cout)
+            sd[f"{bn}.weight"] = 1 + 0.1 * g.normal(size=cout)
+            sd[f"{bn}.bias"] = 0.1 * g.normal(size=cout)
+            sd[f"{bn}.running_mean"] = 0.1 * g.normal(size=cout)
+            sd[f"{bn}.running_var"] = g.uniform(0.5, 1.5, size=cout)
+            sd[f"{bn}.num_batches_tracked"] = np.asarray(100)
+    sd["net.5.weight"] = g.normal(size=(64, 3136)) / 56.0
+    sd["net.5.bias"] = 0.1 * g.normal(size=64)
+    return {k: torch.from_numpy(np.asarray(v, np.int64 if "num_batches" in k else np.float32))
+            for k, v in sd.items()}
+
+
+def shipped_replay(sd: dict, x_nchw):
+    """The reference MNISTImage's eval forward, functionally, from its
+    state dict."""
+    import torch.nn.functional as F
+
+    def conv_bn(x, conv, bn):
+        x = F.conv2d(x, sd[f"{conv}.weight"], sd[f"{conv}.bias"], padding=1)
+        x = F.batch_norm(x, sd[f"{bn}.running_mean"], sd[f"{bn}.running_var"],
+                         sd[f"{bn}.weight"], sd[f"{bn}.bias"], training=False, eps=1e-5)
+        return F.relu(x)
+
+    x = conv_bn(x_nchw, "net.0.conv_one", "net.0.batch_norm_one")
+    x = F.max_pool2d(conv_bn(x, "net.0.conv_two", "net.0.batch_norm_two"), 2)
+    x = conv_bn(x, "net.2.conv_one", "net.2.batch_norm_one")
+    x = F.max_pool2d(conv_bn(x, "net.2.conv_two", "net.2.batch_norm_two"), 2)
+    return F.linear(x.flatten(1), sd["net.5.weight"], sd["net.5.bias"])
+
+
+def shipped_configs(out_root: str, csvs: dict, pth: Path) -> dict:
+    """Plain-dict twins of shipped_wheights_finetune.yaml ("finetune": the
+    image encoder from `pth`, encoder groups at Adam 1e-4 with L2 1e-4),
+    _audiofix ("audiofix": the same, the scratch audio encoder back at the
+    base 5e-4) and _scratch ("scratch": one Adam group at 5e-4), with this
+    run's CSVs and output root; the files' data, metrics and logging
+    otherwise (batch 128, ai train, ai/a/i eval, no TensorBoard)."""
+    import copy
+
+    base = paper_configs(out_root, csvs, pth)["pretrained"]
+    del base["logging"]["tensorboard_path"]
+    convs = {name: {"__module_spec__": "conv_block_args", "conv_one_in": i, "conv_one_out": o}
+             for name, (i, o) in zip(("conv_block_one_one_args", "conv_block_one_two_args",
+                                      "conv_block_two_one_args", "conv_block_two_two_args"),
+                                     SHIPPED_CONVS)}
+    base["model"] = {
+        "name": "AVMNIST_ShippedWheights", "model_type": "AVMNIST",
+        "audio_encoder": {"__module_spec__": "mnist_audio", **convs, "hidden_dim": 64},
+        "image_encoder": {"__module_spec__": "mnist_image", **copy.deepcopy(convs),
+                          "hidden_dim": 64},
+        "hidden_dim": 128, "dropout": 0.5, "fusion_fn": "concat",
+        "pretrained_encoders": {"image": str(pth)},
+    }
+    del base["training"]["modality_specific_params"]
+    out = {}
+    for key, name in SHIPPED_NAMES.items():
+        cfg = copy.deepcopy(base)
+        cfg["experiment"]["name"] = name
+        if key == "audiofix":
+            cfg["training"]["modality_specific_params"] = {"audio_encoder": {"lr": 0.0005}}
+        if key == "scratch":
+            del cfg["model"]["pretrained_encoders"], cfg["training"]["encoder_optimizer"]
+        out[key] = cfg
+    return out
+
+
+def phase_shipped_load(dev, pth: Path, sd: dict) -> dict:
+    """The reference-layout file through the port's reader: the encoder's
+    tensors byte for byte the file's, and its eval forward on the card
+    within SHIPPED_LOAD_TOL of the reference module replayed from the file
+    (TF32 off)."""
+    import torch
+
+    from mmtpu_torch.checkpoints import load_encoder_checkpoint
+    from mmtpu_torch.config.spec import specs_from_dicts
+
+    spec = shipped_configs("unused", {s: "unused" for s in READER_SPLITS}, pth)["finetune"]
+    enc = specs_from_dicts(spec["model"]["image_encoder"]).build()
+    report = load_encoder_checkpoint(pth, enc)
+    got = enc.state_dict()
+    if report.kept or report.fallback or set(got) != set(sd) or not all(
+            got[k].dtype == v.dtype and torch.equal(got[k], v) for k, v in sd.items()):
+        raise AssertionError(f"[shipped load] not the file's tensors: kept {report.kept}, "
+                             f"fallback {report.fallback}")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x = torch.from_numpy(np.random.default_rng(SEED).normal(size=(128, 28, 28, 1))
+                         .astype(np.float32))
+    enc = enc.to(dev).eval()
+    with torch.no_grad():
+        ours = enc(x.to(dev)).cpu()
+        theirs = shipped_replay({k: v.to(dev) for k, v in sd.items()},
+                                x.permute(0, 3, 1, 2).contiguous().to(dev)).cpu()
+    err = (ours - theirs).abs().max().item()
+    say(f"[shipped load] {pth.name} ({report.format}, model_state_dict with the module. "
+        f"prefix): {len(sd)} tensors byte for byte; eval forward on the card vs the "
+        f"reference replay, B=128: max |diff| = {err:.3e} (tolerance {SHIPPED_LOAD_TOL})")
+    if not torch.isfinite(ours).all() or err > SHIPPED_LOAD_TOL:
+        raise AssertionError(f"[shipped load] forward differs from the replay by {err}")
+    return {"replay_err": err, "tensors": len(sd)}
+
+
+def phase_shipped_optimizers(dev, cfg_path: Path) -> dict:
+    """Three train steps of the shipped-weights model (image encoder from the
+    file, dropout 0, TF32 off) with each optimizer mmtpu builds beyond Adam,
+    AdamW and SGD, on the card and on the CPU from the same weights and
+    batches: the losses, and no optimizer state left on the host. `lbfgs`
+    must fail at its first step on both devices."""
+    import torch
+
+    from mmtpu_torch.cli import common
+    from mmtpu_torch.config.optim import OptimizerConfig
+
+    cfg, batches = _train_batches(cfg_path, 3)
+    cfg.model.kwargs["dropout"] = 0.0
+    cpu = torch.device("cpu")
+
+    def setup(device, name, extra):
+        training = cfg.training
+        training.optimizer = OptimizerConfig.from_dict(
+            {"name": name, "default_kwargs": {"lr": 5e-4, "weight_decay": 1e-4, **extra}})
+        model, state, step = _training_setup(cfg, device)
+        common.load_pretrained_encoders(model, cfg.model.pretrained_encoders, cfg.logging)
+        return state, step
+
+    out = {}
+    for label, extra in SHIPPED_OPTIMIZERS.items():
+        name = label.removesuffix("_momentum")
+        losses, host_state = {}, []
+        for tag, device in (("gpu", dev), ("cpu", cpu)):
+            state, step = setup(device, name, extra)
+            losses[tag] = [float(step(b)["loss"]) for b in batches]
+            if tag == "gpu":
+                host_state = [k for st in state.optimizer.state.values() for k, v in st.items()
+                              if isinstance(v, torch.Tensor) and v.device.type != dev.type]
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses["gpu"], losses["cpu"])]
+        say(f"[shipped optimizers] {label}: losses GPU {losses['gpu']}, CPU {losses['cpu']}: "
+            f"relative {[float(f'{r:.3e}') for r in rel]} (tolerances {TRAIN_LOSS_RTOL}, then "
+            f"{TRAIN_LATER_RTOL}); state tensors off the card {host_state}")
+        if rel[0] > TRAIN_LOSS_RTOL or max(rel[1:]) > TRAIN_LATER_RTOL or host_state:
+            raise AssertionError(f"[shipped optimizers] {label}: relative {rel}, state on the "
+                                 f"host {host_state}")
+        out[label] = rel
+    for device in (dev, cpu):
+        _, step = setup(device, "lbfgs", {})
+        try:
+            step(batches[0])
+        except NotImplementedError as e:
+            if "value function" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"[shipped optimizers] lbfgs took a step on {device}")
+    say("[shipped optimizers] lbfgs builds and raises at its first step on the card and on "
+        "the CPU, as mmtpu's optax.lbfgs does at its first update")
+    return out
+
+
+def phase_shipped(dev, card: str, work: Path, csvs: dict) -> dict:
+    """The shipped-weights flow: the reference-layout `.pth` written and
+    checked, the three twins through `train_multimodal.main` on the card
+    (2 epochs), predict on the fine-tune's best.pth against the CPU, and the
+    optimizers' three train steps against the CPU."""
+    import torch
+
+    from mmtpu_torch.cli import common, predict, train_multimodal
+    from mmtpu_torch.train.step import make_eval_step
+
+    out_root = work / "shipped"
+    out_root.mkdir(parents=True, exist_ok=True)
+    sd = shipped_state()
+    pth = work / "lenet_image_best.pth"
+    torch.save({"model_state_dict": {f"module.{k}": v for k, v in sd.items()}}, pth)
+    load = phase_shipped_load(dev, pth, sd)
+
+    paths = {}
+    for key, cfg in shipped_configs(str(out_root), csvs, pth).items():
+        paths[key] = work / f"shipped_{key}.json"
+        paths[key].write_text(json.dumps(cfg))
+    per_split = _eval_batches(TRAIN_SAMPLES)
+    one_run = TRAIN_EPOCHS * per_split["validation"] + per_split["test"]
+    # mmtpu's test record: the scalar metrics per pattern (the confusion
+    # matrices go to their own files), the loss, the split and the index
+    metrics = ("accuracy", "balanced_accuracy", "f1_macro", "f1_weighted")
+    want_keys = {"index", "split", "loss", *(f"{m}_{p}" for m in metrics for p in ("AI", "A", "I"))}
+    real_load, real_state = common.load_pretrained_encoders, common.make_state
+    runs, launches = {}, {}
+    for key in SHIPPED_NAMES:
+        loaded, groups = [], []
+
+        def spy_load(model, pretrained, logging_cfg):
+            mods = real_load(model, pretrained, logging_cfg)
+            loaded.append({k: v.detach().cpu().clone()
+                           for k, v in model.image_encoder.state_dict().items()})
+            return mods
+
+        def spy_state(model, training, clip=None):
+            state = real_state(model, training, clip=clip)
+            groups.extend((g["label"], g["lr"]) for g in state.optimizer.param_groups)
+            return state
+
+        common.load_pretrained_encoders, common.make_state = spy_load, spy_state
+        reset_counts()
+        try:
+            run = _run_cli(train_multimodal, paths[key], f"[shipped {key}]", out_root,
+                           SHIPPED_NAMES[key], extra=("--epochs", str(TRAIN_EPOCHS)))
+        finally:
+            common.load_pretrained_encoders, common.make_state = real_load, real_state
+        launches[key] = read_counts()["fused_mlp"]
+        from_file = len(loaded) == 1 and all(torch.equal(loaded[0][k], v) for k, v in sd.items())
+        if from_file != (key != "scratch"):
+            raise AssertionError(f"[shipped {key}] image encoder at epoch 0 from the file: "
+                                 f"{from_file}")
+        want_groups = {"finetune": [("group_0", 1e-4), ("group_1", 1e-4), ("default", 5e-4)],
+                       "audiofix": [("group_0", 5e-4), ("group_1", 1e-4), ("default", 5e-4)],
+                       "scratch": [("default", 5e-4)]}[key]
+        if groups != want_groups:
+            raise AssertionError(f"[shipped {key}] optimizer groups {groups}, expected "
+                                 f"{want_groups} (group_0 ^audio_encoder/, group_1 "
+                                 "^image_encoder/)")
+        if launches[key] != one_run:
+            raise AssertionError(f"[shipped {key}] fused_mlp launched {launches[key]} times, "
+                                 f"expected {TRAIN_EPOCHS} × {per_split['validation']} "
+                                 f"validation + {per_split['test']} test batches = {one_run}")
+        if set(run["test"]) != want_keys:
+            raise AssertionError(f"[shipped {key}] test_metrics.json keys {sorted(run['test'])}")
+        say_card(card, f"[shipped {key}] {run['seconds']:.2f} s through main; epoch "
+                 f"{TRAIN_EPOCHS} train {run['epoch_s']:.3f} s = {run['samples_per_s']:.1f} "
+                 f"samples/s (B={TRAIN_BATCH}); peak device memory "
+                 f"{run['peak_bytes'] / 2**20:.1f} MiB")
+        say(f"[shipped {key}] image encoder at epoch 0 from the file: {from_file}; groups "
+            f"(label, lr) {groups}; fused_mlp launches {launches[key]} = {TRAIN_EPOCHS} × "
+            f"{per_split['validation']} + {per_split['test']}; losses {run['losses']}; test "
+            f"{_accuracies(run['test'])}")
+        runs[key] = run
+
+    # predict on the fine-tune's best.pth, the card against the CPU
+    args = predict.arg_parser().parse_args(
+        ["--config", str(paths["finetune"]), "--run_id", "1", "--checkpoint", "best"])
+    cfg = common.load_config(args)
+    reset_counts()
+    task, loader = predict.build_task_and_loader(cfg, args, dev)
+    cpu_task, _ = predict.build_task_and_loader(cfg, args, torch.device("cpu"))
+    batches = list(loader)
+    gpu_step, cpu_step = make_eval_step(task, dev), make_eval_step(cpu_task, torch.device("cpu"))
+    worst = 0.0
+    for i in (0, 1, len(batches) - 1):
+        g_logits, c_logits = gpu_step(batches[i])["logits"].cpu(), cpu_step(batches[i])["logits"]
+        if g_logits.shape != (TRAIN_BATCH, 10) or not torch.isfinite(g_logits).all():
+            raise AssertionError(f"[shipped predict] batch {i}: logits {tuple(g_logits.shape)}")
+        worst = max(worst, (g_logits - c_logits).abs().max().item())
+    predict_launches = read_counts()["fused_mlp"]
+    say(f"[shipped predict] {SHIPPED_NAMES['finetune']} best.pth: GPU vs CPU logits on 3 of "
+        f"{len(batches)} batches, max |diff| = {worst:.3e} (tolerance {CPU_TOL}, TF32 off); "
+        f"fused_mlp launches {predict_launches}")
+    if worst > CPU_TOL or predict_launches != 3:
+        raise AssertionError(f"[shipped predict] logits differ by {worst}; "
+                             f"{predict_launches} launches")
+    profile = phase_train_profile(dev, card, paths["finetune"], tag="[shipped profile]")
+    optimizers = phase_shipped_optimizers(dev, paths["finetune"])
+    return {"load": load, "runs": runs, "launches": launches, "predict_err": worst,
+            "profile": profile, "optimizers": optimizers}
 
 
 def kernel_record(name: str, source: str, replaces: str, shape: str, kern: dict, t: dict,
@@ -1746,6 +2075,9 @@ def main(argv=None) -> int:
     parser.add_argument("--reader-only", action="store_true",
                         help="build the kernels, pretrain the audio encoder and run the "
                              "reader phase alone (no kernels or ok line)")
+    parser.add_argument("--shipped-only", action="store_true",
+                        help="build the kernels, write the reader phase's .pt files and run "
+                             "the shipped-weights phase alone (no kernels or ok line)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU",
@@ -1790,6 +2122,16 @@ def main(argv=None) -> int:
             shutil.rmtree(work, ignore_errors=True)
         return 0
 
+    if args.shipped_only:
+        try:
+            data = write_avmnist_files(work / "avmnist_data", TRAIN_SAMPLES)
+            t0 = time.perf_counter()
+            phase_shipped(dev, smi, work, data["csvs"])
+            say(f"[summary] shipped-weights phase {time.perf_counter() - t0:.1f} s")
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        return 0
+
     mlp = phase_kernels_mlp(dev)
     lstm = phase_kernels_lstm(dev)
     try:
@@ -1807,8 +2149,11 @@ def main(argv=None) -> int:
         utt = phase_train_utt(dev, smi, work)
         t_reader = time.perf_counter()
         reader = phase_train_reader(dev, smi, work, train["handoff"])
-        t_train, t_utt, t_reader = (t_utt - t_train, t_reader - t_utt,
-                                    time.perf_counter() - t_reader)
+        t_shipped = time.perf_counter()
+        shipped = phase_shipped(dev, smi, work, reader["csvs"])
+        t_train, t_utt, t_reader, t_shipped = (t_utt - t_train, t_reader - t_utt,
+                                               t_shipped - t_reader,
+                                               time.perf_counter() - t_shipped)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1832,7 +2177,17 @@ def main(argv=None) -> int:
              f"under --profile); fused_mlp launches fine-tune {reader['launches']}, cv "
              f"{reader['cv_launches']}, sweep {reader['sweep_launches']}; cv {reader['cv_s']:.1f} "
              f"s, sweep {reader['sweep_s']:.1f} s; phase {t_reader:.1f} s")
+    say_card(smi, "[summary] shipped weights: " + ", ".join(
+        f"{key} {run['samples_per_s']:.1f}" for key, run in shipped["runs"].items())
+        + f" train samples/s (epoch {TRAIN_EPOCHS}); fused_mlp launches "
+        f"{shipped['launches']}; busy share {shipped['profile']['busy_share']:.3f}; replay "
+        f"{shipped['load']['replay_err']:.3e}, predict GPU vs CPU "
+        f"{shipped['predict_err']:.3e}; phase {t_shipped:.1f} s")
     say(f"[summary] fused_mlp B=1024 {json.dumps(mlp['timings'][1024])}")
+    for batch, t in mlp["shipped"].items():
+        say(f"[summary] fused_mlp {SHIPPED_HEAD_DIMS} B={batch} {json.dumps(t)}")
+    say(f"[summary] fused_mlp {SHIPPED_HEAD_DIMS} max |kernel - plain| "
+        f"{mlp['shipped_err']:.3e} at B=128 and 1024 (tolerance {KERNEL_TOL})")
     for shape, t in lstm["timings"].items():
         say(f"[summary] lstm G,B,T,H={shape} {json.dumps(t)}")
     say(f"[summary] {time.perf_counter() - t_start:.1f} s in all")
@@ -1842,7 +2197,10 @@ def main(argv=None) -> int:
                          "mmtpu/ops/fused_mlp.py:63", "B=128, 192-128-64-10, float32",
                          mlp, mlp["timings"][128], av_pred, av_srv),
          "train_launches": train["launches"], "reader_launches": reader["launches"],
-         "cv_launches": reader["cv_launches"], "sweep_launches": reader["sweep_launches"]},
+         "cv_launches": reader["cv_launches"], "sweep_launches": reader["sweep_launches"],
+         "shipped_launches": shipped["launches"],
+         "shipped_head": {"dims": SHIPPED_HEAD_DIMS, "max_abs_err": mlp["shipped_err"],
+                          **{f"B={b}": t for b, t in mlp["shipped"].items()}}},
         {**kernel_record("lstm", "mmtpu_torch/ops/csrc/lstm.cu", "mmtpu/ops/lstm.py:61",
                          f"G={G}, B={B}, T={T}, H={H}, float32; library_ms is {G} nn.LSTM "
                          "calls, projection included (with_projection_ms is ours with it)",

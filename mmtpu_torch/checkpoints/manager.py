@@ -3,8 +3,8 @@
 
 - `epoch_{N}.pth` + `epoch_{N}.json` on every new best, mirrored to
   `best.pth` + `best.json`; each holds {"model", "optimizer", "step"} (the
-  model's state_dict under "model", where `load_pth` and `cli.predict`
-  find it);
+  model's state_dict under "model", where `load_encoder_checkpoint` and
+  `cli.predict` find it);
 - `last.pth`: the rolling resume point, written every epoch — the same
   tree plus the loop's meta (JSON, under "resume_meta") and the torch RNG
   states, in ONE file written atomically (a kill never pairs epoch-N
@@ -13,8 +13,21 @@
   encoder state_dict (parameters and BatchNorm statistics).
 
 Configs name their handoff files as mmtpu writes them, `*.ckpt`;
-`resolve_checkpoint_path` takes a `.ckpt` name to its `.pth` sibling (mmtpu
-does the reverse). Writes are synchronous.
+`resolve_checkpoint_path` takes a missing `.ckpt` name to its `.pth`
+sibling, and any other missing name to its `.ckpt` sibling (mmtpu's rule).
+Writes are synchronous.
+
+Reading (`load_encoder_checkpoint`, mmtpu's `load_encoder_checkpoint` and
+`load_model_variables` in one): three formats, told apart by their bytes.
+Anything that decodes as msgpack is an mmtpu `.ckpt` (`checkpoints/
+msgpack.py`): its `params` and `batch_stats` go through `adapt_lstm_layout`
+and `from_jax_variables`, so an `LSTMEncoder` saved with one backend loads
+into the other. A zip archive or a pickle is a torch file: the port's own
+(a training checkpoint's "model", or a plain-tensor state dict whose keys
+are the target's) loads with `load_state_dict(strict=True)`, as mmtpu loads
+its own `.ckpt`; any other is a reference `.pth`, read leniently by
+`checkpoints/torch_interop.py`. The exact path is tried first, then its
+sibling; where both exist, mmtpu's encoder loader would take the `.ckpt`.
 """
 
 from __future__ import annotations
@@ -22,11 +35,15 @@ from __future__ import annotations
 import json
 import logging
 import os
+import zipfile
 from pathlib import Path
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Mapping, Optional, Union
 
+import numpy as np
 import torch
+from torch import nn
 
+from mmtpu_torch.checkpoints.torch_interop import LoadReport
 from mmtpu_torch.train.state import TrainState
 
 logger = logging.getLogger(__name__)
@@ -52,14 +69,171 @@ def _load(path: Path) -> Dict[str, Any]:
 
 
 def resolve_checkpoint_path(path) -> Path:
-    """The exact path if it exists, else its `.pth` sibling; raises
-    FileNotFoundError when neither exists."""
+    """The exact path if it exists, else its sibling: a `.ckpt` name's
+    `.pth` (the port's files), any other name's `.ckpt` (mmtpu's, as
+    mmtpu's `resolve_checkpoint_path`). Raises FileNotFoundError when
+    neither exists."""
     p = Path(path)
-    if p.exists():
-        return p
-    if p.with_suffix(".pth").exists():
-        return p.with_suffix(".pth")
-    raise FileNotFoundError(f"checkpoint not found: {p} (nor {p.with_suffix('.pth').name})")
+    sibling = p.with_suffix(".pth" if p.suffix == ".ckpt" else ".ckpt")
+    for candidate in (p, sibling):
+        if candidate.exists():
+            return candidate
+    raise FileNotFoundError(f"checkpoint not found: {p} (nor {sibling.name})")
+
+
+_GATES = ("i", "f", "g", "o")  # flax OptimizedLSTMCell's gate order, also the fused layout's
+
+
+def _is_cell(node: Any) -> bool:
+    return isinstance(node, dict) and all(f"i{g}" in node and f"h{g}" in node for g in _GATES)
+
+
+def _find_cell_path(node: Any, path=()):
+    """Path of the first per-gate OptimizedLSTMCell param dict under node."""
+    if _is_cell(node):
+        return path
+    if isinstance(node, dict):
+        for k, v in node.items():
+            found = _find_cell_path(v, path + (k,))
+            if found is not None:
+                return found
+    return None
+
+
+def _fuse_cell(cell: Dict[str, Any]):
+    """Per-gate {i*, h*} Dense params → fused (wi Dense, wh matrix): the
+    bias of each gate sits on its h-side Dense."""
+    wi_k = np.concatenate([np.asarray(cell[f"i{g}"]["kernel"]) for g in _GATES], axis=-1)
+    wi_b = np.concatenate([np.asarray(cell[f"h{g}"]["bias"]) for g in _GATES], axis=-1)
+    wh = np.concatenate([np.asarray(cell[f"h{g}"]["kernel"]) for g in _GATES], axis=-1)
+    return {"kernel": wi_k, "bias": wi_b}, wh
+
+
+def _unfuse_cell(wi: Dict[str, Any], wh: Any) -> Dict[str, Any]:
+    wh = np.asarray(wh)
+    H = wh.shape[-1] // 4
+    cell: Dict[str, Any] = {}
+    for n, g in enumerate(_GATES):
+        sl = slice(n * H, (n + 1) * H)
+        cell[f"i{g}"] = {"kernel": np.asarray(wi["kernel"])[..., sl]}
+        cell[f"h{g}"] = {"kernel": wh[..., sl], "bias": np.asarray(wi["bias"])[..., sl]}
+    return cell
+
+
+def adapt_lstm_layout(state: Any, target: Any) -> Any:
+    """Bridge LSTMEncoder's two parameter layouts in an mmtpu tree (own copy
+    of mmtpu's): per-gate OptimizedLSTMCell params (`backend='rnn'`,
+    possibly nested under an RNN scope) into a fused `wi`/`wh` target and
+    back. Exact: both layouts compute the same recurrence, gate order
+    [i, f, g, o]. `target` is the destination's tree of mmtpu paths."""
+    if not (isinstance(state, dict) and isinstance(target, dict)):
+        return state
+    out = dict(state)
+    if "wi" in target and "wh" in target and not ("wi" in out and "wh" in out):
+        cp = _find_cell_path(out)
+        if cp:
+            cell = out
+            for k in cp:
+                cell = cell[k]
+            out.pop(cp[0])  # the chain (e.g. rnn/cell/...) holds only the cell
+            out["wi"], out["wh"] = _fuse_cell(cell)
+    if "wi" in out and "wh" in out and not ("wi" in target and "wh" in target):
+        tp = _find_cell_path(target)
+        if tp:
+            node: Dict[str, Any] = _unfuse_cell(out.pop("wi"), out.pop("wh"))
+            for k in reversed(tp):
+                node = {k: node}
+            out.update(node)
+    return {k: (adapt_lstm_layout(v, target[k])
+                if isinstance(v, dict) and isinstance(target.get(k), dict) else v)
+            for k, v in out.items()}
+
+
+def mmtpu_tree(model: nn.Module) -> Dict[str, Any]:
+    """The model's parameters as mmtpu's nested tree of paths (the leaves
+    are the port's names): the target `adapt_lstm_layout` reads."""
+    from mmtpu_torch.checkpoints.interop import mmtpu_param_path
+
+    tree: Dict[str, Any] = {}
+    for name, param in model.named_parameters():
+        *parents, leaf = mmtpu_param_path(name, param).split("/")
+        node = tree
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = name
+    return tree
+
+
+def _read(path: Path, trusted: bool):
+    """("mmtpu", tree, False) for a msgpack file, else ("torch", object,
+    whether it loaded with weights_only)."""
+    from mmtpu_torch.checkpoints import msgpack
+    from mmtpu_torch.checkpoints.torch_interop import read_object
+
+    if not zipfile.is_zipfile(path):
+        try:
+            return "mmtpu", msgpack.read_ckpt(path), False
+        except msgpack.MsgpackError:
+            pass  # a legacy (non-zip) torch file
+    return ("torch", *read_object(path, trusted=trusted))
+
+
+def _own_state(obj: Any, target: nn.Module) -> Optional[Mapping[str, Any]]:
+    """The port's own state dict in a plain-tensor torch file: a training
+    checkpoint's "model", or a dict whose keys are the target's (the
+    encoder handoff); None for anything else."""
+    if not isinstance(obj, Mapping):
+        return None
+    if "model" in obj and "optimizer" in obj:
+        return obj["model"]
+    return obj if set(obj) == set(target.state_dict()) else None
+
+
+def _fill_from_mmtpu(target: nn.Module, tree: Dict[str, Any], report: LoadReport) -> None:
+    """mmtpu's `params` (LSTM layouts adapted) and, where the file has them,
+    `batch_stats` into `target`. Every parameter must be in the file; a
+    BatchNorm statistic it lacks keeps its value (reported), as mmtpu
+    keeps the target's batch_stats then."""
+    from mmtpu_torch.checkpoints.interop import from_jax_variables
+
+    if "params" not in tree:
+        raise ValueError(f"{report.path}: an mmtpu checkpoint without 'params' "
+                         f"(keys {sorted(tree)})")
+    params = adapt_lstm_layout(tree["params"], mmtpu_tree(target))
+    state = from_jax_variables(params, tree.get("batch_stats") or {}, target=target,
+                               require_all=False)
+    names = dict(target.named_parameters())
+    missing = sorted(k for k in names if k not in state)
+    if missing:
+        raise ValueError(f"{report.path}: mmtpu checkpoint has no value for {missing}")
+    want = target.state_dict()
+    report.kept = [k for k in want if k not in state and not k.endswith("num_batches_tracked")]
+    with torch.no_grad():
+        for key, value in state.items():
+            want[key].copy_(value)
+
+
+def load_encoder_checkpoint(path: Union[str, Path], target: nn.Module,
+                            trusted: bool = True) -> LoadReport:
+    """Fill `target` (an encoder, or a whole model for predict and serve)
+    in place from the port's `.pth`, a reference `.pth` or an mmtpu
+    `.ckpt` (see the module docstring): the exact path, then its sibling
+    (`resolve_checkpoint_path`). The port's own file must fit the target
+    exactly (RuntimeError otherwise). Returns what it did;
+    FileNotFoundError when neither file exists."""
+    from mmtpu_torch.checkpoints.torch_interop import as_state_dict, fill_from_state
+
+    resolved = resolve_checkpoint_path(path)
+    kind, obj, plain = _read(resolved, trusted)
+    report = LoadReport(str(resolved), kind)
+    own = _own_state(obj, target) if plain else None
+    if kind == "mmtpu":
+        _fill_from_mmtpu(target, obj, report)
+    elif own is not None:
+        target.load_state_dict(own, strict=True)
+    else:
+        fill_from_state(target, as_state_dict(obj), report)
+    return report
 
 
 class CheckpointManager:

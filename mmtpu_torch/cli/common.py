@@ -249,14 +249,15 @@ _NET_LETTER = {"audio": "netA", "image": "netI", "text": "netT", "video": "netV"
 
 def load_pretrained_encoders(model: nn.Module, pretrained: Optional[Dict[str, str]],
                              logging_cfg) -> List[str]:
-    """Fill each named encoder submodule from its handoff file (mmtpu
+    """Fill each named encoder submodule from its file (mmtpu
     `load_pretrained_encoders`): per modality the submodule is the first of
     net{A,I,T,V}, `{mod}_model`, `{mod}_encoder` the model has; the path is
-    templated like the logging paths, and a `.ckpt` name resolves to its
-    `.pth` sibling. The file is an encoder state_dict (parameters and
-    BatchNorm statistics). Returns the modalities loaded."""
-    from mmtpu_torch.checkpoints.interop import load_pth
-    from mmtpu_torch.checkpoints.manager import resolve_checkpoint_path
+    templated like the logging paths. The file is the port's handoff (an
+    encoder state_dict), a reference `.pth` or an mmtpu `.ckpt`, resolved
+    and read by `checkpoints.manager.load_encoder_checkpoint`; tensors it
+    has no source for keep their initial values, as in mmtpu, and are
+    printed. Returns the modalities loaded."""
+    from mmtpu_torch.checkpoints.manager import load_encoder_checkpoint
     from mmtpu_torch.utils import format_path_with_env
 
     loaded = []
@@ -269,11 +270,17 @@ def load_pretrained_encoders(model: nn.Module, pretrained: Optional[Dict[str, st
             logger.warning(f"model has no encoder submodule for {modality!r} "
                            f"(tried {candidates}); skipping")
             continue
-        resolved = resolve_checkpoint_path(
-            logging_cfg.format_path(format_path_with_env(str(path))))
-        load_pth(children[attr], resolved)
+        report = load_encoder_checkpoint(
+            logging_cfg.format_path(format_path_with_env(str(path))), children[attr])
         loaded.append(str(modality))
-        print(f"loaded pretrained {modality} encoder from {resolved}", flush=True)
+        print(f"loaded pretrained {modality} encoder from {report.path} ({report.format})",
+              flush=True)
+        if report.fallback:
+            print(f"pretrained {modality} encoder: filled by shape from {report.path}: "
+                  f"{report.fallback}", flush=True)
+        if report.kept:
+            print(f"pretrained {modality} encoder: no source in {report.path} for "
+                  f"{report.kept}; kept their initial values", flush=True)
     return loaded
 
 
@@ -393,7 +400,7 @@ def modalities_for_model(model_type: str) -> List[Modality]:
 
 def checkpoint_path(cfg: StandardMultimodalConfig, which: str) -> Path:
     """best | last | epoch_K → <model_output_path>/<which>.pth; anything
-    with a '/' or a .pth suffix is an explicit path."""
-    if "/" in str(which) or str(which).endswith(".pth"):
+    with a '/' or a .pth or .ckpt suffix is an explicit path."""
+    if "/" in str(which) or str(which).endswith((".pth", ".ckpt")):
         return Path(which)
     return Path(cfg.logging.model_output_path) / f"{which}.pth"

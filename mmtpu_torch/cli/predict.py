@@ -4,7 +4,9 @@
         [--checkpoint best|last|epoch_K|/path.pth] [--split test] \
         [--out preds.json] [--cpu]
 
-Loads `<model_output_path>/<checkpoint>.pth`, evaluates the requested split
+Loads `<model_output_path>/<checkpoint>.pth` (or an explicit path: the
+port's `.pth`, a reference `.pth` or an mmtpu `.ckpt`; a missing name
+resolves to its sibling, so an mmtpu run's `best.ckpt` serves), evaluates the requested split
 through the eval-mode forward (the missing-pattern product included) on
 the GPU — on the CPU with `--cpu` — and writes the same JSON as mmtpu: one
 record per real (sample, pattern) visit (pattern, pred, label, correct)
@@ -33,7 +35,7 @@ def arg_parser():
     p.add_argument("--run_id", type=int, default=1)
     p.add_argument(
         "--checkpoint", default="best",
-        help="best | last | epoch_K | explicit .pth path",
+        help="best | last | epoch_K | explicit .pth or .ckpt path",
     )
     p.add_argument("--split", default="test")
     p.add_argument(
@@ -51,8 +53,8 @@ def arg_parser():
 
 
 def build_task_and_loader(cfg, args, device: torch.device):
-    """Model (weights from the run's .pth) + task + the split's loader."""
-    from mmtpu_torch.checkpoints import load_pth
+    """Model (weights from the run's checkpoint) + task + the split's loader."""
+    from mmtpu_torch.checkpoints.manager import load_encoder_checkpoint
     from mmtpu_torch.train.step import ClassificationTask
 
     mods = common.modalities_for_model(cfg.model.model_type)
@@ -62,7 +64,12 @@ def build_task_and_loader(cfg, args, device: torch.device):
             f"{sorted(cfg.data.datasets)}"
         )
     model = common.build_model_from_config(cfg.model)
-    load_pth(model, common.checkpoint_path(cfg, args.checkpoint))
+    report = load_encoder_checkpoint(common.checkpoint_path(cfg, args.checkpoint), model)
+    if report.fallback:
+        print(f"predict: filled by shape from {report.path}: {report.fallback}", flush=True)
+    if report.kept:
+        print(f"predict: no source in {report.path} for {report.kept}; kept their "
+              "initial values", flush=True)
     model.to(device).eval()
     loader = cfg.data.build_loader(args.split, seed=cfg.experiment.seed)
     task = ClassificationTask(

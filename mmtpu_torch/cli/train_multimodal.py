@@ -6,7 +6,8 @@
         [--eval-batch-factor N] [--stacked-folds] [--cpu]
 
 Trains `model_type: AVMNIST` (the late-fusion model, with the pretrained
-encoders the config names) and MOSI UttFusion (`utt-fusion`, `utt_fusion`,
+encoders the config names: the port's handoff, a reference `.pth` or an
+mmtpu `.ckpt`) and MOSI UttFusion (`utt-fusion`, `utt_fusion`,
 `UttFusionModel`: audio, video and text, the model's `clip` as the
 global-norm gradient clip), then tests the best checkpoint over the
 missing-modality patterns, exports the `embeddings` split's per-modality

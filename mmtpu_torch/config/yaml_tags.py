@@ -22,6 +22,10 @@ from mmtpu_torch.modalities import add_modality
 # Model tags of the modules the port has; a config naming another model
 # fails to parse until that model is ported.
 MODEL_TAGS: Dict[str, str] = {
+    "!MNISTAudio": "mnist_audio",
+    "!MNISTImage": "mnist_image",
+    "!ConvBlock": "conv_block",
+    "!ConvBlockArgs": "conv_block_args",
     "!ResNet18": "resnet18",
     "!ResNet34": "resnet34",
     "!ResNet50": "resnet50",

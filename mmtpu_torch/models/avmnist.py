@@ -1,5 +1,17 @@
-"""AVMNIST late-fusion model (counterpart of `AVMNIST` and
-`MonomodalEncoder`, mmtpu/models/avmnist.py).
+"""AVMNIST encoders and late-fusion model (counterpart of `MNISTAudio`,
+`MNISTImage`, `AVMNIST` and `MonomodalEncoder`, mmtpu/models/avmnist.py).
+
+`MNISTAudio` / `MNISTImage`: ConvBlock → pool → ConvBlock → pool → flatten
+→ Linear(hidden_dim), held as the reference's `nn.Sequential` named `net`
+(slots 0-5), so a reference state dict loads under its own keys
+(`net.0.conv_one.weight` … `net.5.bias`). The flatten is NCHW, as the
+reference's; mmtpu flattens NHWC, so `from_jax_variables` permutes mmtpu's
+`fc` kernel once (`flatten_chw`). flax's Dense infers the fc layer's input
+width from the input; `nn.Linear` needs it when built, so it is taken from
+the dataset's geometry, the AVMNIST reader's `AUDIO_SHAPE` (32, 94) →
+64·5·15 = 4800 and `IMAGE_SHAPE` (28, 28) → 64·7·7 = 3136, carried through
+the convolutions and pools. An input of another height or width fails at
+`net.5`.
 
 concat(audio_embd, image_embd) → Linear(hidden) → ReLU → Dropout →
 Linear(hidden/2) → ReLU → Linear(10). The head keeps the reference's key
@@ -13,12 +25,73 @@ switch serve the C-MAM path, which is not ported yet.)
 
 from __future__ import annotations
 
+from typing import Any, Sequence, Tuple
+
 import torch
 from torch import nn
 
+from mmtpu_torch.data.avmnist import AUDIO_SHAPE, IMAGE_SHAPE
+from mmtpu_torch.models.conv import ConvBlock, _as_args, _pair
 from mmtpu_torch.ops import fused_mlp
 
 NUM_CLASSES = 10
+
+
+class _MNISTEncoder(nn.Module):
+    """Two ConvBlocks, each followed by a max pool, flatten, Linear. Takes
+    (B, H, W) or NHWC input, as mmtpu's; `input_shape` is the dataset's
+    (H, W), which sizes the Linear."""
+
+    def __init__(self, block_args: Sequence[Any], hidden_dim: int, batch_norm: bool,
+                 pools: Tuple[Any, Any], input_shape: Sequence[int]) -> None:
+        super().__init__()
+        args = [_as_args(a) for a in block_args]
+        self.hidden_dim = hidden_dim
+        blocks = (ConvBlock(args[0], args[1], batch_norm=batch_norm),
+                  ConvBlock(args[2], args[3], batch_norm=batch_norm))
+        # torch's MaxPool2d with stride = window, floor mode: mmtpu's max_pool
+        pools = [_pair(p) for p in pools]
+        h, w = (int(n) for n in input_shape)
+        for block, pool in zip(blocks, pools):
+            h, w = block.out_size(h, w)
+            h, w = h // pool[0], w // pool[1]
+        self.flatten_chw = (args[3].conv_one_out, h, w)
+        self.net = nn.Sequential(blocks[0], nn.MaxPool2d(pools[0], pools[0]),
+                                 blocks[1], nn.MaxPool2d(pools[1], pools[1]), nn.Flatten(),
+                                 nn.Linear(args[3].conv_one_out * h * w, hidden_dim))
+
+    def get_embedding_size(self) -> int:
+        return self.hidden_dim
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dim() == 3:  # (B, H, W)
+            x = x.unsqueeze(1)
+        elif x.shape[-1] == 1:  # NHWC, one channel: the same memory as NCHW
+            x = x.reshape(x.shape[0], 1, x.shape[1], x.shape[2])
+        else:
+            x = x.permute(0, 3, 1, 2).clone(memory_format=torch.contiguous_format)
+        return self.net(x)
+
+
+class MNISTAudio(_MNISTEncoder):
+    def __init__(self, conv_block_one_one_args, conv_block_one_two_args,
+                 conv_block_two_one_args, conv_block_two_two_args, hidden_dim: int,
+                 conv_batch_norm: bool = True, max_pool_one_kernel_size=(2, 2),
+                 max_pool_two_kernel_size=(3, 3)):
+        super().__init__((conv_block_one_one_args, conv_block_one_two_args,
+                          conv_block_two_one_args, conv_block_two_two_args), hidden_dim,
+                         conv_batch_norm, (max_pool_one_kernel_size, max_pool_two_kernel_size),
+                         AUDIO_SHAPE)
+
+
+class MNISTImage(_MNISTEncoder):
+    def __init__(self, conv_block_one_one_args, conv_block_one_two_args,
+                 conv_block_two_one_args, conv_block_two_two_args, hidden_dim: int,
+                 conv_batch_norm: bool = True, max_pool_kernel_size=(2, 2)):
+        super().__init__((conv_block_one_one_args, conv_block_one_two_args,
+                          conv_block_two_one_args, conv_block_two_two_args), hidden_dim,
+                         conv_batch_norm, (max_pool_kernel_size, max_pool_kernel_size),
+                         IMAGE_SHAPE)
 
 
 class AVMNIST(nn.Module):

@@ -27,7 +27,8 @@ Pooling methods: 'last' (the last state under length masking), 'attention'
 (softmax(u·tanh(W·h))·h), 'maxpool'; padded steps are masked to -inf out of
 the attention and maxpool reductions when lengths are given.
 
-mmtpu's `LSTMClassifier` is not ported yet.
+mmtpu's `LSTMClassifier` is not ported: no config and no registry name
+reaches it.
 """
 
 from __future__ import annotations

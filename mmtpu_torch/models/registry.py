@@ -13,10 +13,11 @@ logger = logging.getLogger(__name__)
 
 
 def _build_nested(kwargs: Dict[str, Any]) -> Dict[str, Any]:
-    """Build nested ModuleSpecs (e.g. encoders inside fusion models)."""
+    """Build nested ModuleSpecs (e.g. encoders inside fusion models),
+    leaving `conv_block_args` specs intact (consumed as data)."""
     out = {}
     for k, v in kwargs.items():
-        if isinstance(v, ModuleSpec):
+        if isinstance(v, ModuleSpec) and v.name != "conv_block_args":
             out[k] = v.build()
         elif isinstance(v, dict):
             out[k] = _build_nested(v)
@@ -41,7 +42,7 @@ def _tolerant(cls) -> Callable[..., Any]:
 
 
 def _factories() -> Dict[str, Callable[..., Any]]:
-    from mmtpu_torch.models import avmnist, fc, lenet, lstm, resnet, textcnn, utt_fusion
+    from mmtpu_torch.models import avmnist, conv, fc, lenet, lstm, resnet, textcnn, utt_fusion
 
     return {
         "resnet18": resnet.ResNet18,
@@ -58,6 +59,10 @@ def _factories() -> Dict[str, Callable[..., Any]]:
         "lstmencoder": lstm.LSTMEncoder,
         "lstmencoder2": lstm.LSTMEncoder2,
         "textcnn": textcnn.TextCNN,
+        "conv_block": conv.ConvBlock,
+        "conv_block_args": conv.ConvBlockArgs,
+        "mnist_audio": avmnist.MNISTAudio,
+        "mnist_image": avmnist.MNISTImage,
         "avmnist": _tolerant(avmnist.AVMNIST),
         "monomodal_encoder": avmnist.MonomodalEncoder,
         # every spelling mmtpu's registry and CLIs accept

@@ -3,8 +3,10 @@
 `seeded_init` draws every weight from one explicit `torch.Generator`, on
 the CPU, so the same seed gives the same weights on any device. The
 distributions follow the flax modules' initialisers: convolutions
-He-normal over fan-out, Linear weights LeCun-normal (untruncated) unless
-the layer names its own `init_std` (LeNet's N(0, 0.01²)), biases
+He-normal over fan-out unless the layer names its own `init_std` (a
+`ConvBlock`'s LeCun-normal over fan-in, flax's `nn.Conv` default), Linear
+weights LeCun-normal (untruncated) unless the layer names its own
+`init_std` (LeNet's N(0, 0.01²)), biases
 zero, BatchNorm scale 1 / shift 0 with running mean 0 and variance 1; an
 LSTMEncoder's recurrent matrix orthogonal (the `rnn` backend: each gate's
 recurrent kernel) and its attention vector LeCun-normal.
@@ -26,7 +28,8 @@ def seeded_init(model: nn.Module, seed: int) -> nn.Module:
     for m in model.modules():
         if isinstance(m, nn.Conv2d):
             fan_out = m.out_channels * m.kernel_size[0] * m.kernel_size[1]
-            w = torch.empty(m.weight.shape).normal_(0.0, math.sqrt(2.0 / fan_out), generator=g)
+            std = getattr(m, "init_std", None) or math.sqrt(2.0 / fan_out)
+            w = torch.empty(m.weight.shape).normal_(0.0, std, generator=g)
             m.weight.copy_(w)
             if m.bias is not None:
                 m.bias.zero_()

@@ -10,11 +10,30 @@ fall to the default group. Each group remembers its `base_lr`; the
 `LRController`'s scale is ONE global multiplier (`set_lr_scale`:
 lr = base_lr × scale in every group), as mmtpu injects it into optax.
 
-Torch semantics, as mmtpu builds them in optax: "adam" with weight_decay is
-L2 added to the gradient (coupled: `torch.optim.Adam(weight_decay=...)`,
-not AdamW); "adamw" is decoupled; "sgd" takes momentum and nesterov. The
-other optimizers mmtpu knows raise until they are ported: optax places
-their `eps` differently from torch, so each needs its own parity test.
+Every optimizer computes the update of mmtpu's optax chain for its group
+(`mmtpu/train/optim.py::_group_tx`), and reads only the config kwargs that
+chain reads (the others are ignored, as there):
+- "adam": coupled L2 (`torch.optim.Adam(weight_decay=...)`, not AdamW);
+  "adamw" decoupled; "sgd" momentum and nesterov; "adadelta" coupled L2
+  then `scale_by_adadelta(rho, eps)`, torch's Adadelta (its default lr is
+  mmtpu's 1e-3, not torch's 1.0); "asgd" coupled L2 and plain −lr, nothing
+  averaged, so torch's SGD without momentum. These take torch's own
+  optimizers, whose arithmetic is optax's (Adam fused on the card);
+- "rmsprop", "adagrad", "adamax", "sparse_adam": `OptaxTransform`,
+  coupled L2 then optax's `scale_by_rms(alpha, eps)` (eps inside the root,
+  ν from 0) with `trace(momentum)`, `scale_by_rss()` (accumulator from 0.1,
+  eps 1e-7 inside the root), `scale_by_adamax(b1, b2)` (eps 1e-8 whatever
+  the config says) or `optax.adam(lr)` (sparse_adam: b1 0.9, b2 0.999, eps
+  1e-8, the config's weight decay, betas and eps ignored), then −lr. Torch
+  has none of the first three. Its Adam takes the bias corrections in
+  float64 on the CPU, where optax takes them in float32: 6.8e-6 relative
+  apart at step 1 with b2 0.999, so sparse_adam, held to optax at 1e-6,
+  takes them here in float32; "adam" keeps torch's fused Adam for the
+  card's main path;
+- "lbfgs": `optax.lbfgs(lr)` builds in mmtpu, but its line search needs the
+  loss as a function, which mmtpu's train step does not pass, so its first
+  update raises; the port's `LBFGS` builds and raises at its first step.
+The global-norm `clip` runs before any of them (`train/step.py`).
 """
 
 from __future__ import annotations
@@ -25,6 +44,7 @@ import math
 import re
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -33,7 +53,94 @@ from mmtpu_torch.config.optim import OptimizerConfig
 
 logger = logging.getLogger(__name__)
 
-NOT_PORTED = ("rmsprop", "adagrad", "adadelta", "adamax", "asgd", "lbfgs", "sparse_adam")
+TORCH_OPTIMIZERS = {"adam": torch.optim.Adam, "adamw": torch.optim.AdamW,
+                    "sgd": torch.optim.SGD, "adadelta": torch.optim.Adadelta,
+                    "asgd": torch.optim.SGD}
+
+
+def _bias_correction(decay: float, count: int) -> float:
+    """1 − decay^count in float32, as optax computes it."""
+    return float(np.float32(1) - np.float32(decay) ** int(count))
+
+
+class OptaxTransform(torch.optim.Optimizer):
+    """One of optax's gradient transformations as a torch optimizer: per
+    parameter, g ← g + weight_decay·p (optax's `add_decayed_weights`, only
+    where the group has weight decay), u ← the `kind`'s transformation of g,
+    p ← p − lr·u. State lives on the parameter's device; the step count is
+    a Python int."""
+
+    DEFAULTS = {
+        "rmsprop": {"alpha": 0.99, "eps": 1e-8, "momentum": 0.0},
+        "adagrad": {},
+        "adamax": {"betas": (0.9, 0.999)},
+        "sparse_adam": {"betas": (0.9, 0.999), "eps": 1e-8},
+    }
+
+    def __init__(self, params, kind: str, lr: float = 1e-3, weight_decay: float = 0.0) -> None:
+        if kind not in self.DEFAULTS:
+            raise ValueError(f"OptaxTransform kind {kind!r} not in {sorted(self.DEFAULTS)}")
+        self.kind = kind
+        super().__init__(params, {"lr": lr, "weight_decay": weight_decay,
+                                  **self.DEFAULTS[kind]})
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g = p.grad
+                if group["weight_decay"]:
+                    g = g.add(p, alpha=group["weight_decay"])
+                p.add_(self._update(g, self.state[p], group), alpha=-group["lr"])
+        return loss
+
+    def _update(self, g: torch.Tensor, state: Dict[str, Any], group: Dict[str, Any]):
+        kind = self.kind
+        if kind == "rmsprop":
+            nu = state.setdefault("nu", torch.zeros_like(g))
+            nu.mul_(group["alpha"]).add_((1 - group["alpha"]) * g.square())
+            u = g * torch.rsqrt(nu + group["eps"])
+            if group["momentum"]:
+                trace = state.setdefault("trace", torch.zeros_like(g))
+                u = trace.mul_(group["momentum"]).add_(u)
+            return u
+        if kind == "adagrad":
+            acc = state.setdefault("sum_of_squares", torch.full_like(g, 0.1))
+            acc.add_(g.square())
+            return torch.where(acc > 0, torch.rsqrt(acc + 1e-7), 0.0) * g
+        # adamax (optax's scale_by_adamax, eps 1e-8) and sparse_adam (scale_by_adam)
+        b1, b2 = group["betas"]
+        count = state["count"] = state.get("count", 0) + 1
+        mu = state.setdefault("mu", torch.zeros_like(g))
+        nu = state.setdefault("nu", torch.zeros_like(g))
+        mu.mul_(b1).add_((1 - b1) * g)
+        mu_hat = mu / _bias_correction(b1, count)
+        if kind == "adamax":
+            torch.maximum(g.abs() + 1e-8, b2 * nu, out=nu)
+            return mu_hat / nu
+        nu.mul_(b2).add_((1 - b2) * g.square())
+        return mu_hat / (torch.sqrt(nu / _bias_correction(b2, count)) + group["eps"])
+
+
+class LBFGS(torch.optim.Optimizer):
+    """mmtpu's `lbfgs` (`optax.lbfgs(lr)`): it builds, and its first step
+    raises, as mmtpu's first update does."""
+
+    def __init__(self, params, lr: float = 1e-3, weight_decay: float = 0.0) -> None:
+        super().__init__(params, {"lr": lr, "weight_decay": weight_decay})
+
+    def step(self, closure=None):
+        raise NotImplementedError(
+            "optimizer 'lbfgs' cannot take a step: mmtpu builds it as optax.lbfgs(lr), whose "
+            "zoom line search needs the loss as a value function (value, grad, value_fn), "
+            "which mmtpu's train step does not pass, so its first update raises there too; "
+            "use another optimizer")
 
 
 def param_paths(model: nn.Module) -> Dict[str, str]:
@@ -70,6 +177,15 @@ def _group_options(name: str, kwargs: Dict[str, Any]) -> Dict[str, Any]:
         out["momentum"] = float(kw.pop("momentum", 0.0))
         # optax's trace with nesterov and no momentum is plain SGD
         out["nesterov"] = bool(kw.pop("nesterov", False)) and out["momentum"] > 0
+    elif name == "sparse_adam":  # optax.adam(lr): its defaults, no weight decay
+        out.update(weight_decay=0.0, betas=(0.9, 0.999), eps=1e-8)
+    elif name == "rmsprop":
+        out.update(alpha=float(kw.pop("alpha", 0.99)), eps=float(kw.pop("eps", 1e-8)),
+                   momentum=float(kw.pop("momentum", 0.0)))
+    elif name == "adadelta":
+        out.update(rho=float(kw.pop("rho", 0.9)), eps=float(kw.pop("eps", 1e-6)))
+    elif name == "adamax":
+        out["betas"] = tuple(float(b) for b in kw.pop("betas", (0.9, 0.999)))
     return out
 
 
@@ -81,10 +197,7 @@ def build_optimizer(
     """Returns (optimizer, report): report maps each group's name to its
     effective kwargs, as mmtpu's does."""
     name = config.name.lower()
-    if name in NOT_PORTED:
-        raise NotImplementedError(f"optimizer {config.name!r} is not ported to mmtpu_torch "
-                                  "yet (ported: adam, adamw, sgd)")
-    if name not in ("adam", "adamw", "sgd"):
+    if name not in TORCH_OPTIMIZERS and name not in OptaxTransform.DEFAULTS and name != "lbfgs":
         raise ValueError(f"Unknown optimizer: {config.name}")
     groups: List[Tuple[str, Dict[str, Any]]] = [
         (g.pattern, g.effective_kwargs(config.default_kwargs)) for g in config.parameter_groups
@@ -104,10 +217,18 @@ def build_optimizer(
             opts = _group_options(name, kwargs)
             param_groups.append({"params": params, "label": label,
                                  "base_lr": opts["lr"], **opts})
-    # one fused kernel for all tensors on the card; the CPU takes the default
-    fused = {"fused": True} if next(iter(named.values())).is_cuda and name != "sgd" else {}
-    cls = {"adam": torch.optim.Adam, "adamw": torch.optim.AdamW, "sgd": torch.optim.SGD}[name]
-    return cls(param_groups, **fused), report
+    if name in OptaxTransform.DEFAULTS:
+        return OptaxTransform(param_groups, name), report
+    if name == "lbfgs":
+        return LBFGS(param_groups), report
+    cls = TORCH_OPTIMIZERS[name]
+    options: Dict[str, Any] = {}
+    if next(iter(named.values())).is_cuda:
+        if cls in (torch.optim.Adam, torch.optim.AdamW):
+            options["fused"] = True  # one kernel for all tensors; the CPU takes the default
+        elif cls is torch.optim.Adadelta:
+            options["capturable"] = True  # its step count on the card, not the host
+    return cls(param_groups, **options), report
 
 
 def set_lr_scale(optimizer: torch.optim.Optimizer, scale: float) -> None:
