@@ -85,9 +85,27 @@ FcClassifier 192→[192, 64, 32]→3; batch 32, aligned T = 50):
              against the CPU, and lbfgs raising on both. The kernels phase
              also holds `fused_mlp` at the head's dims [128, 128, 64, 10].
 
+9. cmam    — C-MAM through `train_cmam.main`, both kinds at full width:
+             a twin of configs/avmnist/cmam_audio_to_image.yaml (ResNet18
+             student, hidden 64, AssociationNetwork 64→256→128 with
+             BatchNorm and dropout 0.25, against phase 5's scratch
+             fine-tune restored from its best.pth, on phase 7's `.pt` files,
+             2048/512/512 samples, batch 128, 2 epochs) and of
+             configs/mosi/synthetic_dual_cmam.yaml at the published
+             UttFusion widths (LSTM 5→64 student, decoders 64→64→64,
+             against phase 6's model; 1284/229/686 samples, T = 50, batch
+             32, 2 epochs): the teacher's state hash equal to its file's
+             before the run and after it, `fused_mlp` never launched,
+             `lstm` three times per DualCMAM batch, mmtpu's record keys
+             (the nested groups, loss, the term columns); a profiled window
+             of 8 train steps and the first three steps and a padded-tail
+             step on the card against the CPU, for each kind.
+
     python3 chip_smoke.py --train-only    # build, then phases 5 and 6 alone
     python3 chip_smoke.py --reader-only   # build, the audio pretraining, phase 7
     python3 chip_smoke.py --shipped-only  # build, phase 7's .pt files, phase 8
+    python3 chip_smoke.py --cmam-only     # build, phase 7's .pt files, seeded
+                                          # teachers, phase 9
 
 Prints a `kernels` JSON line, the card's name and power limit, and as the
 last line `{"ok": true, "device": {...}}`. Any failure exits non-zero
@@ -2043,6 +2061,382 @@ def phase_shipped(dev, card: str, work: Path, csvs: dict) -> dict:
             "profile": profile, "optimizers": optimizers}
 
 
+# Phase 9, C-MAM: plain-dict twins of configs/avmnist/cmam_audio_to_image.yaml
+# (its teacher phase 5's scratch fine-tune, its data phase 7's `.pt` files
+# through the AVMNIST reader) and of configs/mosi/synthetic_dual_cmam.yaml at
+# the published UttFusion widths (its teacher phase 6's model, CMU-MOSI's
+# split sizes), each through `train_cmam.main`.
+CMAM_NAMES = {"cmam": "AVMNIST_CMAM_A_to_I", "dual": "Synthetic_MOSI_DualCMAM"}
+CMAM_SAMPLES = {"cmam": TRAIN_SAMPLES, "dual": UTT_SAMPLES}
+CMAM_BATCH = {"cmam": TRAIN_BATCH, "dual": UTT_BATCH}
+CMAM_LOSS_RTOL = {"cmam": TRAIN_LOSS_RTOL, "dual": UTT_LOSS_RTOL}  # step 1 and the padded step
+CMAM_GRAD_TOL = {"cmam": TRAIN_GRAD64_TOL, "dual": UTT_GRAD_TOL}  # float64 / float32, step 1
+CMAM_TERMS = {"cmam": ["cls_loss", "cosine", "mae", "mse"], "dual": []}
+
+
+def cmam_configs(out_root: str, csvs: dict, bases: dict, dropout: bool = True) -> dict:
+    """The two twins. `bases` names each teacher's best.pth; the config
+    names it as the file does, `.../models/{run_id}/best.ckpt`.
+    `dropout=False` sets the C-MAMs' dropout to 0 (the GPU-vs-CPU check)."""
+    def pretrained(path: Path) -> str:
+        return str(path.parent.parent / "{run_id}" / "best.ckpt")
+
+    def logging_(name):
+        return {"log_path": f"{out_root}/{{experiment_name}}/logs/{{run_id}}",
+                "model_output_path": f"{out_root}/{{experiment_name}}/models/{{run_id}}",
+                "metrics_path": f"{out_root}/{{experiment_name}}/metrics/{{run_id}}",
+                "save_metric": "loss"}
+
+    audio = {"__module_spec__": "resnet18", "in_channels": 1, "hidden_dim": 64}
+    av_patterns = {"modalities": {"audio": {"missing_rate": 0.0},
+                                  "image": {"missing_rate": 0.0}},
+                   "selected_patterns": ["ai"]}
+
+    def av_split(name, **extra):
+        return {"dataset": "AVMNIST", "data_fp": str(csvs[name]),
+                "split": {"validation": "valid"}.get(name, name),
+                "target_modality": "MULTIMODAL", "batch_size": CMAM_BATCH["cmam"], **extra,
+                "missing_patterns": av_patterns}
+
+    cmam = {
+        "experiment": {"name": CMAM_NAMES["cmam"], "seed": SEED, "device": "tpu",
+                       "is_train": True, "is_test": True},
+        "model": {"name": "AVMNIST", "model_type": "AVMNIST", "audio_encoder": audio,
+                  "image_encoder": {"__module_spec__": "resnet34", "in_channels": 1,
+                                    "hidden_dim": 128},
+                  "hidden_dim": 128, "dropout": 0.5, "fusion_fn": "concat",
+                  "pretrained_path": pretrained(bases["cmam"])},
+        "cmam": {"name": "CMAM", "model_type": "CMAM", "target_modality": "image",
+                 "load_pretrained_encoder_state_for": ["audio"],
+                 "input_encoders": {"__module_spec__": "input_encoders", "audio": audio},
+                 "association_network": {"__module_spec__": "association_network",
+                                         "input_size": 64, "hidden_size": 256,
+                                         "output_size": 128, "batch_norm": True,
+                                         "dropout": 0.25 if dropout else 0.0}},
+        "target_modality": "image",
+        "training": {"epochs": TRAIN_EPOCHS, "early_stopping": False, "num_modalities": 2,
+                     "optimizer": {"name": "Adam",
+                                   "default_kwargs": {"lr": 0.001, "weight_decay": 0.0001}},
+                     "loss_functions": {"cmam": {
+                         "loss_name": "cmam", "weight": 1.0,
+                         "loss_kwargs": {"cosine_weight": 1.0, "mae_weight": 1.0,
+                                         "mse_weight": 1.0, "cls_weight": 0.005}}}},
+        "data": {"datasets": {"train": av_split("train", shuffle=True),
+                              "validation": av_split("validation"), "test": av_split("test")}},
+        "metrics": {"metrics": {
+            "accuracy": {"function": "sklearn.metrics.accuracy_score", "kwargs": {}},
+            "cosine_sim": {"function": "metrics.cosine_similarity", "kwargs": {}},
+            "mse": {"function": "sklearn.metrics.mean_squared_error", "kwargs": {}}},
+            "groups": {"classification": ["accuracy"],
+                       "reconstruction": ["cosine_sim", "mse"]}},
+        "logging": logging_(CMAM_NAMES["cmam"]),
+        "monitoring": {"enabled": False},
+    }
+
+    def mosi_split(name, n, **extra):
+        return {"dataset": "synthetic_mosi", "data_fp": "unused", "split": name,
+                "target_modality": "MULTIMODAL", "batch_size": CMAM_BATCH["dual"], **extra,
+                "kwargs": {"num_samples": n},
+                "missing_patterns": {"modalities": {m: {"missing_rate": 0.0}
+                                                    for m in ("audio", "video", "text")},
+                                     "selected_patterns": ["atv"]}}
+
+    base = mosi_smoke_config()["model"]
+    dual = {
+        "experiment": {"name": CMAM_NAMES["dual"], "seed": SEED, "device": "tpu",
+                       "is_train": True, "is_test": True},
+        "model": {**base, "pretrained_path": pretrained(bases["dual"])},
+        "cmam": {"name": "DualCMAM", "model_type": "dual_cmam", "input_modality": "audio",
+                 "target_modality_one": "video", "target_modality_two": "text",
+                 "load_pretrained_encoder_state_for": [],
+                 "input_encoder": dict(base["netA"]),
+                 "shared_encoder_output_size": 64, "decoder_hidden_size": 64,
+                 "target_modality_one_embd_size": 64, "target_modality_two_embd_size": 64,
+                 "dropout": 0.1 if dropout else 0.0},
+        "target_modality": "video",
+        "training": {"epochs": TRAIN_EPOCHS, "early_stopping": False, "num_modalities": 3,
+                     "optimizer": {"name": "Adam", "default_kwargs": {"lr": 0.001}},
+                     "loss_functions": {"cmam": {
+                         "loss_name": "cmam", "weight": 1.0,
+                         "loss_kwargs": {"cosine_weight": 1.0, "mse_weight": 1.0,
+                                         "cls_weight": 0.0}}}},
+        "data": {"datasets": {
+            "train": mosi_split("train", UTT_SAMPLES["train"], shuffle=True),
+            "validation": mosi_split("valid", UTT_SAMPLES["validation"]),
+            "test": mosi_split("test", UTT_SAMPLES["test"])}},
+        "metrics": {"metrics": {"accuracy": {"function": "sklearn.metrics.accuracy_score",
+                                             "kwargs": {}}},
+                    "groups": {"classification": ["accuracy"], "reconstruction": []}},
+        "logging": logging_(CMAM_NAMES["dual"]),
+        "monitoring": {"enabled": False},
+    }
+    return {"cmam": cmam, "dual": dual}
+
+
+def cmam_batches(kind: str) -> dict:
+    """Batches per split as the loaders form them (one pattern each)."""
+    n, b = CMAM_SAMPLES[kind], CMAM_BATCH[kind]
+    return {s: -(-n[s] // b) for s in ("train", "validation", "test")}
+
+
+def cmam_expected_lstm(kind: str) -> int:
+    """`lstm` launches of a run: none over the AVMNIST teacher; per DualCMAM
+    batch three (the teacher's netV for the video target, the student's
+    encoder, the teacher's netA under the two reconstructions)."""
+    if kind == "cmam":
+        return 0
+    n = cmam_batches(kind)
+    return 3 * (TRAIN_EPOCHS * (n["train"] + n["validation"]) + n["test"])
+
+
+def _state_hash(state: dict) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for k, v in state.items():
+        h.update(k.encode())
+        h.update(v.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _cmam_config(cfg_path: Path):
+    from mmtpu_torch.cli import common
+    from mmtpu_torch.config.cmam import CMAMConfig
+
+    return common.finalize_config(CMAMConfig.load(cfg_path, run_id=1),
+                                  argparse.Namespace(run_id=1))
+
+
+def _cmam_setup(cfg_path: Path, device):
+    """The config, the run as `train_cmam` assembles it, its train step."""
+    from mmtpu_torch.cli import train_cmam
+
+    cfg = _cmam_config(cfg_path)
+    built = train_cmam.assemble(cfg, device)
+    return cfg, built, built.step_builders[0](built.task, built.state, device)
+
+
+def phase_cmam_profile(dev, card: str, kind: str, cfg_path: Path, steps: int = 8,
+                       warmup: int = 3) -> dict:
+    """A window of C-MAM train steps under the profiler."""
+    import torch
+
+    cfg, built, step = _cmam_setup(cfg_path, dev)
+    it = iter(cfg.data.build_loader("train", seed=cfg.experiment.seed))
+    batches = [next(it) for _ in range(warmup + steps)]
+    for b in batches[:warmup]:
+        step(b)
+    torch.cuda.synchronize()
+    reset_counts()
+    brk = device_breakdown(lambda: [step(b) for b in batches[warmup:]], top=8)
+    counts = read_counts()
+    busy = brk["device_ms"] / brk["profiled_wall_ms"]
+    say_card(card, f"[cmam {kind} profile] {steps} train steps (B={CMAM_BATCH[kind]}): "
+             f"device {brk['device_ms'] / steps:.3f} ms per step, busy share {busy:.3f}; "
+             f"{brk['kernel_events'] / steps:.1f} device kernels and "
+             f"{brk['launch_calls'] / steps:.1f} launch calls per step; launches {counts}; "
+             f"top device operations (name, ms, count) {brk['top']}; top host operations "
+             f"(name, ms, count) {brk['top_host']}")
+    want = {"fused_mlp": 0, "lstm": steps * (3 if kind == "dual" else 0)}
+    if counts != want:
+        raise AssertionError(f"[cmam {kind} profile] launches {counts}, expected {want}")
+    return {"busy_share": busy, "device_ms_per_step": brk["device_ms"] / steps,
+            "kernels_per_step": brk["kernel_events"] / steps,
+            "launch_calls_per_step": brk["launch_calls"] / steps}
+
+
+def phase_cmam_check(dev, kind: str, cfg_path: Path) -> dict:
+    """The first three train steps from the same weights (dropout 0, TF32
+    off) on the card and on the CPU, then a padded-tail step from the CPU's
+    weights after step 3 on both: the losses; the step-1 gradients of every
+    C-MAM parameter against its norm, in float64 over the AVMNIST teacher
+    (BatchNorm's backward in float32 misses the exact gradient by ~1e-3 of
+    its norm on either device) and in float32 over UttFusion (the kernel
+    takes float32 only)."""
+    import torch
+
+    cpu = torch.device("cpu")
+    cfg = _cmam_config(cfg_path)
+    batches = list(cfg.data.build_loader("train", seed=cfg.experiment.seed))
+    if kind == "cmam":
+        padded = {k: v.copy() for k, v in batches[2].items()}
+        for k in ("audio", "image", "labels", "audio_mask", "image_mask", "sample_mask"):
+            padded[k][CMAM_BATCH[kind] - 28:] = 0
+    else:
+        padded = batches[-1]
+    real = int(padded["sample_mask"].sum())
+
+    def grads_of(model):
+        return {n: p.grad.detach().cpu().clone() for n, p in model.named_parameters()}
+
+    runs, losses, grads = {}, {}, {}
+    for label, device in (("gpu", dev), ("cpu", cpu)):
+        _, built, step = _cmam_setup(cfg_path, device)
+        losses[label] = []
+        for b in batches[:3]:
+            losses[label].append(float(step(b)["loss"]))
+            grads.setdefault(label, grads_of(built.cmam))
+        runs[label] = (built, step)
+    weights = runs["cpu"][0].cmam.state_dict()
+    runs["gpu"][0].cmam.load_state_dict(weights)
+    pad_loss = {label: float(step(padded)["loss"]) for label, (_, step) in runs.items()}
+    if kind == "cmam":
+        for label, device in (("gpu", dev), ("cpu", cpu)):
+            _, built, step = _cmam_setup(cfg_path, device)
+            built.base.double()
+            built.cmam.double()
+            with _float64_losses():
+                step(_as_float64(batches[0]))
+            grads[label] = grads_of(built.cmam)
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses["gpu"], losses["cpu"])]
+    pad_rel = abs(pad_loss["gpu"] - pad_loss["cpu"]) / abs(pad_loss["cpu"])
+    # a bias that feeds a BatchNorm (the student's fc.bias through fc_0,
+    # fc_0.bias) has an exact gradient of 0: its rule is the absolute 1e-12
+    zero = {n for n, w in grads["cpu"].items() if w.double().norm().item() < 1e-9}
+    err = _grad_errors({n: g for n, g in grads["gpu"].items() if n not in zero},
+                       {n: g for n, g in grads["cpu"].items() if n not in zero})
+    zero_err = max([(grads["gpu"][n].double() - grads["cpu"][n].double()).abs().max().item()
+                    for n in zero], default=0.0)
+    precision = "float64" if kind == "cmam" else "float32"
+    say(f"[cmam {kind} check] float32 losses of steps 1-3, GPU {losses['gpu']}, CPU "
+        f"{losses['cpu']}: relative {rel} (tolerances {CMAM_LOSS_RTOL[kind]}, then "
+        f"{TRAIN_LATER_RTOL}); padded tail ({real} real rows of {CMAM_BATCH[kind]}) from the "
+        f"same weights: GPU {pad_loss['gpu']}, CPU {pad_loss['cpu']} (relative "
+        f"{pad_rel:.3e}); step-1 {precision} gradients, {len(err)} parameters: worst "
+        f"{max(err.values()):.3e} of its norm (tolerance {CMAM_GRAD_TOL[kind]}), whole "
+        f"{_whole_error(grads['gpu'], grads['cpu']):.3e}, worst {_worst(err)}; "
+        f"{len(zero)} with an exact gradient of 0 {sorted(zero)}: largest |GPU - CPU| "
+        f"{zero_err:.3e} (tolerance 1e-12); TF32 off")
+    if (rel[0] > CMAM_LOSS_RTOL[kind] or pad_rel > CMAM_LOSS_RTOL[kind]
+            or max(rel[1:]) > TRAIN_LATER_RTOL):
+        raise AssertionError(f"[cmam {kind} check] GPU and CPU losses differ: {rel}, padded "
+                             f"{pad_rel}")
+    if max(err.values()) > CMAM_GRAD_TOL[kind] or zero_err > 1e-12:
+        raise AssertionError(f"[cmam {kind} check] step-1 gradients differ by "
+                             f"{max(err.values())} of their norm ({_worst(err)}), "
+                             f"{zero_err} where the exact gradient is 0")
+    return {"loss_rel": rel, "pad_loss_rel": pad_rel, "grad_err": max(err.values())}
+
+
+def _check_cmam_records(kind: str, metrics: Path) -> dict:
+    """mmtpu's record keys: the nested groups, loss, and the term columns
+    (null on train records) where the step gives terms."""
+    base = ["index", "classification", "reconstruction", "loss"]
+    recon = {"cmam": ["loss", "cosine_sim_AI", "mse_AI"], "dual": ["loss"]}[kind]
+    records = {}
+    for split in ("train", "validation", "test"):
+        records[split] = json.loads((metrics / f"{split}_metrics.json").read_text())
+        tail = ["split"] + (["Epoch"] if split != "test" else [])
+        for r in records[split]:
+            if list(r) != base + CMAM_TERMS[kind] + tail or list(r["reconstruction"]) != recon:
+                raise AssertionError(f"[cmam {kind}] {split} record keys {list(r)}, "
+                                     f"reconstruction {list(r['reconstruction'])}")
+            terms = [r[k] for k in CMAM_TERMS[kind]]
+            if split == "train" and any(t is not None for t in terms):
+                raise AssertionError(f"[cmam {kind}] train record carries term means {terms}")
+            values = [r["loss"], *r["reconstruction"].values(),
+                      *r["classification"].values(), *(terms if split != "train" else [])]
+            if not all(np.isfinite(v) for v in values):
+                raise AssertionError(f"[cmam {kind}] {split} record {r}")
+    return records
+
+
+def phase_cmam(dev, card: str, work: Path, csvs: dict, bases: dict) -> dict:
+    """Both C-MAM kinds through `train_cmam.main` on the card: the teacher
+    restored from its file and bitwise unchanged by the run, `fused_mlp` never
+    launched, `lstm` three times per DualCMAM batch, mmtpu's record keys;
+    then a profiled window and the GPU-vs-CPU check of each."""
+    import torch
+
+    from mmtpu_torch.cli import train_cmam
+    from mmtpu_torch.train import cmam_step
+
+    out_root = work / "cmam"
+    paths, check_paths = {}, {}
+    for key, cfg in cmam_configs(str(out_root), csvs, bases).items():
+        paths[key] = work / f"cmam_{key}.json"
+        paths[key].write_text(json.dumps(cfg))
+    for key, cfg in cmam_configs(str(out_root), csvs, bases, dropout=False).items():
+        check_paths[key] = work / f"cmam_{key}_check.json"
+        check_paths[key].write_text(json.dumps(cfg))
+
+    teachers = []
+    real_post = cmam_step.CMAMTask.__post_init__
+
+    def spy(task):  # the teacher as restored, before any step
+        real_post(task)
+        teachers.append((task.base_model, _state_hash(task.base_model.state_dict())))
+
+    results = {}
+    for kind in ("cmam", "dual"):
+        teachers.clear()
+        cmam_step.CMAMTask.__post_init__ = spy
+        reset_counts()
+        try:
+            run = _run_cli(train_cmam, paths[kind], f"[cmam {kind}]", out_root,
+                           CMAM_NAMES[kind], train_samples=CMAM_SAMPLES[kind]["train"])
+        finally:
+            cmam_step.CMAMTask.__post_init__ = real_post
+        counts = read_counts()
+        want = {"fused_mlp": 0, "lstm": cmam_expected_lstm(kind)}
+        if counts != want:
+            raise AssertionError(f"[cmam {kind}] launches {counts}, expected {want}")
+        (teacher, before), = teachers
+        after = _state_hash(teacher.state_dict())
+        in_file = _state_hash(torch.load(bases[kind], map_location="cpu",
+                                         weights_only=True)["model"])
+        if not before == after == in_file:
+            raise AssertionError(f"[cmam {kind}] teacher hash: file {in_file}, restored "
+                                 f"{before}, after the run {after}")
+        records = _check_cmam_records(kind, out_root / CMAM_NAMES[kind] / "metrics/1")
+        n = cmam_batches(kind)
+        say_card(card, f"[cmam {kind}] {run['seconds']:.2f} s through train_cmam.main "
+                 f"(start-up, data and checkpoints included); epoch {TRAIN_EPOCHS} train "
+                 f"{run['epoch_s']:.3f} s = {run['samples_per_s']:.1f} samples/s "
+                 f"(B={CMAM_BATCH[kind]}, {CMAM_SAMPLES[kind]['train']} samples); peak device "
+                 f"memory {run['peak_bytes'] / 2**20:.1f} MiB")
+        say(f"[cmam {kind}] launches {counts} (lstm: 3 × ({TRAIN_EPOCHS} × ({n['train']} "
+            f"train + {n['validation']} validation) + {n['test']} test batches) for a "
+            f"DualCMAM, none over the AVMNIST teacher); teacher state sha256 {after[:16]} "
+            f"= its file's, unchanged by the run; losses {run['losses']}; test record "
+            f"{ {k: v for k, v in records['test'][0].items() if k != 'index'} }")
+        profile = phase_cmam_profile(dev, card, kind, paths[kind])
+        check = phase_cmam_check(dev, kind, check_paths[kind])
+        results[kind] = {"run": run, "launches": counts, "profile": profile, "check": check}
+    return results
+
+
+def cmam_bases(work: Path) -> dict:
+    """Teachers for `--cmam-only`: phase 5's scratch fine-tune and phase 6's
+    UttFusion model with seeded weights, each saved as a training
+    checkpoint's `best.pth` (the layout those phases write)."""
+    import torch
+
+    from mmtpu_torch.cli import common
+    from mmtpu_torch.config import ModelConfig
+
+    bases = {}
+    for kind, model_cfg, name, root in (
+            ("cmam", train_configs(str(work / "train"))["scratch"]["model"], SCRATCH_NAME,
+             work / "train"),
+            ("dual", mosi_smoke_config()["model"], UTT_NAME, work / "train_utt")):
+        model = common.init_model(common.build_model_from_config(
+            ModelConfig.from_dict(model_cfg)), SEED, torch.device("cpu"))
+        bases[kind] = root / name / "models/1/best.pth"
+        bases[kind].parent.mkdir(parents=True, exist_ok=True)
+        torch.save({"model": model.state_dict()}, bases[kind])
+    return bases
+
+
+def say_cmam(card: str, cmam: dict, seconds: float) -> None:
+    say_card(card, "[summary] C-MAM: " + "; ".join(
+        f"{kind} {r['run']['samples_per_s']:.1f} train samples/s (epoch {TRAIN_EPOCHS}), "
+        f"{r['run']['seconds']:.2f} s through main, launches {r['launches']}, "
+        f"{r['profile']['device_ms_per_step']:.3f} ms of device work per step at busy share "
+        f"{r['profile']['busy_share']:.3f}" for kind, r in cmam.items())
+        + f"; phase {seconds:.1f} s")
+
+
 def kernel_record(name: str, source: str, replaces: str, shape: str, kern: dict, t: dict,
                   pred: dict, srv: dict) -> dict:
     return {
@@ -2078,6 +2472,10 @@ def main(argv=None) -> int:
     parser.add_argument("--shipped-only", action="store_true",
                         help="build the kernels, write the reader phase's .pt files and run "
                              "the shipped-weights phase alone (no kernels or ok line)")
+    parser.add_argument("--cmam-only", action="store_true",
+                        help="build the kernels, write the reader phase's .pt files and "
+                             "seeded teachers, and run the C-MAM phase alone (no kernels or "
+                             "ok line)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU",
@@ -2132,6 +2530,16 @@ def main(argv=None) -> int:
             shutil.rmtree(work, ignore_errors=True)
         return 0
 
+    if args.cmam_only:
+        try:
+            data = write_avmnist_files(work / "avmnist_data", TRAIN_SAMPLES)
+            t0 = time.perf_counter()
+            cmam = phase_cmam(dev, smi, work, data["csvs"], cmam_bases(work))
+            say_cmam(smi, cmam, time.perf_counter() - t0)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        return 0
+
     mlp = phase_kernels_mlp(dev)
     lstm = phase_kernels_lstm(dev)
     try:
@@ -2151,9 +2559,13 @@ def main(argv=None) -> int:
         reader = phase_train_reader(dev, smi, work, train["handoff"])
         t_shipped = time.perf_counter()
         shipped = phase_shipped(dev, smi, work, reader["csvs"])
-        t_train, t_utt, t_reader, t_shipped = (t_utt - t_train, t_reader - t_utt,
-                                               t_shipped - t_reader,
-                                               time.perf_counter() - t_shipped)
+        t_cmam = time.perf_counter()
+        cmam = phase_cmam(dev, smi, work, reader["csvs"],
+                          {"cmam": train["scratch"]["models"] / "best.pth",
+                           "dual": utt["run"]["models"] / "best.pth"})
+        t_train, t_utt, t_reader, t_shipped, t_cmam = (
+            t_utt - t_train, t_reader - t_utt, t_shipped - t_reader, t_cmam - t_shipped,
+            time.perf_counter() - t_cmam)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2183,6 +2595,7 @@ def main(argv=None) -> int:
         f"{shipped['launches']}; busy share {shipped['profile']['busy_share']:.3f}; replay "
         f"{shipped['load']['replay_err']:.3e}, predict GPU vs CPU "
         f"{shipped['predict_err']:.3e}; phase {t_shipped:.1f} s")
+    say_cmam(smi, cmam, t_cmam)
     say(f"[summary] fused_mlp B=1024 {json.dumps(mlp['timings'][1024])}")
     for batch, t in mlp["shipped"].items():
         say(f"[summary] fused_mlp {SHIPPED_HEAD_DIMS} B={batch} {json.dumps(t)}")

@@ -10,7 +10,8 @@ Ported so far: serving and training of the AVMNIST late-fusion model (the
 paper's pipeline: monomodal pretraining, the encoder handoff, the
 fine-tune; ResNet and LeNet encoders; the real AVMNIST reader and the
 synthetic stand-in; cross-validation and sequential --stacked-runs) and of
-MOSI UttFusion; TensorBoard, the run log and the reports; both of mmtpu's
+MOSI UttFusion; C-MAM (CMAM and DualCMAM against either as a frozen
+teacher); TensorBoard, the run log and the reports; both of mmtpu's
 TPU kernels as hand-written CUDA kernels (`mmtpu_torch.ops`). ROADMAP.md
 lists what is not.
 

@@ -20,6 +20,12 @@ port `state_dict` under the reference's torch key names:
   module's `flatten_chw`; without a module target, mmtpu's allowlist of
   known flattens ((64, 7, 7) image, (64, 5, 15) audio) where C·H·W equals
   the kernel's input width, and an error where none does;
+- a C-MAM's per-modality encoder `input_encoders_{mod}` → the
+  `ModuleDict` entry `input_encoders.{mod}`, its association network `assoc`
+  (built from a mapping of kwargs) or `association_network` (given as a
+  module or spec: flax names a module by its attribute) → `assoc`; a
+  DualCMAM's `input_encoder` (or `input_encoder_{mod}`, from a one-entry
+  mapping) → `encoder`, its `decoder_{one,two}_fc_{0,1}` unchanged;
 - the raw leaves of a fused `LSTMEncoder`, `wh` (H, 4H) and
   `attention_vector_weight` (H, 1), keep their name and layout. The port
   stores an LSTM under mmtpu's fused names — `wi.weight`, `wi.bias`, `wh`,
@@ -77,6 +83,11 @@ def _child_name(tree: Mapping[str, Any], key: str) -> str:
     if "conv_1" in tree and "conv_2" in tree and key in _BLOCK_CHILDREN:
         return _BLOCK_CHILDREN[key]
     name = re.sub(r"layer(\d+)_(\d+)", r"layer\1.\2", key)
+    name = re.sub(r"^input_encoders_(\w+)$", r"input_encoders.\1", name)
+    if "decoder_one_fc_0" in tree and re.fullmatch(r"input_encoder(_\w+)?", key):
+        return "encoder"
+    if key == "association_network" and any(k.startswith("input_encoders_") for k in tree):
+        return "assoc"
     for ours, theirs in _NAME_RULES:
         name = name.replace(ours, theirs)
     return name
@@ -123,7 +134,9 @@ def mmtpu_param_path(name: str, param: torch.Tensor) -> str:
         prefix = prefix.replace(theirs, ours)
     for rx, ours in _INVERSE:
         prefix = rx.sub(rf"\g<1>{ours}", prefix)
-    prefix = re.sub(r"layer(\d+)\.(\d+)", r"layer\1_\2", prefix).replace(".", "/")
+    prefix = re.sub(r"layer(\d+)\.(\d+)", r"layer\1_\2", prefix)
+    prefix = re.sub(r"(^|\.)input_encoders\.(\w+?)(?=\.|$)", r"\1input_encoders_\2",
+                    prefix).replace(".", "/")
     if leaf not in _RAW_LEAVES:
         leaf = {"bias": "bias", "weight": "kernel" if param.dim() > 1 else "scale"}[leaf]
     return f"{prefix}/{leaf}" if prefix else leaf

@@ -1,2 +1,2 @@
-"""Entry points of the port: `python -m mmtpu_torch.cli.predict` and
-`python -m mmtpu_torch.cli.serve`."""
+"""Entry points of the port: `python -m mmtpu_torch.cli.train_monomodal`,
+`train_multimodal`, `train_avmnist`, `train_cmam`, `predict` and `serve`."""

@@ -2,6 +2,7 @@
 `mmtpu/config`, for the sections the AVMNIST configs use)."""
 
 from mmtpu_torch.config.base import BaseConfig
+from mmtpu_torch.config.cmam import AssociationNetworkConfig, CMAMConfig
 from mmtpu_torch.config.data import (
     DataConfig,
     DatasetConfig,
@@ -15,7 +16,9 @@ from mmtpu_torch.config.spec import ModuleSpec, specs_from_dicts
 from mmtpu_torch.config.training import StandardMultimodalConfig, TrainingConfig
 
 __all__ = [
+    "AssociationNetworkConfig",
     "BaseConfig",
+    "CMAMConfig",
     "DataConfig",
     "DatasetConfig",
     "MissingPatternConfig",

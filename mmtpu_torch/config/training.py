@@ -115,19 +115,22 @@ class StandardMultimodalConfig(BaseConfig):
         )
 
     def to_dict(self) -> Dict[str, Any]:
-        def plain(obj: Any) -> Any:
-            if hasattr(obj, "to_dict"):
-                return plain(obj.to_dict())
-            if isinstance(obj, dict):
-                return {str(k): plain(v) for k, v in obj.items()}
-            if isinstance(obj, (list, tuple)):
-                return [plain(v) for v in obj]
-            if isinstance(obj, str):
-                return str(obj)  # Modality is a str subclass
-            return obj
-
         return {
             name: plain(getattr(self, name))
             for name in ("experiment", "data", "model", "logging", "training",
                          "metrics", "monitoring")
         }
+
+
+def plain(obj: Any) -> Any:
+    """A config section as plain JSON-able containers (ModuleSpecs in their
+    `__module_spec__` spelling, Modalities as strings)."""
+    if hasattr(obj, "to_dict"):
+        return plain(obj.to_dict())
+    if isinstance(obj, dict):
+        return {str(k): plain(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [plain(v) for v in obj]
+    if isinstance(obj, str):
+        return str(obj)  # Modality is a str subclass
+    return obj

@@ -39,11 +39,14 @@ MODEL_TAGS: Dict[str, str] = {
     "!LSTMEncoder2": "lstmencoder2",
     "!TextCNN": "textcnn",
     "!UttFusionModel": "utt_fusion",
+    "!AssociationNetwork": "association_network",
+    "!InputEncoders": "input_encoders",
 }
 
 # Config tags of mmtpu's standard configs; each resolves to a plain mapping.
 CONFIG_TAGS = (
     "!StandardConfig",
+    "!CMAMConfig",
     "!ExperimentConfig",
     "!ModelConfig",
     "!DataConfig",

@@ -7,7 +7,13 @@ None | 'binary' | 'micro' | 'macro' | 'weighted', `labels`, `pos_label`,
 `zero_division` 'warn' | 0 | 1 | nan) and `balanced_accuracy_score`
 (`adjusted`), over 1-D integer label vectors (binary or multiclass). Empty
 vectors raise `ValueError`, as in sklearn. Multilabel and sample-weighted
-inputs are not covered.
+inputs are not covered there.
+
+`mean_squared_error` and `mean_absolute_error`: sklearn's regression
+semantics over (n,) or (n, outputs) arrays (the C-MAM reconstruction group
+feeds them embeddings): `sample_weight`, `multioutput` 'uniform_average',
+'raw_values' or per-output weights, float32 arithmetic when every input is
+float32, float64 otherwise, and `ValueError` on empty input.
 """
 
 from __future__ import annotations
@@ -179,3 +185,64 @@ def balanced_accuracy_score(y_true, y_pred, *, adjusted: bool = False) -> float:
         chance = 1 / per_class.shape[0]
         score = (score - chance) / (1 - chance)
     return score
+
+
+def _regression_targets(y_true, y_pred, sample_weight, multioutput):
+    """sklearn's `_check_reg_targets_with_floating_dtype`: 2-D float arrays
+    of one dtype, the weights, and the output weighting."""
+    arrays = [np.asarray(y_true), np.asarray(y_pred)]
+    if sample_weight is not None:
+        arrays.append(np.asarray(sample_weight))
+    dtype = np.float32 if all(a.dtype == np.float32 for a in arrays) else np.float64
+    y_true, y_pred = (a.astype(dtype, copy=False) for a in arrays[:2])
+    if y_true.shape[0] != y_pred.shape[0]:
+        raise ValueError(f"inconsistent numbers of samples: {y_true.shape[0]}, "
+                         f"{y_pred.shape[0]}")
+    if y_true.shape[0] == 0:
+        raise ValueError(f"Found array with 0 sample(s) (shape={y_true.shape}) while a "
+                         "minimum of 1 is required.")
+    y_true = y_true.reshape(-1, 1) if y_true.ndim == 1 else y_true
+    y_pred = y_pred.reshape(-1, 1) if y_pred.ndim == 1 else y_pred
+    if y_true.shape[1] != y_pred.shape[1]:
+        raise ValueError(f"y_true and y_pred have different number of output "
+                         f"({y_true.shape[1]}!={y_pred.shape[1]})")
+    weights = None
+    if sample_weight is not None:
+        weights = arrays[2].astype(dtype, copy=False).reshape(-1)
+        if weights.shape[0] != y_true.shape[0]:
+            raise ValueError(f"sample_weight.shape == {weights.shape}, expected "
+                             f"{(y_true.shape[0],)}!")
+    if isinstance(multioutput, str):
+        if multioutput not in ("raw_values", "uniform_average"):
+            raise ValueError("multioutput must be 'raw_values', 'uniform_average' or "
+                             f"an array of output weights, got {multioutput!r}")
+    else:
+        multioutput = np.asarray(multioutput)
+        if y_true.shape[1] == 1:
+            raise ValueError("Custom weights are useful only in multi-output cases.")
+        if multioutput.shape[0] != y_true.shape[1]:
+            raise ValueError(f"There must be equally many custom weights "
+                             f"({multioutput.shape[0]}) as outputs ({y_true.shape[1]}).")
+    return y_true, y_pred, weights, multioutput
+
+
+def _regression_average(errors, weights, multioutput):
+    """Per-output weighted means over the samples, then over the outputs."""
+    per_output = np.average(errors, axis=0, weights=weights)
+    if isinstance(multioutput, str):
+        if multioutput == "raw_values":
+            return per_output
+        multioutput = None
+    return float(np.average(per_output, weights=multioutput))
+
+
+def mean_squared_error(y_true, y_pred, *, sample_weight=None, multioutput="uniform_average"):
+    y_true, y_pred, w, multioutput = _regression_targets(y_true, y_pred, sample_weight,
+                                                         multioutput)
+    return _regression_average((y_true - y_pred) ** 2, w, multioutput)
+
+
+def mean_absolute_error(y_true, y_pred, *, sample_weight=None, multioutput="uniform_average"):
+    y_true, y_pred, w, multioutput = _regression_targets(y_true, y_pred, sample_weight,
+                                                         multioutput)
+    return _regression_average(np.abs(y_pred - y_true), w, multioutput)

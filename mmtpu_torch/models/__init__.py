@@ -1,6 +1,7 @@
 """Torch model families of the port (counterpart of `mmtpu/models`)."""
 
 from mmtpu_torch.models.avmnist import AVMNIST, MNISTAudio, MNISTImage, MonomodalEncoder
+from mmtpu_torch.models.cmam import CMAM, AssociationNetwork, DualCMAM, InputEncoders
 from mmtpu_torch.models.conv import ConvBlock, ConvBlockArgs, avg_pool, max_pool
 from mmtpu_torch.models.fc import FcClassifier, FcEncoder, MaxPoolFc, SimpleClassifier
 from mmtpu_torch.models.lenet import LeNet5, LeNet5Enhanced, LeNetEncoder
@@ -25,6 +26,10 @@ from mmtpu_torch.models.utt_fusion import UttFusionModel
 
 __all__ = [
     "AVMNIST",
+    "AssociationNetwork",
+    "CMAM",
+    "DualCMAM",
+    "InputEncoders",
     "MonomodalEncoder",
     "MNISTAudio",
     "MNISTImage",

@@ -19,13 +19,19 @@ names (`fc_fusion`, `fc_intermediate`, `fc_out`). In eval mode on a CUDA
 tensor the whole head runs as ONE kernel (`mmtpu_torch.ops.fused_mlp`),
 as mmtpu runs it as one Pallas kernel on the TPU; in train mode, or on the
 CPU, it runs the plain chain. `encode` gives the two embeddings (the
-`embeddings` split's export). (mmtpu's embedding inputs and `fused_head`
-switch serve the C-MAM path, which is not ported yet.)
+`embeddings` split's export).
+
+For C-MAM, as mmtpu's: `is_embd_A` / `is_embd_I` take that input as the
+modality's embedding and skip its encoder; a missing `A` or `I` becomes a
+zero embedding of its encoder's `hidden_dim`; `fused_head=False` takes the
+plain chain in eval mode too (the frozen teacher is differentiated with
+respect to a reconstructed embedding), `True` asks for the kernel, and
+`None` keeps the rule above.
 """
 
 from __future__ import annotations
 
-from typing import Any, Sequence, Tuple
+from typing import Any, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -116,9 +122,25 @@ class AVMNIST(nn.Module):
         self.fc_intermediate = nn.Linear(hidden_dim, hidden_dim // 2)
         self.fc_out = nn.Linear(hidden_dim // 2, NUM_CLASSES)
 
-    def forward(self, A: torch.Tensor, I: torch.Tensor) -> torch.Tensor:  # noqa: E741
-        fused = torch.cat([self.audio_encoder(A), self.image_encoder(I)], dim=1)
-        if not self.training and fused.is_cuda:
+    def forward(self, A: Optional[torch.Tensor] = None,
+                I: Optional[torch.Tensor] = None, *,  # noqa: E741
+                is_embd_A: bool = False, is_embd_I: bool = False,
+                fused_head: Optional[bool] = None) -> torch.Tensor:
+        if A is None and I is None:
+            raise ValueError("AVMNIST needs A or I")
+        if is_embd_A and is_embd_I:
+            raise ValueError("AVMNIST: at most one input may be an embedding")
+        # an absent modality is a zero embedding (with is_embd_X False its
+        # encoder then fails on it, as in mmtpu and the reference)
+        if A is None:
+            A = I.new_zeros((I.shape[0], self.audio_encoder.hidden_dim))
+        if I is None:
+            I = A.new_zeros((A.shape[0], self.image_encoder.hidden_dim))  # noqa: E741
+        audio = A if is_embd_A else self.audio_encoder(A)
+        image = I if is_embd_I else self.image_encoder(I)
+        fused = torch.cat([audio, image], dim=1)
+        use_fused = not self.training if fused_head is None else fused_head
+        if use_fused and fused.is_cuda:
             layers = (self.fc_fusion, self.fc_intermediate, self.fc_out)
             return fused_mlp(
                 fused.contiguous(),

@@ -42,7 +42,17 @@ def _tolerant(cls) -> Callable[..., Any]:
 
 
 def _factories() -> Dict[str, Callable[..., Any]]:
-    from mmtpu_torch.models import avmnist, conv, fc, lenet, lstm, resnet, textcnn, utt_fusion
+    from mmtpu_torch.models import (
+        avmnist,
+        cmam,
+        conv,
+        fc,
+        lenet,
+        lstm,
+        resnet,
+        textcnn,
+        utt_fusion,
+    )
 
     return {
         "resnet18": resnet.ResNet18,
@@ -69,6 +79,11 @@ def _factories() -> Dict[str, Callable[..., Any]]:
         "utt_fusion": utt_fusion.UttFusionModel,
         "utt-fusion": utt_fusion.UttFusionModel,
         "uttfusionmodel": utt_fusion.UttFusionModel,
+        "cmam": cmam.CMAM,
+        "dual_cmam": cmam.DualCMAM,
+        "dualcmam": cmam.DualCMAM,
+        "association_network": cmam.AssociationNetwork,
+        "input_encoders": cmam.InputEncoders,
     }
 
 

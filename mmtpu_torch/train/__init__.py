@@ -1,2 +1,3 @@
 """Training of the port: steps, losses, optimizers, the epoch loop and the
-metric recorder (counterpart of `mmtpu/train`)."""
+metric recorder, and C-MAM's frozen-teacher steps and composite loss
+(counterpart of `mmtpu/train`)."""

@@ -10,6 +10,15 @@ checkpoint. The step's outputs stay on the device until the epoch ends and
 are copied to the host once (the recorder's `_materialize`). mmtpu's
 device-resident scan (and with it `--eval-batch-factor`'s fused eval) and
 the monitor are not ported.
+
+For other training tasks (C-MAM), as in mmtpu: `step_builders` replaces the
+train and eval step factories, `record_fn(recorder, out, vocab)` the
+recording of a step's outputs, and a step that returns `terms` (a dict of
+loss terms) gets their per-epoch means, 'total_loss' left out, added to
+the validation and test metrics. `metrics_history_nested` and
+`test_metrics_nested` keep each record as the recorder's group dicts plus
+`loss` (and those term means on validation and test), the records C-MAM's
+report writes.
 """
 
 from __future__ import annotations
@@ -19,7 +28,7 @@ import logging
 import re
 import time
 from pathlib import Path
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -118,6 +127,8 @@ class TrainLoop:
         vocab_override: Optional[List[str]] = None,
         metrics_postprocess: Optional[Callable[[Dict[str, Any]], Dict[str, Any]]] = None,
         resume: bool = False,
+        record_fn: Optional[Callable] = None,
+        step_builders: Optional[Tuple[Callable, Callable]] = None,
     ) -> None:
         # vocab_override renames the recorder's pattern vocabulary (the
         # monomodal entry point records under the MODALITY name);
@@ -141,11 +152,18 @@ class TrainLoop:
         self.vocab_override = vocab_override
         self.metrics_postprocess = metrics_postprocess
         self.resume = resume
-        self.train_step = make_train_step(task, state, device)
-        self.eval_step = make_eval_step(task, device)
+        # step_builders: (make_train(task, state, device), make_eval(task, device))
+        make_train, make_eval = step_builders or (make_train_step, make_eval_step)
+        self.train_step = make_train(task, state, device)
+        self.eval_step = make_eval(task, device)
+        self._record = record_fn or self._default_record
         self.epoch_metrics: List[Dict[str, Any]] = []
         self.timing_history: Dict[str, List[float]] = {"train": [], "validation": []}
         self.metrics_history: Dict[str, List[Dict[str, Any]]] = {"train": [], "validation": []}
+        self.metrics_history_nested: Dict[str, List[Dict[str, Any]]] = {
+            "train": [], "validation": []}
+        self.test_metrics_nested: Dict[str, Dict[str, Any]] = {}
+        self._phase_terms: List[Dict[str, torch.Tensor]] = []
 
     # -- epochs -----------------------------------------------------------------
 
@@ -158,12 +176,13 @@ class TrainLoop:
             return self.vocab_override
         return vocab
 
-    def _record(self, out: Dict[str, torch.Tensor], vocab: List[str]) -> None:
+    def _default_record(self, recorder: MetricRecorder, out: Dict[str, torch.Tensor],
+                        vocab: List[str]) -> None:
         pattern_id = out.get("pattern_id")
         if pattern_id is None:
             pattern_id = torch.zeros_like(out["preds"], dtype=torch.int32)
-        self.recorder.update_group_ids(self.group_name, out["preds"], out["labels"],
-                                       pattern_id, self._vocab(vocab), out.get("sample_mask"))
+        recorder.update_group_ids(self.group_name, out["preds"], out["labels"],
+                                  pattern_id, self._vocab(vocab), out.get("sample_mask"))
 
     def _epoch(self, split: str, step: Callable) -> float:
         """Run `step` over the split's batches; the mean of the per-batch
@@ -175,7 +194,9 @@ class TrainLoop:
         for batch in loader:
             out = step(batch)
             losses.append(out["loss"])
-            self._record(out, vocab)
+            if "terms" in out:
+                self._phase_terms.append(out["terms"])
+            self._record(self.recorder, out, vocab)
         self._sync()
         if split in self.timing_history:
             self.timing_history[split].append(time.time() - t0)
@@ -187,15 +208,26 @@ class TrainLoop:
     def eval_epoch(self, split: str) -> float:
         return self._epoch(split, self.eval_step)
 
-    def _metrics(self, loss: float, epoch: Optional[int] = None,
-                 skip_tensorboard: bool = False) -> Dict[str, Any]:
-        """The recorder's flattened results with the loss, post-processed."""
-        metrics = flatten_leaves(self.recorder.calculate_all_groups(
-            epoch=epoch, loss=loss, skip_tensorboard=skip_tensorboard))
+    def _metrics(self, raw: Dict[str, Dict[str, Any]], loss: float,
+                 terms: Optional[Dict[str, float]] = None) -> Dict[str, Any]:
+        """The recorder's flattened results with the loss and the term
+        means, post-processed."""
+        metrics = flatten_leaves(raw)
         metrics["loss"] = loss
+        metrics.update(terms or {})
         if self.metrics_postprocess is not None:
             metrics = self.metrics_postprocess(metrics)
         return metrics
+
+    def _drain_terms(self) -> Dict[str, float]:
+        """Per-epoch means of the steps' loss terms, 'total_loss' left out
+        (the reference's val_loss_info), in sorted key order as mmtpu's come
+        back from its jitted steps; one device→host copy per term."""
+        terms, self._phase_terms = self._phase_terms, []
+        if not terms:
+            return {}
+        return {k: float(np.mean(torch.stack([t[k] for t in terms]).cpu().numpy()))
+                for k in sorted(terms[0]) if k != "total_loss"}
 
     # -- mid-run resume -----------------------------------------------------------
 
@@ -209,6 +241,7 @@ class TrainLoop:
                     "cooldown": lr._cooldown, "scale": lr._scale} if lr is not None else None),
             "best_metrics": best_metrics,
             "metrics_history": self.metrics_history,
+            "metrics_history_nested": self.metrics_history_nested,
             "timing_history": self.timing_history,
         }))
 
@@ -238,6 +271,8 @@ class TrainLoop:
             self.lr._scale = float(lr_meta.get("scale", 1.0))
             set_lr_scale(self.state.optimizer, self.lr._scale)
         self.metrics_history = meta.get("metrics_history", self.metrics_history)
+        self.metrics_history_nested = meta.get("metrics_history_nested",
+                                               self.metrics_history_nested)
         self.timing_history = meta.get("timing_history", self.timing_history)
         if self.metrics_path is not None:
             fp = self.metrics_path / "epoch_metrics.json"
@@ -266,13 +301,20 @@ class TrainLoop:
         for epoch in range(start_epoch, self.epochs + 1):
             self.recorder.reset()
             train_loss = self.train_epoch(epoch)
-            train_metrics = self._metrics(train_loss, epoch)
+            raw_train = self.recorder.calculate_all_groups(epoch=epoch, loss=train_loss)
+            train_metrics = self._metrics(raw_train, train_loss)
             self.metrics_history["train"].append(dict(train_metrics))
+            self._drain_terms()  # train records carry no term means, as in mmtpu
+            self.metrics_history_nested["train"].append({**raw_train, "loss": train_loss})
 
             self.recorder.reset()
             val_loss = self.eval_epoch("validation")
-            val_metrics = self._metrics(val_loss, epoch)
+            raw_val = self.recorder.calculate_all_groups(epoch=epoch, loss=val_loss)
+            val_terms = self._drain_terms()
+            val_metrics = self._metrics(raw_val, val_loss, val_terms)
             self.metrics_history["validation"].append(dict(val_metrics))
+            self.metrics_history_nested["validation"].append(
+                {**raw_val, "loss": val_loss, **val_terms})
 
             self.epoch_metrics.append({
                 "epoch": epoch,
@@ -323,8 +365,11 @@ class TrainLoop:
             t0 = time.time()
             loss = self.eval_epoch(split)
             elapsed = time.time() - t0
-            metrics = self._metrics(loss, skip_tensorboard=True)
+            raw = self.recorder.calculate_all_groups(loss=loss, skip_tensorboard=True)
+            terms = self._drain_terms()
+            metrics = self._metrics(raw, loss, terms)
             results[split] = metrics
+            self.test_metrics_nested[split] = {**raw, "loss": loss, **terms}
             if self.metrics_path is None:
                 continue
             MetricsReport(self.metrics_path).generate({}, {split: metrics})

@@ -5,7 +5,8 @@ sample_mask=...)["total_loss"]``. Every criterion reduces with the same
 masked mean as mmtpu, ``sum(w·m·l) / sum(w·m)``: per-sample losses with
 extra axes are first averaged over them, `sample_mask` zeroes padded tail
 rows, and class weights (cross entropy) weight the rows. The registry has
-mmtpu's names; `cmam` is not ported yet and raises.
+mmtpu's names; `cmam` resolves to the composite C-MAM loss
+(`train/cmam_loss.py`), which returns its terms with 'total_loss'.
 """
 
 from __future__ import annotations
@@ -138,9 +139,13 @@ _register("na", identity_loss)
 
 def resolve_criterion(name: str) -> Callable[..., Callable]:
     key = name.lower()
+    if key == "cmam":
+        from mmtpu_torch.train.cmam_loss import CMAMLoss
+
+        return CMAMLoss
     if key not in _CRITERIA:
         raise ValueError(
-            f"Unknown or not yet ported criterion: {name}. Available: {sorted(_CRITERIA)}"
+            f"Unknown criterion: {name}. Available: {sorted(_CRITERIA)} + ['cmam']"
         )
     return _CRITERIA[key]
 

@@ -49,6 +49,13 @@ def to_device(batch: Mapping[str, np.ndarray], device: torch.device) -> Dict[str
     }
 
 
+def has_padded_rows(batch: Mapping[str, np.ndarray]) -> bool:
+    """The host batch has zero-padded tail rows (BatchNorm then needs the
+    sample mask; a full batch takes its fused kernels)."""
+    mask = batch.get("sample_mask")
+    return mask is not None and not np.all(mask > 0)
+
+
 @dataclasses.dataclass
 class ClassificationTask:
     """Multi-input classifier: inputs → logits → loss, predictions."""
@@ -99,13 +106,19 @@ def train_step_core(task: ClassificationTask, state: TrainState,
     sample_mask = batch.get("sample_mask")
     logits = task.apply(batch, train=True, bn_mask=sample_mask if padded else None)
     loss = task.loss(logits, batch, sample_mask=sample_mask)
+    apply_gradients(state, loss)
+    return loss.detach(), logits.detach(), sample_mask
+
+
+def apply_gradients(state: TrainState, loss: torch.Tensor) -> None:
+    """Backward from `loss`, the optional global-norm clip, the optimizer's
+    step: what every train step does once its loss is computed."""
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
     if state.clip:
         clip_by_global_norm(state.model.parameters(), state.clip)
     state.optimizer.step()
     state.step += 1
-    return loss.detach(), logits.detach(), sample_mask
 
 
 def clip_by_global_norm(params, max_norm: float) -> None:
@@ -124,8 +137,7 @@ def make_train_step(task: ClassificationTask, state: TrainState,
     and pattern_id / sample_mask when the batch has them."""
 
     def step(batch: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        mask = batch.get("sample_mask")
-        padded = mask is not None and not np.all(mask > 0)
+        padded = has_padded_rows(batch)
         batch = to_device(batch, device)
         loss, logits, sample_mask = train_step_core(task, state, batch, padded)
         return _outputs(task, batch, loss, logits, sample_mask)

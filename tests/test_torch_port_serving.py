@@ -340,13 +340,16 @@ def test_chip_smoke_config_dict_matches_the_yaml(tmp_path):
 
 
 def test_loss_group_refuses_what_is_not_ported():
+    from mmtpu_torch.train.cmam_loss import CMAMLoss
     from mmtpu_torch.train.losses import LossFunctionGroup
 
-    # the registry is ported in full but for C-MAM's criterion; a name no
-    # package knows is refused the same way
-    for spec in ({"t": {"loss_name": "cmam"}}, {"t": {"loss_name": "no_such_loss"}}):
-        with pytest.raises(ValueError, match="not yet ported"):
-            LossFunctionGroup.from_dict(spec)
+    # the registry is ported in full, C-MAM's criterion included; a name no
+    # package knows is refused
+    with pytest.raises(ValueError, match="Unknown criterion"):
+        LossFunctionGroup.from_dict({"t": {"loss_name": "no_such_loss"}})
+    group = LossFunctionGroup.from_dict(
+        {"cmam": {"loss_name": "cmam", "loss_kwargs": {"cls_weight": 0.0}}})
+    assert isinstance(group["cmam"].loss_fn, CMAMLoss)
 
 
 def test_entry_points_raise_without_cuda_unless_asked_for_cpu(tiny_run, monkeypatch):

@@ -605,9 +605,12 @@ def test_loss_matches_mmtpu(name, kwargs, masked):
 
 
 def test_loss_registry_names_match_mmtpu():
+    from mmtpu_torch.train.cmam_loss import CMAMLoss
+
     assert set(losses._CRITERIA) == set(jax_losses._CRITERIA)
-    with pytest.raises(ValueError, match="not yet ported"):
-        losses.resolve_criterion("cmam")
+    # 'cmam' resolves outside the table in both packages, to the C-MAM loss
+    assert losses.resolve_criterion("cmam") is CMAMLoss
+    assert jax_losses.resolve_criterion("cmam").__name__ == "CMAMLoss"
 
 
 # -- metric functions vs sklearn ------------------------------------------------
