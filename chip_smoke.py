@@ -101,11 +101,30 @@ FcClassifier 192→[192, 64, 32]→3; batch 32, aligned T = 50):
              of 8 train steps and the first three steps and a padded-tail
              step on the card against the CPU, for each kind.
 
+10. msa    — MMIN and RedCore through `train_multimodal.main` at full width on
+             synthetic_mosi at CMU-MOSI's split sizes (1284/229/686, T = 50,
+             batch 32, 2 epochs, train `atv` with audio and video missing at
+             0.2, evaluation over `atv`, `at`, `tv`): a twin of
+             configs/mosi/synthetic_mmin_teacher.yaml (the student at the
+             published UttFusion widths, AE 256,128,64 in 5 blocks,
+             classifier 320→[128,128]→3) over phase 6's model as its frozen
+             teacher, restored from its best.pth: the teacher's state hash
+             equal to its file's before the run and after it, `lstm` exactly
+             3 per train batch and 1 per evaluation batch (355), `fused_mlp`
+             never; and a RedCore twin (Transformer encoders, embedding 64;
+             the MMIN twin's AE; ResidualXE generators 128→64) launching
+             neither kernel; for each, a profiled window of 8 train steps and
+             the first three steps and the padded tail on the card against
+             the CPU (RedCore's dropouts and VAE sample neutralised, its β
+             and η after three steps compared).
+
     python3 chip_smoke.py --train-only    # build, then phases 5 and 6 alone
     python3 chip_smoke.py --reader-only   # build, the audio pretraining, phase 7
     python3 chip_smoke.py --shipped-only  # build, phase 7's .pt files, phase 8
     python3 chip_smoke.py --cmam-only     # build, phase 7's .pt files, seeded
                                           # teachers, phase 9
+    python3 chip_smoke.py --msa-only      # build, a seeded UttFusion teacher,
+                                          # phase 10
 
 Prints a `kernels` JSON line, the card's name and power limit, and as the
 last line `{"ok": true, "device": {...}}`. Any failure exits non-zero
@@ -2437,6 +2456,380 @@ def say_cmam(card: str, cmam: dict, seconds: float) -> None:
         + f"; phase {seconds:.1f} s")
 
 
+# Phase 10: the MSA families with their own train steps, MMIN and RedCore,
+# through `train_multimodal.main` at the published UttFusion widths on
+# CMU-MOSI's split sizes.
+MSA_NAMES = {"mmin": "Synthetic_MOSI_MMIN_Teacher", "redcore": "Synthetic_MOSI_RedCore"}
+MSA_EVAL_PATTERNS = ["atv", "at", "tv"]  # synthetic_mmin_teacher.yaml's evaluation patterns
+MSA_LOSS_RTOL = 1e-5  # step 1 and the padded tail, GPU (TF32 off) vs CPU, float32
+MSA_GRAD_TOL = 1e-4  # of each parameter's gradient norm, step 1
+MSA_SCHED_TOL = 1e-6  # RedCore's beta, eta after three steps, GPU vs CPU
+
+
+def msa_configs(out_root: str, teacher: Path, check: bool = False) -> dict:
+    """The two twins. MMIN: configs/mosi/synthetic_mmin_teacher.yaml with the
+    student at the published UttFusion widths and the AE of the MMIN
+    authors' training script (AE_layers 256,128,64, n_blocks 5: latent 320;
+    classifier 320→[128,128]→3), the teacher phase 6's UttFusion from its
+    best.pth (named by the file's `{run_id}` template), and one departure:
+    training on `atv` with audio and video missing at 0.2 (the file's train
+    split has no missingness, so the teacher's complement inputs would be
+    zeros). RedCore (no config in the repo): Transformer encoders over
+    5 / 20 / 768 features, embedding 64, 1 block, 2 heads; the MMIN twin's
+    AE; ResidualXE generators 128→64; classifiers 192→[128,128]→3 and
+    64→[128]→3 with dropout 0.3. `check=True` sets the classifiers' dropout
+    to 0 (the GPU-vs-CPU check, which also neutralises the Transformers'
+    dropouts and the VAE sample)."""
+    utt = mosi_smoke_config(num_samples=UTT_SAMPLES["test"], batch_size=UTT_BATCH,
+                            out_root=out_root, train_samples=UTT_SAMPLES["train"],
+                            validation_samples=UTT_SAMPLES["validation"])
+    for name in ("validation", "test"):
+        utt["data"]["datasets"][name]["missing_patterns"]["selected_patterns"] = (
+            MSA_EVAL_PATTERNS)
+    base = utt["model"]
+    teacher_model = {"__module_spec__": "utt_fusion", **{k: base[k] for k in (
+        "netA", "netV", "netT", "netC")},
+        "pretrained_path": str(teacher.parent.parent / "{run_id}" / "best.pth")}
+    ae = {"__module_spec__": "residual_ae", "layers": [256, 128, 64], "n_blocks": 5,
+          "input_dim": 192, "dropout": 0.0}
+    common_ = {
+        "training": {"epochs": TRAIN_EPOCHS, "early_stopping": False, "num_modalities": 3,
+                     "optimizer": {"name": "Adam", "default_kwargs": {"lr": 0.001}},
+                     "loss_functions": {
+                         "cross_entropy": {"loss_name": "cross_entropy", "weight": 1.0},
+                         "mse": {"loss_name": "mse", "weight": 0.5},
+                         "cycle": {"loss_name": "cycle", "weight": 0.5}}},
+        "data": utt["data"],
+        "metrics": {"metrics": {"accuracy": {"function": "sklearn.metrics.accuracy_score",
+                                             "kwargs": {}}},
+                    "groups": {"classification": ["accuracy"]}},
+        "logging": utt["logging"], "monitoring": {"enabled": False},
+    }
+
+    def fc(width, layers):
+        return {"__module_spec__": "fcclassifier", "input_dim": width, "layers": layers,
+                "output_dim": 3, "dropout": 0.0 if check else 0.3}
+
+    mmin = {
+        "experiment": {"name": MSA_NAMES["mmin"], "seed": SEED, "device": "tpu",
+                       "is_train": True, "is_test": True},
+        "model": {"name": "MMIN", "model_type": "mmin",
+                  "netA": base["netA"], "netV": base["netV"],
+                  "netT": {**base["netT"], "dropout": 0.0}, "netAE": ae,
+                  "netC": {**fc(320, [128, 128]), "dropout": 0.0},
+                  "pretrained_model": teacher_model},
+        **common_,
+    }
+
+    def tr(width):
+        return {"__module_spec__": "transformer", "width": width, "layers": 1, "heads": 2,
+                "embd_width": 64}
+
+    def xe():
+        return {"__module_spec__": "residual_xe", "layers": [128, 64], "n_blocks": 3,
+                "input_dim": 128, "output_dim": 64, "dropout": 0.0}
+
+    redcore = {
+        "experiment": {"name": MSA_NAMES["redcore"], "seed": SEED, "device": "tpu",
+                       "is_train": True, "is_test": True},
+        "model": {"name": "RedCore", "model_type": "redcore",
+                  "netA": tr(5), "netV": tr(20), "netT": tr(768), "netAE": ae,
+                  "netC": fc(192, [128, 128]), "netC_A": fc(64, [128]),
+                  "netC_V": fc(64, [128]), "netC_T": fc(64, [128]),
+                  "netAT_V": xe(), "netAV_T": xe(), "netVT_A": xe()},
+        **common_,
+    }
+    redcore["training"] = {**common_["training"], "loss_functions": {
+        k: v for k, v in common_["training"]["loss_functions"].items() if k != "cycle"}}
+    return {"mmin": mmin, "redcore": redcore}
+
+
+def msa_batches() -> dict:
+    """Batches per split as the loaders form them: train one pattern, the
+    evaluation splits the three patterns' visits."""
+    n = len(MSA_EVAL_PATTERNS)
+    return {"train": -(-UTT_SAMPLES["train"] // UTT_BATCH),
+            **{s: -(-UTT_SAMPLES[s] * n // UTT_BATCH) for s in ("validation", "test")}}
+
+
+def msa_expected_lstm(kind: str) -> int:
+    """`lstm` launches of a run: MMIN's student pair once per forward (G=2)
+    and its teacher's netA and netV once each per train batch (G=1): 3 per
+    train batch, 1 per evaluation batch; RedCore none."""
+    if kind == "redcore":
+        return 0
+    n = msa_batches()
+    return TRAIN_EPOCHS * (3 * n["train"] + n["validation"]) + n["test"]
+
+
+def _msa_config(cfg_path: Path):
+    from mmtpu_torch.cli import common
+
+    return common.load_config(argparse.Namespace(config=str(cfg_path), run_id=1, seed=None))
+
+
+def _msa_setup(cfg_path: Path, device):
+    """The config, the run as `msa_runners` assembles it, its train step."""
+    from mmtpu_torch.cli import msa_runners
+
+    cfg = _msa_config(cfg_path)
+    built = msa_runners.assemble(cfg, argparse.Namespace(run_id=1), device)
+    return cfg, built, built.step_builders[0](built.task, built.state, device)
+
+
+@contextlib.contextmanager
+def _msa_neutralised():
+    """The RedCore check's train forward without randomness: the
+    Transformers' dropouts pass their input and the VAE sample's ε is 0
+    (the two devices' generators draw different numbers)."""
+    import torch
+
+    from mmtpu_torch.models import rng
+
+    saved = rng.GeneratorDropout.forward, rng.GeneratorNormal.forward
+    rng.GeneratorDropout.forward = lambda self, x: x
+    rng.GeneratorNormal.forward = lambda self, like: torch.zeros_like(like)
+    try:
+        yield
+    finally:
+        rng.GeneratorDropout.forward, rng.GeneratorNormal.forward = saved
+
+
+def phase_msa_profile(dev, card: str, kind: str, cfg_path: Path, steps: int = 8,
+                      warmup: int = 3) -> dict:
+    """A window of train steps under the profiler."""
+    import torch
+
+    cfg, _, step = _msa_setup(cfg_path, dev)
+    it = iter(cfg.data.build_loader("train", seed=cfg.experiment.seed))
+    batches = [next(it) for _ in range(warmup + steps)]
+    for b in batches[:warmup]:
+        step(b)
+    torch.cuda.synchronize()
+    reset_counts()
+    brk = device_breakdown(lambda: [step(b) for b in batches[warmup:]], top=8)
+    counts = read_counts()
+    busy = brk["device_ms"] / brk["profiled_wall_ms"]
+    say_card(card, f"[msa {kind} profile] {steps} train steps (B={UTT_BATCH}, T=50): device "
+             f"{brk['device_ms'] / steps:.3f} ms per step, wall "
+             f"{brk['profiled_wall_ms'] / steps:.3f} ms per step, busy share {busy:.3f}; "
+             f"{brk['kernel_events'] / steps:.1f} device kernels and "
+             f"{brk['launch_calls'] / steps:.1f} launch calls per step; launches {counts}; "
+             f"top device operations (name, ms, count) {brk['top']}; top host operations "
+             f"(name, ms, count) {brk['top_host']}")
+    want = {"fused_mlp": 0, "lstm": steps * (3 if kind == "mmin" else 0)}
+    if counts != want:
+        raise AssertionError(f"[msa {kind} profile] launches {counts}, expected {want}")
+    return {"busy_share": busy, "device_ms_per_step": brk["device_ms"] / steps,
+            "wall_ms_per_step": brk["profiled_wall_ms"] / steps,
+            "kernels_per_step": brk["kernel_events"] / steps,
+            "launch_calls_per_step": brk["launch_calls"] / steps}
+
+
+def phase_msa_check(dev, kind: str, cfg_path: Path) -> dict:
+    """The first three train steps from the same initial weights (dropout 0,
+    RedCore's randomness neutralised, TF32 off, float32) on the card and on
+    the CPU, then the train split's padded tail (4 real rows of 32) from the
+    CPU's weights after step 3 on both: the losses, the step-1 gradients of
+    every parameter against its norm (a parameter whose exact gradient is 0
+    — RedCore's AEs, which no term reads, and its attention key biases —
+    within the tolerance of the whole gradient's norm), and RedCore's β and
+    η after the three steps."""
+    import torch
+
+    cpu = torch.device("cpu")
+    cfg = _msa_config(cfg_path)
+    batches = list(cfg.data.build_loader("train", seed=cfg.experiment.seed))
+    padded = batches[-1]
+    real_rows = int(padded["sample_mask"].sum())
+    if real_rows != UTT_SAMPLES["train"] % UTT_BATCH:
+        raise AssertionError(f"the train split's last batch holds {real_rows} real rows")
+
+    def grads_of(model):
+        return {n: p.grad.detach().cpu().clone() for n, p in model.named_parameters()}
+
+    runs, losses, grads, scheds = {}, {}, {}, {}
+    with _msa_neutralised():
+        for label, device in (("gpu", dev), ("cpu", cpu)):
+            _, built, step = _msa_setup(cfg_path, device)
+            losses[label] = []
+            for b in batches[:3]:
+                losses[label].append(float(step(b)["loss"]))
+                grads.setdefault(label, grads_of(built.model))
+            if kind == "redcore":
+                scheds[label] = {k: getattr(step.sched, k).detach().cpu().double()
+                                 for k in ("beta", "eta", "loss_ema", "iter_count")}
+            runs[label] = (built, step)
+        runs["gpu"][0].model.load_state_dict(runs["cpu"][0].model.state_dict())
+        pad_loss = {label: float(step(padded)["loss"]) for label, (_, step) in runs.items()}
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses["gpu"], losses["cpu"])]
+    pad_rel = abs(pad_loss["gpu"] - pad_loss["cpu"]) / abs(pad_loss["cpu"])
+    whole = _whole_error(grads["gpu"], grads["cpu"])
+    norm_all = float(np.sqrt(sum(float(g.double().square().sum())
+                                 for g in grads["cpu"].values())))
+    zero = {n for n, w in grads["cpu"].items()
+            if n.endswith("attn.key.bias") or w.double().norm().item() <= 1e-9 * norm_all}
+    err = _grad_errors({n: g for n, g in grads["gpu"].items() if n not in zero},
+                       {n: g for n, g in grads["cpu"].items() if n not in zero})
+    zero_err = max([max(grads["gpu"][n].double().abs().max().item(),
+                        grads["cpu"][n].double().abs().max().item()) / norm_all
+                    for n in zero], default=0.0)
+    sched_err = max([((scheds["gpu"][k] - scheds["cpu"][k]).abs().max()
+                      / scheds["cpu"][k].abs().max().clamp(min=1e-30)).item()
+                     for k in ("beta", "eta") if scheds], default=0.0)
+    say(f"[msa {kind} check] float32 losses of steps 1-3, GPU {losses['gpu']}, CPU "
+        f"{losses['cpu']}: relative {rel} (tolerances {MSA_LOSS_RTOL}, then "
+        f"{TRAIN_LATER_RTOL}); padded tail ({real_rows} real rows of {UTT_BATCH}) from the "
+        f"same weights: GPU {pad_loss['gpu']}, CPU {pad_loss['cpu']} (relative "
+        f"{pad_rel:.3e}); step-1 gradients, {len(err)} parameters: worst "
+        f"{max(err.values()):.3e} of its norm (tolerance {MSA_GRAD_TOL}), whole {whole:.3e}, "
+        f"worst {_worst(err)}; {len(zero)} with an exact gradient of 0: largest "
+        f"{zero_err:.3e} of the whole gradient's norm"
+        + (f"; schedule after 3 steps GPU { {k: v.tolist() for k, v in scheds['gpu'].items()} }"
+           f", CPU { {k: v.tolist() for k, v in scheds['cpu'].items()} } (beta, eta relative "
+           f"{sched_err:.3e}, tolerance {MSA_SCHED_TOL})" if kind == "redcore" else "")
+        + "; TF32 off")
+    if rel[0] > MSA_LOSS_RTOL or pad_rel > MSA_LOSS_RTOL or max(rel[1:]) > TRAIN_LATER_RTOL:
+        raise AssertionError(f"[msa {kind} check] GPU and CPU losses differ: {rel}, padded "
+                             f"{pad_rel}")
+    if max(err.values()) > MSA_GRAD_TOL or zero_err > MSA_GRAD_TOL:
+        raise AssertionError(f"[msa {kind} check] step-1 gradients differ by "
+                             f"{max(err.values())} of their norm ({_worst(err)}); exact "
+                             f"zeros {zero_err}")
+    if kind == "redcore" and (sched_err > MSA_SCHED_TOL
+                              or int(scheds["gpu"]["iter_count"]) != 3
+                              or int(scheds["cpu"]["iter_count"]) != 3):
+        raise AssertionError(f"[msa redcore check] schedules differ: {scheds}")
+    return {"loss_rel": rel, "pad_loss_rel": pad_rel, "grad_err": max(err.values()),
+            "zero_grad_err": zero_err, "sched_err": sched_err}
+
+
+def _run_msa_cli(cfg_path: Path, tag: str, out_root: Path, name: str) -> dict:
+    """`train_multimodal.main` on the card; what the MSA driver writes (the
+    epoch records and test_metrics.json: mmtpu's driver writes no report)."""
+    import torch
+
+    from mmtpu_torch.cli import train_multimodal
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rc = train_multimodal.main(["--config", str(cfg_path), "--run_id", "1"])
+    seconds = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"{tag}: exit code {rc}")
+    metrics = out_root / name / "metrics" / "1"
+    records = json.loads((metrics / "epoch_metrics.json").read_text())
+    epochs = [e for e in records if "epoch" in e]
+    test = json.loads((metrics / "test_metrics.json").read_text())
+    if len(epochs) != TRAIN_EPOCHS or "test" not in records[-1] or len(test) != 1:
+        raise AssertionError(f"{tag}: {len(epochs)} epochs, test entry "
+                             f"{'test' in records[-1]}, {len(test)} test records")
+    losses = [(e["train"]["loss"], e["validation"]["loss"]) for e in epochs]
+    accs = [e["validation"]["metrics"] for e in epochs]
+    want = {f"accuracy_{p.upper()}" for p in MSA_EVAL_PATTERNS}
+    if set(accs[-1]) != want or not all(np.isfinite(v) for pair in losses for v in pair):
+        raise AssertionError(f"{tag}: losses {losses}, validation metrics {accs}")
+    train_s = epochs[-1]["train"]["timing"]["total_time"]
+    models = sorted(p.name for p in (out_root / name / "models" / "1").iterdir())
+    if not {"best.pth", "last.pth", "epoch_1.pth"} <= set(models):
+        raise AssertionError(f"{tag}: checkpoints {models}")
+    return {"seconds": seconds, "peak_bytes": torch.cuda.max_memory_allocated(),
+            "losses": losses, "validation": accs, "test": test[0], "models": models,
+            "samples_per_s": UTT_SAMPLES["train"] / train_s, "epoch_s": train_s}
+
+
+def phase_msa(dev, card: str, work: Path, teacher: Path) -> dict:
+    """MMIN (with phase 6's UttFusion as its frozen teacher) and RedCore
+    through `train_multimodal.main` on the card: `lstm` counted against the
+    loader's batches (MMIN 3 per train batch, 1 per evaluation batch; RedCore
+    none), `fused_mlp` never; the teacher's state hash equal to its file's
+    before and after the run; then a profiled window and the GPU-vs-CPU
+    check of each."""
+    import torch
+
+    from mmtpu_torch.train import mmin_step
+
+    out_root = work / "msa"
+    paths, check_paths = {}, {}
+    for check, target in ((False, paths), (True, check_paths)):
+        for kind, cfg in msa_configs(str(out_root), teacher, check=check).items():
+            target[kind] = work / f"msa_{kind}{'_check' if check else ''}.json"
+            target[kind].write_text(json.dumps(cfg))
+    in_file = _state_hash(torch.load(teacher, map_location="cpu", weights_only=True)["model"])
+
+    teachers = []
+    real_post = mmin_step.MMINTask.__post_init__
+
+    def spy(task):  # the teacher as restored, before any step
+        real_post(task)
+        teachers.append((task.teacher_model, _state_hash(task.teacher_model.state_dict())))
+
+    results = {}
+    n = msa_batches()
+    for kind in ("mmin", "redcore"):
+        teachers.clear()
+        mmin_step.MMINTask.__post_init__ = spy
+        reset_counts()
+        try:
+            run = _run_msa_cli(paths[kind], f"[msa {kind}]", out_root, MSA_NAMES[kind])
+        finally:
+            mmin_step.MMINTask.__post_init__ = real_post
+        counts = read_counts()
+        want = {"fused_mlp": 0, "lstm": msa_expected_lstm(kind)}
+        if counts != want:
+            raise AssertionError(f"[msa {kind}] launches {counts}, expected {want} "
+                                 f"(batches {n})")
+        hashes = ""
+        if kind == "mmin":
+            (teacher_model, before), = teachers
+            after = _state_hash(teacher_model.state_dict())
+            if not before == after == in_file:
+                raise AssertionError(f"[msa mmin] teacher hash: file {in_file}, restored "
+                                     f"{before}, after the run {after}")
+            hashes = f"; teacher state sha256 {after[:16]} = its file's, unchanged by the run"
+        say_card(card, f"[msa {kind}] {run['seconds']:.2f} s through train_multimodal.main "
+                 f"(start-up, data and checkpoints included); epoch {TRAIN_EPOCHS} train "
+                 f"{run['epoch_s']:.3f} s = {run['samples_per_s']:.1f} samples/s (B={UTT_BATCH}, "
+                 f"T=50, {UTT_SAMPLES['train']} samples); peak device memory "
+                 f"{run['peak_bytes'] / 2**20:.1f} MiB")
+        say(f"[msa {kind}] launches {counts} (lstm expected {want['lstm']}: {TRAIN_EPOCHS} × "
+            f"(3 × {n['train']} train + {n['validation']} validation) + {n['test']} test "
+            f"batches for MMIN, none for RedCore){hashes}; losses {run['losses']}; "
+            f"validation {run['validation']}; test {run['test']}; checkpoints {run['models']}")
+        profile = phase_msa_profile(dev, card, kind, paths[kind])
+        check = phase_msa_check(dev, kind, check_paths[kind])
+        results[kind] = {"run": run, "launches": counts, "profile": profile, "check": check}
+    return results
+
+
+def msa_teacher(work: Path) -> Path:
+    """The teacher for `--msa-only`: phase 6's UttFusion model with seeded
+    weights, saved as its training checkpoint's best.pth would be."""
+    import torch
+
+    from mmtpu_torch.cli import common
+    from mmtpu_torch.config import ModelConfig
+
+    model = common.init_model(common.build_model_from_config(
+        ModelConfig.from_dict(mosi_smoke_config()["model"])), SEED, torch.device("cpu"))
+    path = work / "train_utt" / UTT_NAME / "models/1/best.pth"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch.save({"model": model.state_dict(), "optimizer": {}, "step": 0}, path)
+    return path
+
+
+def say_msa(card: str, msa: dict, seconds: float) -> None:
+    say_card(card, "[summary] MSA: " + "; ".join(
+        f"{kind} {r['run']['samples_per_s']:.1f} train samples/s (epoch {TRAIN_EPOCHS}), "
+        f"{r['run']['seconds']:.2f} s through main, launches {r['launches']}, "
+        f"{r['profile']['device_ms_per_step']:.3f} ms of device work and "
+        f"{r['profile']['wall_ms_per_step']:.3f} ms of wall per step, "
+        f"{r['profile']['kernels_per_step']:.1f} device kernels per step, busy share "
+        f"{r['profile']['busy_share']:.3f}" for kind, r in msa.items())
+        + f"; phase {seconds:.1f} s")
+
+
 def kernel_record(name: str, source: str, replaces: str, shape: str, kern: dict, t: dict,
                   pred: dict, srv: dict) -> dict:
     return {
@@ -2476,6 +2869,9 @@ def main(argv=None) -> int:
                         help="build the kernels, write the reader phase's .pt files and "
                              "seeded teachers, and run the C-MAM phase alone (no kernels or "
                              "ok line)")
+    parser.add_argument("--msa-only", action="store_true",
+                        help="build the kernels, save a seeded UttFusion teacher and run the "
+                             "MMIN and RedCore phase alone (no kernels or ok line)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU",
@@ -2540,6 +2936,15 @@ def main(argv=None) -> int:
             shutil.rmtree(work, ignore_errors=True)
         return 0
 
+    if args.msa_only:
+        try:
+            t0 = time.perf_counter()
+            msa = phase_msa(dev, smi, work, msa_teacher(work))
+            say_msa(smi, msa, time.perf_counter() - t0)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        return 0
+
     mlp = phase_kernels_mlp(dev)
     lstm = phase_kernels_lstm(dev)
     try:
@@ -2563,9 +2968,11 @@ def main(argv=None) -> int:
         cmam = phase_cmam(dev, smi, work, reader["csvs"],
                           {"cmam": train["scratch"]["models"] / "best.pth",
                            "dual": utt["run"]["models"] / "best.pth"})
-        t_train, t_utt, t_reader, t_shipped, t_cmam = (
+        t_msa = time.perf_counter()
+        msa = phase_msa(dev, smi, work, utt["run"]["models"] / "best.pth")
+        t_train, t_utt, t_reader, t_shipped, t_cmam, t_msa = (
             t_utt - t_train, t_reader - t_utt, t_shipped - t_reader, t_cmam - t_shipped,
-            time.perf_counter() - t_cmam)
+            t_msa - t_cmam, time.perf_counter() - t_msa)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2596,6 +3003,7 @@ def main(argv=None) -> int:
         f"{shipped['load']['replay_err']:.3e}, predict GPU vs CPU "
         f"{shipped['predict_err']:.3e}; phase {t_shipped:.1f} s")
     say_cmam(smi, cmam, t_cmam)
+    say_msa(smi, msa, t_msa)
     say(f"[summary] fused_mlp B=1024 {json.dumps(mlp['timings'][1024])}")
     for batch, t in mlp["shipped"].items():
         say(f"[summary] fused_mlp {SHIPPED_HEAD_DIMS} B={batch} {json.dumps(t)}")
@@ -2612,6 +3020,7 @@ def main(argv=None) -> int:
          "train_launches": train["launches"], "reader_launches": reader["launches"],
          "cv_launches": reader["cv_launches"], "sweep_launches": reader["sweep_launches"],
          "shipped_launches": shipped["launches"],
+         "msa_launches": {kind: r["launches"]["fused_mlp"] for kind, r in msa.items()},
          "shipped_head": {"dims": SHIPPED_HEAD_DIMS, "max_abs_err": mlp["shipped_err"],
                           **{f"B={b}": t for b, t in mlp["shipped"].items()}}},
         {**kernel_record("lstm", "mmtpu_torch/ops/csrc/lstm.cu", "mmtpu/ops/lstm.py:61",
@@ -2619,6 +3028,7 @@ def main(argv=None) -> int:
                          "calls, projection included (with_projection_ms is ours with it)",
                          lstm, lstm["timings"][LSTM_MAIN], mosi_pred, mosi_srv),
          "train_launches": utt["launches"],
+         "mmin_launches": msa["mmin"]["launches"]["lstm"],
          "with_projection_ms": lstm["timings"][LSTM_MAIN]["with_projection_ms"],
          "grad_max_abs_err": lstm["grad_err"],
          "serial_steps": T},

@@ -11,7 +11,12 @@ port `state_dict` under the reference's torch key names:
   `conv_2`, `bn_1`, `bn_2` → `conv_one`, `conv_two`, `batch_norm_one`,
   `batch_norm_two`, and the `fc` beside a `block_one` → `net.5`; `/` → `.`;
 - conv kernel HWIO → weight OIHW; Dense kernel (in, out) → Linear weight
-  (out, in); BatchNorm `scale`/`bias` → `weight`/`bias`;
+  (out, in); BatchNorm and LayerNorm `scale`/`bias` → `weight`/`bias`;
+- the DenseGeneral projections of flax's multi-head attention (the
+  Transformer's `attn/{query,key,value,out}`) → Linear layers over the
+  flattened heads: `query`/`key`/`value` kernels (d, heads, head_dim) →
+  weight (heads·head_dim, d) and their (heads, head_dim) biases flattened;
+  the `out` kernel (heads, head_dim, d) → weight (d, heads·head_dim);
   batch_stats `mean`/`var` → `running_mean`/`running_var`
   (and `num_batches_tracked` = 0, which flax does not keep);
 - an MNIST encoder's `fc` reads a flattened conv map: mmtpu flattens it
@@ -203,8 +208,14 @@ def from_jax_variables(
                 value = value.transpose(3, 2, 0, 1)
             elif value.ndim == 2:  # Dense (in, out) → Linear (out, in)
                 value = value.T
+            elif value.ndim == 3 and path.rsplit("/", 1)[-1] == "out":  # (heads, hd, d)
+                value = value.reshape(-1, value.shape[-1]).T
+            elif value.ndim == 3:  # attention query/key/value (d, heads, hd)
+                value = value.reshape(value.shape[0], -1).T
             else:
                 raise ValueError(f"mmtpu kernel {path} has rank {value.ndim}")
+        elif leaf == "bias" and value.ndim == 2:  # attention (heads, hd)
+            value = value.reshape(-1)
         prefix = names[path]
         if leaf == "kernel" and prefix.rsplit(".", 2)[-2:] == ["net", "5"]:
             value = nhwc_to_nchw_flatten(value, _geometry(prefix, value, geometry))

@@ -10,7 +10,9 @@ resolves to its sibling, so an mmtpu run's `best.ckpt` serves), evaluates the re
 through the eval-mode forward (the missing-pattern product included) on
 the GPU — on the CPU with `--cpu` — and writes the same JSON as mmtpu: one
 record per real (sample, pattern) visit (pattern, pred, label, correct)
-plus a per-pattern accuracy summary. Padded tail rows are dropped.
+plus a per-pattern accuracy summary. Padded tail rows are dropped. The MSA
+families with their own train steps (MMIN, RedCore, Self-MM) exit with
+mmtpu's message, in `predict` and `serve`.
 Serving-artifact export (mmtpu's `--export`) is not ported yet.
 """
 
@@ -57,6 +59,12 @@ def build_task_and_loader(cfg, args, device: torch.device):
     from mmtpu_torch.checkpoints.manager import load_encoder_checkpoint
     from mmtpu_torch.train.step import ClassificationTask
 
+    mt = cfg.model.model_type.lower()
+    if mt in ("mmin", "redcore", "self-mm", "self_mm"):
+        raise SystemExit(
+            f"predict: {mt} uses a custom multi-network step; export its "
+            "frozen encoders via the training driver instead"
+        )
     mods = common.modalities_for_model(cfg.model.model_type)
     if args.split not in cfg.data.datasets:
         raise SystemExit(

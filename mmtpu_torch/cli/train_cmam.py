@@ -96,7 +96,7 @@ def assemble(cfg, device: torch.device) -> CMAMRun:
     dropout generator and the base encoders' parameters it asks for, the
     train state over the C-MAM alone, the task and its step builders."""
     from mmtpu_torch.checkpoints.manager import load_encoder_checkpoint
-    from mmtpu_torch.models.cmam import use_generator
+    from mmtpu_torch.models.rng import use_generator
     from mmtpu_torch.train import cmam_step
     from mmtpu_torch.train.cmam_loss import CMAMLoss
 

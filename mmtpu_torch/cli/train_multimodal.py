@@ -14,7 +14,10 @@ missing-modality patterns, exports the `embeddings` split's per-modality
 embeddings when the config has one, and writes the reports. On the GPU the
 AVMNIST fusion head runs the `fused_mlp` kernel in validation and test, and
 UttFusion's two LSTM encoders run the `lstm` kernel, one launch per forward,
-in every train and eval step.
+in every train and eval step. `mmin` and `redcore` train through their own
+steps (`cli/msa_runners.py`): MMIN's audio and video LSTMs run the kernel
+in one launch per forward, and its frozen UttFusion teacher two more per
+train batch.
 
 `experiment.cross_validation: K` runs K folds, each with `cv_no` set in
 every dataset's kwargs and its outputs under `fold_<k>/`, then writes the
@@ -23,8 +26,9 @@ per-epoch means of every metric over the folds to
 members run_id..run_id+K-1 (seed + i) one after another, each with its own
 outputs: mmtpu's sequential path, which mmtpu's vmapped engine equals; the
 vmapped engine, `--stacked-folds` and data parallelism over several devices
-are not ported and raise (ROADMAP item 12), as do other model types (MMIN,
-RedCore, Self-MM among them).
+are not ported and raise (ROADMAP item 12); MMIN and RedCore take the
+sequential runs and folds, as in mmtpu. Other model types (Self-MM among
+them) raise.
 """
 
 from __future__ import annotations
@@ -38,7 +42,9 @@ import torch
 
 from mmtpu_torch.cli import common
 
-PORTED_MODEL_TYPES = ("avmnist", "utt-fusion", "utt_fusion", "uttfusionmodel")
+PORTED_MODEL_TYPES = ("avmnist", "utt-fusion", "utt_fusion", "uttfusionmodel", "mmin",
+                      "redcore")
+CUSTOM_STEP_TYPES = ("mmin", "redcore", "self-mm", "self_mm")  # mmtpu stacks none of them
 
 
 def main(argv=None) -> int:
@@ -47,9 +53,12 @@ def main(argv=None) -> int:
     return route(common.load_config(args), args, device)
 
 
-def _stacked_fallback_reason(cfg, args):
+def _stacked_fallback_reason(cfg, args, flag: str = "--stacked-folds"):
     """Why mmtpu's stacked engines would not apply and it would run
     sequentially instead (None when they would)."""
+    mt = cfg.model.model_type.lower()
+    if mt in CUSTOM_STEP_TYPES:
+        return f"{flag} unsupported for {mt}"
     dp = getattr(args, "data_parallel", None)
     if dp is None:
         dp = cfg.experiment.data_parallel
@@ -66,10 +75,14 @@ def route(cfg, args, device, json_nesting: str = "reference") -> int:
     of epoch_metrics.json)."""
     runs = int(getattr(args, "stacked_runs", 0) or 0)
     if runs > 1:
-        if not cfg.experiment.cross_validation and _stacked_fallback_reason(cfg, args) is None:
-            print(f"--stacked-runs {runs}: mmtpu's vmapped engine is not ported "
-                  f"({common.ROADMAP_SYSTEMS}); running the members one after another, "
-                  "mmtpu's sequential path", flush=True)
+        if not cfg.experiment.cross_validation:
+            reason = _stacked_fallback_reason(cfg, args, "--stacked-runs")
+            if reason is None:
+                print(f"--stacked-runs {runs}: mmtpu's vmapped engine is not ported "
+                      f"({common.ROADMAP_SYSTEMS}); running the members one after another, "
+                      "mmtpu's sequential path", flush=True)
+            else:
+                print(f"{reason}; falling back to sequential runs", flush=True)
         return sequential_runs(args, device, json_nesting=json_nesting)
     if cfg.experiment.cross_validation:
         if getattr(args, "stacked_folds", False):
@@ -79,7 +92,7 @@ def route(cfg, args, device, json_nesting: str = "reference") -> int:
                     "--stacked-folds: mmtpu's vmapped fold engine is not ported to "
                     f"mmtpu_torch ({common.ROADMAP_SYSTEMS}); it runs every fold for its "
                     "full epochs, so sequential folds would write other results")
-            print(f"--stacked-folds: {reason}; running the folds sequentially", flush=True)
+            print(f"{reason}; falling back to sequential CV", flush=True)
         return main_cross_validation(cfg, args, device, json_nesting=json_nesting)
     return run_single(cfg, args, device, json_nesting=json_nesting)
 
@@ -107,10 +120,15 @@ def run_single(cfg, args, device, cv_no=None, json_nesting: str = "reference",
     if cv_no is not None:
         for ds_cfg in cfg.data.datasets.values():
             ds_cfg.kwargs["cv_no"] = cv_no
-    if cfg.model.model_type.lower() not in PORTED_MODEL_TYPES:
+    mt = cfg.model.model_type.lower()
+    if mt not in PORTED_MODEL_TYPES:
         raise NotImplementedError(
             f"training model_type {cfg.model.model_type!r} is not ported to mmtpu_torch "
             f"yet (ported: {', '.join(PORTED_MODEL_TYPES)})")
+    if mt in ("mmin", "redcore"):
+        from mmtpu_torch.cli import msa_runners
+
+        return msa_runners.run(cfg, args, device)
     common.resolve_mesh(cfg, args, device)
     clean_checkpoints(cfg.logging.model_output_path)
     loaders = common.build_all_loaders(

@@ -38,6 +38,9 @@ MODEL_TAGS: Dict[str, str] = {
     "!LSTMEncoder": "lstmencoder",
     "!LSTMEncoder2": "lstmencoder2",
     "!TextCNN": "textcnn",
+    "!Transformer": "transformer",
+    "!ResidualAE": "residual_ae",
+    "!ResidualXE": "residual_xe",
     "!UttFusionModel": "utt_fusion",
     "!AssociationNetwork": "association_network",
     "!InputEncoders": "input_encoders",

@@ -1,5 +1,6 @@
 """Torch model families of the port (counterpart of `mmtpu/models`)."""
 
+from mmtpu_torch.models.autoencoder import ResidualAE, ResidualUnetAE, ResidualXE, SimpleFcAE
 from mmtpu_torch.models.avmnist import AVMNIST, MNISTAudio, MNISTImage, MonomodalEncoder
 from mmtpu_torch.models.cmam import CMAM, AssociationNetwork, DualCMAM, InputEncoders
 from mmtpu_torch.models.conv import ConvBlock, ConvBlockArgs, avg_pool, max_pool
@@ -11,6 +12,8 @@ from mmtpu_torch.models.lstm import (
     can_stack_pair,
     encode_pair_stacked,
 )
+from mmtpu_torch.models.mmin import MMIN
+from mmtpu_torch.models.redcore import RedCore
 from mmtpu_torch.models.registry import build_module
 from mmtpu_torch.models.resnet import (
     BasicBlock,
@@ -22,6 +25,7 @@ from mmtpu_torch.models.resnet import (
 )
 from mmtpu_torch.models.textcnn import TextCNN
 from mmtpu_torch.models.tools import seeded_init
+from mmtpu_torch.models.transformer import ResidualAttentionBlock, Transformer
 from mmtpu_torch.models.utt_fusion import UttFusionModel
 
 __all__ = [
@@ -56,6 +60,14 @@ __all__ = [
     "encode_pair_stacked",
     "TextCNN",
     "UttFusionModel",
+    "MMIN",
+    "RedCore",
+    "ResidualAE",
+    "ResidualXE",
+    "ResidualUnetAE",
+    "SimpleFcAE",
+    "ResidualAttentionBlock",
+    "Transformer",
     "build_module",
     "seeded_init",
 ]

@@ -14,16 +14,13 @@ State-dict keys follow mmtpu's names: `input_encoders.{mod}.…` (mmtpu's
 `encoder.…`, `decoder_one_fc_0`, `decoder_one_fc_1`, `decoder_two_fc_0`,
 `decoder_two_fc_1`.
 
-Their dropout draws its masks from an explicit `torch.Generator`, set with
-`use_generator` (the training entry point gives it the run's), never from
-torch's global generator; a dropout that would draw without one raises.
-Masks follow flax's rule: keep with probability 1 − p, scale kept values by
-1 / (1 − p).
+Their dropout draws its masks from the run's `torch.Generator`
+(`models/rng.py`).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict
 
 import torch
 from torch import nn
@@ -31,34 +28,7 @@ from torch import nn
 from mmtpu_torch.config.spec import ModuleSpec
 from mmtpu_torch.modalities import Modality
 from mmtpu_torch.models.norm import BatchNorm
-
-
-class GeneratorDropout(nn.Module):
-    """Dropout whose masks come from `self.generator` (on the input's
-    device). Identity in eval mode and at p = 0."""
-
-    def __init__(self, p: float) -> None:
-        super().__init__()
-        self.p = float(p)
-        self.generator: Optional[torch.Generator] = None
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training or self.p == 0.0:
-            return x
-        if self.generator is None:
-            raise RuntimeError("C-MAM dropout draws its masks from a torch.Generator: "
-                               "give the model one with use_generator(model, generator)")
-        keep = torch.rand(x.shape, generator=self.generator, device=x.device,
-                          dtype=x.dtype) >= self.p
-        return torch.where(keep, x / (1.0 - self.p), torch.zeros_like(x))
-
-
-def use_generator(model: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Point every GeneratorDropout of `model` at `generator`."""
-    for m in model.modules():
-        if isinstance(m, GeneratorDropout):
-            m.generator = generator
-    return model
+from mmtpu_torch.models.rng import GeneratorDropout
 
 
 class AssociationNetwork(nn.Module):

@@ -12,12 +12,20 @@ from mmtpu_torch.config.spec import ModuleSpec
 logger = logging.getLogger(__name__)
 
 
+# a frozen teacher the step runs beside the model (MMIN's): built by the
+# runner, never a submodule, so it stays a spec
+UNBUILT_KEYS = frozenset({"pretrained_model"})
+
+
 def _build_nested(kwargs: Dict[str, Any]) -> Dict[str, Any]:
     """Build nested ModuleSpecs (e.g. encoders inside fusion models),
-    leaving `conv_block_args` specs intact (consumed as data)."""
+    leaving `conv_block_args` specs (consumed as data) and the specs under
+    `UNBUILT_KEYS` intact."""
     out = {}
     for k, v in kwargs.items():
-        if isinstance(v, ModuleSpec) and v.name != "conv_block_args":
+        if k in UNBUILT_KEYS:
+            out[k] = v
+        elif isinstance(v, ModuleSpec) and v.name != "conv_block_args":
             out[k] = v.build()
         elif isinstance(v, dict):
             out[k] = _build_nested(v)
@@ -43,14 +51,18 @@ def _tolerant(cls) -> Callable[..., Any]:
 
 def _factories() -> Dict[str, Callable[..., Any]]:
     from mmtpu_torch.models import (
+        autoencoder,
         avmnist,
         cmam,
         conv,
         fc,
         lenet,
         lstm,
+        mmin,
+        redcore,
         resnet,
         textcnn,
+        transformer,
         utt_fusion,
     )
 
@@ -84,6 +96,12 @@ def _factories() -> Dict[str, Callable[..., Any]]:
         "dualcmam": cmam.DualCMAM,
         "association_network": cmam.AssociationNetwork,
         "input_encoders": cmam.InputEncoders,
+        "transformer": transformer.Transformer,
+        "residual_ae": autoencoder.ResidualAE,
+        "residual_xe": autoencoder.ResidualXE,
+        "residual_unet_ae": autoencoder.ResidualUnetAE,
+        "mmin": _tolerant(mmin.MMIN),
+        "redcore": _tolerant(redcore.RedCore),
     }
 
 

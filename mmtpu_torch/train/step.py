@@ -34,11 +34,14 @@ from mmtpu_torch.train.losses import LossFunctionGroup
 from mmtpu_torch.train.state import TrainState
 
 
-def apply_missing_mask(x: torch.Tensor, mask) -> torch.Tensor:
-    """x · mask, broadcast over the non-batch axes; mask=None → x."""
+def apply_missing_mask(x: torch.Tensor, mask, invert: bool = False) -> torch.Tensor:
+    """x · mask, broadcast over the non-batch axes; mask=None → x.
+    `invert=True` gives the complement x · (1 − mask) (mmtpu's
+    `{mod}_reverse` inputs), and zeros for mask=None."""
     if mask is None:
-        return x
-    return x * mask.reshape(mask.shape[0], *([1] * (x.dim() - 1))).to(x.dtype)
+        return torch.zeros_like(x) if invert else x
+    m = mask.reshape(mask.shape[0], *([1] * (x.dim() - 1))).to(x.dtype)
+    return x * ((1.0 - m) if invert else m)
 
 
 def to_device(batch: Mapping[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:
@@ -115,6 +118,11 @@ def apply_gradients(state: TrainState, loss: torch.Tensor) -> None:
     step: what every train step does once its loss is computed."""
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    # a parameter the loss does not reach (RedCore's AEs) has a gradient of
+    # zero in JAX, which the optimizer's L2 term and moments still see
+    for p in state.model.parameters():
+        if p.grad is None and p.requires_grad:
+            p.grad = torch.zeros_like(p)
     if state.clip:
         clip_by_global_norm(state.model.parameters(), state.clip)
     state.optimizer.step()

@@ -281,7 +281,7 @@ def test_dual_cmam_eval_matches_mmtpu():
 def test_cmam_dropout_draws_from_its_generator_only():
     """Train-mode dropout without a generator raises; with one, the masks
     repeat with its seed and torch's global generator is not drawn."""
-    from mmtpu_torch.models.cmam import use_generator
+    from mmtpu_torch.models.rng import use_generator
 
     pm = _dual(build_module, 0.5).train()
     x = torch.randn(4, 6, 5)

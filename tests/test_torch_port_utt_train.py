@@ -481,12 +481,12 @@ def test_resume_after_one_epoch_ends_as_an_uninterrupted_run(cli_runs, tmp_path)
 
 
 def test_other_msa_families_still_raise(tmp_path):
-    """MMIN, RedCore and Self-MM train through their own steps in mmtpu; the
-    port refuses them."""
+    """Self-MM trains through its own step in mmtpu; the port refuses it
+    (MMIN and RedCore are ported: tests/test_torch_port_msa_cli.py)."""
     from mmtpu_torch.cli import train_multimodal
 
     cfg = _tiny_yaml(tmp_path / "utt.yaml", tmp_path)
-    for model_type in ("mmin", "redcore", "self-mm"):
+    for model_type in ("self-mm",):
         text = cfg.read_text().replace('model_type: "utt-fusion"',
                                        f'model_type: "{model_type}"')
         other = tmp_path / f"{model_type}.yaml"
