@@ -118,6 +118,30 @@ FcClassifier 192→[192, 64, 32]→3; batch 32, aligned T = 50):
              the CPU (RedCore's dropouts and VAE sample neutralised, its β
              and η after three steps compared).
 
+11. self-mm, mmimdb — (a) Self-MM through `train_multimodal.main` at the
+             widths of MMSA's config_regression.json for self_mm on mosi
+             (BERT-base text, AuViSubNet audio 5→16 and video 20→32, post
+             dims 128/32/16/32) on synthetic_mosi in `text_mode: bert` at
+             1284/229/686, T = 50, batch 32, 2 epochs: twice, with the
+             fresh BERT frozen and fine-tuned from an HF-style directory
+             this run writes from the seed (`config.json`,
+             `pytorch_model.bin`); `lstm` exactly 2 per train, validation
+             and test batch (240), `fused_mlp` never; the banks finite on
+             the card after the run, the unimodal labels within ±3; the
+             checkpoints' size; a profiled window of 8 epoch-2 train steps;
+             the first three steps, the padded tail and one epoch-2 step
+             (the label refinement) on the card against the CPU, gradients
+             of BERT included when it fine-tunes. (b) MM-IMDb at the
+             published GMU widths (configs/mmimdb/synthetic_gmu.yaml: 4096
+             and 300 features, 512 hidden, 23 genres) at MM-IMDb's split
+             sizes 15,552/2,608/7,799, batch 64, 2 epochs, evaluation over
+             `it`, `i`, `t`: no launch of either kernel, mmtpu's F1 keys;
+             predict on the best checkpoint against the CPU; the server's
+             multilabel answers and a 400 for a request without `text`; a
+             profiled window; the first three steps and a padded tail GPU
+             vs CPU (gradients in float64). Phase 2 also holds `lstm` at
+             Self-MM's two shapes, G=1 B=32 T=50 H=16 and H=32.
+
     python3 chip_smoke.py --train-only    # build, then phases 5 and 6 alone
     python3 chip_smoke.py --reader-only   # build, the audio pretraining, phase 7
     python3 chip_smoke.py --shipped-only  # build, phase 7's .pt files, phase 8
@@ -125,6 +149,8 @@ FcClassifier 192→[192, 64, 32]→3; batch 32, aligned T = 50):
                                           # teachers, phase 9
     python3 chip_smoke.py --msa-only      # build, a seeded UttFusion teacher,
                                           # phase 10
+    python3 chip_smoke.py --self-mm-only  # build, phase 11 (a)
+    python3 chip_smoke.py --mmimdb-only   # build, phase 11 (b)
 
 Prints a `kernels` JSON line, the card's name and power limit, and as the
 last line `{"ok": true, "device": {...}}`. Any failure exits non-zero
@@ -147,6 +173,7 @@ import urllib.error
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 
@@ -589,9 +616,16 @@ LSTM_CASES = [
     (1, 5, 7, 24, False, True, KERNEL_TOL, False),
     (1, 32, 50, 128, False, False, KERNEL_TOL, True),
     (2, 64, 50, 64, False, False, KERNEL_TOL, False),  # the server's largest micro-batch
+    (1, 32, 50, 16, False, False, KERNEL_TOL, True),   # Self-MM's audio AuViSubNet
+    (1, 32, 50, 32, False, False, KERNEL_TOL, True),   # Self-MM's video AuViSubNet
 ]
+SELF_MM_LSTM = ((1, 32, 50, 16), (1, 32, 50, 32))
+# the gradient checks: (G, B, T, H, lengths, non-zero h0/c0)
+LSTM_GRAD_CASES = [(2, 9, 11, 24, True, True), (1, 32, 50, 16, False, False),
+                   (1, 32, 50, 32, False, False)]
 LSTM_MAIN = (2, 32, 50, 64)
 LSTM_INPUT_SIZES = (5, 20)  # MOSI audio and video feature widths, by group
+LSTM_LIBRARY_INPUT = {(1, 32, 50, 32): (20,)}  # Self-MM's video LSTM, 20→32
 
 
 def _lstm_inputs(dev, G, B, T, H, with_len, with_state, seed):
@@ -619,8 +653,9 @@ def _lstm_library(dev, G, B, T, H, seed):
 
     gen = torch.Generator().manual_seed(seed)
     xs, wis, whs, rnns = [], [], [], []
+    sizes = LSTM_LIBRARY_INPUT.get((G, B, T, H), LSTM_INPUT_SIZES)
     for g in range(G):
-        size = LSTM_INPUT_SIZES[g % len(LSTM_INPUT_SIZES)]
+        size = sizes[g % len(sizes)]
         wi = nn.Linear(size, 4 * H)
         wh = torch.randn(H, 4 * H, generator=gen) / H ** 0.5
         rnn = nn.LSTM(size, H, batch_first=True)
@@ -720,21 +755,29 @@ def phase_kernels_lstm(dev) -> dict:
         timings[(G, B, T, H)] = t
 
     # gradient: kernel forward + plain recompute vs autograd through the plain scan
-    cots = None
-    grads = []
-    for fn in (lstm_sequence_stacked, lstm_stacked_reference):
-        xw, wh, h0, c0, lengths = _lstm_inputs(dev, 2, 9, 11, 24, True, True, 99)
-        leaves = [t.requires_grad_() for t in (xw, wh, h0, c0)]
-        out, (h, c) = fn(*leaves, lengths)
-        if cots is None:
-            gen = torch.Generator().manual_seed(SEED)
-            cots = [torch.randn(t.shape, generator=gen).to(dev) for t in (out, h, c)]
-        grads.append(torch.autograd.grad((out, h, c), leaves, cots))
-    grad_err = max((a - b).abs().max().item() for a, b in zip(*grads))
-    say(f"[kernels] lstm gradient (G=2 B=9 T=11 H=24, lengths, h0/c0≠0): max |autograd.Function "
-        f"- autograd through the plain scan| = {grad_err:.3e} (tolerance {LSTM_GRAD_TOL})")
-    if grad_err > LSTM_GRAD_TOL:
-        raise AssertionError(f"lstm gradient differs by {grad_err}")
+    grad_err = 0.0
+    for G, B, T, H, with_len, with_state in LSTM_GRAD_CASES:
+        cots = None
+        grads = []
+        for fn in (lstm_sequence_stacked, lstm_stacked_reference):
+            xw, wh, h0, c0, lengths = _lstm_inputs(dev, G, B, T, H, with_len, with_state, 99)
+            leaves = [t.requires_grad_() for t in (xw, wh)]
+            if with_state:
+                leaves += [t.requires_grad_() for t in (h0, c0)]
+            else:  # as the encoders call it: no state tensor at all
+                h0 = c0 = None
+            out, (h, c) = fn(*leaves[:2], h0, c0, lengths)
+            if cots is None:
+                gen = torch.Generator().manual_seed(SEED)
+                cots = [torch.randn(t.shape, generator=gen).to(dev) for t in (out, h, c)]
+            grads.append(torch.autograd.grad((out, h, c), leaves, cots))
+        err = max((a - b).abs().max().item() for a, b in zip(*grads))
+        grad_err = max(grad_err, err)
+        shape = f"G={G} B={B} T={T} H={H}" + (", lengths, h0/c0≠0" if with_len else "")
+        say(f"[kernels] lstm gradient ({shape}): max |autograd.Function - autograd through "
+            f"the plain scan| = {err:.3e} (tolerance {LSTM_GRAD_TOL})")
+        if err > LSTM_GRAD_TOL:
+            raise AssertionError(f"lstm gradient at {shape} differs by {err}")
     return {"max_err": max_err, "grad_err": grad_err, "timings": timings}
 
 
@@ -1067,20 +1110,23 @@ def _train_batches(cfg_path: Path, n: int):
 
 def _training_setup(cfg, dev):
     """Model, state and train step as `train_multimodal` builds them (the
-    model's `clip`, where it has one, as the global-norm clip)."""
+    model's `clip`, where it has one, as the global-norm clip; the run's
+    generator for a model that draws; MM-IMDb's multilabel task)."""
     from mmtpu_torch.cli import common
     from mmtpu_torch.train.step import ClassificationTask, make_train_step
 
     model = common.init_model(common.build_model_from_config(cfg.model), SEED, dev)
     state = common.make_state(model, cfg.training, clip=cfg.model.kwargs.get("clip"))
+    state.generator = common.use_run_generator(model, SEED, dev)
     task = ClassificationTask(
         model=model, loss_group=cfg.training.loss_functions,
-        input_keys=[str(m) for m in common.modalities_for_model(cfg.model.model_type)])
+        input_keys=[str(m) for m in common.modalities_for_model(cfg.model.model_type)],
+        multilabel=cfg.model.model_type.lower() == "mmimdb")
     return model, state, make_train_step(task, state, dev)
 
 
 def phase_train_profile(dev, card: str, cfg_path: Path, steps: int = 8,
-                        tag: str = "[train profile]") -> dict:
+                        tag: str = "[train profile]", batch: int = TRAIN_BATCH) -> dict:
     """A window of fine-tune train steps under the profiler: the device's
     busy share, its kernels per step and the operations that take its time."""
     import torch
@@ -1092,7 +1138,7 @@ def phase_train_profile(dev, card: str, cfg_path: Path, steps: int = 8,
     torch.cuda.synchronize()
     brk = device_breakdown(lambda: [step(b) for b in batches[3:]], top=8)
     busy = brk["device_ms"] / brk["profiled_wall_ms"]
-    say_card(card, f"{tag} {steps} fine-tune train steps (B={TRAIN_BATCH}): device "
+    say_card(card, f"{tag} {steps} train steps (B={batch}): device "
              f"busy {brk['device_ms']:.3f} ms of {brk['profiled_wall_ms']:.3f} ms wall, busy "
              f"share {busy:.3f}; {brk['kernel_events'] / steps:.1f} device kernels and "
              f"{brk['launch_calls'] / steps:.1f} launch calls per step; top device operations "
@@ -2830,6 +2876,610 @@ def say_msa(card: str, msa: dict, seconds: float) -> None:
         + f"; phase {seconds:.1f} s")
 
 
+# -- phase 11: Self-MM and MM-IMDb -------------------------------------------------------
+
+SELF_MM_NAMES = {"frozen": "Synthetic_MOSI_SelfMM_Frozen",
+                 "finetune": "Synthetic_MOSI_SelfMM_Finetune"}
+# BERT-base (MMSA config_regression.json, self_mm on mosi: text_out 768)
+BERT_SIZES = {"hidden_size": 768, "num_hidden_layers": 12, "num_attention_heads": 12}
+SELF_MM_LSTM_PER_BATCH = 2  # the audio and the video AuViSubNet, one launch each
+SELF_MM_LOSS_RTOL = 1e-5  # step 1 and the padded tail, GPU (TF32 off) vs CPU, float32
+SELF_MM_GRAD_TOL = 1e-4  # of each parameter's gradient norm, step 1
+SELF_MM_BANK_TOL = 1e-5  # the banks after an epoch-2 step from the same banks and weights
+MMIMDB_NAME = "Synthetic_MMIMDb_GMU"
+MMIMDB_SAMPLES = {"train": 15552, "validation": 2608, "test": 7799}  # MM-IMDb's splits
+MMIMDB_BATCH = 64
+MMIMDB_PATTERNS = ["it", "i", "t"]
+MMIMDB_PAD_ROWS = 48  # the check's padded tail: 16 real rows of 64
+MMIMDB_LOSS_RTOL = 1e-5
+MMIMDB_GRAD64_TOL = 1e-6  # float64 gradients, GPU vs CPU, of each parameter's norm
+MMIMDB_REQUESTS = 24
+
+
+def self_mm_config(out_root: str, kind: str, bert_dir: Optional[Path] = None,
+                   check: bool = False) -> dict:
+    """A plain-dict twin of configs/mosi/synthetic_self_mm.yaml at the widths
+    of MMSA's config_regression.json for self_mm on mosi: BERT-base text
+    (768 wide, 12 layers, 12 heads), AuViSubNet audio 5→16 and video 20→32
+    (1 layer, unidirectional, dropout 0), post dims 128 / 32 / 16 / 32 and
+    dropouts 0.1 / 0.0 / 0.1 / 0.0 (fusion / text / audio / video), H 3;
+    `need_data_aligned: false`. `frozen`: the file's fresh BERT
+    (`pretrained_path: ""`), frozen; `finetune`: `use_finetune: true` from
+    the HF directory `bert_dir`. synthetic_mosi in `text_mode: bert` at
+    CMU-MOSI's split sizes (the file's 64 / 32 / 32), T = 50, batch 32, 2
+    epochs, the file's `atv` evaluation, Adam 1e-3 and `l1`. `check=True`
+    sets the post dropouts to 0 (the GPU-vs-CPU check)."""
+    def split(name, n, evaluated):
+        out = {"dataset": "synthetic_mosi", "data_fp": "unused", "split": name,
+               "target_modality": "MULTIMODAL", "batch_size": UTT_BATCH,
+               "kwargs": {"num_samples": n, "labels_key": "regression_labels",
+                          "text_mode": "bert"}}
+        if evaluated:
+            out["missing_patterns"] = {
+                "modalities": {m: {"missing_rate": 0.0} for m in ("audio", "video", "text")},
+                "selected_patterns": ["atv"]}
+        else:
+            out["shuffle"] = True
+        return out
+
+    drop = 0.0 if check else 0.1
+    name = SELF_MM_NAMES[kind]
+    return {
+        "experiment": {"name": name, "seed": SEED, "device": "tpu", "is_train": True,
+                       "is_test": True},
+        "model": {
+            "name": "Self_MM", "model_type": "self-mm",
+            "audio_encoder": {"__module_spec__": "auvi_subnet", "in_size": 5,
+                              "hidden_size": 16, "out_size": 16, "dropout": 0.0},
+            "video_encoder": {"__module_spec__": "auvi_subnet", "in_size": 20,
+                              "hidden_size": 32, "out_size": 32, "dropout": 0.0},
+            "text_encoder": {"__module_spec__": "bert_text_encoder",
+                             "pretrained_path": str(bert_dir) if bert_dir else "",
+                             "use_finetune": kind == "finetune", **BERT_SIZES},
+            "need_data_aligned": False, "audio_out": 16, "video_out": 32, "text_out": 768,
+            "post_fusion_dropout": drop, "post_fusion_dim": 128,
+            "post_text_dropout": 0.0, "post_text_dim": 32,
+            "post_audio_dropout": drop, "post_audio_dim": 16,
+            "post_video_dropout": 0.0, "post_video_dim": 32, "H": 3.0,
+        },
+        "training": {"epochs": TRAIN_EPOCHS, "early_stopping": False, "num_modalities": 3,
+                     "optimizer": {"name": "Adam", "default_kwargs": {"lr": 0.001}},
+                     "loss_functions": {"l1": {"loss_name": "l1", "weight": 1.0}}},
+        "data": {"datasets": {"train": split("train", UTT_SAMPLES["train"], False),
+                              "validation": split("valid", UTT_SAMPLES["validation"], True),
+                              "test": split("test", UTT_SAMPLES["test"], True)}},
+        "metrics": {"metrics": {"mosei": {"function": "metrics.mosei_regression",
+                                          "kwargs": {}}},
+                    "groups": {"regression": ["mosei"]}},
+        "logging": {
+            "log_path": f"{out_root}/{{experiment_name}}/logs/{{run_id}}",
+            "model_output_path": f"{out_root}/{{experiment_name}}/models/{{run_id}}",
+            "metrics_path": f"{out_root}/{{experiment_name}}/metrics/{{run_id}}",
+            "save_metric": "loss",
+        },
+        "monitoring": {"enabled": False},
+    }
+
+
+def write_bert_dir(root: Path, dropout: float, weights: Optional[Path] = None) -> Path:
+    """An HF-style BERT-base directory: `config.json` (the given dropouts)
+    and `pytorch_model.bin` under HF's `BertModel` key names, drawn from the
+    seed as flax's BERT draws a fresh one; `weights` links an existing
+    `.bin` instead of writing it again."""
+    import dataclasses
+
+    import torch
+
+    from mmtpu_torch.models import seeded_init
+    from mmtpu_torch.models.bert_text import BertConfig, BertModel
+
+    cfg = BertConfig(**BERT_SIZES, hidden_dropout_prob=dropout,
+                     attention_probs_dropout_prob=dropout)
+    root.mkdir(parents=True, exist_ok=True)
+    (root / "config.json").write_text(json.dumps(
+        {"architectures": ["BertModel"], "model_type": "bert", **dataclasses.asdict(cfg)}))
+    if weights is not None:
+        (root / "pytorch_model.bin").symlink_to(weights)
+    else:
+        torch.save(seeded_init(BertModel(cfg), SEED).state_dict(), root / "pytorch_model.bin")
+    return root / "pytorch_model.bin"
+
+
+def self_mm_batches() -> dict:
+    return {s: -(-UTT_SAMPLES[s] // UTT_BATCH) for s in ("train", "validation", "test")}
+
+
+def self_mm_expected_lstm() -> int:
+    """Two launches per train, validation and test batch: 2 × (2 × (41 + 8) + 22)."""
+    n = self_mm_batches()
+    return SELF_MM_LSTM_PER_BATCH * (TRAIN_EPOCHS * (n["train"] + n["validation"]) + n["test"])
+
+
+def _self_mm_setup(cfg_path: Path, device):
+    """The config, Self-MM's train state as its driver assembles it, banks
+    prefilled from the train loader, and the train step."""
+    from mmtpu_torch.cli import train_self_mm
+    from mmtpu_torch.train.managers import ManagerState
+    from mmtpu_torch.train.self_mm_step import init_manager_labels, make_self_mm_train_step
+
+    cfg = _msa_config(cfg_path)
+    model, task, state = train_self_mm.assemble(cfg, device)
+    banks = ManagerState.create(UTT_SAMPLES["train"], train_self_mm.bank_dims(cfg),
+                                device=device)
+    init_manager_labels(banks, cfg.data.build_loader("train", seed=cfg.experiment.seed))
+    return cfg, model, banks, make_self_mm_train_step(task, state, device)
+
+
+@contextlib.contextmanager
+def _captured_banks():
+    """The banks `train_self_mm.run` creates, kept for inspection."""
+    from mmtpu_torch.train import managers
+
+    made = []
+    real = managers.ManagerState.create.__func__
+
+    def spy(cls, *args, **kwargs):
+        made.append(real(cls, *args, **kwargs))
+        return made[-1]
+
+    managers.ManagerState.create = classmethod(spy)
+    try:
+        yield made
+    finally:
+        managers.ManagerState.create = classmethod(real)
+
+
+def _bank_tensors(banks) -> dict:
+    return {f"{field}/{m}": t for field in ("features", "labels", "centers_pos", "centers_neg")
+            for m, t in getattr(banks, field).items()}
+
+
+def phase_self_mm_profile(dev, card: str, kind: str, cfg_path: Path, steps: int = 8,
+                          warmup: int = 3) -> dict:
+    """A window of epoch-2 train steps (the refinement included) under the profiler."""
+    import torch
+
+    cfg, _, banks, step = _self_mm_setup(cfg_path, dev)
+    it = iter(cfg.data.build_loader("train", seed=cfg.experiment.seed))
+    batches = [next(it) for _ in range(warmup + steps)]
+    for b in batches[:warmup]:
+        step(banks, b, 1)
+    torch.cuda.synchronize()
+    reset_counts()
+    brk = device_breakdown(lambda: [step(banks, b, 2) for b in batches[warmup:]], top=8)
+    counts = read_counts()
+    busy = brk["device_ms"] / brk["profiled_wall_ms"]
+    say_card(card, f"[self-mm {kind} profile] {steps} epoch-2 train steps (B={UTT_BATCH}, "
+             f"T=50, BERT-base): device {brk['device_ms'] / steps:.3f} ms per step, wall "
+             f"{brk['profiled_wall_ms'] / steps:.3f} ms per step, busy share {busy:.3f}; "
+             f"{brk['kernel_events'] / steps:.1f} device kernels and "
+             f"{brk['launch_calls'] / steps:.1f} launch calls per step; launches {counts}; "
+             f"top device operations (name, ms, count) {brk['top']}; top host operations "
+             f"(name, ms, count) {brk['top_host']}")
+    want = {"fused_mlp": 0, "lstm": SELF_MM_LSTM_PER_BATCH * steps}
+    if counts != want:
+        raise AssertionError(f"[self-mm {kind} profile] launches {counts}, expected {want}")
+    return {"busy_share": busy, "device_ms_per_step": brk["device_ms"] / steps,
+            "wall_ms_per_step": brk["profiled_wall_ms"] / steps,
+            "kernels_per_step": brk["kernel_events"] / steps,
+            "launch_calls_per_step": brk["launch_calls"] / steps}
+
+
+def _copy_banks(src, dst) -> None:
+    source = _bank_tensors(src)
+    for key, t in _bank_tensors(dst).items():
+        t.copy_(source[key])
+
+
+def phase_self_mm_check(dev, kind: str, cfg_path: Path) -> dict:
+    """From the same initial weights and banks (post dropouts 0; the
+    fine-tuned BERT's dropouts 0 from its check directory; TF32 off;
+    float32) on the card and on the CPU: the first three train steps' losses
+    and the step-1 gradients of every parameter against its norm (those
+    whose exact gradient is 0 — a frozen BERT, the pooler, the attention key
+    biases — against the whole gradient's norm); then from the CPU's weights
+    and banks after step 3 the train split's padded tail (4 real rows of 32)
+    on both; then, again from the same weights and banks, one step at epoch
+    2 (the label refinement) and the banks after it."""
+    import torch
+
+    cpu = torch.device("cpu")
+    cfg = _msa_config(cfg_path)
+    batches = list(cfg.data.build_loader("train", seed=cfg.experiment.seed))
+    padded = batches[-1]
+    real_rows = int(padded["sample_mask"].sum())
+    if real_rows != UTT_SAMPLES["train"] % UTT_BATCH:
+        raise AssertionError(f"the train split's last batch holds {real_rows} real rows")
+
+    def grads_of(model):
+        return {n: p.grad.detach().cpu().clone() for n, p in model.named_parameters()}
+
+    runs, losses, grads = {}, {}, {}
+    for label, device in (("gpu", dev), ("cpu", cpu)):
+        _, model, banks, step = _self_mm_setup(cfg_path, device)
+        losses[label] = []
+        for b in batches[:3]:
+            losses[label].append(float(step(banks, b, 1)["loss"]))
+            grads.setdefault(label, grads_of(model))
+        runs[label] = (model, banks, step)
+
+    def sync_gpu_to_cpu():
+        runs["gpu"][0].load_state_dict(runs["cpu"][0].state_dict())
+        _copy_banks(runs["cpu"][1], runs["gpu"][1])
+
+    sync_gpu_to_cpu()
+    pad_loss = {label: float(step(banks, padded, 1)["loss"])
+                for label, (_, banks, step) in runs.items()}
+    sync_gpu_to_cpu()
+    for label, (_, banks, step) in runs.items():
+        step(banks, batches[3], 2)
+    bank_err = {key: (t.cpu() - ref).abs().max().item() / max(1.0, ref.abs().max().item())
+                for (key, t), ref in zip(_bank_tensors(runs["gpu"][1]).items(),
+                                         _bank_tensors(runs["cpu"][1]).values())}
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses["gpu"], losses["cpu"])]
+    pad_rel = abs(pad_loss["gpu"] - pad_loss["cpu"]) / abs(pad_loss["cpu"])
+    norm_all = float(np.sqrt(sum(float(g.double().square().sum()) for g in grads["cpu"].values())))
+    zero = {n for n, w in grads["cpu"].items()
+            if n.endswith("attention.self.key.bias") or w.double().norm().item() <= 1e-9 * norm_all}
+    err = _grad_errors({n: g for n, g in grads["gpu"].items() if n not in zero},
+                       {n: g for n, g in grads["cpu"].items() if n not in zero})
+    zero_err = max([max(grads["gpu"][n].double().abs().max().item(),
+                        grads["cpu"][n].double().abs().max().item()) / norm_all
+                    for n in zero], default=0.0)
+    bert = [n for n in err if ".bert." in n]
+    say(f"[self-mm {kind} check] float32 losses of steps 1-3, GPU {losses['gpu']}, CPU "
+        f"{losses['cpu']}: relative {rel} (tolerances {SELF_MM_LOSS_RTOL}, then "
+        f"{TRAIN_LATER_RTOL}); padded tail ({real_rows} real rows of {UTT_BATCH}) from the "
+        f"same weights and banks: GPU {pad_loss['gpu']}, CPU {pad_loss['cpu']} (relative "
+        f"{pad_rel:.3e}); step-1 gradients, {len(err)} parameters ({len(bert)} of BERT): "
+        f"worst {max(err.values()):.3e} of its norm (tolerance {SELF_MM_GRAD_TOL}), BERT's "
+        f"worst {max([err[n] for n in bert], default=0.0):.3e}, worst {_worst(err)}; "
+        f"{len(zero)} with an exact gradient of 0: largest {zero_err:.3e} of the whole "
+        f"gradient's norm; banks after an epoch-2 step from the same banks and weights: "
+        f"worst {max(bank_err.values()):.3e} (tolerance {SELF_MM_BANK_TOL}), worst "
+        f"{_worst(bank_err)}; TF32 off")
+    if rel[0] > SELF_MM_LOSS_RTOL or pad_rel > SELF_MM_LOSS_RTOL or max(rel[1:]) > TRAIN_LATER_RTOL:
+        raise AssertionError(f"[self-mm {kind} check] GPU and CPU losses differ: {rel}, "
+                             f"padded {pad_rel}")
+    if max(err.values()) > SELF_MM_GRAD_TOL or zero_err > SELF_MM_GRAD_TOL:
+        raise AssertionError(f"[self-mm {kind} check] step-1 gradients differ by "
+                             f"{max(err.values())} of their norm ({_worst(err)}); exact zeros "
+                             f"{zero_err}")
+    if kind == "finetune" and not bert:
+        raise AssertionError("[self-mm finetune check] BERT took no gradient")
+    if max(bank_err.values()) > SELF_MM_BANK_TOL:
+        raise AssertionError(f"[self-mm {kind} check] banks differ: {_worst(bank_err)}")
+    return {"loss_rel": rel, "pad_loss_rel": pad_rel, "grad_err": max(err.values()),
+            "zero_grad_err": zero_err, "bank_err": max(bank_err.values())}
+
+
+def phase_self_mm(dev, card: str, work: Path) -> dict:
+    """Both Self-MM twins through `train_multimodal.main` on the card: `lstm`
+    counted against the loader's batches (2 per train, validation and test
+    batch), `fused_mlp` never; the banks after the run finite, on the card,
+    the labels within ±H; the checkpoints' size; then a profiled window and
+    the GPU-vs-CPU check of each."""
+    import torch
+
+    out_root = work / "self_mm"
+    weights = write_bert_dir(work / "bert_run", 0.1)
+    bert_dirs = {"run": weights.parent,
+                 "check": write_bert_dir(work / "bert_check", 0.0, weights).parent}
+    n = self_mm_batches()
+    results = {}
+    for kind in ("frozen", "finetune"):
+        paths = {}
+        for check in (False, True):
+            bert = bert_dirs["check" if check else "run"] if kind == "finetune" else None
+            paths[check] = work / f"self_mm_{kind}{'_check' if check else ''}.json"
+            paths[check].write_text(json.dumps(self_mm_config(str(out_root), kind, bert,
+                                                              check=check)))
+        from mmtpu_torch.cli import train_multimodal
+
+        reset_counts()
+        with _captured_banks() as made:
+            run = _run_cli(train_multimodal, paths[False], f"[self-mm {kind}]", out_root,
+                           SELF_MM_NAMES[kind], train_samples=UTT_SAMPLES["train"])
+        counts = read_counts()
+        want = {"fused_mlp": 0, "lstm": self_mm_expected_lstm()}
+        if counts != want:
+            raise AssertionError(f"[self-mm {kind}] launches {counts}, expected {want} "
+                                 f"(batches {n})")
+        (banks,) = made
+        tensors = _bank_tensors(banks)
+        labels = torch.stack([banks.labels[m] for m in ("audio", "video", "text")])
+        if (not all(t.device.type == dev.type and torch.isfinite(t).all()
+                    for t in tensors.values())
+                or labels.abs().max().item() > 3.0
+                or torch.equal(banks.labels["audio"], banks.labels["multimodal"])):
+            raise AssertionError(f"[self-mm {kind}] banks after the run: "
+                                 f"{ {k: (t.device.type, bool(torch.isfinite(t).all())) for k, t in tensors.items()} }, "
+                                 f"largest unimodal label {labels.abs().max().item()}")
+        sizes = {p.name: p.stat().st_size for p in run["models"].glob("*.pth")}
+        test_atv = {k: round(v, 4) for k, v in sorted(run["test"].items()) if k.endswith("_ATV")}
+        say_card(card, f"[self-mm {kind}] {run['seconds']:.2f} s through train_multimodal.main "
+                 f"(start-up, BERT, data and checkpoints included); epoch {TRAIN_EPOCHS} train "
+                 f"{run['epoch_s']:.3f} s = {run['samples_per_s']:.1f} samples/s (B={UTT_BATCH}, "
+                 f"T=50, {UTT_SAMPLES['train']} samples); peak device memory "
+                 f"{run['peak_bytes'] / 2**20:.1f} MiB; checkpoints "
+                 f"{ {k: round(v / 2**20, 1) for k, v in sorted(sizes.items())} } MiB")
+        say(f"[self-mm {kind}] launches {counts} (lstm expected {want['lstm']}: "
+            f"{SELF_MM_LSTM_PER_BATCH} × ({TRAIN_EPOCHS} × ({n['train']} train + "
+            f"{n['validation']} validation) + {n['test']} test batches)); banks finite on "
+            f"the card, unimodal labels within ±3 (largest {labels.abs().max().item():.4f}), "
+            f"refined away from the fusion labels; losses {run['losses']}; test {test_atv}")
+        shutil.rmtree(out_root / SELF_MM_NAMES[kind], ignore_errors=True)  # ~1.3 GB each
+        profile = phase_self_mm_profile(dev, card, kind, paths[False])
+        check = phase_self_mm_check(dev, kind, paths[True])
+        results[kind] = {"run": run, "launches": counts, "profile": profile, "check": check,
+                         "checkpoint_bytes": sizes}
+    return results
+
+
+def mmimdb_config(out_root: str) -> dict:
+    """configs/mmimdb/synthetic_gmu.yaml as it is (4096-wide VGG image and
+    300-wide word2vec text features, encoders to 512, GMU 512, MaxOut genre
+    classifier 512→512→23, Adam 1e-4 with L2 1e-3, `bce_with_logits`, the
+    F1 metrics, batch 64, 2 epochs), at MM-IMDb's split sizes (the file's
+    256 / 64 / 64)."""
+    def split(name, n, patterns, **extra):
+        return {"dataset": "synthetic_mmimdb", "data_fp": "unused", "split": name,
+                "target_modality": "MULTIMODAL", "batch_size": MMIMDB_BATCH, **extra,
+                "kwargs": {"num_samples": n},
+                "missing_patterns": {
+                    "modalities": {m: {"missing_rate": 0.0} for m in ("text", "image")},
+                    "selected_patterns": patterns}}
+
+    f1 = {f"f1_{avg}": {"function": "sklearn.metrics.f1_score",
+                        "kwargs": {"average": avg, "zero_division": 0}}
+          for avg in ("samples", "macro", "micro")}
+    return {
+        "experiment": {"name": MMIMDB_NAME, "seed": SEED, "device": "tpu", "is_train": True,
+                       "is_test": True},
+        "model": {
+            "name": "MMIMDb", "model_type": "MMIMDb",
+            "image_encoder": {"__module_spec__": "mmimdb_modality_encoder", "input_dim": 4096,
+                              "output_dim": 512},
+            "text_encoder": {"__module_spec__": "mmimdb_modality_encoder", "input_dim": 300,
+                             "output_dim": 512},
+            "gated_bimodal_network": {"__module_spec__": "gated_bimodal", "input_one_dim": 512,
+                                      "output_one_dim": 512, "input_two_dim": 512,
+                                      "output_two_dim": 512},
+            "classifier": {"__module_spec__": "mlp_genre_classifier", "input_size": 512,
+                           "hidden_size": 512, "output_size": 23},
+        },
+        "training": {"epochs": TRAIN_EPOCHS, "early_stopping": False,
+                     "early_stopping_patience": 5, "num_modalities": 2,
+                     "optimizer": {"name": "Adam", "default_kwargs": {"lr": 0.0001,
+                                                                      "weight_decay": 0.001}},
+                     "loss_functions": {"bce": {"loss_name": "bce_with_logits", "loss_args": {},
+                                                "weight": 1.0}}},
+        "data": {"datasets": {
+            "train": split("train", MMIMDB_SAMPLES["train"], ["it"], shuffle=True),
+            "validation": split("valid", MMIMDB_SAMPLES["validation"], MMIMDB_PATTERNS),
+            "test": split("test", MMIMDB_SAMPLES["test"], MMIMDB_PATTERNS)}},
+        "metrics": {"metrics": f1, "groups": {"classification": list(f1)}},
+        "logging": {
+            "log_path": f"{out_root}/{{experiment_name}}/logs/{{run_id}}",
+            "model_output_path": f"{out_root}/{{experiment_name}}/models/{{run_id}}",
+            "metrics_path": f"{out_root}/{{experiment_name}}/metrics/{{run_id}}",
+            "save_metric": "loss",
+        },
+        "monitoring": {"enabled": False},
+    }
+
+
+def mmimdb_batches() -> dict:
+    n = len(MMIMDB_PATTERNS)
+    return {"train": -(-MMIMDB_SAMPLES["train"] // MMIMDB_BATCH),
+            **{s: -(-MMIMDB_SAMPLES[s] * n // MMIMDB_BATCH) for s in ("validation", "test")}}
+
+
+def phase_mmimdb_check(dev, cfg_path: Path) -> dict:
+    """The first three train steps from the same initial weights (the
+    classifier's dropout neutralised, TF32 off) on the card and on the CPU,
+    then a step on a batch with a zero-padded tail from the CPU's weights:
+    float32 losses; the gradients of step 1 and of the padded step in
+    float64 on both devices (BatchNorm is on the path: in float32 its
+    backward's cancellation would hide a fault, as in the AVMNIST check)."""
+    import torch
+
+    cfg, batches = _train_batches(cfg_path, 3)
+    padded = {k: v.copy() for k, v in batches[2].items()}
+    for k in ("image", "text", "labels", "image_mask", "text_mask", "sample_mask"):
+        padded[k][MMIMDB_BATCH - MMIMDB_PAD_ROWS:] = 0
+    cpu = torch.device("cpu")
+
+    def grads_of(model):
+        return {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+
+    def float64_step(device, batch, weights=None):
+        model, _, step = _training_setup(cfg, device)
+        model.double()
+        if weights is not None:
+            model.load_state_dict(weights)
+        with _float64_losses():
+            step(_as_float64(batch))
+        return grads_of(model)
+
+    with _msa_neutralised():
+        models, losses = {}, {}
+        for label, device in (("gpu", dev), ("cpu", cpu)):
+            model, _, step = _training_setup(cfg, device)
+            losses[label] = [float(step(b)["loss"]) for b in batches]
+            models[label] = (model, step)
+        weights = models["cpu"][0].state_dict()
+        models["gpu"][0].load_state_dict(weights)
+        pad_loss = {label: float(step(padded)["loss"]) for label, (_, step) in models.items()}
+        grads64 = {label: (float64_step(device, batches[0]),
+                           float64_step(device, padded, weights))
+                   for label, device in (("gpu", dev), ("cpu", cpu))}
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses["gpu"], losses["cpu"])]
+    pad_rel = abs(pad_loss["gpu"] - pad_loss["cpu"]) / abs(pad_loss["cpu"])
+    worst = 0.0
+    for i, tag in enumerate(("step 1", "padded step")):
+        err64 = _grad_errors(grads64["gpu"][i], grads64["cpu"][i])
+        worst = max(worst, max(err64.values()))
+        say(f"[mmimdb check] {tag} float64 gradients, GPU vs CPU: worst parameter "
+            f"{max(err64.values()):.3e} of its norm (tolerance {MMIMDB_GRAD64_TOL}), whole "
+            f"{_whole_error(grads64['gpu'][i], grads64['cpu'][i]):.3e}; worst {_worst(err64)}")
+    say(f"[mmimdb check] float32 losses of steps 1-3, GPU {losses['gpu']}, CPU {losses['cpu']}: "
+        f"relative {rel} (tolerances {MMIMDB_LOSS_RTOL}, then {TRAIN_LATER_RTOL}); padded tail "
+        f"({MMIMDB_BATCH - MMIMDB_PAD_ROWS} real rows of {MMIMDB_BATCH}) from the same weights: "
+        f"GPU {pad_loss['gpu']}, CPU {pad_loss['cpu']} (relative {pad_rel:.3e}); TF32 off")
+    if rel[0] > MMIMDB_LOSS_RTOL or pad_rel > MMIMDB_LOSS_RTOL or max(rel[1:]) > TRAIN_LATER_RTOL:
+        raise AssertionError(f"[mmimdb check] GPU and CPU losses differ: {rel}, padded {pad_rel}")
+    if worst > MMIMDB_GRAD64_TOL:
+        raise AssertionError(f"[mmimdb check] float64 gradients differ by {worst} of their norm")
+    return {"loss_rel": rel, "pad_loss_rel": pad_rel, "grad64_err": worst}
+
+
+def phase_mmimdb_predict(dev, card: str, cfg_path: Path, work: Path) -> dict:
+    """`predict` on the run's best checkpoint on the card; the same test
+    batches' logits on the CPU (1e-3 absolute, TF32 off) and predictions
+    equal wherever |sigmoid − 0.5| is clear of the difference; then the
+    server: multilabel answers against the Predictor, a request without
+    `text` refused with 400."""
+    import torch
+
+    from mmtpu_torch.cli import predict, serve
+    from mmtpu_torch.train.step import make_eval_step
+
+    out_json = work / "predictions_mmimdb.json"
+    args = predict.arg_parser().parse_args(["--config", str(cfg_path), "--run_id", "1",
+                                            "--out", str(out_json)])
+    reset_counts()
+    t0 = time.perf_counter()
+    _, records, summary = predict.run(args)
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    visits = MMIMDB_SAMPLES["test"] * len(MMIMDB_PATTERNS)
+    if (len(records) != visits or set(summary) != set(MMIMDB_PATTERNS)
+            or len(records[0]["pred"]) != 23 or counts != {"fused_mlp": 0, "lstm": 0}):
+        raise AssertionError(f"[mmimdb predict] {len(records)} records, patterns {summary}, "
+                             f"launches {counts}")
+    cfg = _msa_config(cfg_path)
+    tasks = {label: predict.build_task_and_loader(cfg, args, device)
+             for label, device in (("gpu", dev), ("cpu", torch.device("cpu")))}
+    gpu_step = make_eval_step(tasks["gpu"][0], dev)
+    cpu_step = make_eval_step(tasks["cpu"][0], torch.device("cpu"))
+    worst, checked, clear_rows = 0.0, 0, 0
+    for batch in tasks["gpu"][1]:
+        g, c = gpu_step(batch), cpu_step(batch)
+        gl, cl = g["logits"].cpu(), c["logits"]
+        if gl.shape != (MMIMDB_BATCH, 23) or not torch.isfinite(gl).all():
+            raise AssertionError(f"[mmimdb predict] logits {tuple(gl.shape)} not finite")
+        worst = max(worst, (gl - cl).abs().max().item())
+        clear = (torch.sigmoid(cl) - 0.5).abs() > 2 * CPU_TOL
+        if not torch.equal(g["preds"].cpu()[clear], c["preds"][clear]):
+            raise AssertionError("[mmimdb predict] GPU and CPU predictions differ")
+        checked += 1
+        clear_rows += int(clear.sum())
+    say_card(card, f"[mmimdb predict] {len(records)} visits ({len(MMIMDB_PATTERNS)} patterns "
+             f"× {MMIMDB_SAMPLES['test']}) in {seconds:.3f} s through predict.run "
+             f"({len(records) / seconds:.1f} visits/s, start-up included); per-pattern exact "
+             f"match {summary}; launches {counts}; GPU vs CPU logits over {checked} batches: "
+             f"max |diff| {worst:.3e} (tolerance {CPU_TOL}), {clear_rows} clear flags equal")
+    if worst > CPU_TOL:
+        raise AssertionError(f"[mmimdb predict] GPU vs CPU logits differ by {worst}")
+
+    predictor, meta = serve.load_model(serve.arg_parser().parse_args(
+        ["--config", str(cfg_path), "--run_id", "1"]))
+    g = np.random.default_rng(SEED)
+    inputs = {"image": g.normal(size=(MMIMDB_REQUESTS, 4096)).astype(np.float32),
+              "text": g.normal(size=(MMIMDB_REQUESTS, 300)).astype(np.float32)}
+    inputs["text"][::3] = 0.0  # text missing
+    inputs["image"][1::3] = 0.0  # image missing
+    direct = predictor(**inputs)
+    with serve.ServerThread(predictor, meta, max_batch=64, max_wait_ms=5.0) as st:
+        got_meta = _get(f"{st.url}/meta")
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=8) as pool:
+            answers = list(pool.map(lambda i: _post(f"{st.url}/predict", json.dumps(
+                {k: inputs[k][i].tolist() for k in ("image", "text")}).encode()),
+                range(MMIMDB_REQUESTS)))
+        serve_s = time.perf_counter() - t0
+        try:
+            _post(f"{st.url}/predict", json.dumps({"image": inputs["image"][0].tolist()}).encode())
+            refused = None
+        except urllib.error.HTTPError as e:
+            refused = e.code
+            e.close()
+    if not got_meta.get("multilabel") or refused != 400:
+        raise AssertionError(f"[mmimdb serve] /meta {got_meta}, request without text → {refused}")
+    serve_err = 0.0
+    for i, ans in enumerate(answers):
+        serve_err = max(serve_err, float(np.abs(np.asarray(ans["logits"])
+                                                - direct["logits"][i]).max()))
+        clear = np.abs(direct["probs"][i] - 0.5) > 2 * SERVE_TOL
+        if len(ans["preds"]) != 23 or not np.array_equal(np.asarray(ans["preds"])[clear],
+                                                         direct["preds"][i][clear]):
+            raise AssertionError(f"[mmimdb serve] row {i}: preds {ans['preds']}")
+    say_card(card, f"[mmimdb serve] {MMIMDB_REQUESTS} concurrent /predict (8 clients) in "
+             f"{serve_s:.3f} s; multilabel answers vs the Predictor: max |logit diff| "
+             f"{serve_err:.3e} (tolerance {SERVE_TOL}); /meta multilabel "
+             f"{got_meta['multilabel']}; request without 'text' → 400")
+    if serve_err > SERVE_TOL:
+        raise AssertionError(f"[mmimdb serve] answers differ from the Predictor by {serve_err}")
+    return {"visits_per_s": len(records) / seconds, "logit_err": worst,
+            "serve_err": serve_err, "launches": counts}
+
+
+def phase_mmimdb(dev, card: str, work: Path) -> dict:
+    """MM-IMDb through `train_multimodal.main` at the published GMU widths:
+    no launch of either kernel; mmtpu's test keys; the loaders' batch counts;
+    predict and serve; a profiled window; the GPU-vs-CPU check."""
+    from mmtpu_torch.cli import train_multimodal
+
+    out_root = work / "mmimdb"
+    cfg_path = work / "mmimdb.json"
+    cfg_path.write_text(json.dumps(mmimdb_config(str(out_root))))
+    cfg = _msa_config(cfg_path)
+    n = mmimdb_batches()
+    got = {s: len(cfg.data.build_loader(s, seed=SEED)) for s in n}
+    if got != n:
+        raise AssertionError(f"[mmimdb] batches {got}, expected {n}")
+    reset_counts()
+    run = _run_cli(train_multimodal, cfg_path, "[mmimdb]", out_root, MMIMDB_NAME,
+                   train_samples=MMIMDB_SAMPLES["train"])
+    counts = read_counts()
+    want_keys = {f"f1_{avg}_{p.upper()}" for avg in ("samples", "macro", "micro")
+                 for p in MMIMDB_PATTERNS}
+    if counts != {"fused_mlp": 0, "lstm": 0} or not want_keys <= set(run["test"]):
+        raise AssertionError(f"[mmimdb] launches {counts}, test keys {sorted(run['test'])}")
+    say_card(card, f"[mmimdb] {run['seconds']:.2f} s through train_multimodal.main (start-up, "
+             f"data and checkpoints included); epoch {TRAIN_EPOCHS} train {run['epoch_s']:.3f} s "
+             f"= {run['samples_per_s']:.1f} samples/s (B={MMIMDB_BATCH}, "
+             f"{MMIMDB_SAMPLES['train']} samples); peak device memory "
+             f"{run['peak_bytes'] / 2**20:.1f} MiB")
+    say(f"[mmimdb] batches {got}; launches {counts}; losses {run['losses']}; test "
+        f"{ {k: round(v, 4) for k, v in sorted(run['test'].items()) if k.startswith('f1_')} }")
+    pred = phase_mmimdb_predict(dev, card, cfg_path, work)
+    profile = phase_train_profile(dev, card, cfg_path, tag="[mmimdb profile]",
+                                  batch=MMIMDB_BATCH)
+    check = phase_mmimdb_check(dev, cfg_path)
+    return {"run": run, "launches": counts, "predict": pred, "profile": profile,
+            "check": check}
+
+
+def say_phase11(card: str, self_mm: Optional[dict], mmimdb: Optional[dict],
+                seconds: float) -> None:
+    parts = []
+    for kind, r in (self_mm or {}).items():
+        parts.append(f"Self-MM {kind} {r['run']['samples_per_s']:.1f} train samples/s (epoch "
+                     f"{TRAIN_EPOCHS}), {r['run']['seconds']:.2f} s through main, launches "
+                     f"{r['launches']}, {r['profile']['device_ms_per_step']:.3f} ms of device "
+                     f"work and {r['profile']['wall_ms_per_step']:.3f} ms of wall per step, busy "
+                     f"share {r['profile']['busy_share']:.3f}")
+    if mmimdb:
+        parts.append(f"MM-IMDb {mmimdb['run']['samples_per_s']:.1f} train samples/s (epoch "
+                     f"{TRAIN_EPOCHS}), {mmimdb['run']['seconds']:.2f} s through main, launches "
+                     f"{mmimdb['launches']}, predict {mmimdb['predict']['visits_per_s']:.1f} "
+                     f"visits/s, {mmimdb['profile']['device_ms_per_step']:.3f} ms of device "
+                     f"work per step, busy share {mmimdb['profile']['busy_share']:.3f}")
+    say_card(card, "[summary] phase 11: " + "; ".join(parts) + f"; phase {seconds:.1f} s")
+
+
 def kernel_record(name: str, source: str, replaces: str, shape: str, kern: dict, t: dict,
                   pred: dict, srv: dict) -> dict:
     return {
@@ -2872,6 +3522,12 @@ def main(argv=None) -> int:
     parser.add_argument("--msa-only", action="store_true",
                         help="build the kernels, save a seeded UttFusion teacher and run the "
                              "MMIN and RedCore phase alone (no kernels or ok line)")
+    parser.add_argument("--self-mm-only", action="store_true",
+                        help="build the kernels and run phase 11's Self-MM half alone (no "
+                             "kernels or ok line)")
+    parser.add_argument("--mmimdb-only", action="store_true",
+                        help="build the kernels and run phase 11's MM-IMDb half alone (no "
+                             "kernels or ok line)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU",
@@ -2945,6 +3601,16 @@ def main(argv=None) -> int:
             shutil.rmtree(work, ignore_errors=True)
         return 0
 
+    if args.self_mm_only or args.mmimdb_only:
+        try:
+            t0 = time.perf_counter()
+            self_mm = phase_self_mm(dev, smi, work) if args.self_mm_only else None
+            mmimdb = phase_mmimdb(dev, smi, work) if args.mmimdb_only else None
+            say_phase11(smi, self_mm, mmimdb, time.perf_counter() - t0)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        return 0
+
     mlp = phase_kernels_mlp(dev)
     lstm = phase_kernels_lstm(dev)
     try:
@@ -2970,9 +3636,12 @@ def main(argv=None) -> int:
                            "dual": utt["run"]["models"] / "best.pth"})
         t_msa = time.perf_counter()
         msa = phase_msa(dev, smi, work, utt["run"]["models"] / "best.pth")
-        t_train, t_utt, t_reader, t_shipped, t_cmam, t_msa = (
+        t_11 = time.perf_counter()
+        self_mm = phase_self_mm(dev, smi, work)
+        mmimdb = phase_mmimdb(dev, smi, work)
+        t_train, t_utt, t_reader, t_shipped, t_cmam, t_msa, t_11 = (
             t_utt - t_train, t_reader - t_utt, t_shipped - t_reader, t_cmam - t_shipped,
-            t_msa - t_cmam, time.perf_counter() - t_msa)
+            t_msa - t_cmam, t_11 - t_msa, time.perf_counter() - t_11)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3004,13 +3673,14 @@ def main(argv=None) -> int:
         f"{shipped['predict_err']:.3e}; phase {t_shipped:.1f} s")
     say_cmam(smi, cmam, t_cmam)
     say_msa(smi, msa, t_msa)
+    say_phase11(smi, self_mm, mmimdb, t_11)
     say(f"[summary] fused_mlp B=1024 {json.dumps(mlp['timings'][1024])}")
     for batch, t in mlp["shipped"].items():
         say(f"[summary] fused_mlp {SHIPPED_HEAD_DIMS} B={batch} {json.dumps(t)}")
     say(f"[summary] fused_mlp {SHIPPED_HEAD_DIMS} max |kernel - plain| "
         f"{mlp['shipped_err']:.3e} at B=128 and 1024 (tolerance {KERNEL_TOL})")
     for shape, t in lstm["timings"].items():
-        say(f"[summary] lstm G,B,T,H={shape} {json.dumps(t)}")
+        say_card(smi, f"[summary] lstm G,B,T,H={shape} {json.dumps(t)}")
     say(f"[summary] {time.perf_counter() - t_start:.1f} s in all")
     G, B, T, H = LSTM_MAIN
     print(json.dumps({"kernels": [
@@ -3021,6 +3691,8 @@ def main(argv=None) -> int:
          "cv_launches": reader["cv_launches"], "sweep_launches": reader["sweep_launches"],
          "shipped_launches": shipped["launches"],
          "msa_launches": {kind: r["launches"]["fused_mlp"] for kind, r in msa.items()},
+         "self_mm_launches": {kind: r["launches"]["fused_mlp"] for kind, r in self_mm.items()},
+         "mmimdb_launches": mmimdb["launches"]["fused_mlp"],
          "shipped_head": {"dims": SHIPPED_HEAD_DIMS, "max_abs_err": mlp["shipped_err"],
                           **{f"B={b}": t for b, t in mlp["shipped"].items()}}},
         {**kernel_record("lstm", "mmtpu_torch/ops/csrc/lstm.cu", "mmtpu/ops/lstm.py:61",
@@ -3029,6 +3701,10 @@ def main(argv=None) -> int:
                          lstm, lstm["timings"][LSTM_MAIN], mosi_pred, mosi_srv),
          "train_launches": utt["launches"],
          "mmin_launches": msa["mmin"]["launches"]["lstm"],
+         "self_mm_launches": {kind: r["launches"]["lstm"] for kind, r in self_mm.items()},
+         "mmimdb_launches": mmimdb["launches"]["lstm"],
+         "self_mm_shapes": {"G={}, B={}, T={}, H={}".format(*k): lstm["timings"][k]
+                            for k in SELF_MM_LSTM},
          "with_projection_ms": lstm["timings"][LSTM_MAIN]["with_projection_ms"],
          "grad_max_abs_err": lstm["grad_err"],
          "serial_steps": T},

@@ -11,7 +11,10 @@ port `state_dict` under the reference's torch key names:
   `conv_2`, `bn_1`, `bn_2` → `conv_one`, `conv_two`, `batch_norm_one`,
   `batch_norm_two`, and the `fc` beside a `block_one` → `net.5`; `/` → `.`;
 - conv kernel HWIO → weight OIHW; Dense kernel (in, out) → Linear weight
-  (out, in); BatchNorm and LayerNorm `scale`/`bias` → `weight`/`bias`;
+  (out, in); BatchNorm and LayerNorm `scale`/`bias` → `weight`/`bias`; an
+  Embed table `embedding` → `weight` as it is (BERT's
+  `text_encoder/bert/...` tree, whose flax path names — `encoder/layer/{i}`,
+  `attention/self`, `LayerNorm` — are the port's `BertModel` names);
 - the DenseGeneral projections of flax's multi-head attention (the
   Transformer's `attn/{query,key,value,out}`) → Linear layers over the
   flattened heads: `query`/`key`/`value` kernels (d, heads, head_dim) →
@@ -41,7 +44,12 @@ port `state_dict` under the reference's torch key names:
   `OptimizedLSTMCell_0/{ii,if,ig,io}/kernel` and `…/{hi,hf,hg,ho}/{kernel,
   bias}`, which the Dense rule above carries to
   `OptimizedLSTMCell_0.{gate}.weight` / `.bias` (`if` is a key of a
-  `ModuleDict`, never an attribute).
+  `ModuleDict`, never an attribute); Self-MM's AuViSubNet keeps flax's
+  cells `OptimizedLSTMCell_{n}` the same way (flax binds the cell an
+  `nn.RNN` is given to the RNN's parent, numbered in creation order), and
+  `linear_1`;
+- a MaxOut's `units` kernel (in, units·out) → Linear weight (units·out,
+  in): the port reshapes the output (…, units, out) as flax does.
 
 Unlike mmtpu's readers, which keep a leaf's initial value when they find no
 source for it, this conversion raises on any leaf it cannot map and — given
@@ -77,7 +85,7 @@ _BLOCK_CHILDREN = {"conv_1": "conv_one", "conv_2": "conv_two",
                    "bn_1": "batch_norm_one", "bn_2": "batch_norm_two"}
 # mmtpu's known MNIST conv flattens (C, H, W): image 64×7×7, audio 64×5×15
 MNIST_FLATTENS = ((64, 7, 7), (64, 5, 15))
-_PARAM_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias"}
+_PARAM_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias", "embedding": "weight"}
 _RAW_LEAVES = {"wh": 2, "attention_vector_weight": 2}  # name → rank, kept as they are
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
 
@@ -142,7 +150,9 @@ def mmtpu_param_path(name: str, param: torch.Tensor) -> str:
     prefix = re.sub(r"layer(\d+)\.(\d+)", r"layer\1_\2", prefix)
     prefix = re.sub(r"(^|\.)input_encoders\.(\w+?)(?=\.|$)", r"\1input_encoders_\2",
                     prefix).replace(".", "/")
-    if leaf not in _RAW_LEAVES:
+    if prefix.endswith("_embeddings") and leaf == "weight":  # BERT's nn.Embed tables
+        leaf = "embedding"
+    elif leaf not in _RAW_LEAVES:
         leaf = {"bias": "bias", "weight": "kernel" if param.dim() > 1 else "scale"}[leaf]
     return f"{prefix}/{leaf}" if prefix else leaf
 

@@ -243,6 +243,19 @@ def init_model(model: nn.Module, seed: int, device: torch.device) -> nn.Module:
     return seeded_init(model, seed).to(device)
 
 
+def use_run_generator(model: nn.Module, seed: int,
+                      device: torch.device) -> Optional[torch.Generator]:
+    """The run's generator, seeded with the run's seed, for every module of
+    `model` that draws from one (`models/rng.py`); None when none does."""
+    from mmtpu_torch.models.rng import draws, use_generator
+
+    if not draws(model):
+        return None
+    generator = torch.Generator(device=device).manual_seed(int(seed))
+    use_generator(model, generator)
+    return generator
+
+
 ENCODER_KEYS = ("audio_encoder", "image_encoder", "text_encoder", "video_encoder")
 _NET_LETTER = {"audio": "netA", "image": "netI", "text": "netT", "video": "netV"}
 
@@ -385,6 +398,7 @@ def infer_num_classes(cfg) -> int:
 _UTT_FUSION = [Modality.AUDIO, Modality.VIDEO, Modality.TEXT]
 _MODALITIES = {
     "avmnist": [Modality.AUDIO, Modality.IMAGE],
+    "mmimdb": [Modality.IMAGE, Modality.TEXT],
     "utt-fusion": _UTT_FUSION,
     "utt_fusion": _UTT_FUSION,
     "uttfusionmodel": _UTT_FUSION,

@@ -10,7 +10,8 @@ resolves to its sibling, so an mmtpu run's `best.ckpt` serves), evaluates the re
 through the eval-mode forward (the missing-pattern product included) on
 the GPU — on the CPU with `--cpu` — and writes the same JSON as mmtpu: one
 record per real (sample, pattern) visit (pattern, pred, label, correct)
-plus a per-pattern accuracy summary. Padded tail rows are dropped. The MSA
+plus a per-pattern accuracy summary; for MM-IMDb's multilabel task `pred`
+and `label` are the 23 genre flags and `correct` means all of them agree. Padded tail rows are dropped. The MSA
 families with their own train steps (MMIN, RedCore, Self-MM) exit with
 mmtpu's message, in `predict` and `serve`.
 Serving-artifact export (mmtpu's `--export`) is not ported yet.
@@ -84,6 +85,7 @@ def build_task_and_loader(cfg, args, device: torch.device):
         model=model,
         loss_group=cfg.training.loss_functions,
         input_keys=[str(m) for m in mods],
+        multilabel=mt == "mmimdb",
     )
     return task, loader
 

@@ -11,9 +11,11 @@ Endpoints (JSON over stdlib http.server), the same as mmtpu's:
     POST /predict  one sample, one array per input key of the model
                    ({"audio": [...], "image": [...]} for AVMNIST,
                    {"audio": [...], "video": [...], "text": [...]} for
-                   UttFusion; a missing modality is sent as zeros, a request
-                   that lacks a key is refused with 400)
-                   → {"preds": ..., "probs": [...], "logits": [...]}
+                   UttFusion, {"image": [...], "text": [...]} for MM-IMDb; a
+                   missing modality is sent as zeros, a request that lacks a
+                   key is refused with 400)
+                   → {"preds": ..., "probs": [...], "logits": [...]} (MM-IMDb:
+                   23 genre flags and their sigmoids; /meta says "multilabel")
     POST /predict_batch  pre-batched arrays, bypasses the batcher
 
 Concurrent /predict requests are grouped by `MicroBatcher` into padded
@@ -72,7 +74,7 @@ def load_model(args):
         "input_shapes": [["b", *example[k].shape[1:]] for k in task.input_keys],
         "input_dtypes": [str(example[k].dtype) for k in task.input_keys],
         "outputs": ["logits", "preds", "probs"],
-        "multilabel": False,
+        "multilabel": bool(task.multilabel),
         "model": type(task.model).__name__,
         "checkpoint": args.checkpoint,
         "device": str(device),

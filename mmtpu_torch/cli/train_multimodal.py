@@ -17,7 +17,13 @@ UttFusion's two LSTM encoders run the `lstm` kernel, one launch per forward,
 in every train and eval step. `mmin` and `redcore` train through their own
 steps (`cli/msa_runners.py`): MMIN's audio and video LSTMs run the kernel
 in one launch per forward, and its frozen UttFusion teacher two more per
-train batch.
+train batch. Self-MM (`self-mm`, `self_mm`) trains through its own driver
+with the label banks (`cli/train_self_mm.py`): its audio and video
+AuViSubNets run the kernel once each per forward. MM-IMDb (`mmimdb`: GMU
+or multimodal pooling over the image and text features, the MaxOut genre
+classifier) trains as a multilabel task (sigmoid > 0.5 predictions, the
+23 genres' F1s) and runs no kernel; its dropout draws from the run's
+generator.
 
 `experiment.cross_validation: K` runs K folds, each with `cv_no` set in
 every dataset's kwargs and its outputs under `fold_<k>/`, then writes the
@@ -26,9 +32,8 @@ per-epoch means of every metric over the folds to
 members run_id..run_id+K-1 (seed + i) one after another, each with its own
 outputs: mmtpu's sequential path, which mmtpu's vmapped engine equals; the
 vmapped engine, `--stacked-folds` and data parallelism over several devices
-are not ported and raise (ROADMAP item 12); MMIN and RedCore take the
-sequential runs and folds, as in mmtpu. Other model types (Self-MM among
-them) raise.
+are not ported and raise (ROADMAP item 12); MMIN, RedCore and Self-MM take the
+sequential runs and folds, as in mmtpu. Other model types raise.
 """
 
 from __future__ import annotations
@@ -43,7 +48,7 @@ import torch
 from mmtpu_torch.cli import common
 
 PORTED_MODEL_TYPES = ("avmnist", "utt-fusion", "utt_fusion", "uttfusionmodel", "mmin",
-                      "redcore")
+                      "redcore", "self-mm", "self_mm", "mmimdb")
 CUSTOM_STEP_TYPES = ("mmin", "redcore", "self-mm", "self_mm")  # mmtpu stacks none of them
 
 
@@ -129,6 +134,10 @@ def run_single(cfg, args, device, cv_no=None, json_nesting: str = "reference",
         from mmtpu_torch.cli import msa_runners
 
         return msa_runners.run(cfg, args, device)
+    if mt in ("self-mm", "self_mm"):
+        from mmtpu_torch.cli import train_self_mm
+
+        return train_self_mm.run(cfg, args, device)
     common.resolve_mesh(cfg, args, device)
     clean_checkpoints(cfg.logging.model_output_path)
     loaders = common.build_all_loaders(
@@ -141,8 +150,9 @@ def run_single(cfg, args, device, cv_no=None, json_nesting: str = "reference",
     kw = cfg.model.kwargs
     clip = kw.get("clip") or kw.get("grad_clip") or kw.get("clip_grad_norm")
     state = common.make_state(model, cfg.training, clip=clip)
+    state.generator = common.use_run_generator(model, cfg.experiment.seed, device)
     task = ClassificationTask(model=model, loss_group=cfg.training.loss_functions,
-                              input_keys=[str(m) for m in mods])
+                              input_keys=[str(m) for m in mods], multilabel=mt == "mmimdb")
     recorder = common.make_recorder(cfg)
     loop = TrainLoop(
         task=task, state=state, loaders=loaders, recorder=recorder,

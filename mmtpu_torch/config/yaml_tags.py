@@ -44,6 +44,18 @@ MODEL_TAGS: Dict[str, str] = {
     "!UttFusionModel": "utt_fusion",
     "!AssociationNetwork": "association_network",
     "!InputEncoders": "input_encoders",
+    "!Self_MM": "self_mm",
+    "!AuViSubNet": "auvi_subnet",
+    "!BertTextEncoder": "bert_text_encoder",
+    "!FeatureManager": "feature_manager",
+    "!CenterManager": "center_manager",
+    "!LabelManager": "label_manager",
+    "!MMIMDb": "mmimdb",
+    "!MMIMDbModalityEncoder": "mmimdb_modality_encoder",
+    "!MLPGenreClassifier": "mlp_genre_classifier",
+    "!MaxOut": "maxout",
+    "!GatedBiModalNetwork": "gated_bimodal",
+    "!MultimodalPooling": "multimodal_pooling",
 }
 
 # Config tags of mmtpu's standard configs; each resolves to a plain mapping.

@@ -7,6 +7,7 @@ from typing import Type
 from mmtpu_torch.data.avmnist import AVMNIST, SyntheticAVMNIST
 from mmtpu_torch.data.base import MultimodalArrayDataset
 from mmtpu_torch.data.loader import BatchLoader
+from mmtpu_torch.data.mmimdb import MMIMDb, SyntheticMMIMDb
 from mmtpu_torch.data.mosi import MOSEI, MOSI, SyntheticMOSI
 
 _DATASETS = {
@@ -16,6 +17,8 @@ _DATASETS = {
     "synthetic_mosi": SyntheticMOSI,
     "mosi": MOSI,
     "mosei": MOSEI,
+    "synthetic_mmimdb": SyntheticMMIMDb,
+    "mm_imdb": MMIMDb,
 }
 
 
@@ -32,8 +35,10 @@ def resolve_dataset_name(name: str) -> Type[MultimodalArrayDataset]:
 __all__ = [
     "AVMNIST",
     "MOSEI",
+    "MMIMDb",
     "MOSI",
     "SyntheticAVMNIST",
+    "SyntheticMMIMDb",
     "SyntheticMOSI",
     "MultimodalArrayDataset",
     "BatchLoader",

@@ -6,8 +6,13 @@ name, with sklearn's semantics (the card's machine has no sklearn).
 None | 'binary' | 'micro' | 'macro' | 'weighted', `labels`, `pos_label`,
 `zero_division` 'warn' | 0 | 1 | nan) and `balanced_accuracy_score`
 (`adjusted`), over 1-D integer label vectors (binary or multiclass). Empty
-vectors raise `ValueError`, as in sklearn. Multilabel and sample-weighted
-inputs are not covered there.
+vectors raise `ValueError`, as in sklearn. Multilabel-indicator input (2-D
+arrays of 0/1 flags, MM-IMDb's 23 genres) goes to `accuracy_score` (subset
+accuracy) and to the precision / recall / F family, whose `average` then
+also takes 'samples' (per-row scores, averaged), with sklearn's columns
+(`labels` selects them), its `zero_division` for rows or labels with no
+true and no predicted flag, and its errors for 'binary' and for a mix of
+indicator and label-vector inputs. Sample-weighted inputs are not covered.
 
 `mean_squared_error` and `mean_absolute_error`: sklearn's regression
 semantics over (n,) or (n, outputs) arrays (the C-MAM reconstruction group
@@ -24,7 +29,8 @@ from typing import Optional, Sequence
 
 import numpy as np
 
-_AVERAGES = (None, "binary", "micro", "macro", "weighted")
+_AVERAGES = (None, "binary", "micro", "macro", "weighted", "samples")
+_ML_AVERAGES = [None, "micro", "macro", "weighted", "samples"]
 
 
 def _vectors(y_true, y_pred):
@@ -39,7 +45,40 @@ def _vectors(y_true, y_pred):
     return y_true, y_pred
 
 
+def _is_indicator(y: np.ndarray) -> bool:
+    """sklearn's 'multilabel-indicator': 2-D, more than one column, 0/1."""
+    if y.ndim != 2 or y.shape[1] < 2:
+        return False
+    if not np.isin(np.unique(y), (0, 1)).all():
+        raise ValueError("multiclass-multioutput is not supported")
+    return True
+
+
+def _indicators(y_true, y_pred):
+    """(y_true, y_pred) as 2-D 0/1 int64 arrays when both are multilabel
+    indicators, None when neither is; a mix raises as in sklearn."""
+    t, p = np.asarray(y_true), np.asarray(y_pred)
+    kinds = (_is_indicator(t), _is_indicator(p))
+    if not any(kinds):
+        return None
+    if not all(kinds):
+        other = "binary" if len(np.unique(t if kinds[1] else p)) <= 2 else "multiclass"
+        raise ValueError("Classification metrics can't handle a mix of "
+                         f"{'multilabel-indicator' if kinds[0] else other} and "
+                         f"{'multilabel-indicator' if kinds[1] else other} targets")
+    if t.shape != p.shape:
+        raise ValueError(f"inconsistent shapes: {t.shape}, {p.shape}")
+    if t.shape[0] == 0:
+        raise ValueError("Found empty input array (e.g., `y_true` or `y_pred`) while a "
+                         "minimum of 1 sample is required.")
+    return t.astype(np.int64), p.astype(np.int64)
+
+
 def accuracy_score(y_true, y_pred, normalize: bool = True):
+    ml = _indicators(y_true, y_pred)
+    if ml is not None:  # subset accuracy: every flag of the row right
+        hits = np.all(ml[0] == ml[1], axis=1)
+        return float(hits.mean()) if normalize else float(hits.sum())
     y_true, y_pred = _vectors(y_true, y_pred)
     hits = y_true == y_pred
     return float(hits.mean()) if normalize else float(hits.sum())
@@ -108,6 +147,9 @@ def _nanaverage(values: np.ndarray, weights: Optional[np.ndarray] = None) -> flo
 def _labels_for(y_true, y_pred, average, labels, pos_label):
     if average not in _AVERAGES:
         raise ValueError("average has to be one of " + str(_AVERAGES))
+    if average == "samples":
+        raise ValueError("Samplewise metrics are not available outside of multilabel "
+                         "classification.")
     present = np.union1d(y_true, y_pred)
     if average == "binary":
         if len(present) > 2:
@@ -121,13 +163,34 @@ def _labels_for(y_true, y_pred, average, labels, pos_label):
     return present if labels is None else np.asarray(labels)
 
 
+def _multilabel_sums(t: np.ndarray, p: np.ndarray, average, labels):
+    """(tp, pred_sum, true_sum) per label column, or per row for 'samples'."""
+    if average not in _AVERAGES:
+        raise ValueError("average has to be one of " + str(_AVERAGES))
+    if average == "binary":
+        raise ValueError("Target is multilabel-indicator but average='binary'. Please "
+                         f"choose another average setting, one of {_ML_AVERAGES}.")
+    if labels is not None:
+        cols = np.asarray(labels, np.int64)
+        if cols.size and (cols.max() >= t.shape[1] or cols.min() < 0):
+            raise ValueError(f"All labels must be in [0, n labels) for multilabel targets. "
+                             f"Got {cols.max()} > {t.shape[1] - 1}")
+        t, p = t[:, cols], p[:, cols]
+    axis = 1 if average == "samples" else 0
+    return (t & p).sum(axis), p.sum(axis), t.sum(axis)
+
+
 def precision_recall_fscore_support(y_true, y_pred, *, beta: float = 1.0, labels=None,
                                     pos_label=1, average=None, zero_division="warn"):
-    y_true, y_pred = _vectors(y_true, y_pred)
-    labels = _labels_for(y_true, y_pred, average, labels, pos_label)
-    tp = np.array([np.sum((y_true == c) & (y_pred == c)) for c in labels], np.int64)
-    pred_sum = np.array([np.sum(y_pred == c) for c in labels], np.int64)
-    true_sum = np.array([np.sum(y_true == c) for c in labels], np.int64)
+    ml = _indicators(y_true, y_pred)
+    if ml is not None:
+        tp, pred_sum, true_sum = _multilabel_sums(*ml, average, labels)
+    else:
+        y_true, y_pred = _vectors(y_true, y_pred)
+        labels = _labels_for(y_true, y_pred, average, labels, pos_label)
+        tp = np.array([np.sum((y_true == c) & (y_pred == c)) for c in labels], np.int64)
+        pred_sum = np.array([np.sum(y_pred == c) for c in labels], np.int64)
+        true_sum = np.array([np.sum(y_true == c) for c in labels], np.int64)
     if average == "micro":
         tp, pred_sum, true_sum = tp.sum(keepdims=True), pred_sum.sum(keepdims=True), \
             true_sum.sum(keepdims=True)

@@ -47,6 +47,29 @@ GATES = ("i", "f", "g", "o")  # the kernel's gate order
 RNN_CELL = "OptimizedLSTMCell_0"  # where mmtpu's checkpoints keep the rnn backend's cell
 
 
+class RNNCell(nn.ModuleDict):
+    """flax's `OptimizedLSTMCell` parameters: one Dense per gate, `ii`, `if`,
+    `ig`, `io` over the input (no bias) and `hi`, `hf`, `hg`, `ho` over h
+    (with bias; their recurrent weights orthogonal)."""
+
+    def __init__(self, input_size: int, hidden_size: int) -> None:
+        super().__init__()
+        for gate in GATES:
+            self[f"i{gate}"] = nn.Linear(input_size, hidden_size, bias=False)
+        for gate in GATES:
+            self[f"h{gate}"] = nn.Linear(hidden_size, hidden_size)
+            nn.init.orthogonal_(self[f"h{gate}"].weight)
+
+    def project(self, x: torch.Tensor):
+        """(x·Wi + b, wh (H, 4H)): the per-gate weights concatenated into the
+        kernel's fused layout, gate order [i, f, g, o], the h-Dense biases
+        as the one bias."""
+        wi = torch.cat([self[f"i{gate}"].weight for gate in GATES])
+        bias = torch.cat([self[f"h{gate}"].bias for gate in GATES])
+        wh = torch.cat([self[f"h{gate}"].weight.t() for gate in GATES], dim=1)
+        return F.linear(x, wi, bias), wh
+
+
 class LSTMEncoder(nn.Module):
     def __init__(self, input_size: int, hidden_size: int, embd_method: str = "last",
                  backend: str = "fused") -> None:
@@ -64,13 +87,7 @@ class LSTMEncoder(nn.Module):
             self.wh = nn.Parameter(torch.empty(hidden_size, 4 * hidden_size))
             nn.init.orthogonal_(self.wh)
         else:
-            cell = nn.ModuleDict()
-            for gate in GATES:
-                cell[f"i{gate}"] = nn.Linear(input_size, hidden_size, bias=False)
-            for gate in GATES:
-                cell[f"h{gate}"] = nn.Linear(hidden_size, hidden_size)
-                nn.init.orthogonal_(cell[f"h{gate}"].weight)
-            self.add_module(RNN_CELL, cell)
+            self.add_module(RNN_CELL, RNNCell(input_size, hidden_size))
         if embd_method == "attention":
             self.attention_layer = nn.Linear(hidden_size, hidden_size)
             self.attention_vector_weight = nn.Parameter(torch.empty(hidden_size, 1))
@@ -87,11 +104,7 @@ class LSTMEncoder(nn.Module):
         biases of its h-Dense layers as the one bias."""
         if self.backend == "fused":
             return self.wi(x), self.wh
-        cell = getattr(self, RNN_CELL)
-        wi = torch.cat([cell[f"i{gate}"].weight for gate in GATES])
-        bias = torch.cat([cell[f"h{gate}"].bias for gate in GATES])
-        wh = torch.cat([cell[f"h{gate}"].weight.t() for gate in GATES], dim=1)
-        return F.linear(x, wi, bias), wh
+        return getattr(self, RNN_CELL).project(x)
 
     def pool(self, outputs: torch.Tensor, carry_h: torch.Tensor,
              lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -117,7 +130,7 @@ class LSTMEncoder(nn.Module):
         if self.backend == "rnn":
             outputs, (carry_h, _) = lstm_sequence(xw, wh)
             if lengths is not None:
-                carry_h = _carry_at(outputs, lengths)
+                carry_h = carry_at(outputs, lengths)
         else:
             outputs, (carry_h, _) = lstm_sequence(
                 xw, wh, lengths=lengths.to(torch.int32) if lengths is not None else None,
@@ -125,7 +138,7 @@ class LSTMEncoder(nn.Module):
         return self.pool(outputs, carry_h, lengths)
 
 
-def _carry_at(outputs: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+def carry_at(outputs: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     """flax's `_select_last_carry` for h: row b's output at step len_b - 1,
     as a JAX gather takes it and as its transpose gives the gradient back.
     An index of -1 (len 0) is taken from the end, a normal index, so the

@@ -53,18 +53,23 @@ def _factories() -> Dict[str, Callable[..., Any]]:
     from mmtpu_torch.models import (
         autoencoder,
         avmnist,
+        bert_text,
         cmam,
         conv,
         fc,
+        fusion,
         lenet,
         lstm,
+        mmimdb,
         mmin,
         redcore,
         resnet,
+        self_mm,
         textcnn,
         transformer,
         utt_fusion,
     )
+    from mmtpu_torch.train import managers
 
     return {
         "resnet18": resnet.ResNet18,
@@ -102,6 +107,21 @@ def _factories() -> Dict[str, Callable[..., Any]]:
         "residual_unet_ae": autoencoder.ResidualUnetAE,
         "mmin": _tolerant(mmin.MMIN),
         "redcore": _tolerant(redcore.RedCore),
+        "self_mm": self_mm.Self_MM,
+        "self-mm": self_mm.Self_MM,
+        "auvi_subnet": self_mm.AuViSubNet,
+        "bert_text_encoder": bert_text.BertTextEncoder,
+        "feature_manager": managers.FeatureManager,
+        "center_manager": managers.CenterManager,
+        "label_manager": managers.LabelManager,
+        "maxout": fusion.MaxOut,
+        "gated_bimodal": fusion.GatedBiModalNetwork,
+        "multimodal_pooling": fusion.MultimodalPooling,
+        "mmimdb": mmimdb.MMIMDb,
+        "mmimdbmodalityencoder": mmimdb.MMIMDbModalityEncoder,
+        "mmimdb_modality_encoder": mmimdb.MMIMDbModalityEncoder,
+        "mlp_genre": mmimdb.MLPGenreClassifier,
+        "mlp_genre_classifier": mmimdb.MLPGenreClassifier,
     }
 
 

@@ -62,6 +62,11 @@ class GeneratorNormal(_Draws):
                            dtype=like.dtype)
 
 
+def draws(model: nn.Module) -> bool:
+    """`model` has a module that draws from a generator."""
+    return any(isinstance(m, _Draws) for m in model.modules())
+
+
 def use_generator(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Point every generator-drawing module of `model` at `generator`."""
     for m in model.modules():

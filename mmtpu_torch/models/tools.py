@@ -8,8 +8,11 @@ He-normal over fan-out unless the layer names its own `init_std` (a
 weights LeCun-normal (untruncated) unless the layer names its own
 `init_std` (LeNet's N(0, 0.01²)), biases
 zero, BatchNorm scale 1 / shift 0 with running mean 0 and variance 1; an
-LSTMEncoder's recurrent matrix orthogonal (the `rnn` backend: each gate's
-recurrent kernel) and its attention vector LeCun-normal.
+LSTMEncoder's recurrent matrix orthogonal (every flax-style `RNNCell`:
+each gate's recurrent kernel) and its attention vector LeCun-normal;
+embedding tables normal with the layer's `init_std` (BERT's 0.02), else
+flax's default 1/√dim. A module with weights read from a file at
+construction (a pretrained BERT) gets them back last.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ import math
 import torch
 from torch import nn
 
-from mmtpu_torch.models.lstm import GATES, RNN_CELL, LSTMEncoder
+from mmtpu_torch.models.lstm import GATES, LSTMEncoder, RNNCell
 
 
 @torch.no_grad()
@@ -39,6 +42,9 @@ def seeded_init(model: nn.Module, seed: int) -> nn.Module:
             m.weight.copy_(w)
             if m.bias is not None:
                 m.bias.zero_()
+        elif isinstance(m, nn.Embedding):
+            std = getattr(m, "init_std", None) or math.sqrt(1.0 / m.embedding_dim)
+            m.weight.copy_(torch.empty(m.weight.shape).normal_(0.0, std, generator=g))
         elif isinstance(m, nn.modules.batchnorm._BatchNorm):
             m.reset_parameters()
         elif isinstance(m, LSTMEncoder):  # its raw parameters; `wi` is a Linear
@@ -49,8 +55,10 @@ def seeded_init(model: nn.Module, seed: int) -> nn.Module:
                     0.0, math.sqrt(1.0 / m.hidden_size), generator=g
                 )
     for m in model.modules():  # after the Linear rule above has drawn them
-        if isinstance(m, LSTMEncoder) and m.backend == "rnn":
-            cell = getattr(m, RNN_CELL)
+        if isinstance(m, RNNCell):
             for gate in GATES:
-                nn.init.orthogonal_(cell[f"h{gate}"].weight, generator=g)
+                nn.init.orthogonal_(m[f"h{gate}"].weight, generator=g)
+    for m in model.modules():  # a module's file weights over the draws (BERT's)
+        if hasattr(m, "restore_pretrained"):
+            m.restore_pretrained()
     return model

@@ -17,7 +17,8 @@ from mmtpu_torch.train.step import ClassificationTask
 
 def make_serving_fn(task: ClassificationTask, device: torch.device) -> Callable[..., Dict[str, torch.Tensor]]:
     """Inference closure: positional modality tensors (in `task.input_keys`
-    order) → {"logits", "preds", "probs"}. Eval-mode forward (dropout off,
+    order) → {"logits", "preds", "probs"}: softmax probabilities, or the
+    per-label sigmoids of a multilabel task. Eval-mode forward (dropout off,
     BN running statistics); a zeroed input is exactly what the training-time
     mask multiply produces for a missing modality."""
 
@@ -28,7 +29,7 @@ def make_serving_fn(task: ClassificationTask, device: torch.device) -> Callable[
         return {
             "logits": logits,
             "preds": task.predictions(logits),
-            "probs": torch.softmax(logits, dim=-1),
+            "probs": task.probabilities(logits),
         }
 
     return fn

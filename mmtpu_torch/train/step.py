@@ -61,11 +61,15 @@ def has_padded_rows(batch: Mapping[str, np.ndarray]) -> bool:
 
 @dataclasses.dataclass
 class ClassificationTask:
-    """Multi-input classifier: inputs → logits → loss, predictions."""
+    """Multi-input classifier: inputs → logits → loss, predictions.
+    `multilabel` (MM-IMDb): int32 predictions sigmoid(logits) >
+    `binary_threshold` per label, instead of the argmax."""
 
     model: torch.nn.Module
     loss_group: LossFunctionGroup
     input_keys: Sequence[str] = ("audio", "image")
+    multilabel: bool = False
+    binary_threshold: float = 0.5
 
     def inputs(self, batch: Mapping[str, torch.Tensor]):
         return [apply_missing_mask(batch[k], batch.get(f"{k}_mask")) for k in self.input_keys]
@@ -78,7 +82,12 @@ class ClassificationTask:
             return self.model(*self.inputs(batch))
 
     def predictions(self, logits: torch.Tensor) -> torch.Tensor:
+        if self.multilabel:
+            return (torch.sigmoid(logits) > self.binary_threshold).to(torch.int32)
         return logits.argmax(dim=-1)
+
+    def probabilities(self, logits: torch.Tensor) -> torch.Tensor:
+        return torch.sigmoid(logits) if self.multilabel else torch.softmax(logits, dim=-1)
 
     def loss(self, logits, batch, sample_mask=None) -> torch.Tensor:
         return self.loss_group(logits, batch["labels"], sample_mask=sample_mask)["total_loss"]

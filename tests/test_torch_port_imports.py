@@ -1,10 +1,12 @@
 """The port stands alone: no file of `mmtpu_torch/`, and not `chip_smoke.py`,
-imports JAX, flax, optax, or the `mmtpu` package (the name is matched
-exactly, so `mmtpu_torch` itself passes). The card's machine has none of
-them, and neither has PyYAML, which the port may import only inside its
-YAML loader, nor pandas, sklearn, matplotlib or msgpack, which the port
-never imports (its metrics are its own numpy versions of sklearn's), except
-matplotlib inside the embedding report's plotting function."""
+imports JAX, flax, optax, transformers, safetensors or the `mmtpu` package
+(the name is matched exactly, so `mmtpu_torch` itself passes); its BERT and
+checkpoint readers are its own. The card's machine has none of them, and
+neither has PyYAML, which the port may import only inside its YAML loader,
+nor pandas, sklearn, matplotlib, msgpack or (as far as is known) h5py,
+which the port never imports (its metrics are its own numpy versions of
+sklearn's), except matplotlib inside the embedding report's plotting
+function and h5py inside the real MM-IMDb reader."""
 
 import ast
 from pathlib import Path
@@ -12,8 +14,8 @@ from pathlib import Path
 import pytest
 
 REPO = Path(__file__).resolve().parent.parent
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "mmtpu"}
-HOST_ONLY = {"pandas", "sklearn", "matplotlib", "msgpack"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "mmtpu", "transformers", "safetensors"}
+HOST_ONLY = {"pandas", "sklearn", "matplotlib", "msgpack", "h5py"}
 PORT_FILES = sorted((REPO / "mmtpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
 
 
@@ -34,9 +36,11 @@ def test_no_jax_or_mmtpu_imports(path):
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
 
 
-# the one exception: the embedding report draws its plots with matplotlib,
-# imported inside the function that draws them, as mmtpu's does
-LAZY_HOST_ONLY = {("mmtpu_torch/reports/report.py", "matplotlib")}
+# the exceptions, each imported inside the one function that needs it, as
+# mmtpu's: the embedding report draws its plots with matplotlib; the real
+# MM-IMDb reader opens its HDF5 files with h5py
+LAZY_HOST_ONLY = {("mmtpu_torch/reports/report.py", "matplotlib"),
+                  ("mmtpu_torch/data/mmimdb.py", "h5py")}
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))

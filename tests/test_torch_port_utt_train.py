@@ -480,13 +480,21 @@ def test_resume_after_one_epoch_ends_as_an_uninterrupted_run(cli_runs, tmp_path)
     assert losses_[0] == losses_[1]
 
 
-def test_other_msa_families_still_raise(tmp_path):
-    """Self-MM trains through its own step in mmtpu; the port refuses it
-    (MMIN and RedCore are ported: tests/test_torch_port_msa_cli.py)."""
+def test_other_msa_families_still_raise(tmp_path, monkeypatch):
+    """Self-MM now trains in the port, through its own driver
+    (tests/test_torch_port_self_mm_cli.py holds it against mmtpu); the MSA
+    families not ported yet (MulT, GCNet) still raise."""
     from mmtpu_torch.cli import train_multimodal
 
+    monkeypatch.chdir(tmp_path)
+    self_mm = Path(__file__).resolve().parent.parent / "configs/mosi/synthetic_self_mm.yaml"
+    assert train_multimodal.main(["--config", str(self_mm), "--run_id", "1", "--cpu",
+                                  "--epochs", "1"]) == 0
+    records = json.loads((tmp_path / "experiments_output/Synthetic_MOSI_SelfMM/metrics/1/"
+                          "epoch_metrics.json").read_text())
+    assert [sorted(e) for e in records] == [["epoch", "train", "validation"], ["test"]]
     cfg = _tiny_yaml(tmp_path / "utt.yaml", tmp_path)
-    for model_type in ("self-mm",):
+    for model_type in ("mult", "gcnet"):
         text = cfg.read_text().replace('model_type: "utt-fusion"',
                                        f'model_type: "{model_type}"')
         other = tmp_path / f"{model_type}.yaml"
