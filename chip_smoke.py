@@ -142,6 +142,34 @@ FcClassifier 192→[192, 64, 32]→3; batch 32, aligned T = 50):
              vs CPU (gradients in float64). Phase 2 also holds `lstm` at
              Self-MM's two shapes, G=1 B=32 T=50 H=16 and H=32.
 
+12. export, kinetics-sounds, mono — (a) the serving export on the card:
+             phase 5's scratch fine-tune through `predict --export` on phase
+             3's 1000-sample split, its artifact over the 3000 visits at
+             B=128 (`fused_mlp` exactly once per batch inside it: 24), and
+             phase 6's UttFusion model the same way over 4802 visits at B=32
+             (`lstm` 151); every output within 1e-5 of the Predictor (TF32
+             off), visits/s of both; the AVMNIST artifact loaded on the CPU
+             within 1e-3 of the card; `serve --artifact` on it, 48 requests
+             from 16 clients against the Predictor; phase 9's DualCMAM twin
+             through `train_cmam --export-serving` (1 epoch), its artifact
+             within 1e-5 of the C-MAM serving function on the best
+             checkpoint, `lstm` exactly 2 per batch inside it. (b)
+             Kinetics-Sounds through `train_multimodal.main` on the
+             repository's 468/156/156 clips (CSVs written over this
+             checkout's tensors), mmtpu's class defaults with ConvBlocks
+             1→16→32→64 (the flatten exactly 512), batch 64, Adam 1e-3, 2
+             epochs, `av`/`a`/`v` evaluation: no launch of either kernel; a
+             profiled window of 8 train steps; steps 1-3 and the padded tail
+             (20 real rows of 64) GPU vs CPU, step-1 gradients in float64;
+             `predict --export` over 156 × 3 visits, the artifact against
+             the Predictor, the server. (c) `train_monomodal` for TextCNN
+             768→64 (128 channels), LSTMEncoder 5→64 (`lstm` once per train,
+             validation and test batch) and MMIMDbModalityEncoder 300→512,
+             2 epochs each; the UttFusion and GMU fine-tunes (1 epoch) load
+             their handoffs, each encoder's sha256 equal to its file's.
+             Phase 2 also times both kernels' host cost per launch through
+             their `torch.library` operators and through `_launch` alone.
+
     python3 chip_smoke.py --train-only    # build, then phases 5 and 6 alone
     python3 chip_smoke.py --reader-only   # build, the audio pretraining, phase 7
     python3 chip_smoke.py --shipped-only  # build, phase 7's .pt files, phase 8
@@ -151,6 +179,9 @@ FcClassifier 192→[192, 64, 32]→3; batch 32, aligned T = 50):
                                           # phase 10
     python3 chip_smoke.py --self-mm-only  # build, phase 11 (a)
     python3 chip_smoke.py --mmimdb-only   # build, phase 11 (b)
+    python3 chip_smoke.py --export-only   # build, seeded checkpoints, phase 12 (a)
+    python3 chip_smoke.py --ks-only       # build, phase 12 (b)
+    python3 chip_smoke.py --mono-only     # build, phase 12 (c)
 
 Prints a `kernels` JSON line, the card's name and power limit, and as the
 last line `{"ok": true, "device": {...}}`. Any failure exits non-zero
@@ -526,6 +557,7 @@ def phase_kernels_mlp(dev) -> dict:
     import torch
 
     from mmtpu_torch.ops import fused_mlp, fused_mlp_reference
+    from mmtpu_torch.ops.fused_mlp import _launch as mlp_launch
     from mmtpu_torch.ops.fused_mlp import bulk_copy_ok, chain_plan
 
     g = torch.Generator().manual_seed(SEED)
@@ -588,6 +620,10 @@ def phase_kernels_mlp(dev) -> dict:
             k2 = event_ms(lambda: fused_mlp(x, ws, bs))
             p2 = event_ms(lambda: fused_mlp_reference(x, ws, bs))
             kh = host_ms(lambda: fused_mlp(x, ws, bs))
+            # the same launch through the operator a traced graph holds, and
+            # `_launch` alone (what the wrapper's eager call adds to it)
+            oh = host_ms(lambda: torch.ops.mmtpu.fused_mlp(x, ws, bs))
+            dh = host_ms(lambda: mlp_launch(x, ws, bs))
             kd = own_device_ms(lambda: fused_mlp(x, ws, bs), "fused_mlp")
             pd = device_breakdown(lambda: [fused_mlp_reference(x, ws, bs) for _ in range(100)])
             pd = pd["device_ms"] / 100
@@ -595,11 +631,13 @@ def phase_kernels_mlp(dev) -> dict:
             timings[(dims[0], batch)] = {
                 "ms": statistics.mean([k1, k2]), "plain_ms": statistics.mean([p1, p2]),
                 "device_ms": kd, "plain_device_ms": pd, "host_ms": kh,
+                "op_host_ms": oh, "direct_host_ms": dh,
                 "bound_ms": bound, "bound_by": bound_by,
             }
             say(f"[kernels] fused_mlp B={batch} {dims}: per call kernel "
                 f"{k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms (events); host per launch "
-                f"{kh:.4f} ms (wall, no sync); device "
+                f"{kh:.4f} ms (wall, no sync), through the operator {oh:.4f} ms, _launch "
+                f"alone {dh:.4f} ms; device "
                 f"time kernel {kd} ms, plain {pd} ms (profiler); bound {bound:.6f} ms "
                 f"({bound_by})")
     return {"max_err": max_err, "shipped_err": shipped_err,
@@ -687,6 +725,7 @@ def phase_kernels_lstm(dev) -> dict:
     import torch
 
     from mmtpu_torch.ops import lstm_sequence_stacked, lstm_stacked_reference
+    from mmtpu_torch.ops.lstm import _launch as lstm_launch
 
     torch.backends.cudnn.allow_tf32 = False  # nn.LSTM in fp32, as the kernel
     max_err = 0.0
@@ -727,14 +766,17 @@ def phase_kernels_lstm(dev) -> dict:
             k2 = event_ms(kernel)
             p2 = event_ms(plain, **slow)
             kh = host_ms(kernel)
+            oh = host_ms(lambda: torch.ops.mmtpu.lstm(xws, whs, h0, c0, lengths))
+            dh = host_ms(lambda: lstm_launch(xws, whs, h0, c0, lengths))
             kd = own_device_ms(kernel, "lstm")
             pd = device_breakdown(lambda: [plain() for _ in range(3)])["device_ms"] / 3
         bound, bound_by = lstm_bound_ms(G, B, T, H, lengths)
         t = {"ms": statistics.mean([k1, k2]), "plain_ms": statistics.mean([p1, p2]),
-             "device_ms": kd, "plain_device_ms": pd, "host_ms": kh, "bound_ms": bound,
-             "bound_by": bound_by, "serial_steps": T}
+             "device_ms": kd, "plain_device_ms": pd, "host_ms": kh, "op_host_ms": oh,
+             "direct_host_ms": dh, "bound_ms": bound, "bound_by": bound_by, "serial_steps": T}
         line = (f"[kernels] lstm {shape}: per call kernel {k1:.4f}/{k2:.4f} ms, plain "
-                f"{p1:.4f}/{p2:.4f} ms (events); host per launch {kh:.4f} ms (wall, no sync); "
+                f"{p1:.4f}/{p2:.4f} ms (events); host per launch {kh:.4f} ms (wall, no sync), "
+                f"through the operator {oh:.4f} ms, _launch alone {dh:.4f} ms; "
                 f"device time kernel {kd} ms, plain {pd} ms "
                 f"(profiler); bound {bound:.6f} ms ({bound_by}); serial chain {T} steps")
         if not with_len:  # nn.LSTM has no length freeze of this kind
@@ -892,13 +934,20 @@ def _get(url: str) -> dict:
         return json.loads(r.read())
 
 
-def phase_serve(cfg_path: Path, path: dict, inputs: dict) -> dict:
+def phase_serve(cfg_path: Path, path: dict, inputs: dict, argv=None, reference=None,
+                tol: float = SERVE_TOL) -> dict:
     """`inputs`: input key → (n, ...) array, one row per request, in the
-    model's key order; a missing modality is a zeroed row."""
+    model's key order; a missing modality is a zeroed row. `argv` gives the
+    server's source (default: the config); the answers are held against
+    `reference` (default: the served model called directly) within `tol`.
+    The path's kernel runs once per micro-batch; a path without one
+    (`kernel` None) launches neither."""
     from mmtpu_torch.cli import serve
 
-    tag, kernel, keys = f"[serve {path['label']}]", path["kernel"], path["keys"]
-    args = serve.arg_parser().parse_args(["--config", str(cfg_path), "--run_id", "1"])
+    kernel, keys = path["kernel"], path["keys"]
+    tag = f"[serve {path['label']}{' ' + argv[0] if argv else ''}]"
+    args = serve.arg_parser().parse_args(
+        argv or ["--config", str(cfg_path), "--run_id", "1"])
     predictor, meta = serve.load_model(args)
     n = len(inputs[keys[0]])
     bodies = [json.dumps({k: inputs[k][i].tolist() for k in keys}).encode() for i in range(n)]
@@ -942,36 +991,36 @@ def phase_serve(cfg_path: Path, path: dict, inputs: dict) -> dict:
             refused = e.code
             e.close()
         stats = _get(f"{st.url}/stats")
-        launches = read_counts()[kernel]
+        counts = read_counts()
+        launches = counts[kernel] if kernel else sum(counts.values())
     if health.get("status") != "ok" or got_meta["input_keys"] != keys:
         raise AssertionError(f"/health {health}, /meta {got_meta}")
     if refused != 400:
         raise AssertionError(f"a request without {keys[-1]!r} got {refused}, expected 400")
     say(f"{tag} {n} concurrent /predict (16 clients): {cold:.3f} s first round, "
         f"{seconds:.3f} s second round ({n / seconds:.1f} requests/s); /stats {stats}; "
-        f"{kernel} launches while serving {launches}; request without {keys[-1]!r} → 400")
+        f"launches while serving {counts}; request without {keys[-1]!r} → 400")
     # one launch per micro-batch, and one for /predict_batch
-    if launches != stats["batches"] + 1:
-        raise AssertionError(
-            f"serve: {kernel} launched {launches} times for {stats['batches']} batches + 1")
+    if launches != (stats["batches"] + 1 if kernel else 0):
+        raise AssertionError(f"serve: launches {counts} for {stats['batches']} batches + 1")
     if stats["requests"] != 2 * n:
         raise AssertionError(f"/stats counted {stats['requests']} requests, sent {2 * n}")
 
-    direct = predictor(**inputs)
+    direct = (reference or predictor)(**inputs)
     worst = 0.0
     for i, ans in enumerate(answers):
         diff = float(np.abs(np.asarray(ans["logits"]) - direct["logits"][i]).max())
         worst = max(worst, diff)
         top2 = np.sort(direct["logits"][i])[-2:]
-        if top2[1] - top2[0] > 2 * SERVE_TOL and ans["preds"] != int(direct["preds"][i]):
+        if top2[1] - top2[0] > 2 * tol and ans["preds"] != int(direct["preds"][i]):
             raise AssertionError(f"/predict row {i}: pred {ans['preds']} != "
                                  f"{int(direct['preds'][i])}")
     for i in range(8):
         diff = float(np.abs(np.asarray(batch_answer["logits"][i]) - direct["logits"][i]).max())
         worst = max(worst, diff)
     say(f"{tag} answers vs Predictor called directly: max |logit diff| = {worst:.3e} "
-        f"(tolerance {SERVE_TOL})")
-    if worst > SERVE_TOL:
+        f"(tolerance {tol})")
+    if worst > tol:
         raise AssertionError(f"served logits differ from the Predictor by {worst}")
     return {"launches": launches, "requests_per_s": n / seconds,
             "null_requests_per_s": n / null_s}
@@ -1100,12 +1149,19 @@ def _accuracies(record: dict) -> dict:
 
 
 def _train_batches(cfg_path: Path, n: int):
+    """The config and the first `n` train batches; a split with fewer takes
+    its full batches in turn (Kinetics-Sounds has 8, the last padded)."""
+    import itertools
+
     from mmtpu_torch.cli import common
 
     cfg = common.load_config(argparse.Namespace(config=str(cfg_path), run_id=1, seed=None))
-    loader = cfg.data.build_loader("train", seed=cfg.experiment.seed)
-    it = iter(loader)
-    return cfg, [next(it) for _ in range(n)]
+    batches = list(itertools.islice(cfg.data.build_loader("train", seed=cfg.experiment.seed),
+                                    n))
+    if len(batches) < n:
+        full = [b for b in batches if np.all(b["sample_mask"] > 0)]
+        batches = list(itertools.islice(itertools.cycle(full), n))
+    return cfg, batches
 
 
 def _training_setup(cfg, dev):
@@ -3480,6 +3536,665 @@ def say_phase11(card: str, self_mm: Optional[dict], mmimdb: Optional[dict],
     say_card(card, "[summary] phase 11: " + "; ".join(parts) + f"; phase {seconds:.1f} s")
 
 
+# Phase 12: the serving export (predict --export, serve --artifact,
+# train_cmam --export-serving) with both kernels as operators inside the
+# artifacts; Kinetics-Sounds at mmtpu's class defaults on the repository's
+# clips; the monomodal pretrainings of encoders without `hidden_dim`.
+EXPORT_TOL = 1e-5  # an artifact vs the in-process forward on the card, TF32 off
+DUAL_EXPORT_LSTM_PER_BATCH = 2  # the C-MAM's LSTM encoder, the base's netA
+KS_NAME = "KineticsSounds_Baseline"
+KS_SAMPLES = {"train": 468, "validation": 156, "test": 156}  # DATA/kinetics-sounds
+KS_BATCH = 64
+KS_PATTERNS = ["av", "a", "v"]
+KS_CONVS = ((1, 16), (16, 32), (32, 64))  # the flatten at (128, 128): 64 × 4 × 2 = 512
+KS_TAIL_ROWS = 20  # real rows of the last train batch: 468 = 7 × 64 + 20
+KS_REQUESTS = 24
+KS_PATH = {"label": "KineticsSounds", "kernel": None, "classes": 26,
+           "patterns": set(KS_PATTERNS), "keys": ["audio", "video"]}
+MONO_NAMES = {"text": "Synthetic_MOSI_Text_Encoder", "audio": "Synthetic_MOSI_Audio_Encoder",
+              "mmimdb": "Synthetic_MMIMDb_Text_Encoder"}
+FINETUNE_NAMES = {"utt": "Synthetic_MOSI_UttFusion_Pretrained",
+                  "gmu": "Synthetic_MMIMDb_GMU_Pretrained"}
+
+
+def _checkpoint(cfg_path: Path, which: str) -> Path:
+    """The run's best | last | epoch_K checkpoint path, as predict resolves it."""
+    from mmtpu_torch.cli import common
+
+    cfg = common.load_config(argparse.Namespace(config=str(cfg_path), run_id=1, seed=None))
+    return common.checkpoint_path(cfg, which)
+
+
+def _masked_batches(loader, keys):
+    """Each batch's inputs with its pattern's missing modality zeroed, as a
+    caller of an artifact sends them (the eval step multiplies the same
+    masks in on the device)."""
+    out = []
+    for batch in loader:
+        ins = {}
+        for k in keys:
+            x = np.asarray(batch[k])
+            mask = batch.get(f"{k}_mask")
+            ins[k] = x if mask is None else (
+                x * np.asarray(mask, x.dtype).reshape(-1, *([1] * (x.ndim - 1))))
+        out.append(ins)
+    return out
+
+
+def _serving_pass(fn, batches) -> tuple:
+    """Every batch through `fn` (numpy in, numpy out, as a user calls a
+    ServedModel or a Predictor); (outputs by batch, seconds)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = [fn(**b) for b in batches]
+    return outs, time.perf_counter() - t0
+
+
+def _max_diff(a: list, b: list, keys=None) -> float:
+    return max(float(np.abs(np.asarray(x[k], np.float64) - np.asarray(y[k], np.float64)).max())
+               for x, y in zip(a, b) for k in (keys or x))
+
+
+def _timed_export():
+    """Patches `serving.export_task` / `export_cmam` to record how long each
+    export takes; yields the list of seconds."""
+    from mmtpu_torch import serving
+
+    times = []
+    real = {name: getattr(serving, name) for name in ("export_task", "export_cmam")}
+
+    def timed(fn):
+        def wrapper(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            times.append(time.perf_counter() - t0)
+            return out
+        return wrapper
+
+    @contextlib.contextmanager
+    def ctx():
+        for name, fn in real.items():
+            setattr(serving, name, timed(fn))
+        try:
+            yield times
+        finally:
+            for name, fn in real.items():
+                setattr(serving, name, fn)
+
+    return ctx()
+
+
+def phase_export_task(dev, card: str, work: Path, cfg_path: Path, ckpt: Path,
+                      path: dict) -> dict:
+    """`predict --export` on the run's checkpoint, then the artifact on the
+    card over the same visits: the kernel exactly once per batch inside it,
+    every output within EXPORT_TOL of the Predictor's; visits/s of both."""
+    from mmtpu_torch.cli import common, predict
+    from mmtpu_torch.serving import Predictor, load_artifact
+
+    label, kernel, keys = path["label"], path["kernel"], path["keys"]
+    tag = f"[export {label}]"
+    art = work / f"{label}.mmx"
+    args = predict.arg_parser().parse_args(
+        ["--config", str(cfg_path), "--run_id", "1", "--checkpoint", str(ckpt),
+         "--out", str(work / f"export_{label}.json"), "--export", str(art)])
+    reset_counts()
+    with _timed_export() as times:
+        _, records, _ = predict.run(args)
+    cfg = common.load_config(args)
+    task, loader = predict.build_task_and_loader(cfg, args, dev)
+    batches = _masked_batches(loader, keys)
+    if read_counts()[kernel] != len(batches):
+        raise AssertionError(f"{tag} predict launched {read_counts()} in {len(batches)} "
+                             "batches")
+    t0 = time.perf_counter()
+    served = load_artifact(art, dev)
+    load_s = time.perf_counter() - t0
+    graph_ops = {name: sum(str(n.target).startswith(f"mmtpu.{name}")
+                           for n in served.program.graph.nodes) for name in ("fused_mlp", "lstm")}
+    predictor = Predictor(task, dev)
+    for fn in (served, predictor):  # warm-up: cuDNN plans, the allocator
+        fn(**batches[0])
+    reset_counts()
+    art_out, art_s = _serving_pass(served, batches)
+    launches = read_counts()
+    pred_out, pred_s = _serving_pass(predictor, batches)
+    err = _max_diff(art_out, pred_out)
+    want = {k: (len(batches) if k == kernel else 0) for k in launches}
+    say_card(card, f"{tag} predict --export: {len(records)} visits, artifact {art.name} "
+             f"{art.stat().st_size / 2**20:.1f} MiB written in {times[-1]:.2f} s (traced on a copy "
+             f"of the model on the CPU), loaded onto the card in {load_s:.2f} s; its "
+             f"graph holds {graph_ops}")
+    say_card(card, f"{tag} {len(records)} visits in {len(batches)} batches: artifact "
+             f"{art_s:.3f} s ({len(records) / art_s:.1f} visits/s), Predictor {pred_s:.3f} s "
+             f"({len(records) / pred_s:.1f} visits/s); launches inside the artifact "
+             f"{launches} (expected {want}); max |artifact - Predictor| over logits, "
+             f"probs, preds {err:.3e} (tolerance {EXPORT_TOL}, TF32 off)")
+    if launches != want:
+        raise AssertionError(f"{tag} launches {launches}, expected {want}")
+    if err > EXPORT_TOL or not all(np.isfinite(o["logits"]).all() for o in art_out):
+        raise AssertionError(f"{tag} the artifact differs from the Predictor by {err}")
+    return {"artifact": art, "launches": launches[kernel], "batches": batches,
+            "outputs": art_out, "visits": len(records), "visits_per_s": len(records) / art_s,
+            "predictor_visits_per_s": len(records) / pred_s, "err": err,
+            "export_s": times[-1], "graph_ops": graph_ops}
+
+
+def phase_export_cpu(card: str, av: dict) -> float:
+    """The AVMNIST artifact loaded on the CPU against the card: the first
+    batch and the padded tail, predict's limit (1e-3)."""
+    import torch
+
+    from mmtpu_torch.serving import load_artifact
+
+    served = load_artifact(av["artifact"], "cpu")
+    if served.device != torch.device("cpu"):
+        raise AssertionError(f"[export cpu] loaded onto {served.device}")
+    picks = [0, len(av["batches"]) - 1]
+    t0 = time.perf_counter()
+    outs = [served(**av["batches"][i]) for i in picks]
+    seconds = time.perf_counter() - t0
+    err = _max_diff(outs, [av["outputs"][i] for i in picks], ["logits"])
+    say_card(card, f"[export cpu] the AVMNIST artifact on the CPU, batches {picks}: "
+             f"{seconds:.2f} s; max |CPU - card| logits {err:.3e} (tolerance {CPU_TOL})")
+    if err > CPU_TOL:
+        raise AssertionError(f"[export cpu] CPU and card differ by {err}")
+    return err
+
+
+def phase_export_dual(dev, card: str, work: Path, teacher: Path) -> dict:
+    """Phase 9's DualCMAM twin through `train_cmam.main --export-serving`
+    (one epoch): the artifact on the card over the test split's audio
+    against the C-MAM serving function called eagerly on the best
+    checkpoint, every output within EXPORT_TOL; `lstm` exactly
+    DUAL_EXPORT_LSTM_PER_BATCH per batch inside it."""
+    import torch
+
+    from mmtpu_torch.cli import train_cmam
+    from mmtpu_torch.serving import load_artifact, make_cmam_serving_fn
+
+    out_root = work / "export_dual"
+    cfg = cmam_configs(str(out_root), {s: "unused" for s in ("train", "validation", "test")},
+                       {"cmam": teacher, "dual": teacher})["dual"]
+    cfg["training"]["epochs"] = 1
+    cfg_path = work / "export_dual.json"
+    cfg_path.write_text(json.dumps(cfg))
+    art = work / "DualCMAM.mmx"
+    t0 = time.perf_counter()
+    with _timed_export() as times:
+        rc = train_cmam.main(["--config", str(cfg_path), "--run_id", "1",
+                              "--export-serving", str(art)])
+    run_s = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"[export dual] train_cmam exit code {rc}")
+    served = load_artifact(art, dev)
+    meta = served.meta
+    if (meta["task_type"], meta["imputes"], meta["input_keys"], meta["model"]) != (
+            "cmam", ["video", "text"], ["audio"], "DualCMAM"):
+        raise AssertionError(f"[export dual] meta {meta}")
+    ccfg = _cmam_config(cfg_path)
+    built = train_cmam.assemble(ccfg, dev)
+    best = torch.load(out_root / CMAM_NAMES["dual"] / "models/1/best.pth", map_location=dev,
+                      weights_only=False)
+    built.cmam.load_state_dict(best["model"])
+    eager = make_cmam_serving_fn(built.task)
+
+    def reference(**ins):
+        with torch.inference_mode():
+            out = eager(torch.from_numpy(ins["audio"]).to(dev))
+        return {k: v.cpu().numpy() for k, v in out.items()}
+
+    batches = _masked_batches(ccfg.data.build_loader("test", seed=SEED), ["audio"])
+    for fn in (served, reference):
+        fn(**batches[0])
+    reset_counts()
+    art_out, art_s = _serving_pass(served, batches)
+    launches = read_counts()
+    ref_out, ref_s = _serving_pass(reference, batches)
+    err = _max_diff(art_out, ref_out)
+    want = {"fused_mlp": 0, "lstm": DUAL_EXPORT_LSTM_PER_BATCH * len(batches)}
+    visits = UTT_SAMPLES["test"]
+    say_card(card, f"[export dual] train_cmam --export-serving: {run_s:.2f} s through main "
+             f"(1 epoch), export {times[-1]:.2f} s, {art.stat().st_size / 2**20:.1f} MiB; "
+             f"meta imputes {meta['imputes']} from {meta['input_keys']}; {visits} test visits "
+             f"in {len(batches)} batches: artifact {len(batches) / art_s * CMAM_BATCH['dual']:.1f}"
+             f" rows/s ({art_s:.3f} s), eager C-MAM forward {ref_s:.3f} s; launches inside the "
+             f"artifact {launches} (expected {want}: {DUAL_EXPORT_LSTM_PER_BATCH} per batch); "
+             f"max |artifact - eager| over {sorted(art_out[0])} {err:.3e} (tolerance "
+             f"{EXPORT_TOL})")
+    if launches != want:
+        raise AssertionError(f"[export dual] launches {launches}, expected {want}")
+    if err > EXPORT_TOL:
+        raise AssertionError(f"[export dual] the artifact differs from the eager forward by "
+                             f"{err}")
+    return {"launches": launches["lstm"], "batches": len(batches), "err": err,
+            "visits_per_s": visits / art_s, "eager_visits_per_s": visits / ref_s}
+
+
+def phase_export(dev, card: str, work: Path, av_cfg: Path, av_ckpt: Path, mosi_cfg: Path,
+                 mosi_ckpt: Path, dual_teacher: Path, av_serve_rate: Optional[float]) -> dict:
+    """Phase 12 (a): both classification artifacts, the AVMNIST one on the
+    CPU and behind `serve --artifact`, and the DualCMAM artifact."""
+    from mmtpu_torch.cli import serve
+
+    export_dir = work / "export"
+    export_dir.mkdir(exist_ok=True)
+    av = phase_export_task(dev, card, export_dir, av_cfg, av_ckpt, AVMNIST_PATH)
+    mosi = phase_export_task(dev, card, export_dir, mosi_cfg, mosi_ckpt, MOSI_PATH)
+    cpu_err = phase_export_cpu(card, av)
+    reference, _ = serve.load_model(serve.arg_parser().parse_args(
+        ["--config", str(av_cfg), "--run_id", "1", "--checkpoint", str(av_ckpt)]))
+    srv = phase_serve(av_cfg, AVMNIST_PATH, avmnist_requests(),
+                      argv=["--artifact", str(av["artifact"])], reference=reference,
+                      tol=EXPORT_TOL)
+    say_card(card, f"[export serve] serve --artifact {srv['requests_per_s']:.1f} requests/s "
+             f"(16 clients); phase 4's serve of the same model from its config "
+             + (f"{av_serve_rate:.1f} requests/s" if av_serve_rate else "not run")
+             + f"; no-model ceiling {srv['null_requests_per_s']:.1f}")
+    dual = phase_export_dual(dev, card, work, dual_teacher)
+    return {"avmnist": av, "utt": mosi, "cpu_err": cpu_err, "serve": srv, "dual": dual}
+
+
+def write_ks_csvs(root: Path) -> dict:
+    """The repository's Kinetics-Sounds split CSVs with their tensor paths
+    resolved against this checkout (the files name another checkout's)."""
+    import csv
+
+    src = ROOT / "DATA" / "kinetics-sounds"
+    root.mkdir(parents=True, exist_ok=True)
+    out = {}
+    for split in KS_SAMPLES:
+        with open(src / f"{split}.csv", newline="") as f:
+            rows = list(csv.reader(f))
+        path = root / f"{split}.csv"
+        with open(path, "w", newline="") as f:
+            w = csv.writer(f)
+            w.writerow(rows[0])
+            for audio, video, label in rows[1:]:
+                w.writerow([src / "tensors" / Path(audio).name,
+                            src / "tensors" / Path(video).name, label])
+        if len(rows) - 1 != KS_SAMPLES[split]:
+            raise AssertionError(f"[ks] {split}.csv has {len(rows) - 1} rows")
+        out[split] = path
+    return out
+
+
+def ks_config(out_root: str, csvs: dict, dropout: bool = True) -> dict:
+    """Kinetics-Sounds at mmtpu's class defaults (the audio encoder's
+    fc_one_input_size 512 → 64 → 64 with dropouts 0.554 / 0.336, the video
+    MLP 400 → 256 → 128 with 0.56, fusion 192 → 128 → 64 → 26 with 0.38),
+    ConvBlocks 1→16, 16→32, 32→64 (so a 128 × 128 spectrogram flattens to
+    exactly 512), batch 64, Adam 1e-3, 2 epochs, train `av`, evaluation over
+    `av`, `a`, `v`; the split CSVs name the repository's clips, whose label
+    column is `class`. `dropout=False` sets every rate to 0 (the GPU-vs-CPU
+    check)."""
+    def block(i, o):
+        return {"__module_spec__": "conv_block",
+                "conv_block_one_args": {"__module_spec__": "conv_block_args",
+                                        "conv_one_in": i, "conv_one_out": o},
+                "conv_block_two_args": {"__module_spec__": "conv_block_args",
+                                        "conv_one_in": o, "conv_one_out": o}}
+
+    def rate(p):
+        return p if dropout else 0.0
+
+    def split(name, patterns, **extra):
+        return {"dataset": "kinetics_sounds", "data_fp": str(csvs[name]),
+                "split": {"validation": "valid"}.get(name, name),
+                "target_modality": "MULTIMODAL", "batch_size": KS_BATCH, **extra,
+                "kwargs": {"labels_key": "class"},
+                "missing_patterns": {
+                    "modalities": {m: {"missing_rate": 0.0} for m in ("audio", "video")},
+                    "selected_patterns": patterns}}
+
+    audio = {"__module_spec__": "kinetics_sounds_audio_encoder",
+             **{f"conv_block_{n}": block(i, o)
+                for n, (i, o) in zip(("one", "two", "three"), KS_CONVS)},
+             "dropout_one": rate(0.554), "dropout_two": rate(0.336),
+             "fc_one_input_size": 512, "fc_one_output_size": 64, "fc_two_output_size": 64}
+    video = {"__module_spec__": "kinetics_sounds_video_encoder", "fc_one_input_size": 400,
+             "hidden_dim_one": 256, "hidden_dim_two": 128, "dropout": rate(0.56)}
+    return {
+        "experiment": {"name": KS_NAME, "seed": SEED, "device": "tpu", "is_train": True,
+                       "is_test": True},
+        "model": {"name": "KineticsSounds", "model_type": "kineticssounds",
+                  "audio_encoder": audio, "video_encoder": video, "hidden_dim_one": 128,
+                  "hidden_dim_two": 64, "dropout": rate(0.38)},
+        "training": {"epochs": TRAIN_EPOCHS, "early_stopping": False, "num_modalities": 2,
+                     "optimizer": {"name": "Adam", "default_kwargs": {"lr": 0.001}},
+                     "loss_functions": {"cross_entropy": {"loss_name": "cross_entropy",
+                                                          "loss_args": {}, "weight": 1.0}}},
+        "data": {"datasets": {"train": split("train", ["av"], shuffle=True),
+                              "validation": split("validation", KS_PATTERNS),
+                              "test": split("test", KS_PATTERNS)}},
+        "metrics": {"metrics": {
+            "accuracy": {"function": "sklearn.metrics.accuracy_score", "kwargs": {}},
+            "f1_weighted": {"function": "sklearn.metrics.f1_score",
+                            "kwargs": {"average": "weighted", "zero_division": 0}}},
+            "groups": {"classification": ["accuracy", "f1_weighted"]}},
+        "logging": {"log_path": f"{out_root}/{{experiment_name}}/logs/{{run_id}}",
+                    "model_output_path": f"{out_root}/{{experiment_name}}/models/{{run_id}}",
+                    "metrics_path": f"{out_root}/{{experiment_name}}/metrics/{{run_id}}",
+                    "save_metric": "loss"},
+        "monitoring": {"enabled": False},
+    }
+
+
+def phase_ks_check(dev, cfg_path: Path) -> dict:
+    """Steps 1-3 and the epoch's padded tail (KS_TAIL_ROWS real rows of 64)
+    from the same initial weights (every dropout 0, TF32 off) on the card and
+    on the CPU in float32, the tail from the CPU's weights after step 3; the
+    step-1 gradients in float64 on both devices."""
+    import torch
+
+    from mmtpu_torch.cli import common
+
+    cfg = common.load_config(argparse.Namespace(config=str(cfg_path), run_id=1, seed=None))
+    batches = list(cfg.data.build_loader("train", seed=SEED))
+    tail = batches[-1]
+    if int(tail["sample_mask"].sum()) != KS_TAIL_ROWS:
+        raise AssertionError(f"[ks check] tail has {tail['sample_mask'].sum()} real rows")
+    cpu = torch.device("cpu")
+    losses, models = {}, {}
+    for label, device in (("gpu", dev), ("cpu", cpu)):
+        model, _, step = _training_setup(cfg, device)
+        losses[label] = [float(step(b)["loss"]) for b in batches[:3]]
+        models[label] = (model, step)
+    weights = models["cpu"][0].state_dict()
+    models["gpu"][0].load_state_dict(weights)
+    tail_loss = {label: float(step(tail)["loss"]) for label, (_, step) in models.items()}
+    grads64 = {}
+    for label, device in (("gpu", dev), ("cpu", cpu)):
+        model, _, step = _training_setup(cfg, device)
+        model.double()
+        with _float64_losses():
+            step(_as_float64(batches[0]))
+        grads64[label] = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses["gpu"], losses["cpu"])]
+    tail_rel = abs(tail_loss["gpu"] - tail_loss["cpu"]) / abs(tail_loss["cpu"])
+    # a conv bias that feeds a BatchNorm has an exact gradient of 0 (phase
+    # 9's rule): what both devices give there is rounding, held at 1e-12
+    zero = {n for n, w in grads64["cpu"].items() if w.double().norm().item() < 1e-9}
+    err64 = _grad_errors({n: g for n, g in grads64["gpu"].items() if n not in zero},
+                         {n: g for n, g in grads64["cpu"].items() if n not in zero})
+    zero_err = max([(grads64["gpu"][n] - grads64["cpu"][n]).abs().max().item()
+                    for n in zero], default=0.0)
+    worst = max(err64.values())
+    say(f"[ks check] float32 losses of steps 1-3, GPU {losses['gpu']}, CPU {losses['cpu']}: "
+        f"relative {rel} (tolerances {TRAIN_LOSS_RTOL}, then {TRAIN_LATER_RTOL}); padded tail "
+        f"({KS_TAIL_ROWS} real rows of {KS_BATCH}) GPU {tail_loss['gpu']}, CPU "
+        f"{tail_loss['cpu']} (relative {tail_rel:.3e}); step-1 float64 gradients, "
+        f"{len(err64)} parameters: worst {worst:.3e} of its norm (tolerance "
+        f"{TRAIN_GRAD64_TOL}), {_worst(err64)}; {len(zero)} with an exact gradient of 0: "
+        f"largest |GPU - CPU| {zero_err:.3e} (tolerance 1e-12); TF32 off")
+    if rel[0] > TRAIN_LOSS_RTOL or tail_rel > TRAIN_LOSS_RTOL or max(rel[1:]) > TRAIN_LATER_RTOL:
+        raise AssertionError(f"[ks check] GPU and CPU losses differ: {rel}, tail {tail_rel}")
+    if worst > TRAIN_GRAD64_TOL or zero_err > 1e-12:
+        raise AssertionError(f"[ks check] float64 gradients differ by {worst} of their norm, "
+                             f"{zero_err} where the exact gradient is 0")
+    return {"loss_rel": rel, "tail_rel": tail_rel, "grad64_err": worst}
+
+
+def ks_requests(csvs: dict) -> dict:
+    """KS_REQUESTS test clips: a third with the video zeroed, a third with
+    the audio."""
+    from mmtpu_torch.data import KineticsSounds
+    from mmtpu_torch.modalities import Modality
+
+    ds = KineticsSounds(csvs["test"], "test", labels_key="class")
+    audio = ds.arrays[Modality.AUDIO][:KS_REQUESTS].copy()
+    video = ds.arrays[Modality.VIDEO][:KS_REQUESTS].copy()
+    video[0::3] = 0.0
+    audio[1::3] = 0.0
+    return {"audio": audio, "video": video}
+
+
+def phase_ks_predict(dev, card: str, work: Path, cfg_path: Path, csvs: dict) -> dict:
+    """`predict --export` on the run's best checkpoint: 156 × 3 visits,
+    none of the kernels; the logits against the CPU's (1e-3); the artifact
+    on the card within EXPORT_TOL of the Predictor; the server on the run."""
+    import torch
+
+    from mmtpu_torch.cli import common, predict
+    from mmtpu_torch.serving import Predictor, load_artifact
+    from mmtpu_torch.train.step import make_eval_step
+
+    art = work / "KineticsSounds.mmx"
+    args = predict.arg_parser().parse_args(
+        ["--config", str(cfg_path), "--run_id", "1", "--out",
+         str(work / "predictions_ks.json"), "--export", str(art)])
+    reset_counts()
+    t0 = time.perf_counter()
+    _, records, summary = predict.run(args)
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    visits = KS_SAMPLES["test"] * len(KS_PATTERNS)
+    if len(records) != visits or set(summary) != set(KS_PATTERNS) or any(counts.values()):
+        raise AssertionError(f"[ks predict] {len(records)} records, {summary}, launches "
+                             f"{counts}")
+    cfg = common.load_config(args)
+    tasks = {label: predict.build_task_and_loader(cfg, args, device)
+             for label, device in (("gpu", dev), ("cpu", torch.device("cpu")))}
+    batches = list(tasks["gpu"][1])
+    gpu_step = make_eval_step(tasks["gpu"][0], dev)
+    cpu_step = make_eval_step(tasks["cpu"][0], torch.device("cpu"))
+    cpu_err = 0.0
+    for i in (0, len(batches) - 1):
+        g, c = gpu_step(batches[i]), cpu_step(batches[i])
+        if g["logits"].shape != (KS_BATCH, 26) or not torch.isfinite(g["logits"]).all():
+            raise AssertionError(f"[ks predict] logits {tuple(g['logits'].shape)}")
+        cpu_err = max(cpu_err, (g["logits"].cpu() - c["logits"]).abs().max().item())
+    served = load_artifact(art, dev)
+    masked = _masked_batches(tasks["gpu"][1], KS_PATH["keys"])
+    predictor = Predictor(tasks["gpu"][0], dev)
+    reset_counts()
+    art_out, art_s = _serving_pass(served, masked)
+    art_counts = read_counts()
+    pred_out, pred_s = _serving_pass(predictor, masked)
+    art_err = _max_diff(art_out, pred_out)
+    say_card(card, f"[ks predict] {len(records)} visits ({len(KS_PATTERNS)} patterns × "
+             f"{KS_SAMPLES['test']}) in {seconds:.3f} s through predict.run with --export "
+             f"({len(records) / seconds:.1f} visits/s, start-up and the export included); "
+             f"per-pattern accuracy {summary}; launches {counts}; GPU vs CPU logits "
+             f"{cpu_err:.3e} (tolerance {CPU_TOL}); artifact {art_s:.3f} s vs Predictor "
+             f"{pred_s:.3f} s, launches inside it {art_counts}, max |artifact - Predictor| "
+             f"{art_err:.3e} (tolerance {EXPORT_TOL})")
+    if cpu_err > CPU_TOL or art_err > EXPORT_TOL or any(art_counts.values()):
+        raise AssertionError(f"[ks predict] CPU {cpu_err}, artifact {art_err}, {art_counts}")
+    srv = phase_serve(cfg_path, KS_PATH, ks_requests(csvs))
+    return {"visits_per_s": len(records) / seconds, "cpu_err": cpu_err, "art_err": art_err,
+            "serve": srv, "artifact_visits_per_s": len(records) / art_s,
+            "predictor_visits_per_s": len(records) / pred_s}
+
+
+def phase_ks(dev, card: str, work: Path) -> dict:
+    """Phase 12 (b): Kinetics-Sounds through `train_multimodal.main` on the
+    repository's clips: no launch of either kernel, as in mmtpu; a profiled
+    window; the GPU-vs-CPU check; predict, export and serve."""
+    from mmtpu_torch.cli import common, train_multimodal
+
+    out_root = work / "ks"
+    t0 = time.perf_counter()
+    csvs = write_ks_csvs(work / "ks_data")
+    cfg_path, check_path = work / "ks.json", work / "ks_check.json"
+    cfg_path.write_text(json.dumps(ks_config(str(out_root), csvs)))
+    check_path.write_text(json.dumps(ks_config(str(out_root), csvs, dropout=False)))
+    cfg = common.load_config(argparse.Namespace(config=str(cfg_path), run_id=1, seed=None))
+    loaders = {s: cfg.data.build_loader(s, seed=SEED) for s in KS_SAMPLES}
+    read_s = time.perf_counter() - t0
+    n = {s: len(loader) for s, loader in loaders.items()}
+    want = {"train": -(-KS_SAMPLES["train"] // KS_BATCH),
+            **{s: -(-KS_SAMPLES[s] * len(KS_PATTERNS) // KS_BATCH)
+               for s in ("validation", "test")}}
+    if n != want:
+        raise AssertionError(f"[ks] batches {n}, expected {want}")
+    reset_counts()
+    run = _run_cli(train_multimodal, cfg_path, "[ks]", out_root, KS_NAME,
+                   train_samples=KS_SAMPLES["train"])
+    counts = read_counts()
+    if any(counts.values()):
+        raise AssertionError(f"[ks] launches {counts}, expected none")
+    say_card(card, f"[ks] {sum(KS_SAMPLES.values())} clips read from "
+             f"{2 * sum(KS_SAMPLES.values())} .pt files in {read_s:.2f} s; "
+             f"{run['seconds']:.2f} s through train_multimodal.main (start-up, the reader and "
+             f"checkpoints included); epoch {TRAIN_EPOCHS} train {run['epoch_s']:.3f} s = "
+             f"{run['samples_per_s']:.1f} samples/s (B={KS_BATCH}); batches {n}; launches "
+             f"{counts}; peak device memory {run['peak_bytes'] / 2**20:.1f} MiB")
+    say(f"[ks] losses {run['losses']}; test {_accuracies(run['test'])}")
+    profile = phase_train_profile(dev, card, cfg_path, tag="[ks profile]", batch=KS_BATCH)
+    check = phase_ks_check(dev, check_path)
+    pred = phase_ks_predict(dev, card, work, cfg_path, csvs)
+    return {"run": run, "launches": counts, "profile": profile, "check": check,
+            "predict": pred}
+
+
+def mono_configs(out_root: str) -> dict:
+    """The monomodal pretrainings ("text": TextCNN 768 → 64 with 128
+    channels; "audio": LSTMEncoder 5 → 64 on the `lstm` kernel at G = 1;
+    "mmimdb": MMIMDbModalityEncoder 300 → 512), each on its modality alone,
+    2 epochs, and the fine-tunes that load their handoffs ("utt":
+    UttFusion at the published widths from the text and audio encoders;
+    "gmu": the GMU from the MM-IMDb text encoder), 1 epoch. MOSI at
+    CMU-MOSI's split sizes, MM-IMDb at its own; the files' optimizers,
+    losses and metrics."""
+    import copy
+
+    utt = utt_train_config(out_root)
+    gmu = mmimdb_config(out_root)
+    out = {}
+    for key, mod, base, encoder in (
+            ("text", "text", utt, utt["model"]["netT"]),
+            ("audio", "audio", utt, utt["model"]["netA"]),
+            ("mmimdb", "text", gmu, gmu["model"]["text_encoder"])):
+        cfg = copy.deepcopy(base)
+        cfg["experiment"]["name"] = MONO_NAMES[key]
+        cfg["model"] = {"name": MONO_NAMES[key], "model_type": base["model"]["model_type"],
+                        f"{mod}_encoder": copy.deepcopy(encoder)}
+        cfg["training"]["num_modalities"] = 1
+        for split in cfg["data"]["datasets"].values():
+            split["missing_patterns"]["selected_patterns"] = [mod[0]]
+        out[key] = cfg
+
+    def handoff(key, mod):
+        return f"{out_root}/{MONO_NAMES[key]}/models/{{run_id}}/encoder_{mod}_best.pth"
+
+    for key, base, encoders in (("utt", utt, {"text": "text", "audio": "audio"}),
+                                ("gmu", gmu, {"text": "mmimdb"})):
+        cfg = copy.deepcopy(base)
+        cfg["experiment"]["name"] = FINETUNE_NAMES[key]
+        cfg["training"]["epochs"] = 1
+        cfg["model"]["pretrained_encoders"] = {mod: handoff(src, mod)
+                                               for mod, src in encoders.items()}
+        out[key] = cfg
+    return out
+
+
+def _mono_batches(cfg_path: Path) -> dict:
+    from mmtpu_torch.cli import common
+
+    cfg = common.load_config(argparse.Namespace(config=str(cfg_path), run_id=1, seed=None))
+    return {s: len(cfg.data.build_loader(s, seed=SEED)) for s in cfg.data.datasets}
+
+
+def phase_mono(dev, card: str, work: Path) -> dict:
+    """Phase 12 (c): `train_monomodal` on the card for the three encoders
+    without `hidden_dim` (the LSTMEncoder's `lstm` exactly once per train,
+    validation and test batch), each writing encoder_{mod}_best.pth; then
+    the UttFusion and GMU fine-tunes through `train_multimodal.main`, each
+    loaded encoder's state sha256 equal to its file's."""
+    import torch
+
+    from mmtpu_torch.cli import common, train_monomodal, train_multimodal
+
+    out_root = work / "mono"
+    paths = {}
+    for key, cfg in mono_configs(str(out_root)).items():
+        paths[key] = work / f"mono_{key}.json"
+        paths[key].write_text(json.dumps(cfg))
+    runs, launches = {}, {}
+    for key in ("text", "audio", "mmimdb"):
+        n = _mono_batches(paths[key])
+        reset_counts()
+        runs[key] = _run_cli(train_monomodal, paths[key], f"[mono {key}]", out_root,
+                             MONO_NAMES[key], train_samples=(
+                                 MMIMDB_SAMPLES if key == "mmimdb" else UTT_SAMPLES)["train"])
+        launches[key] = read_counts()
+        want = {"fused_mlp": 0, "lstm": 0}
+        if key == "audio":
+            want["lstm"] = TRAIN_EPOCHS * (n["train"] + n["validation"]) + n["test"]
+        if launches[key] != want:
+            raise AssertionError(f"[mono {key}] launches {launches[key]}, expected {want} "
+                                 f"({n} batches)")
+        mod = "audio" if key == "audio" else "text"
+        if not (runs[key]["models"] / f"encoder_{mod}_best.pth").exists():
+            raise AssertionError(f"[mono {key}] no encoder_{mod}_best.pth")
+        say_card(card, f"[mono {key}] {runs[key]['seconds']:.2f} s through "
+                 f"train_monomodal.main; epoch {TRAIN_EPOCHS} train {runs[key]['epoch_s']:.3f} "
+                 f"s = {runs[key]['samples_per_s']:.1f} samples/s; batches {n}; launches "
+                 f"{launches[key]} (expected {want}); losses {runs[key]['losses']}")
+
+    loaded = {}
+    real_load = common.load_pretrained_encoders
+
+    def spy(model, pretrained, logging_cfg):  # each encoder as the fine-tune loaded it
+        out = real_load(model, pretrained, logging_cfg)
+        for attr in ("netT", "netA", "text_encoder"):
+            if hasattr(model, attr):
+                loaded[attr] = _state_hash(getattr(model, attr).state_dict())
+        return out
+
+    fine = {}
+    common.load_pretrained_encoders = spy
+    try:
+        for key in ("utt", "gmu"):
+            samples = (UTT_SAMPLES if key == "utt" else MMIMDB_SAMPLES)["train"]
+            t0 = time.perf_counter()
+            rc = train_multimodal.main(["--config", str(paths[key]), "--run_id", "1"])
+            fine[key] = time.perf_counter() - t0
+            if rc != 0:
+                raise AssertionError(f"[mono {key}] fine-tune exit code {rc}")
+            say_card(card, f"[mono {key}] fine-tune from the handoffs: {fine[key]:.2f} s "
+                     f"through train_multimodal.main (1 epoch, {samples} train samples)")
+    finally:
+        common.load_pretrained_encoders = real_load
+    files = {"netT": runs["text"]["models"] / "encoder_text_best.pth",
+             "netA": runs["audio"]["models"] / "encoder_audio_best.pth",
+             "text_encoder": runs["mmimdb"]["models"] / "encoder_text_best.pth"}
+    for attr, path in files.items():
+        in_file = _state_hash(torch.load(path, map_location="cpu", weights_only=True))
+        if loaded.get(attr) != in_file:
+            raise AssertionError(f"[mono] the fine-tune's {attr} ({loaded.get(attr)}) is not "
+                                 f"{path.name}'s ({in_file})")
+    say(f"[mono] the fine-tunes' encoders equal their handoffs: "
+        + ", ".join(f"{attr} sha256 {loaded[attr][:16]}" for attr in files))
+    return {"runs": runs, "launches": launches, "finetune_s": fine}
+
+
+def say_phase12(card: str, export: Optional[dict], ks: Optional[dict], mono: Optional[dict],
+                seconds: float) -> None:
+    parts = []
+    if export:
+        for key in ("avmnist", "utt"):
+            e = export[key]
+            parts.append(f"{key} artifact {e['visits_per_s']:.1f} visits/s vs Predictor "
+                         f"{e['predictor_visits_per_s']:.1f}, launches {e['launches']}")
+        parts.append(f"serve --artifact {export['serve']['requests_per_s']:.1f} requests/s; "
+                     f"DualCMAM artifact lstm {export['dual']['launches']} over "
+                     f"{export['dual']['batches']} batches")
+    if ks:
+        parts.append(f"Kinetics-Sounds {ks['run']['samples_per_s']:.1f} train samples/s "
+                     f"(epoch {TRAIN_EPOCHS}), {ks['profile']['kernels_per_step']:.1f} device "
+                     f"kernels per step, busy share {ks['profile']['busy_share']:.3f}, "
+                     f"launches {ks['launches']}")
+    if mono:
+        parts.append("monomodal " + ", ".join(
+            f"{k} {r['samples_per_s']:.1f} samples/s" for k, r in mono["runs"].items())
+            + f", audio lstm {mono['launches']['audio']['lstm']}")
+    say_card(card, "[summary] phase 12: " + "; ".join(parts) + f"; phase {seconds:.1f} s")
+
+
 def kernel_record(name: str, source: str, replaces: str, shape: str, kern: dict, t: dict,
                   pred: dict, srv: dict) -> dict:
     return {
@@ -3495,6 +4210,8 @@ def kernel_record(name: str, source: str, replaces: str, shape: str, kern: dict,
         "device_ms": t["device_ms"],
         "plain_device_ms": t["plain_device_ms"],
         "host_ms": t["host_ms"],
+        "op_host_ms": t["op_host_ms"],
+        "direct_host_ms": t["direct_host_ms"],
         "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"],
         "library_ms": t.get("library_ms"),
@@ -3527,6 +4244,16 @@ def main(argv=None) -> int:
                              "kernels or ok line)")
     parser.add_argument("--mmimdb-only", action="store_true",
                         help="build the kernels and run phase 11's MM-IMDb half alone (no "
+                             "kernels or ok line)")
+    parser.add_argument("--export-only", action="store_true",
+                        help="build the kernels, write seeded AVMNIST, UttFusion and teacher "
+                             "checkpoints and run phase 12's export part alone (no kernels "
+                             "or ok line)")
+    parser.add_argument("--ks-only", action="store_true",
+                        help="build the kernels and run phase 12's Kinetics-Sounds part "
+                             "alone (no kernels or ok line)")
+    parser.add_argument("--mono-only", action="store_true",
+                        help="build the kernels and run phase 12's monomodal part alone (no "
                              "kernels or ok line)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -3611,6 +4338,30 @@ def main(argv=None) -> int:
             shutil.rmtree(work, ignore_errors=True)
         return 0
 
+    if args.export_only or args.ks_only or args.mono_only:
+        try:
+            t0 = time.perf_counter()
+            export = ks = mono = None
+            if args.export_only:
+                paths = {}
+                for key, cfg in (("av", smoke_config(out_root=str(work / "out"))),
+                                 ("mosi", mosi_smoke_config(out_root=str(work / "out")))):
+                    paths[key] = work / f"{key}.json"
+                    paths[key].write_text(json.dumps(cfg))
+                phase_predict(dev, work, paths["av"], AVMNIST_PATH)
+                phase_predict(dev, work, paths["mosi"], MOSI_PATH)
+                best = {key: _checkpoint(path, "best") for key, path in paths.items()}
+                export = phase_export(dev, smi, work, paths["av"], best["av"], paths["mosi"],
+                                      best["mosi"], msa_teacher(work), None)
+            if args.ks_only:
+                ks = phase_ks(dev, smi, work)
+            if args.mono_only:
+                mono = phase_mono(dev, smi, work)
+            say_phase12(smi, export, ks, mono, time.perf_counter() - t0)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        return 0
+
     mlp = phase_kernels_mlp(dev)
     lstm = phase_kernels_lstm(dev)
     try:
@@ -3639,9 +4390,15 @@ def main(argv=None) -> int:
         t_11 = time.perf_counter()
         self_mm = phase_self_mm(dev, smi, work)
         mmimdb = phase_mmimdb(dev, smi, work)
-        t_train, t_utt, t_reader, t_shipped, t_cmam, t_msa, t_11 = (
+        t_12 = time.perf_counter()
+        export = phase_export(dev, smi, work, av_cfg, train["scratch"]["models"] / "best.pth",
+                              mosi_cfg, utt["run"]["models"] / "best.pth",
+                              utt["run"]["models"] / "best.pth", av_srv["requests_per_s"])
+        ks = phase_ks(dev, smi, work)
+        mono = phase_mono(dev, smi, work)
+        t_train, t_utt, t_reader, t_shipped, t_cmam, t_msa, t_11, t_12 = (
             t_utt - t_train, t_reader - t_utt, t_shipped - t_reader, t_cmam - t_shipped,
-            t_msa - t_cmam, t_11 - t_msa, time.perf_counter() - t_11)
+            t_msa - t_cmam, t_11 - t_msa, t_12 - t_11, time.perf_counter() - t_12)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3674,6 +4431,7 @@ def main(argv=None) -> int:
     say_cmam(smi, cmam, t_cmam)
     say_msa(smi, msa, t_msa)
     say_phase11(smi, self_mm, mmimdb, t_11)
+    say_phase12(smi, export, ks, mono, t_12)
     say(f"[summary] fused_mlp B=1024 {json.dumps(mlp['timings'][1024])}")
     for batch, t in mlp["shipped"].items():
         say(f"[summary] fused_mlp {SHIPPED_HEAD_DIMS} B={batch} {json.dumps(t)}")
@@ -3693,6 +4451,8 @@ def main(argv=None) -> int:
          "msa_launches": {kind: r["launches"]["fused_mlp"] for kind, r in msa.items()},
          "self_mm_launches": {kind: r["launches"]["fused_mlp"] for kind, r in self_mm.items()},
          "mmimdb_launches": mmimdb["launches"]["fused_mlp"],
+         "artifact_launches": export["avmnist"]["launches"],
+         "ks_launches": ks["launches"]["fused_mlp"],
          "shipped_head": {"dims": SHIPPED_HEAD_DIMS, "max_abs_err": mlp["shipped_err"],
                           **{f"B={b}": t for b, t in mlp["shipped"].items()}}},
         {**kernel_record("lstm", "mmtpu_torch/ops/csrc/lstm.cu", "mmtpu/ops/lstm.py:61",
@@ -3703,6 +4463,10 @@ def main(argv=None) -> int:
          "mmin_launches": msa["mmin"]["launches"]["lstm"],
          "self_mm_launches": {kind: r["launches"]["lstm"] for kind, r in self_mm.items()},
          "mmimdb_launches": mmimdb["launches"]["lstm"],
+         "artifact_launches": export["utt"]["launches"],
+         "dual_cmam_artifact_launches": export["dual"]["launches"],
+         "mono_lstm_launches": mono["launches"]["audio"]["lstm"],
+         "ks_launches": ks["launches"]["lstm"],
          "self_mm_shapes": {"G={}, B={}, T={}, H={}".format(*k): lstm["timings"][k]
                             for k in SELF_MM_LSTM},
          "with_projection_ms": lstm["timings"][LSTM_MAIN]["with_projection_ms"],

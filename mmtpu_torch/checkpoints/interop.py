@@ -49,7 +49,11 @@ port `state_dict` under the reference's torch key names:
   `nn.RNN` is given to the RNN's parent, numbered in creation order), and
   `linear_1`;
 - a MaxOut's `units` kernel (in, units·out) → Linear weight (units·out,
-  in): the port reshapes the output (…, units, out) as flax does.
+  in): the port reshapes the output (…, units, out) as flax does;
+- Kinetics-Sounds (`audio_encoder/conv_block_{one,two,three}`, `fc_one`,
+  `fc_two`, `video_encoder`, `fc_out`) and a MonomodalEncoder's `head`
+  beside any encoder map by the rules above: the port's KS audio encoder
+  flattens NHWC as mmtpu's does, so its `fc_one` is carried unpermuted.
 
 Unlike mmtpu's readers, which keep a leaf's initial value when they find no
 source for it, this conversion raises on any leaf it cannot map and — given

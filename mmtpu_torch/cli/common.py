@@ -398,6 +398,7 @@ def infer_num_classes(cfg) -> int:
 _UTT_FUSION = [Modality.AUDIO, Modality.VIDEO, Modality.TEXT]
 _MODALITIES = {
     "avmnist": [Modality.AUDIO, Modality.IMAGE],
+    "kineticssounds": [Modality.AUDIO, Modality.VIDEO],
     "mmimdb": [Modality.IMAGE, Modality.TEXT],
     "utt-fusion": _UTT_FUSION,
     "utt_fusion": _UTT_FUSION,

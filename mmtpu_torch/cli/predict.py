@@ -2,7 +2,7 @@
 
     python -m mmtpu_torch.cli.predict --config X.yaml --run_id N \
         [--checkpoint best|last|epoch_K|/path.pth] [--split test] \
-        [--out preds.json] [--cpu]
+        [--out preds.json] [--export model.mmx] [--cpu]
 
 Loads `<model_output_path>/<checkpoint>.pth` (or an explicit path: the
 port's `.pth`, a reference `.pth` or an mmtpu `.ckpt`; a missing name
@@ -14,7 +14,11 @@ plus a per-pattern accuracy summary; for MM-IMDb's multilabel task `pred`
 and `label` are the 23 genre flags and `correct` means all of them agree. Padded tail rows are dropped. The MSA
 families with their own train steps (MMIN, RedCore, Self-MM) exit with
 mmtpu's message, in `predict` and `serve`.
-Serving-artifact export (mmtpu's `--export`) is not ported yet.
+`--export` also writes a self-contained serving artifact
+(`mmtpu_torch.serving.export`: `torch.export`, the kernels' operators
+inside), traced on the CPU with a symbolic batch and its weights stored on
+the CPU; `load_artifact` moves it to the requested device, the card or the
+CPU (`serve --artifact`).
 """
 
 from __future__ import annotations
@@ -45,6 +49,10 @@ def arg_parser():
         "--out", default=None,
         help="Predictions JSON path (default: "
              "<metrics_path>/predictions_<split>.json)",
+    )
+    p.add_argument(
+        "--export", default=None, metavar="PATH",
+        help="Also export a serving artifact (torch.export, symbolic batch) to PATH",
     )
     p.add_argument("--cpu", action="store_true", help="Run on the CPU instead of CUDA")
     p.add_argument("--seed", type=int, default=None)
@@ -146,6 +154,16 @@ def run(args):
     )
     print(f"{len(records)} predictions on {device} → {out_path}; "
           f"per-pattern acc {summary}", flush=True)
+    export = getattr(args, "export", None)  # callers may build their own Namespace
+    if export:
+        from mmtpu_torch.serving import export_task
+
+        example = next(iter(loader))
+        path = export_task(
+            task, {k: example[k] for k in task.input_keys}, export,
+            extra_meta={"config": str(args.config), "checkpoint": args.checkpoint},
+        )
+        print(f"serving artifact → {path}", flush=True)
     return out_path, records, summary
 
 

@@ -1,12 +1,15 @@
-"""HTTP model server over a trained run (counterpart of `mmtpu/cli/serve.py`).
+"""HTTP model server over a serving artifact or a trained run (counterpart of
+`mmtpu/cli/serve.py`).
 
+    python -m mmtpu_torch.cli.serve --artifact model.mmx [--port 8900] \
+        [--max-batch 64] [--max-wait-ms 5] [--cpu]
     python -m mmtpu_torch.cli.serve --config X.yaml --run_id N \
         [--checkpoint best] [--port 8900] [--max-batch 64] [--max-wait-ms 5] [--cpu]
 
 Endpoints (JSON over stdlib http.server), the same as mmtpu's:
 
     GET  /health   {"status": "ok", ...}
-    GET  /meta     task metadata (input keys, shapes, dtypes)
+    GET  /meta     the artifact's meta, or the task's (input keys, shapes, dtypes)
     GET  /stats    micro-batcher counters (requests, batches, padded rows)
     POST /predict  one sample, one array per input key of the model
                    ({"audio": [...], "image": [...]} for AVMNIST,
@@ -19,9 +22,12 @@ Endpoints (JSON over stdlib http.server), the same as mmtpu's:
     POST /predict_batch  pre-batched arrays, bypasses the batcher
 
 Concurrent /predict requests are grouped by `MicroBatcher` into padded
-power-of-two batches. The model runs on the GPU (AVMNIST's fusion head and
-UttFusion's LSTM recurrences each as one kernel) unless `--cpu`. Serving a `jax.export` artifact (mmtpu's
-`--artifact`) is not ported.
+power-of-two batches; a request whose arrays do not have the artifact's (or
+the task's) trailing shape is refused with 400. The model runs on the GPU
+(AVMNIST's fusion head and UttFusion's LSTM recurrences each as one kernel,
+also inside an artifact) unless `--cpu`, in both modes. An artifact is the
+port's own (`predict --export`, `train_cmam --export-serving`); mmtpu's
+StableHLO artifact is refused with its name.
 """
 
 from __future__ import annotations
@@ -39,12 +45,14 @@ def arg_parser():
     import argparse
 
     p = argparse.ArgumentParser(description=__doc__)
-    p.add_argument("--config", required=True,
-                   help="YAML (or .json plain-dict) config of a trained run")
+    src = p.add_mutually_exclusive_group(required=True)
+    src.add_argument("--artifact", help="Serving artifact from predict --export or "
+                                        "train_cmam --export-serving")
+    src.add_argument("--config", help="YAML (or .json plain-dict) config of a trained run")
     p.add_argument("--run_id", type=int, default=1)
     p.add_argument("--checkpoint", default="best")
     p.add_argument("--split", default="test",
-                   help="split used to infer input shapes")
+                   help="config mode: split used to infer input shapes")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8900)
     p.add_argument("--max-batch", dest="max_batch", type=int, default=64)
@@ -59,13 +67,20 @@ def arg_parser():
 
 
 def load_model(args):
-    """Returns (Predictor, meta). meta carries input_keys/shapes/dtypes for
-    request decoding."""
+    """Returns (predict, meta): a Predictor or a ServedModel, and the meta
+    that carries input_keys/shapes/dtypes for request decoding (an
+    artifact's own meta)."""
     from mmtpu_torch.cli import common
+
+    device = common.resolve_device(args.cpu)
+    if args.artifact:
+        from mmtpu_torch.serving import load_artifact
+
+        served = load_artifact(args.artifact, device)
+        return served, dict(served.meta)
     from mmtpu_torch.cli.predict import build_task_and_loader
     from mmtpu_torch.serving import Predictor
 
-    device = common.resolve_device(args.cpu)
     cfg = common.load_config(args)
     task, loader = build_task_and_loader(cfg, args, device)
     example = next(iter(loader))
@@ -196,7 +211,7 @@ def main(argv=None) -> int:
     )
     host, port = server.server_address[:2]
     print(f"serving {meta.get('model', 'model')} on http://{host}:{port} "
-          f"({meta['device']}, max_batch={args.max_batch}, "
+          f"({predict.device}, max_batch={args.max_batch}, "
           f"max_wait_ms={args.max_wait_ms})", flush=True)
     if args.dry_run:
         server.server_close()

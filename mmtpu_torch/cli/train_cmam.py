@@ -2,7 +2,8 @@
 
     python -m mmtpu_torch.cli.train_cmam --config X.yaml --run_id N \
         [--seed S] [--epochs N] [--dry-run] [--skip-train] [--skip-test] [--resume] \
-        [--disable_monitoring] [--profile] [--stacked-runs K] [--data-parallel N] [--cpu]
+        [--disable_monitoring] [--profile] [--stacked-runs K] [--data-parallel N] [--cpu] \
+        [--export-serving model.mmx]
 
 Builds the frozen base model from the config's `model` (restoring its
 `pretrained_path`: the port's `.pth`, an mmtpu `.ckpt` or a reference
@@ -18,8 +19,11 @@ metrics, the checkpoints under `.pth` names, and
 GPU a UttFusion base and a DualCMAM's LSTM encoder run the `lstm` kernel.
 
 `--stacked-runs K` runs the members run_id..run_id+K-1 one after another,
-as mmtpu does. `--export-serving` (mmtpu's `jax.export` artifact) waits for
-the port's serving export and raises.
+as mmtpu does. `--export-serving PATH` then exports the best checkpoint's
+C-MAM with the frozen base as one missing-modality serving artifact
+(`serving.export_cmam`: the available modalities in, the imputed
+embedding(s) and the base model's scores out); with no best checkpoint it
+warns and exports the current weights.
 """
 
 from __future__ import annotations
@@ -44,12 +48,9 @@ def main(argv=None) -> int:
     parser = common.standard_arg_parser(__doc__)
     parser.add_argument("--export-serving", "--export_serving", dest="export_serving",
                         default=None, metavar="PATH",
-                        help="mmtpu's missing-modality serving artifact: not ported (raises)")
+                        help="Export the trained C-MAM + frozen base model as a "
+                             "missing-modality serving artifact to PATH")
     args = parser.parse_args(argv)
-    if args.export_serving:
-        raise NotImplementedError(
-            "--export-serving: the serving export is not ported to mmtpu_torch yet "
-            "(ROADMAP.md item 7, serving export)")
     return common.run_id_sweep(args, run)
 
 
@@ -157,6 +158,22 @@ def record(recorder, out, vocab) -> None:
                                   pattern_id, vocab, out.get("sample_mask"))
 
 
+def export_serving(loop, task, loaders, args) -> None:
+    """`--export-serving`: the best checkpoint's C-MAM (the current weights,
+    with a warning, when there is none) and the frozen base as one artifact."""
+    from mmtpu_torch.serving import export_cmam
+
+    try:
+        loop.ckpt.load_checkpoint(loop.state, "best")
+    except FileNotFoundError:
+        logger.warning("no best checkpoint — exporting the current parameters")
+        print("no best checkpoint — exporting the current parameters", flush=True)
+    example = next(iter(next(iter(loaders.values()))))
+    out = export_cmam(task, {m: example[m] for m in task.input_modalities},
+                      args.export_serving, extra_meta={"config": str(args.config)})
+    print(f"missing-modality serving artifact → {out}", flush=True)
+
+
 def run(args) -> int:
     """One C-MAM run."""
     from mmtpu_torch.config.cmam import CMAMConfig
@@ -190,6 +207,8 @@ def run(args) -> int:
             loop.run()
     if not args.skip_test:
         loop.test(splits=[s for s in loaders if s not in ("train", "validation")])
+    if args.export_serving:
+        export_serving(loop, built.task, loaders, args)
     # {train,validation,test}_metrics.json as the reference's records: the
     # nested group dicts, loss, and the term columns
     ExperimentReportGenerator(

@@ -23,7 +23,10 @@ AuViSubNets run the kernel once each per forward. MM-IMDb (`mmimdb`: GMU
 or multimodal pooling over the image and text features, the MaxOut genre
 classifier) trains as a multilabel task (sigmoid > 0.5 predictions, the
 23 genres' F1s) and runs no kernel; its dropout draws from the run's
-generator.
+generator. Kinetics-Sounds (`kineticssounds`: the three-ConvBlock audio
+encoder and the video MLP over 400-d features, 26 classes, patterns over
+audio and video) trains as AVMNIST does, with a plain head: no kernel, as in
+mmtpu; its dropouts draw from the run's generator.
 
 `experiment.cross_validation: K` runs K folds, each with `cv_no` set in
 every dataset's kwargs and its outputs under `fold_<k>/`, then writes the
@@ -47,8 +50,8 @@ import torch
 
 from mmtpu_torch.cli import common
 
-PORTED_MODEL_TYPES = ("avmnist", "utt-fusion", "utt_fusion", "uttfusionmodel", "mmin",
-                      "redcore", "self-mm", "self_mm", "mmimdb")
+PORTED_MODEL_TYPES = ("avmnist", "kineticssounds", "utt-fusion", "utt_fusion",
+                      "uttfusionmodel", "mmin", "redcore", "self-mm", "self_mm", "mmimdb")
 CUSTOM_STEP_TYPES = ("mmin", "redcore", "self-mm", "self_mm")  # mmtpu stacks none of them
 
 

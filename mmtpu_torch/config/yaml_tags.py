@@ -56,6 +56,8 @@ MODEL_TAGS: Dict[str, str] = {
     "!MaxOut": "maxout",
     "!GatedBiModalNetwork": "gated_bimodal",
     "!MultimodalPooling": "multimodal_pooling",
+    "!KineticsSoundsAudioEncoder": "kinetics_sounds_audio_encoder",
+    "!KineticsSoundsVideoEncoder": "kinetics_sounds_video_encoder",
 }
 
 # Config tags of mmtpu's standard configs; each resolves to a plain mapping.

@@ -6,6 +6,7 @@ from typing import Type
 
 from mmtpu_torch.data.avmnist import AVMNIST, SyntheticAVMNIST
 from mmtpu_torch.data.base import MultimodalArrayDataset
+from mmtpu_torch.data.kinetics_sounds import KineticsSounds
 from mmtpu_torch.data.loader import BatchLoader
 from mmtpu_torch.data.mmimdb import MMIMDb, SyntheticMMIMDb
 from mmtpu_torch.data.mosi import MOSEI, MOSI, SyntheticMOSI
@@ -19,6 +20,7 @@ _DATASETS = {
     "mosei": MOSEI,
     "synthetic_mmimdb": SyntheticMMIMDb,
     "mm_imdb": MMIMDb,
+    "kinetics_sounds": KineticsSounds,
 }
 
 
@@ -34,6 +36,7 @@ def resolve_dataset_name(name: str) -> Type[MultimodalArrayDataset]:
 
 __all__ = [
     "AVMNIST",
+    "KineticsSounds",
     "MOSEI",
     "MMIMDb",
     "MOSI",

@@ -7,6 +7,11 @@ from mmtpu_torch.models.cmam import CMAM, AssociationNetwork, DualCMAM, InputEnc
 from mmtpu_torch.models.conv import ConvBlock, ConvBlockArgs, avg_pool, max_pool
 from mmtpu_torch.models.fc import FcClassifier, FcEncoder, MaxPoolFc, SimpleClassifier
 from mmtpu_torch.models.fusion import GatedBiModalNetwork, MaxOut, MultimodalPooling
+from mmtpu_torch.models.kinetics_sounds import (
+    KineticsSounds,
+    KineticsSoundsAudioEncoder,
+    KineticsSoundsVideoEncoder,
+)
 from mmtpu_torch.models.lenet import LeNet5, LeNet5Enhanced, LeNetEncoder
 from mmtpu_torch.models.lstm import (
     LSTMEncoder,
@@ -48,6 +53,9 @@ __all__ = [
     "CMAM",
     "DualCMAM",
     "InputEncoders",
+    "KineticsSounds",
+    "KineticsSoundsAudioEncoder",
+    "KineticsSoundsVideoEncoder",
     "MonomodalEncoder",
     "MNISTAudio",
     "MNISTImage",

@@ -15,10 +15,11 @@ the convolutions and pools. An input of another height or width fails at
 
 concat(audio_embd, image_embd) → Linear(hidden) → ReLU → Dropout →
 Linear(hidden/2) → ReLU → Linear(10). The head keeps the reference's key
-names (`fc_fusion`, `fc_intermediate`, `fc_out`). In eval mode on a CUDA
-tensor the whole head runs as ONE kernel (`mmtpu_torch.ops.fused_mlp`),
-as mmtpu runs it as one Pallas kernel on the TPU; in train mode, or on the
-CPU, it runs the plain chain. `encode` gives the two embeddings (the
+names (`fc_fusion`, `fc_intermediate`, `fc_out`). In eval mode the whole
+head goes through `mmtpu_torch.ops.fused_mlp`: on a CUDA tensor ONE kernel,
+as mmtpu runs it as one Pallas kernel on the TPU, on the CPU the plain
+version of that operator, so a graph traced on either device holds it; in
+train mode it runs the plain chain. `encode` gives the two embeddings (the
 `embeddings` split's export).
 
 For C-MAM, as mmtpu's: `is_embd_A` / `is_embd_I` take that input as the
@@ -140,7 +141,7 @@ class AVMNIST(nn.Module):
         image = I if is_embd_I else self.image_encoder(I)
         fused = torch.cat([audio, image], dim=1)
         use_fused = not self.training if fused_head is None else fused_head
-        if use_fused and fused.is_cuda:
+        if use_fused:
             layers = (self.fc_fusion, self.fc_intermediate, self.fc_out)
             return fused_mlp(
                 fused.contiguous(),
@@ -160,12 +161,13 @@ class AVMNIST(nn.Module):
 class MonomodalEncoder(nn.Module):
     """Encoder + linear head for monomodal pretraining. `output_dim` is
     accepted for config compatibility; the head's input is the encoder's
-    hidden_dim, as in mmtpu."""
+    embedding, `get_embedding_size()`, which mmtpu's lazily sized Dense
+    takes from its input."""
 
     def __init__(self, encoder: nn.Module, output_dim: int, num_classes: int) -> None:
         super().__init__()
         self.encoder = encoder
-        self.head = nn.Linear(encoder.hidden_dim, num_classes)
+        self.head = nn.Linear(encoder.get_embedding_size(), num_classes)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.head(self.encoder(x))

@@ -58,6 +58,7 @@ def _factories() -> Dict[str, Callable[..., Any]]:
         conv,
         fc,
         fusion,
+        kinetics_sounds,
         lenet,
         lstm,
         mmimdb,
@@ -122,6 +123,9 @@ def _factories() -> Dict[str, Callable[..., Any]]:
         "mmimdb_modality_encoder": mmimdb.MMIMDbModalityEncoder,
         "mlp_genre": mmimdb.MLPGenreClassifier,
         "mlp_genre_classifier": mmimdb.MLPGenreClassifier,
+        "kineticssounds": _tolerant(kinetics_sounds.KineticsSounds),
+        "kinetics_sounds_audio_encoder": kinetics_sounds.KineticsSoundsAudioEncoder,
+        "kinetics_sounds_video_encoder": kinetics_sounds.KineticsSoundsVideoEncoder,
     }
 
 

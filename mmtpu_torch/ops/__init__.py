@@ -7,6 +7,8 @@ version (counterpart of `mmtpu/ops`).
 | `lstm` (`lstm_sequence`, `lstm_sequence_stacked`) | `mmtpu/ops/lstm.py::_pallas_lstm` | `csrc/lstm.cu` |
 
 Every function of mmtpu that reaches `pl.pallas_call` has its counterpart here.
+Both are also `torch.library` operators (`library.py`: `mmtpu::fused_mlp`,
+`mmtpu::lstm`), which a traced serving graph holds.
 """
 
 from mmtpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_reference
@@ -16,6 +18,7 @@ from mmtpu_torch.ops.lstm import (
     lstm_sequence_stacked,
     lstm_stacked_reference,
 )
+from mmtpu_torch.ops import library  # registers mmtpu::fused_mlp and mmtpu::lstm
 
 KERNELS = ("fused_mlp", "lstm")
 

@@ -9,7 +9,8 @@ at once, and waits for them together.
 
 Nothing here runs at import time: a CPU-only host imports the port without
 nvcc, and only a launch on a CUDA tensor needs the build. Also here: what
-every launch asks of its device (`sm90_device`, `on_device`), kept cheap.
+every launch asks of its device (`sm90_device`, `on_device`), kept cheap,
+and whether an eager call goes round the operator (`direct_launch`).
 """
 
 from __future__ import annotations
@@ -65,6 +66,16 @@ def on_device(index: int):
     """A context in which device `index` is current: nothing to enter when it
     already is, which is the usual case and costs no device switch."""
     return _CURRENT if torch.cuda.current_device() == index else torch.cuda.device(index)
+
+
+def direct_launch(device: torch.device) -> bool:
+    """Whether a wrapper's call on `device` launches without the operator:
+    an eager call on the card does, since through the dispatcher the
+    `torch.library` operator costs the host 8–38 µs more per launch than
+    `_launch` alone (phase 2 of chip_smoke.py on an H100 80GB HBM3 at
+    700 W, PERF.md §6); a traced call (torch.export,
+    torch.compile) takes the operator, so the graph holds it."""
+    return device.type == "cuda" and not torch.compiler.is_compiling()
 
 
 def nvcc_path() -> str:

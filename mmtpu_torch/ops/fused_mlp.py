@@ -10,7 +10,8 @@ design does about that is noted at the top of the CUDA source.
 Layouts: weights are given as nn.Linear stores them, (out, in), and the
 kernel reads them as they lie (mmtpu's `fused_mlp` takes (in, out)).
 
-Dispatch, by where `x` lies:
+Dispatch, by where `x` lies (through the operator `mmtpu::fused_mlp` of
+`ops/library.py` when no gradient is needed):
 - CPU tensor → `fused_mlp_reference`, the plain PyTorch chain;
 - CUDA tensor → the kernel, or an error. There is no fallback: a CUDA input
   the kernel does not take (dtype, layout, an architecture other than
@@ -254,17 +255,25 @@ def fused_mlp(x: torch.Tensor, weights: Sequence[torch.Tensor],
               biases: Sequence[torch.Tensor]) -> torch.Tensor:
     """ReLU-MLP chain; weights (out, in) and biases (out,) per layer.
 
-    CPU tensors take the plain chain; CUDA tensors launch the kernel (and
-    count the launch in `fused_mlp.launches`) or raise."""
-    if x.device.type == "cpu":
-        return fused_mlp_reference(x, weights, biases)
-    if x.device.type != "cuda":
+    A call that needs no gradient goes through the operator
+    `mmtpu::fused_mlp` (`ops/library.py`) on either device, so a traced
+    graph holds it: on CUDA it launches the kernel (counted in
+    `fused_mlp.launches`) or raises, on the CPU it is the plain chain. An
+    eager call on CUDA launches the same kernel without the dispatcher
+    (`_build.direct_launch`). A call that needs a gradient takes the plain
+    chain on the CPU and `_FusedMLP` (the kernel, then the plain recompute)
+    on CUDA."""
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_mlp: no kernel for device {x.device}")
     if torch.is_grad_enabled() and any(
         t.requires_grad for t in (x, *weights, *biases)
     ):
+        if x.device.type == "cpu":
+            return fused_mlp_reference(x, weights, biases)
         return _FusedMLP.apply(x, len(weights), *weights, *biases)
-    return _launch(x, weights, biases)
+    if _build.direct_launch(x.device):
+        return _launch(x, weights, biases)
+    return torch.ops.mmtpu.fused_mlp(x, list(weights), list(biases))
 
 
 fused_mlp.launches = 0

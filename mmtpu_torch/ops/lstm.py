@@ -22,7 +22,8 @@ copied into one buffer.
 `h0` and `c0` may be None for a zero state: the kernel then reads no state
 at all, and the caller allocates and zero-fills none.
 
-Dispatch, by where `xw` lies:
+Dispatch, by where `xw` lies (through the operator `mmtpu::lstm` of
+`ops/library.py` when no gradient is needed):
 - CPU tensors → `lstm_stacked_reference`, the plain PyTorch scan;
 - CUDA tensors → the kernel, or an error. There is no fallback: a CUDA input
   the kernel does not take raises (dtype other than float32, a
@@ -320,20 +321,27 @@ def lstm_sequence_stacked(
     state (nothing is allocated for it); lengths: optional (G, B) int32.
     Returns (outputs (G, B, T, H), (h, c)).
 
-    CPU tensors take the plain scan; CUDA tensors launch the kernel once for
-    all groups (counted in `lstm_sequence_stacked.launches`) or raise."""
+    A call that needs no gradient goes through the operator `mmtpu::lstm`
+    (`ops/library.py`) on either device, so a traced graph holds it: on
+    CUDA it launches the kernel once for all groups (counted in
+    `lstm_sequence_stacked.launches`) or raises, on the CPU it is the plain
+    scan. An eager call on CUDA launches the same kernel without the
+    dispatcher (`_build.direct_launch`). A call that needs a gradient takes
+    the plain scan on the CPU and `_LSTM` on CUDA."""
     xws, whs = _groups(xw), _groups(wh)
     device = xws[0].device
-    if device.type == "cpu":
-        return lstm_stacked_reference(xw, wh, h0, c0, lengths)
-    if device.type != "cuda":
+    if device.type not in ("cpu", "cuda"):
         raise ValueError(f"lstm: no kernel for device {device}")
     if torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in (*xws, *whs, h0, c0)
     ):
+        if device.type == "cpu":
+            return lstm_stacked_reference(xw, wh, h0, c0, lengths)
         out, h, c = _LSTM.apply(len(xws), lengths, h0, c0, *xws, *whs)
-    else:
+    elif _build.direct_launch(device):
         out, h, c = _launch(xws, whs, h0, c0, lengths)
+    else:
+        out, h, c = torch.ops.mmtpu.lstm(xws, whs, h0, c0, lengths)
     return out, (h, c)
 
 

@@ -368,12 +368,38 @@ def test_resume_after_one_epoch_ends_as_an_uninterrupted_run(runs, tmp_path):
     assert len(meta[0]["metrics_history_nested"]["validation"]) == 2
 
 
-def test_export_serving_raises_naming_the_roadmap_item(runs):
+def test_export_serving_writes_a_cmam_artifact(runs, tmp_path):
+    """`--export-serving PATH` writes the best checkpoint's C-MAM with the
+    frozen base as one artifact: mmtpu's C-MAM meta, the available modality
+    in, and answers within 1e-5 of the C-MAM serving function over the
+    restored base and the best checkpoint's C-MAM, at a batch size other
+    than the export's."""
     from mmtpu_torch.cli import train_cmam
+    from mmtpu_torch.config.cmam import CMAMConfig
+    from mmtpu_torch.serving import load_artifact, make_cmam_serving_fn
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 7"):
-        train_cmam.main(["--config", str(runs["mmtpu_torch"]["cmam_cfg"]), "--cpu",
-                         "--export-serving", "x.mmx"])
+    shutil.copytree(runs["mmtpu_torch"]["root"] / BASE, tmp_path / BASE)
+    cfg = _cmam_yaml(tmp_path)
+    out = tmp_path / "cmam.mmx"
+    assert run_cli_inproc("mmtpu_torch.cli.train_cmam", cfg, run_id="1",
+                          extra=("--epochs", "1", "--export-serving", str(out))) == 0
+    served = load_artifact(out, "cpu")
+    meta = served.meta
+    assert (meta["task_type"], meta["imputes"], meta["base_model"], meta["model"]) == (
+        "cmam", ["image"], "AVMNIST", "CMAM")
+    assert meta["input_keys"] == ["audio"] and meta["config"] == str(cfg)
+    assert meta["outputs"] == ["logits", "preds", "probs", "rec_embd"]
+
+    built = train_cmam.assemble(CMAMConfig.load(cfg, run_id=1), torch.device("cpu"))
+    best = torch.load(tmp_path / CMAM / "models/1/best.pth", weights_only=False)
+    built.cmam.load_state_dict(best["model"])
+    audio = np.random.default_rng(3).normal(size=(5, 32, 94)).astype(np.float32)
+    got = served(audio=audio)
+    with torch.no_grad():
+        want = make_cmam_serving_fn(built.task)(torch.from_numpy(audio))
+    assert set(got) == set(want) == {"logits", "preds", "probs", "rec_embd"}
+    for k, v in want.items():
+        np.testing.assert_allclose(got[k], v.numpy(), rtol=1e-5, atol=1e-5, err_msg=k)
 
 
 def test_dual_cmam_config_runs_through_the_port_cli(tmp_path):

@@ -64,6 +64,17 @@ def test_yaml_is_imported_only_inside_the_yaml_loader():
         assert rel == "mmtpu_torch/config/yaml_tags.py" and nested, (rel, nested)
 
 
+# the serving export, the kernels' operators and Kinetics-Sounds: scanned
+# like every other module of the port
+EXPORT_SLICE = ("mmtpu_torch/ops/library.py", "mmtpu_torch/serving/export.py",
+                "mmtpu_torch/data/kinetics_sounds.py", "mmtpu_torch/models/kinetics_sounds.py")
+
+
+@pytest.mark.parametrize("rel", EXPORT_SLICE)
+def test_the_export_slice_is_scanned(rel):
+    assert REPO / rel in PORT_FILES
+
+
 def test_scan_catches_a_forbidden_import():
     tree = ast.parse("import os\nfrom mmtpu.ops import fused_mlp\nimport mmtpu_torch\n")
     assert [n for n, _ in _imports(tree) if n in FORBIDDEN] == ["mmtpu"]
