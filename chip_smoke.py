@@ -170,6 +170,35 @@ FcClassifier 192→[192, 64, 32]→3; batch 32, aligned T = 50):
              Phase 2 also times both kernels' host cost per launch through
              their `torch.library` operators and through `_launch` alone.
 
+13. iemocap, mmimdb chain, recurrent — (a) IEMOCAP's 10-fold CV through
+             `train_multimodal.main` at the widths of MMIN's IEMOCAP UttFusion
+             (comparE 130 → LSTM 128 and denseface 342 → LSTM 128, maxpool;
+             bert_large 1024 → TextCNN 128; FcClassifier 384 → [128, 128] → 4,
+             dropout 0.3), batch 128, Adam 1e-3, 2 epochs per fold, train
+             `atv`, evaluation over the seven patterns, on the repo's fold
+             files (DATA/iemocap/target/1..10: 1024/256/256 per fold) with
+             seeded features fed to the reader's assembling step (the card's
+             machine has no h5py): `lstm` launches equal to the count derived
+             beforehand from the padded lengths the reader gives (one launch
+             per forward where audio and video share T, else two), the
+             three `*_metrics_agg.json`, a profiled window of 8 train steps,
+             three train steps GPU vs CPU. (b) MM-IMDb: phase 12 (c)'s text
+             pretraining, a fine-tune of configs/mmimdb_pretrained_text_only
+             .yaml's model and optimizers at its published widths on
+             `synthetic_mmimdb` at 15,552/2,608/7,799 (batch 128, 1 epoch),
+             then C-MAM image → text over it with `--export-serving` (1
+             epoch): the loaded text encoder's and the teacher's sha256 equal
+             to their files', no launch of either kernel, the C-MAM record
+             keys equal tests/golden/reference_cmam's, the artifact within
+             1e-5 of the eager C-MAM serving function. (c) the recurrent
+             registry encoders (VariationalLSTMEncoder, VariationalLSTMEncoder2
+             with attention, SeqEncoder and DIVEncoder in their LSTM and GRU
+             forms) forward and backward on the card against the CPU at
+             B = 128, T = 64 with the reader's lengths, `lstm` launches exactly
+             as derived. Phase 2 also holds `lstm` at the five new shapes
+             (G, B, T, H) = (2, 128, 64, 128), (1, 128, 64, 256),
+             (2, 128, 64, 130), (2, 128, 64, 342), (2, 128, 64, 1024).
+
     python3 chip_smoke.py --train-only    # build, then phases 5 and 6 alone
     python3 chip_smoke.py --reader-only   # build, the audio pretraining, phase 7
     python3 chip_smoke.py --shipped-only  # build, phase 7's .pt files, phase 8
@@ -182,6 +211,9 @@ FcClassifier 192→[192, 64, 32]→3; batch 32, aligned T = 50):
     python3 chip_smoke.py --export-only   # build, seeded checkpoints, phase 12 (a)
     python3 chip_smoke.py --ks-only       # build, phase 12 (b)
     python3 chip_smoke.py --mono-only     # build, phase 12 (c)
+    python3 chip_smoke.py --iemocap-only  # build, phase 13 (a)
+    python3 chip_smoke.py --mmimdb-chain-only  # build, phase 13 (b) with its pretraining
+    python3 chip_smoke.py --recurrent-only     # build, phase 13 (c)
 
 Prints a `kernels` JSON line, the card's name and power limit, and as the
 last line `{"ok": true, "device": {...}}`. Any failure exits non-zero
@@ -656,14 +688,27 @@ LSTM_CASES = [
     (2, 64, 50, 64, False, False, KERNEL_TOL, False),  # the server's largest micro-batch
     (1, 32, 50, 16, False, False, KERNEL_TOL, True),   # Self-MM's audio AuViSubNet
     (1, 32, 50, 32, False, False, KERNEL_TOL, True),   # Self-MM's video AuViSubNet
+    (2, 128, 64, 128, False, False, KERNEL_TOL, True),  # IEMOCAP's netA and netV stacked
+    (1, 128, 64, 256, False, False, KERNEL_TOL, True),  # VariationalLSTMEncoder at 2 × 128
+    (2, 128, 64, 130, False, False, KERNEL_TOL, True),  # SeqEncoder's audio bi-LSTM
+    (2, 128, 64, 342, False, False, KERNEL_TOL, True),  # SeqEncoder's video bi-LSTM
+    (2, 128, 64, 1024, False, False, KERNEL_TOL, True),  # SeqEncoder's text bi-LSTM
 ]
 SELF_MM_LSTM = ((1, 32, 50, 16), (1, 32, 50, 32))
+PHASE13_LSTM = ((2, 128, 64, 128), (1, 128, 64, 256), (2, 128, 64, 130), (2, 128, 64, 342),
+                (2, 128, 64, 1024))
 # the gradient checks: (G, B, T, H, lengths, non-zero h0/c0)
 LSTM_GRAD_CASES = [(2, 9, 11, 24, True, True), (1, 32, 50, 16, False, False),
                    (1, 32, 50, 32, False, False)]
 LSTM_MAIN = (2, 32, 50, 64)
 LSTM_INPUT_SIZES = (5, 20)  # MOSI audio and video feature widths, by group
-LSTM_LIBRARY_INPUT = {(1, 32, 50, 32): (20,)}  # Self-MM's video LSTM, 20→32
+# per group the library LSTM's input width where it is not MOSI's: Self-MM's
+# video LSTM 20→32; IEMOCAP's comparE 130 and denseface 342; SeqEncoder's
+# streams, whose hidden size is their input width
+LSTM_LIBRARY_INPUT = {(1, 32, 50, 32): (20,), (2, 128, 64, 128): (130, 342),
+                      (1, 128, 64, 256): (130,), (2, 128, 64, 130): (130,),
+                      (2, 128, 64, 342): (342,), (2, 128, 64, 1024): (1024,)}
+SLOW_CALL_MS = 1.0  # a call slower than this is timed over fewer iterations
 
 
 def _lstm_inputs(dev, G, B, T, H, with_len, with_state, seed):
@@ -761,14 +806,17 @@ def phase_kernels_lstm(dev) -> dict:
 
         slow = dict(iters=10, repeats=3, warmup=2)  # the scan is ~10 launches per step
         with torch.no_grad():
+            long_call = event_ms(kernel, iters=2, repeats=1, warmup=1) > SLOW_CALL_MS
+            ev = slow if long_call else {}
+            hv = dict(iters=10, repeats=3) if long_call else {}
             p1 = event_ms(plain, **slow)
-            k1 = event_ms(kernel)
-            k2 = event_ms(kernel)
+            k1 = event_ms(kernel, **ev)
+            k2 = event_ms(kernel, **ev)
             p2 = event_ms(plain, **slow)
-            kh = host_ms(kernel)
-            oh = host_ms(lambda: torch.ops.mmtpu.lstm(xws, whs, h0, c0, lengths))
-            dh = host_ms(lambda: lstm_launch(xws, whs, h0, c0, lengths))
-            kd = own_device_ms(kernel, "lstm")
+            kh = host_ms(kernel, **hv)
+            oh = host_ms(lambda: torch.ops.mmtpu.lstm(xws, whs, h0, c0, lengths), **hv)
+            dh = host_ms(lambda: lstm_launch(xws, whs, h0, c0, lengths), **hv)
+            kd = own_device_ms(kernel, "lstm", calls=10 if long_call else 100)
             pd = device_breakdown(lambda: [plain() for _ in range(3)])["device_ms"] / 3
         bound, bound_by = lstm_bound_ms(G, B, T, H, lengths)
         t = {"ms": statistics.mean([k1, k2]), "plain_ms": statistics.mean([p1, p2]),
@@ -783,11 +831,13 @@ def phase_kernels_lstm(dev) -> dict:
             library, ours, diff = _lstm_library(dev, G, B, T, H, seed)
             if diff > LIBRARY_TOL:
                 raise AssertionError(f"lstm {shape}: nn.LSTM differs by {diff}")
-            l1 = event_ms(library)
-            o1 = event_ms(ours)
-            o2 = event_ms(ours)
-            l2 = event_ms(library)
-            ld = device_breakdown(lambda: [library() for _ in range(100)])["device_ms"] / 100
+            lib_calls = 10 if long_call else 100
+            l1 = event_ms(library, **ev)
+            o1 = event_ms(ours, **ev)
+            o2 = event_ms(ours, **ev)
+            l2 = event_ms(library, **ev)
+            ld = device_breakdown(lambda: [library() for _ in range(lib_calls)])["device_ms"] \
+                / lib_calls
             t.update(library_ms=statistics.mean([l1, l2]), library_device_ms=ld,
                      with_projection_ms=statistics.mean([o1, o2]))
             line += (f"; nn.LSTM ×{G} (projection included) {l1:.4f}/{l2:.4f} ms, device "
@@ -4195,6 +4245,620 @@ def say_phase12(card: str, export: Optional[dict], ks: Optional[dict], mono: Opt
     say_card(card, "[summary] phase 12: " + "; ".join(parts) + f"; phase {seconds:.1f} s")
 
 
+# Phase 13: IEMOCAP's 10-fold CV at MMIN's UttFusion widths, the MM-IMDb
+# chain (text pretraining → the pretrained_text_only fine-tune → C-MAM image
+# → text with its artifact), and the recurrent registry encoders GPU vs CPU.
+# The card's machine has no h5py (PERF.md §4): the IEMOCAP phase
+# feeds the reader's assembling step with seeded features for the repo's
+# fold files, and MM-IMDb runs on `synthetic_mmimdb`.
+IEMOCAP_NAME = "IEMOCAP_UttFusion_CV"
+IEMOCAP_ROOT = ROOT / "DATA" / "iemocap"
+IEMOCAP_FOLDS = 10
+IEMOCAP_SAMPLES = {"train": 1024, "validation": 256, "test": 256}  # per fold, DATA/iemocap/target
+IEMOCAP_BATCH = 128
+IEMOCAP_DIMS = {"audio": 130, "video": 342, "text": 1024}  # comparE, denseface, bert_large
+IEMOCAP_FRAMES = (20, 64)  # frames per utterance, drawn as scripts/make_synthetic_iemocap.py does
+IEMOCAP_MAX_LEN = 64
+IEMOCAP_SNR = {"audio": 0.8, "video": 0.45, "text": 1.3}  # the generator's class signal
+IEMOCAP_SPLITS = {"train": "trn", "validation": "val", "test": "tst"}
+IEMOCAP_PATTERNS = ["atv", "at", "av", "tv", "a", "t", "v"]
+CHAIN_NAMES = {"finetune": "mm_imdb_Pretrained_TextOnly_Training",
+               "cmam": "MM_IMDb_C_MAM_Image_To_Text"}
+CHAIN_BATCH = 128
+RECURRENT_B, RECURRENT_T = 128, 64
+RECURRENT_FWD_TOL = 1e-5  # forward, GPU (TF32 off) vs CPU, of the output's scale
+RECURRENT_GRAD_TOL = 1e-4  # of each parameter's gradient norm
+
+
+def iemocap_pool(seed: int = SEED) -> dict:
+    """Seeded features for every utterance the repo's fold files name: per
+    modality a (T, dim) float32 matrix, T drawn from IEMOCAP_FRAMES for each
+    modality on its own, standard normal noise plus the generator's class
+    signal (a per-class direction scaled by IEMOCAP_SNR)."""
+    from mmtpu_torch.data.iemocap import read_targets
+    from mmtpu_torch.modalities import Modality
+
+    labels = {}
+    for ref in IEMOCAP_SPLITS.values():
+        y, names = read_targets(IEMOCAP_ROOT / "target" / "1", ref)
+        labels.update(zip(names, y.tolist()))
+    g = np.random.default_rng(seed)
+    mods = {m: Modality(m) for m in IEMOCAP_DIMS}
+    protos = {m: g.standard_normal((4, d), dtype=np.float32) / np.sqrt(d)
+              for m, d in IEMOCAP_DIMS.items()}
+    lo, hi = IEMOCAP_FRAMES
+    pool = {}
+    for name in sorted(labels):
+        pool[name] = {}
+        for m, d in IEMOCAP_DIMS.items():
+            x = g.standard_normal((int(g.integers(lo, hi + 1)), d), dtype=np.float32)
+            pool[name][mods[m]] = x + IEMOCAP_SNR[m] * protos[m][labels[name]]
+    return pool
+
+
+@contextlib.contextmanager
+def iemocap_features(pool: dict, shapes: list):
+    """The IEMOCAP reader with its HDF5 step replaced by `pool` (the fold's
+    comparE statistics zeros and ones, as the generator writes them); each
+    assembled split's padded lengths appended to `shapes` as (cv, split,
+    {modality: T})."""
+    from mmtpu_torch.data import iemocap as reader
+
+    real = {n: getattr(reader, n) for n in ("read_targets", "read_split", "assemble")}
+    current = {}
+
+    def read_targets(cv_root, ref_split):
+        current.update(cv=int(Path(cv_root).name), split=ref_split)
+        return real["read_targets"](cv_root, ref_split)
+
+    def read_split(root, names, cv_no, feature_types):
+        dim = IEMOCAP_DIMS["audio"]
+        return ({mod: [pool[n][mod] for n in names] for mod in feature_types},
+                np.zeros(dim, np.float32), np.ones(dim, np.float32))
+
+    def assemble(*a, **k):
+        arrays, lengths = real["assemble"](*a, **k)
+        shapes.append((current["cv"], current["split"],
+                       {str(m): arr.shape[1] for m, arr in arrays.items()}))
+        return arrays, lengths
+
+    for n, fn in (("read_targets", read_targets), ("read_split", read_split),
+                  ("assemble", assemble)):
+        setattr(reader, n, fn)
+    try:
+        yield
+    finally:
+        for n, fn in real.items():
+            setattr(reader, n, fn)
+
+
+def iemocap_expected(pool: dict) -> dict:
+    """Per fold and split the padded lengths the reader will give (each
+    modality's longest utterance in the split, at most IEMOCAP_MAX_LEN), and
+    the `lstm` launches they imply: one per forward where audio and video
+    share T (netA and netV stacked at G = 2), else two (G = 1 each)."""
+    from mmtpu_torch.data.iemocap import read_targets
+    from mmtpu_torch.modalities import Modality
+
+    shapes, total = {}, 0
+    batches = {"train": -(-IEMOCAP_SAMPLES["train"] // IEMOCAP_BATCH),
+               **{s: -(-IEMOCAP_SAMPLES[s] * len(IEMOCAP_PATTERNS) // IEMOCAP_BATCH)
+                  for s in ("validation", "test")}}
+    for cv in range(1, IEMOCAP_FOLDS + 1):
+        per = {}
+        for split, ref in IEMOCAP_SPLITS.items():
+            _, names = read_targets(IEMOCAP_ROOT / "target" / str(cv), ref)
+            T = {m: min(max(pool[n][Modality(m)].shape[0] for n in names), IEMOCAP_MAX_LEN)
+                 for m in IEMOCAP_DIMS}
+            shapes[(cv, ref)] = T
+            per[split] = 1 if T["audio"] == T["video"] else 2
+        total += (TRAIN_EPOCHS * (batches["train"] * per["train"]
+                                  + batches["validation"] * per["validation"])
+                  + batches["test"] * per["test"])
+    return {"shapes": shapes, "batches": batches, "total": total}
+
+
+def iemocap_config(out_root: str, dropout: bool = True) -> dict:
+    """IEMOCAP UttFusion at the widths of MMIN's IEMOCAP baseline (comparE
+    130 → LSTM 128 and denseface 342 → LSTM 128, both maxpool; bert_large
+    1024 → TextCNN 128; FcClassifier 384 → [128, 128] → 4, dropout 0.3),
+    batch 128, Adam 1e-3, 2 epochs per fold, train `atv`, evaluation over the
+    seven patterns, IEMOCAP_FOLDS-fold CV on the repo's fold files. `dropout=False`
+    sets TextCNN's and the classifier's dropout to 0 (the GPU-vs-CPU check)."""
+    def split(name, patterns, **extra):
+        return {"dataset": "iemocap", "data_fp": str(IEMOCAP_ROOT), "split": name,
+                "target_modality": "MULTIMODAL", "batch_size": IEMOCAP_BATCH, **extra,
+                "kwargs": {"norm_method": "trn", "max_len": IEMOCAP_MAX_LEN},
+                "missing_patterns": {
+                    "modalities": {m: {"missing_rate": 0.0} for m in IEMOCAP_DIMS},
+                    "selected_patterns": patterns}}
+
+    return {
+        "experiment": {"name": IEMOCAP_NAME, "seed": SEED, "device": "tpu", "is_train": True,
+                       "is_test": True, "cross_validation": IEMOCAP_FOLDS},
+        "model": {
+            "name": "UttFusion", "model_type": "utt-fusion",
+            "netA": {"__module_spec__": "lstmencoder", "input_size": IEMOCAP_DIMS["audio"],
+                     "hidden_size": 128, "embd_method": "maxpool"},
+            "netV": {"__module_spec__": "lstmencoder", "input_size": IEMOCAP_DIMS["video"],
+                     "hidden_size": 128, "embd_method": "maxpool"},
+            "netT": {"__module_spec__": "textcnn", "input_size": IEMOCAP_DIMS["text"],
+                     "embd_size": 128, "out_channels": 128, "dropout": 0.5 if dropout else 0.0},
+            "netC": {"__module_spec__": "fcclassifier", "input_dim": 384, "layers": [128, 128],
+                     "output_dim": 4, "dropout": 0.3 if dropout else 0.0},
+        },
+        "training": {"epochs": TRAIN_EPOCHS, "early_stopping": False, "num_modalities": 3,
+                     "optimizer": {"name": "Adam", "default_kwargs": {"lr": 0.001}},
+                     "loss_functions": {"cross_entropy": {"loss_name": "cross_entropy",
+                                                          "loss_args": {}, "weight": 1.0}}},
+        "data": {"datasets": {"train": split("train", ["atv"], shuffle=True),
+                              "validation": split("valid", IEMOCAP_PATTERNS),
+                              "test": split("test", IEMOCAP_PATTERNS)}},
+        "metrics": {"metrics": {
+            "F1_Macro": {"function": "sklearn.metrics.f1_score",
+                         "kwargs": {"average": "macro", "zero_division": 0}},
+            "accuracy": {"function": "sklearn.metrics.accuracy_score", "kwargs": {}}},
+            "groups": {"classification": ["F1_Macro", "accuracy"]}},
+        "logging": {
+            "log_path": f"{out_root}/{{experiment_name}}/logs/{{run_id}}",
+            "model_output_path": f"{out_root}/{{experiment_name}}/models/{{run_id}}",
+            "metrics_path": f"{out_root}/{{experiment_name}}/metrics/{{run_id}}",
+            "save_metric": "F1_Macro_ATV"},
+        "monitoring": {"enabled": False},
+    }
+
+
+def phase_iemocap_check(dev, cfg_path: Path) -> dict:
+    """Fold 1's first three train steps from the same initial weights
+    (dropout 0, TF32 off) on the card and on the CPU: losses (step 1 at
+    UTT_LOSS_RTOL, steps 2-3 at TRAIN_LATER_RTOL) and the step-1 gradient of
+    every parameter within UTT_GRAD_TOL of its norm."""
+    import torch
+
+    cfg, batches = _train_batches(cfg_path, 3)
+    losses, grads = {}, {}
+    for label, device in (("gpu", dev), ("cpu", torch.device("cpu"))):
+        model, _, step = _training_setup(cfg, device)
+        losses[label] = []
+        for b in batches:
+            losses[label].append(float(step(b)["loss"]))
+            grads.setdefault(label, {n: p.grad.detach().cpu().clone()
+                                     for n, p in model.named_parameters()})
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses["gpu"], losses["cpu"])]
+    err = _grad_errors(grads["gpu"], grads["cpu"])
+    say(f"[iemocap check] float32 losses of steps 1-3, GPU {losses['gpu']}, CPU "
+        f"{losses['cpu']}: relative {rel} (tolerances {UTT_LOSS_RTOL}, then "
+        f"{TRAIN_LATER_RTOL}); step-1 gradients, {len(err)} parameters: worst "
+        f"{max(err.values()):.3e} of its norm (tolerance {UTT_GRAD_TOL}), whole "
+        f"{_whole_error(grads['gpu'], grads['cpu']):.3e}, worst {_worst(err)}; TF32 off")
+    if rel[0] > UTT_LOSS_RTOL or max(rel[1:]) > TRAIN_LATER_RTOL:
+        raise AssertionError(f"[iemocap check] GPU and CPU losses differ: {rel}")
+    if max(err.values()) > UTT_GRAD_TOL:
+        raise AssertionError(f"[iemocap check] step-1 gradients differ: {_worst(err)}")
+    return {"loss_rel": rel, "grad_err": max(err.values())}
+
+
+def phase_iemocap(dev, card: str, work: Path, pool: dict) -> dict:
+    """Phase 13 (a): IEMOCAP's 10-fold CV through `train_multimodal.main` on
+    the card; `lstm` launches equal to the count derived beforehand from the
+    reader's padded lengths (and those lengths equal to what the reader gave);
+    the three `*_metrics_agg.json`; a profiled window of 8 fold-1 train steps;
+    GPU vs CPU steps."""
+    import torch
+
+    from mmtpu_torch.cli import train_multimodal
+
+    out_root = work / "iemocap"
+    cfg_path = work / "iemocap.json"
+    cfg_path.write_text(json.dumps(iemocap_config(str(out_root))))
+    expected = iemocap_expected(pool)
+    shapes = []
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    reset_counts()
+    t0 = time.perf_counter()
+    with iemocap_features(pool, shapes):
+        rc = train_multimodal.main(["--config", str(cfg_path), "--run_id", "1"])
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    if rc != 0:
+        raise AssertionError(f"[iemocap] exit code {rc}")
+    got = {(cv, ref): T for cv, ref, T in shapes}
+    if len(shapes) != 3 * IEMOCAP_FOLDS or got != expected["shapes"]:
+        raise AssertionError(f"[iemocap] the reader's padded lengths {shapes} are not the "
+                             f"derived {expected['shapes']}")
+    if counts != {"fused_mlp": 0, "lstm": expected["total"]}:
+        raise AssertionError(f"[iemocap] launches {counts}, derived lstm {expected['total']} "
+                             f"(batches per fold {expected['batches']}) and no fused_mlp")
+    metrics = out_root / IEMOCAP_NAME / "metrics" / "1"
+    rates = []
+    for fold in range(1, IEMOCAP_FOLDS + 1):
+        epochs = [e for e in json.loads((metrics / f"fold_{fold}/epoch_metrics.json")
+                                        .read_text()) if "epoch" in e]
+        if len(epochs) != TRAIN_EPOCHS or not np.isfinite(epochs[-1]["train"]["loss"]):
+            raise AssertionError(f"[iemocap] fold {fold}: {len(epochs)} epochs")
+        rates.append(IEMOCAP_SAMPLES["train"] / epochs[-1]["train"]["timing"]["total_time"])
+    agg = {s: json.loads((metrics / f"{s}_metrics_agg.json").read_text())
+           for s in ("train", "validation", "test")}
+    keys = {s: sorted(a[0]) for s, a in agg.items()}
+    want_test = {"loss"} | {f"{m}_{p.upper()}" for m in ("F1_Macro", "accuracy")
+                            for p in IEMOCAP_PATTERNS}
+    if set(keys["test"]) != want_test or len(agg["validation"]) != TRAIN_EPOCHS or not all(
+            np.isfinite(v) for v in agg["test"][0].values()):
+        raise AssertionError(f"[iemocap] aggregates {keys}")
+    T = sorted({tuple(sorted(t.items())) for t in got.values()})
+    say_card(card, f"[iemocap] {IEMOCAP_FOLDS} folds through train_multimodal.main in "
+             f"{seconds:.2f} s (the seeded features' assembly, start-up and checkpoints "
+             f"included); epoch {TRAIN_EPOCHS} train samples/s per fold "
+             f"{[round(r, 1) for r in rates]} (B={IEMOCAP_BATCH}, "
+             f"{IEMOCAP_SAMPLES['train']} samples)")
+    say(f"[iemocap] padded lengths the reader gave (distinct per split): {T}; lstm launches "
+        f"{counts['lstm']} = the derived {expected['total']} (batches per fold "
+        f"{expected['batches']}); fused_mlp {counts['fused_mlp']}; aggregate keys {keys}; "
+        f"test ATV {({k: round(v, 4) for k, v in agg['test'][0].items() if k.endswith('ATV')})}")
+    profile = phase_iemocap_profile(dev, card, cfg_path, pool)
+    check_path = work / "iemocap_check.json"
+    check_path.write_text(json.dumps(iemocap_config(str(out_root), dropout=False)))
+    with iemocap_features(pool, []):
+        check = phase_iemocap_check(dev, check_path)
+    return {"seconds": seconds, "samples_per_s": rates, "launches": counts,
+            "profile": profile, "check": check}
+
+
+def phase_iemocap_profile(dev, card: str, cfg_path: Path, pool: dict, steps: int = 8) -> dict:
+    """A window of fold-1 train steps under the profiler (the train split's 8
+    batches after 3 warm-up steps): kernels and launch calls per step, the
+    device's time and busy share, `lstm` per step as the reader's T gives."""
+    import torch
+
+    shapes = []
+    with iemocap_features(pool, shapes):
+        cfg, batches = _train_batches(cfg_path, 3 + steps)
+    T = shapes[0][2]
+    per_step = 1 if T["audio"] == T["video"] else 2
+    _, _, step = _training_setup(cfg, dev)
+    for b in batches[:3]:
+        step(b)
+    torch.cuda.synchronize()
+    reset_counts()
+    brk = device_breakdown(lambda: [step(b) for b in batches[3:]], top=8)
+    counts = read_counts()
+    busy = brk["device_ms"] / brk["profiled_wall_ms"]
+    say_card(card, f"[iemocap profile] {steps} train steps (B={IEMOCAP_BATCH}, T {T}): "
+             f"{brk['kernel_events'] / steps:.1f} device kernels and "
+             f"{brk['launch_calls'] / steps:.1f} launch calls per step; device "
+             f"{brk['device_ms'] / steps:.3f} ms per step of {brk['profiled_wall_ms'] / steps:.3f}"
+             f" ms wall, busy share {busy:.3f}; lstm launches {counts['lstm']} (device "
+             f"{brk['own_ms']['lstm']:.4f} ms); top device operations (name, ms, count) "
+             f"{brk['top']}; top host operations (name, ms, count) {brk['top_host']}")
+    if counts["lstm"] != per_step * steps:
+        raise AssertionError(f"[iemocap profile] lstm {counts['lstm']} in {steps} steps")
+    return {"busy_share": busy, "kernels_per_step": brk["kernel_events"] / steps,
+            "launch_calls_per_step": brk["launch_calls"] / steps,
+            "device_ms_per_step": brk["device_ms"] / steps}
+
+
+def chain_configs(out_root: str, handoff: Path) -> dict:
+    """configs/mmimdb_pretrained_text_only.yaml's model and optimizers at its
+    published widths (MMIMDbModalityEncoder 4096 / 300 → 512, GMU 512,
+    classifier 512 → 512 → 23; Adam 1e-5 with the encoders' group at 1e-6,
+    L2 1e-3; batch 128; its four F1s; an embeddings split) on
+    `synthetic_mmimdb` at MM-IMDb's split sizes, 1 epoch, loading the text
+    handoff; and C-MAM image → text over its best checkpoint (the image
+    encoder copied, an AssociationNetwork 512 → 256 → 512 with BatchNorm,
+    the `cmam` loss without its classification term, the four F1s and mae /
+    mse / cosine: the reference's C-MAM record keys), 1 epoch."""
+    import copy
+
+    fine = mmimdb_config(out_root)
+    fine["experiment"]["name"] = CHAIN_NAMES["finetune"]
+    fine["model"]["pretrained_encoders"] = {"text": str(handoff)}
+    def adam(lr):
+        return {"name": "Adam", "default_kwargs": {"lr": lr, "weight_decay": 0.001}}
+
+    fine["training"].update(epochs=1, optimizer=adam(0.00001), encoder_optimizer=adam(0.000001))
+    datasets = fine["data"]["datasets"]
+    for split in datasets.values():
+        split["batch_size"] = CHAIN_BATCH
+    datasets["embeddings"] = copy.deepcopy(datasets["test"])
+    f1 = {f"f1_{avg}": {"function": "sklearn.metrics.f1_score",
+                        "kwargs": {"average": avg, "zero_division": 0}}
+          for avg in ("samples", "macro", "weighted", "micro")}
+    fine["metrics"] = {"metrics": f1, "groups": {"classification": list(f1)}}
+
+    cmam = {k: copy.deepcopy(fine[k]) for k in ("logging", "monitoring")}
+    cmam["experiment"] = {**fine["experiment"], "name": CHAIN_NAMES["cmam"]}
+    cmam["model"] = {k: v for k, v in copy.deepcopy(fine["model"]).items()
+                     if k != "pretrained_encoders"}
+    cmam["model"]["pretrained_path"] = (f"{out_root}/{CHAIN_NAMES['finetune']}/models/"
+                                        "{run_id}/best.ckpt")
+    cmam["cmam"] = {
+        "name": "CMAM", "model_type": "CMAM", "target_modality": "text",
+        "load_pretrained_encoder_state_for": ["image"],
+        "input_encoders": {"__module_spec__": "input_encoders",
+                           "image": copy.deepcopy(fine["model"]["image_encoder"])},
+        "association_network": {"__module_spec__": "association_network", "input_size": 512,
+                                "hidden_size": 256, "output_size": 512, "batch_norm": True,
+                                "dropout": 0.0}}
+    cmam["target_modality"] = "text"
+    cmam["training"] = {
+        "epochs": 1, "early_stopping": False, "num_modalities": 2,
+        "optimizer": {"name": "Adam", "default_kwargs": {"lr": 0.001, "weight_decay": 0.0001}},
+        "loss_functions": {"cmam": {"loss_name": "cmam", "weight": 1.0, "loss_kwargs": {
+            "cosine_weight": 1.0, "mae_weight": 1.0, "mse_weight": 1.0, "cls_weight": 0.0}}}}
+    cmam["data"] = {"datasets": copy.deepcopy(
+        {k: v for k, v in datasets.items() if k != "embeddings"})}
+    for split in cmam["data"]["datasets"].values():
+        split["missing_patterns"]["selected_patterns"] = ["it"]
+    cmam["metrics"] = {"metrics": {**f1, **{
+        "mae": {"function": "sklearn.metrics.mean_absolute_error", "kwargs": {}},
+        "mse": {"function": "sklearn.metrics.mean_squared_error", "kwargs": {}},
+        "cosine": {"function": "metrics.cosine_similarity", "kwargs": {}}}},
+        "groups": {"classification": list(f1), "reconstruction": ["mae", "mse", "cosine"]}}
+    return {"finetune": fine, "cmam": cmam}
+
+
+def phase_mmimdb_chain(dev, card: str, work: Path, handoff: Optional[Path] = None) -> dict:
+    """Phase 13 (b): the MM-IMDb text pretraining (phase 12 (c)'s handoff
+    where it ran), the pretrained_text_only fine-tune, C-MAM image → text
+    with `--export-serving`, all through their `main`s on the card: the
+    loaded text encoder's sha256 equal to its file's, the teacher's equal to
+    its file's before and after C-MAM, no launch of either kernel, the C-MAM
+    record keys equal tests/golden/reference_cmam's, the artifact within
+    EXPORT_TOL of the eager C-MAM serving function on the card."""
+    import torch
+
+    from mmtpu_torch.cli import common, train_cmam, train_monomodal, train_multimodal
+    from mmtpu_torch.serving import load_artifact, make_cmam_serving_fn
+    from mmtpu_torch.train import cmam_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out_root = work / "chain"
+    reset_counts()
+    if handoff is None:
+        mono_path = work / "chain_mono.json"
+        mono_path.write_text(json.dumps(mono_configs(str(out_root))["mmimdb"]))
+        mono = _run_cli(train_monomodal, mono_path, "[chain mono]", out_root,
+                        MONO_NAMES["mmimdb"], train_samples=MMIMDB_SAMPLES["train"])
+        handoff = mono["models"] / "encoder_text_best.pth"
+        say_card(card, f"[chain] text pretraining: {mono['seconds']:.2f} s through "
+                 f"train_monomodal.main, epoch {TRAIN_EPOCHS} {mono['samples_per_s']:.1f} "
+                 "samples/s")
+    paths = {}
+    for key, cfg in chain_configs(str(out_root), handoff).items():
+        paths[key] = work / f"chain_{key}.json"
+        paths[key].write_text(json.dumps(cfg))
+
+    loaded, real_load = {}, common.load_pretrained_encoders
+
+    def spy(model, pretrained, logging_cfg):
+        out = real_load(model, pretrained, logging_cfg)
+        loaded["text"] = _state_hash(model.text_encoder.state_dict())
+        return out
+
+    common.load_pretrained_encoders = spy
+    try:
+        t0 = time.perf_counter()
+        rc = train_multimodal.main(["--config", str(paths["finetune"]), "--run_id", "1"])
+        fine_s = time.perf_counter() - t0
+    finally:
+        common.load_pretrained_encoders = real_load
+    if rc != 0:
+        raise AssertionError(f"[chain] fine-tune exit code {rc}")
+    in_file = _state_hash(torch.load(handoff, map_location="cpu", weights_only=True))
+    if loaded.get("text") != in_file:
+        raise AssertionError(f"[chain] the fine-tune's text encoder {loaded.get('text')} is not "
+                             f"its file's {in_file}")
+    fine_metrics = out_root / CHAIN_NAMES["finetune"] / "metrics/1"
+    fine_epoch = json.loads((fine_metrics / "epoch_metrics.json").read_text())[0]
+    fine_rate = MMIMDB_SAMPLES["train"] / fine_epoch["train"]["timing"]["total_time"]
+    best = out_root / CHAIN_NAMES["finetune"] / "models/1/best.pth"
+    teacher_file = _state_hash(torch.load(best, map_location="cpu", weights_only=True)["model"])
+
+    teachers, real_post = [], cmam_step.CMAMTask.__post_init__
+
+    def post(task):
+        real_post(task)
+        teachers.append((task.base_model, _state_hash(task.base_model.state_dict())))
+
+    art = work / "chain_cmam.mmx"
+    cmam_step.CMAMTask.__post_init__ = post
+    try:
+        t0 = time.perf_counter()
+        with _timed_export() as times:
+            rc = train_cmam.main(["--config", str(paths["cmam"]), "--run_id", "1",
+                                  "--export-serving", str(art)])
+        cmam_s = time.perf_counter() - t0
+    finally:
+        cmam_step.CMAMTask.__post_init__ = real_post
+    if rc != 0:
+        raise AssertionError(f"[chain] train_cmam exit code {rc}")
+    counts = read_counts()
+    (teacher, before), = teachers
+    after = _state_hash(teacher.state_dict())
+    if not before == after == teacher_file:
+        raise AssertionError(f"[chain] teacher sha256: file {teacher_file}, restored {before}, "
+                             f"after the run {after}")
+    if counts != {"fused_mlp": 0, "lstm": 0}:
+        raise AssertionError(f"[chain] launches {counts}; the chain runs neither kernel")
+    metrics = out_root / CHAIN_NAMES["cmam"] / "metrics/1"
+    golden = ROOT / "tests/golden/reference_cmam"
+    cmam_rate = None
+    for split in ("train", "validation", "test"):
+        ours = json.loads((metrics / f"{split}_metrics.json").read_text())
+        gold = json.loads((golden / f"{split}_metrics.json").read_text())
+        for group in ("classification", "reconstruction"):
+            if set(ours[0][group]) != set(gold[0][group]):
+                raise AssertionError(f"[chain] {split} {group} keys {sorted(ours[0][group])}, "
+                                     f"the reference's {sorted(gold[0][group])}")
+        if set(ours[0]) != set(gold[0]) or not np.isfinite(ours[0]["loss"]):
+            raise AssertionError(f"[chain] {split} record keys {sorted(ours[0])}, the "
+                                 f"reference's {sorted(gold[0])}")
+    test_record = json.loads((metrics / "test_metrics.json").read_text())[0]
+    cmam_epoch = json.loads((metrics / "epoch_metrics.json").read_text())[0]
+    cmam_rate = MMIMDB_SAMPLES["train"] / cmam_epoch["train"]["timing"]["total_time"]
+
+    served = load_artifact(art, dev)
+    meta = served.meta
+    if (meta["task_type"], meta["imputes"], meta["input_keys"]) != ("cmam", ["text"],
+                                                                    ["image"]):
+        raise AssertionError(f"[chain] artifact meta {meta}")
+    ccfg = _cmam_config(paths["cmam"])
+    built = train_cmam.assemble(ccfg, dev)
+    state = torch.load(out_root / CHAIN_NAMES["cmam"] / "models/1/best.pth", map_location=dev,
+                       weights_only=False)
+    built.cmam.load_state_dict(state["model"])
+    eager = make_cmam_serving_fn(built.task)
+
+    def reference(**ins):
+        with torch.inference_mode():
+            out = eager(torch.from_numpy(ins["image"]).to(dev))
+        return {k: v.cpu().numpy() for k, v in out.items()}
+
+    batches = _masked_batches(ccfg.data.build_loader("test", seed=SEED), ["image"])
+    for fn in (served, reference):
+        fn(**batches[0])
+    art_out, art_s = _serving_pass(served, batches)
+    ref_out, ref_s = _serving_pass(reference, batches)
+    err = _max_diff(art_out, ref_out)
+    say_card(card, f"[chain] fine-tune of mmimdb_pretrained_text_only's model: {fine_s:.2f} s "
+             f"through train_multimodal.main (1 epoch, {fine_rate:.1f} train samples/s, "
+             f"B={CHAIN_BATCH}); text encoder sha256 {in_file[:16]} = its handoff's; C-MAM "
+             f"image → text: {cmam_s:.2f} s through train_cmam.main (1 epoch, "
+             f"{cmam_rate:.1f} train samples/s, export {times[-1]:.2f} s, "
+             f"{art.stat().st_size / 2**20:.1f} MiB); teacher sha256 {after[:16]} = its "
+             f"file's before and after; launches {counts}; artifact over "
+             f"{MMIMDB_SAMPLES['test']} test visits {art_s:.3f} s vs eager {ref_s:.3f} s, max "
+             f"|artifact - eager| {err:.3e} (tolerance {EXPORT_TOL})")
+    say(f"[chain] C-MAM record keys = tests/golden/reference_cmam's; test record "
+        f"{ {k: v for k, v in test_record.items() if k != 'index'} }")
+    if err > EXPORT_TOL:
+        raise AssertionError(f"[chain] the artifact differs from the eager forward by {err}")
+    return {"finetune_samples_per_s": fine_rate, "cmam_samples_per_s": cmam_rate,
+            "launches": counts, "err": err}
+
+
+def recurrent_cases() -> dict:
+    """name → (module factory, positional inputs' widths or None for the
+    lengths, expected `lstm` launches per forward). Widths at IEMOCAP's
+    feature sizes and the SeqEncoder's 128-wide output."""
+    from mmtpu_torch.models import domain, variational
+
+    a, v, t = (IEMOCAP_DIMS[m] for m in ("audio", "video", "text"))
+    return {
+        "VariationalLSTMEncoder(130, 128)": (
+            lambda: variational.VariationalLSTMEncoder(a, 128), [a, "audio"], 1),
+        "VariationalLSTMEncoder2(342, 128, attention)": (
+            lambda: variational.VariationalLSTMEncoder2(v, 128, "attention"), [v, "video"], 1),
+        "SeqEncoder(130, 1024, 342, 128, lstm)": (
+            lambda: domain.SeqEncoder(a, t, v, 128, proj_type="lstm"),
+            [t, v, a, "text"], 3),
+        "DIVEncoder(128, 128, rnn lstm, avg, disc)": (
+            lambda: domain.DIVEncoder(128, 128, prj_type="rnn", rnn_type="lstm",
+                                      rdc_type="avg", use_disc=True),
+            [128, 128, "text"], 2),
+        "SeqEncoder(130, 1024, 342, 128, gru)": (
+            lambda: domain.SeqEncoder(a, t, v, 128, proj_type="gru"), [t, v, a, "text"], 0),
+        "DIVEncoder(128, 128, rnn gru, last)": (
+            lambda: domain.DIVEncoder(128, 128, prj_type="rnn", rnn_type="gru",
+                                      rdc_type="last"), [128, 128, "text"], 0),
+    }
+
+
+def phase_recurrent(dev, pool: dict) -> dict:
+    """Phase 13 (c): each recurrent encoder's forward and one backward on the
+    card against the port on the CPU from the same seeded weights (eval mode:
+    ε = 0, no dropout; TF32 off), at B = 128, T = 64 with the IEMOCAP
+    reader's lengths for fold 1's first 128 train utterances; the `lstm`
+    launches of the forward exactly as derived."""
+    import copy
+
+    import torch
+
+    from mmtpu_torch.cli import common
+    from mmtpu_torch.data.iemocap import assemble, read_targets
+    from mmtpu_torch.modalities import Modality
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _, names = read_targets(IEMOCAP_ROOT / "target" / "1", "trn")
+    names = names[:RECURRENT_B]
+    _, lengths = assemble({Modality(m): [pool[n][Modality(m)] for n in names]
+                           for m in IEMOCAP_DIMS}, None, None, "trn", IEMOCAP_MAX_LEN)
+    g = np.random.default_rng(SEED)
+    cpu = torch.device("cpu")
+    results = {}
+    for name, (factory, widths, launches) in recurrent_cases().items():
+        args = [torch.from_numpy(g.standard_normal((RECURRENT_B, RECURRENT_T, w),
+                                                   dtype=np.float32))
+                if isinstance(w, int) else torch.from_numpy(lengths[Modality(w)].astype(np.int64))
+                for w in widths]
+        module = common.init_model(factory(), SEED, cpu).eval()
+        twins = {"cpu": module, "gpu": copy.deepcopy(module).to(dev)}
+        outs, grads, counted = {}, {}, None
+        for label, m in twins.items():
+            device = cpu if label == "cpu" else dev
+            reset_counts()
+            leaves = _output_leaves(m(*[x.to(device) for x in args]))
+            if label == "gpu":
+                counted = read_counts()
+            gen = torch.Generator().manual_seed(SEED)
+            cots = [torch.randn(x.shape, generator=gen).to(device) for x in leaves]
+            sum((x * c).sum() for x, c in zip(leaves, cots)).backward()
+            outs[label] = [x.detach().cpu().double() for x in leaves]
+            grads[label] = {n: p.grad.detach().cpu().clone() for n, p in m.named_parameters()
+                            if p.grad is not None}
+        scale = max(max(x.abs().max().item() for x in outs["cpu"]), 1.0)
+        fwd_err = max((a - b).abs().max().item() for a, b in zip(outs["gpu"], outs["cpu"])) / scale
+        gerr = _grad_errors(grads["gpu"], grads["cpu"])
+        say(f"[recurrent] {name}: forward max |GPU - CPU| {fwd_err:.3e} of the output's scale "
+            f"{scale:.3g} (tolerance {RECURRENT_FWD_TOL}); gradients of {len(gerr)} parameters: "
+            f"worst {max(gerr.values()):.3e} of its norm (tolerance {RECURRENT_GRAD_TOL}), "
+            f"{_worst(gerr, 2)}; lstm launches in the forward {counted['lstm']} (derived "
+            f"{launches})")
+        if counted != {"fused_mlp": 0, "lstm": launches}:
+            raise AssertionError(f"[recurrent] {name}: launches {counted}, derived {launches}")
+        if set(gerr) != {n for n, _ in module.named_parameters()}:
+            raise AssertionError(f"[recurrent] {name}: parameters without a gradient")
+        if fwd_err > RECURRENT_FWD_TOL or max(gerr.values()) > RECURRENT_GRAD_TOL:
+            raise AssertionError(f"[recurrent] {name}: GPU and CPU differ: forward {fwd_err}, "
+                                 f"gradients {_worst(gerr)}")
+        results[name] = {"fwd_err": fwd_err, "grad_err": max(gerr.values()),
+                         "launches": counted["lstm"]}
+    return results
+
+
+def _output_leaves(out) -> list:
+    """The tensors of a nested output (dicts in key order by name), None
+    dropped."""
+    if out is None:
+        return []
+    if isinstance(out, dict):
+        return [x for k in sorted(out, key=str) for x in _output_leaves(out[k])]
+    if isinstance(out, (tuple, list)):
+        return [x for o in out for x in _output_leaves(o)]
+    return [out]
+
+
+def say_phase13(card: str, iemocap: Optional[dict], chain: Optional[dict],
+                recurrent: Optional[dict], seconds: float) -> None:
+    parts = []
+    if iemocap:
+        parts.append(f"IEMOCAP {IEMOCAP_FOLDS} folds in {iemocap['seconds']:.1f} s, epoch-2 "
+                     f"train samples/s {min(iemocap['samples_per_s']):.1f}–"
+                     f"{max(iemocap['samples_per_s']):.1f}, lstm {iemocap['launches']['lstm']}, busy "
+                     f"share {iemocap['profile']['busy_share']:.3f}")
+    if chain:
+        parts.append(f"MM-IMDb fine-tune {chain['finetune_samples_per_s']:.1f} and C-MAM "
+                     f"{chain['cmam_samples_per_s']:.1f} train samples/s, artifact "
+                     f"{chain['err']:.3e}")
+    if recurrent:
+        parts.append("recurrent encoders lstm " + ", ".join(
+            f"{r['launches']}" for r in recurrent.values()))
+    say_card(card, "[summary] phase 13: " + "; ".join(parts) + f"; phase {seconds:.1f} s")
+
+
 def kernel_record(name: str, source: str, replaces: str, shape: str, kern: dict, t: dict,
                   pred: dict, srv: dict) -> dict:
     return {
@@ -4255,6 +4919,15 @@ def main(argv=None) -> int:
     parser.add_argument("--mono-only", action="store_true",
                         help="build the kernels and run phase 12's monomodal part alone (no "
                              "kernels or ok line)")
+    parser.add_argument("--iemocap-only", action="store_true",
+                        help="build the kernels and run phase 13's IEMOCAP CV alone (no "
+                             "kernels or ok line)")
+    parser.add_argument("--mmimdb-chain-only", action="store_true",
+                        help="build the kernels and run phase 13's MM-IMDb chain alone, its "
+                             "text pretraining included (no kernels or ok line)")
+    parser.add_argument("--recurrent-only", action="store_true",
+                        help="build the kernels and run phase 13's recurrent encoders alone "
+                             "(no kernels or ok line)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU",
@@ -4362,6 +5035,18 @@ def main(argv=None) -> int:
             shutil.rmtree(work, ignore_errors=True)
         return 0
 
+    if args.iemocap_only or args.mmimdb_chain_only or args.recurrent_only:
+        try:
+            t0 = time.perf_counter()
+            pool = iemocap_pool() if args.iemocap_only or args.recurrent_only else None
+            iemocap = phase_iemocap(dev, smi, work, pool) if args.iemocap_only else None
+            chain = phase_mmimdb_chain(dev, smi, work) if args.mmimdb_chain_only else None
+            recurrent = phase_recurrent(dev, pool) if args.recurrent_only else None
+            say_phase13(smi, iemocap, chain, recurrent, time.perf_counter() - t0)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        return 0
+
     mlp = phase_kernels_mlp(dev)
     lstm = phase_kernels_lstm(dev)
     try:
@@ -4396,9 +5081,15 @@ def main(argv=None) -> int:
                               utt["run"]["models"] / "best.pth", av_srv["requests_per_s"])
         ks = phase_ks(dev, smi, work)
         mono = phase_mono(dev, smi, work)
-        t_train, t_utt, t_reader, t_shipped, t_cmam, t_msa, t_11, t_12 = (
+        t_13 = time.perf_counter()
+        pool = iemocap_pool()
+        iemocap = phase_iemocap(dev, smi, work, pool)
+        chain = phase_mmimdb_chain(dev, smi, work,
+                                   mono["runs"]["mmimdb"]["models"] / "encoder_text_best.pth")
+        recurrent = phase_recurrent(dev, pool)
+        t_train, t_utt, t_reader, t_shipped, t_cmam, t_msa, t_11, t_12, t_13 = (
             t_utt - t_train, t_reader - t_utt, t_shipped - t_reader, t_cmam - t_shipped,
-            t_msa - t_cmam, t_11 - t_msa, t_12 - t_11, time.perf_counter() - t_12)
+            t_msa - t_cmam, t_11 - t_msa, t_12 - t_11, t_13 - t_12, time.perf_counter() - t_13)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -4432,6 +5123,7 @@ def main(argv=None) -> int:
     say_msa(smi, msa, t_msa)
     say_phase11(smi, self_mm, mmimdb, t_11)
     say_phase12(smi, export, ks, mono, t_12)
+    say_phase13(smi, iemocap, chain, recurrent, t_13)
     say(f"[summary] fused_mlp B=1024 {json.dumps(mlp['timings'][1024])}")
     for batch, t in mlp["shipped"].items():
         say(f"[summary] fused_mlp {SHIPPED_HEAD_DIMS} B={batch} {json.dumps(t)}")
@@ -4453,6 +5145,8 @@ def main(argv=None) -> int:
          "mmimdb_launches": mmimdb["launches"]["fused_mlp"],
          "artifact_launches": export["avmnist"]["launches"],
          "ks_launches": ks["launches"]["fused_mlp"],
+         "iemocap_launches": iemocap["launches"]["fused_mlp"],
+         "mmimdb_chain_launches": chain["launches"]["fused_mlp"],
          "shipped_head": {"dims": SHIPPED_HEAD_DIMS, "max_abs_err": mlp["shipped_err"],
                           **{f"B={b}": t for b, t in mlp["shipped"].items()}}},
         {**kernel_record("lstm", "mmtpu_torch/ops/csrc/lstm.cu", "mmtpu/ops/lstm.py:61",
@@ -4467,8 +5161,13 @@ def main(argv=None) -> int:
          "dual_cmam_artifact_launches": export["dual"]["launches"],
          "mono_lstm_launches": mono["launches"]["audio"]["lstm"],
          "ks_launches": ks["launches"]["lstm"],
+         "iemocap_launches": iemocap["launches"]["lstm"],
+         "mmimdb_chain_launches": chain["launches"]["lstm"],
+         "recurrent_launches": {k: r["launches"] for k, r in recurrent.items()},
          "self_mm_shapes": {"G={}, B={}, T={}, H={}".format(*k): lstm["timings"][k]
                             for k in SELF_MM_LSTM},
+         "phase13_shapes": {"G={}, B={}, T={}, H={}".format(*k): lstm["timings"][k]
+                            for k in PHASE13_LSTM},
          "with_projection_ms": lstm["timings"][LSTM_MAIN]["with_projection_ms"],
          "grad_max_abs_err": lstm["grad_err"],
          "serial_steps": T},

@@ -48,6 +48,13 @@ port `state_dict` under the reference's torch key names:
   cells `OptimizedLSTMCell_{n}` the same way (flax binds the cell an
   `nn.RNN` is given to the RNN's parent, numbered in creation order), and
   `linear_1`;
+- the domain encoders (`DIVEncoder`, `SeqEncoder`) keep flax's cells too,
+  `OptimizedLSTMCell_{n}` and `GRUCell_{n}` (`ir`, `iz`, `in` with bias,
+  `hr`, `hz` without, `hn` with), by the same rule; SeqEncoder's 1-D
+  convolutions `proj_{a,t,v}` (kernel (K, I, O)) → Conv1d weight (O, I, K);
+  a LanguageEmbeddingLayer's `embed` table and `bert_model/bert/...` tree
+  map as BERT's do; the variational encoders' `rnn`, `cnn`, `wi`, `wh`,
+  `attention_*`, `enc*`/`dec*` and `enc_bn` by the rules above;
 - a MaxOut's `units` kernel (in, units·out) → Linear weight (units·out,
   in): the port reshapes the output (…, units, out) as flax does;
 - Kinetics-Sounds (`audio_encoder/conv_block_{one,two,three}`, `fc_one`,
@@ -92,6 +99,7 @@ MNIST_FLATTENS = ((64, 7, 7), (64, 5, 15))
 _PARAM_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias", "embedding": "weight"}
 _RAW_LEAVES = {"wh": 2, "attention_vector_weight": 2}  # name → rank, kept as they are
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
+_CONV1D = re.compile(r"proj_[atv]")  # SeqEncoder's 1-D convolutions (rank-3 kernels)
 
 
 def _child_name(tree: Mapping[str, Any], key: str) -> str:
@@ -222,6 +230,8 @@ def from_jax_variables(
                 value = value.transpose(3, 2, 0, 1)
             elif value.ndim == 2:  # Dense (in, out) → Linear (out, in)
                 value = value.T
+            elif value.ndim == 3 and _CONV1D.fullmatch(path.rsplit("/", 1)[-1]):
+                value = value.transpose(2, 1, 0)  # 1-D conv (K, I, O) → (O, I, K)
             elif value.ndim == 3 and path.rsplit("/", 1)[-1] == "out":  # (heads, hd, d)
                 value = value.reshape(-1, value.shape[-1]).T
             elif value.ndim == 3:  # attention query/key/value (d, heads, hd)

@@ -103,7 +103,7 @@ def assemble(cfg, device: torch.device) -> CMAMRun:
 
     seed = cfg.experiment.seed
     base = common.init_model(common.build_model_from_config(cfg.model), seed, device)
-    pretrained = cfg.model.kwargs.get("pretrained_path")
+    pretrained = cfg.model.pretrained_path
     if pretrained:
         report = load_encoder_checkpoint(cfg.logging.format_path(str(pretrained)), base)
         print(f"restored base model from {report.path} ({report.format})", flush=True)

@@ -5,6 +5,7 @@ from mmtpu_torch.models.avmnist import AVMNIST, MNISTAudio, MNISTImage, Monomoda
 from mmtpu_torch.models.bert_text import BertModel, BertTextEncoder
 from mmtpu_torch.models.cmam import CMAM, AssociationNetwork, DualCMAM, InputEncoders
 from mmtpu_torch.models.conv import ConvBlock, ConvBlockArgs, avg_pool, max_pool
+from mmtpu_torch.models.domain import DIVEncoder, LanguageEmbeddingLayer, SeqEncoder
 from mmtpu_torch.models.fc import FcClassifier, FcEncoder, MaxPoolFc, SimpleClassifier
 from mmtpu_torch.models.fusion import GatedBiModalNetwork, MaxOut, MultimodalPooling
 from mmtpu_torch.models.kinetics_sounds import (
@@ -36,6 +37,12 @@ from mmtpu_torch.models.textcnn import TextCNN
 from mmtpu_torch.models.tools import seeded_init
 from mmtpu_torch.models.transformer import ResidualAttentionBlock, Transformer
 from mmtpu_torch.models.utt_fusion import UttFusionModel
+from mmtpu_torch.models.variational import (
+    LinearVXE,
+    VariationalLSTMEncoder,
+    VariationalLSTMEncoder2,
+    VariationalTextCNN,
+)
 
 __all__ = [
     "AVMNIST",
@@ -52,6 +59,13 @@ __all__ = [
     "Self_MM",
     "CMAM",
     "DualCMAM",
+    "DIVEncoder",
+    "LanguageEmbeddingLayer",
+    "LinearVXE",
+    "SeqEncoder",
+    "VariationalLSTMEncoder",
+    "VariationalLSTMEncoder2",
+    "VariationalTextCNN",
     "InputEncoders",
     "KineticsSounds",
     "KineticsSoundsAudioEncoder",

@@ -152,6 +152,38 @@ def carry_at(outputs: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     return torch.where((idx > T - 1)[:, None], h.detach(), h)
 
 
+def flip_sequences(x: torch.Tensor, lengths: Optional[torch.Tensor]) -> torch.Tensor:
+    """flax's `flip_sequences` over (B, T, ...) batch-major rows: row b's
+    step t taken from step (T − 1 − t + len_b) mod T; a plain reverse
+    without lengths. Its own inverse."""
+    T = x.shape[1]
+    if lengths is None:
+        return torch.flip(x, dims=(1,))
+    steps = torch.arange(T - 1, -1, -1, device=x.device)
+    idx = (steps[None, :] + lengths.to(device=x.device, dtype=torch.long)[:, None]) % T
+    idx = idx.reshape(*idx.shape, *([1] * (x.dim() - 2))).expand_as(x)
+    return torch.gather(x, 1, idx)
+
+
+def bidirectional_lstm(fwd: RNNCell, bwd: RNNCell, x: torch.Tensor,
+                       lengths: Optional[torch.Tensor] = None):
+    """One bidirectional layer of flax's `nn.RNN(OptimizedLSTMCell,
+    return_carry=True)` pair (the backward one `reverse=True,
+    keep_order=True`), both directions in ONE `lstm` launch (G = 2).
+
+    The recurrence runs over every step without lengths, as flax's does;
+    the backward direction reads `flip_sequences(x, lengths)` and its
+    outputs are flipped back. With lengths each direction's final h is its
+    output at step len − 1 (`carry_at`), else the state after step T.
+    Returns (outputs (B, T, 2H), h_fwd (B, H), h_bwd (B, H))."""
+    xs = (x, flip_sequences(x, lengths))
+    projected = [cell.project(inp) for cell, inp in zip((fwd, bwd), xs)]
+    outs, (hT, _) = lstm_sequence_stacked([p[0] for p in projected],
+                                          [p[1] for p in projected])
+    h_f, h_b = (hT[d] if lengths is None else carry_at(outs[d], lengths) for d in range(2))
+    return torch.cat([outs[0], flip_sequences(outs[1], lengths)], dim=-1), h_f, h_b
+
+
 # mmtpu registers the reference's near-duplicate LSTMEncoder2 as an alias.
 LSTMEncoder2 = LSTMEncoder
 

@@ -56,6 +56,7 @@ def _factories() -> Dict[str, Callable[..., Any]]:
         bert_text,
         cmam,
         conv,
+        domain,
         fc,
         fusion,
         kinetics_sounds,
@@ -69,6 +70,7 @@ def _factories() -> Dict[str, Callable[..., Any]]:
         textcnn,
         transformer,
         utt_fusion,
+        variational,
     )
     from mmtpu_torch.train import managers
 
@@ -126,6 +128,19 @@ def _factories() -> Dict[str, Callable[..., Any]]:
         "kineticssounds": _tolerant(kinetics_sounds.KineticsSounds),
         "kinetics_sounds_audio_encoder": kinetics_sounds.KineticsSoundsAudioEncoder,
         "kinetics_sounds_video_encoder": kinetics_sounds.KineticsSoundsVideoEncoder,
+        "div_encoder": domain.DIVEncoder,
+        "divencoder": domain.DIVEncoder,
+        "seq_encoder": domain.SeqEncoder,
+        "seqencoder": domain.SeqEncoder,
+        "language_embedding": domain.LanguageEmbeddingLayer,
+        "languageembeddinglayer": domain.LanguageEmbeddingLayer,
+        "lstmencodervar": variational.VariationalLSTMEncoder,
+        "lstm_encoder_var": variational.VariationalLSTMEncoder,
+        "lstmencoder2var": variational.VariationalLSTMEncoder2,
+        "textcnnvar": variational.VariationalTextCNN,
+        "textcnn_var": variational.VariationalTextCNN,
+        "linearvxe": variational.LinearVXE,
+        "linear_vxe": variational.LinearVXE,
     }
 
 

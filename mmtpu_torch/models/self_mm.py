@@ -9,9 +9,9 @@ weights are concatenated into the kernel's fused layout (`RNNCell`) and
 the recurrence runs over every step without lengths; the final h is the
 output at step len − 1 (`carry_at`: len 0 wraps to the last step, len > T
 is clamped to it with no gradient through it, as JAX's gather does). The
-reverse direction of a bidirectional layer runs on flax's
-`flip_sequences` of the input: within each row the first len steps
-reversed and the rest after them, as the index (T − 1 − t + len) mod T
+reverse direction of a bidirectional layer (`bidirectional_lstm`,
+`models/lstm.py`) runs on flax's `flip_sequences` of the input: within
+each row the first len steps reversed and the rest after them, as the index (T − 1 − t + len) mod T
 gives them, which for len > T is a rotation of the reversed row, not the
 reversed row. Its carry is picked the same way, and its outputs are
 flipped back (`keep_order=True`). The two directions of a layer run in one
@@ -40,24 +40,11 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from mmtpu_torch.models.lstm import RNNCell, carry_at
+from mmtpu_torch.models.lstm import RNNCell, bidirectional_lstm, carry_at
 from mmtpu_torch.models.rng import GeneratorDropout
 from mmtpu_torch.ops.lstm import lstm_sequence_stacked
 
 DEFAULT_TEXT_LENGTH = 50
-
-
-def flip_sequences(x: torch.Tensor, lengths: Optional[torch.Tensor]) -> torch.Tensor:
-    """flax's `flip_sequences` over (B, T, ...) batch-major rows: row b's
-    step t taken from step (T − 1 − t + len_b) mod T; a plain reverse
-    without lengths. Its own inverse."""
-    T = x.shape[1]
-    if lengths is None:
-        return torch.flip(x, dims=(1,))
-    steps = torch.arange(T - 1, -1, -1, device=x.device)
-    idx = (steps[None, :] + lengths.to(device=x.device, dtype=torch.long)[:, None]) % T
-    idx = idx.reshape(*idx.shape, *([1] * (x.dim() - 2))).expand_as(x)
-    return torch.gather(x, 1, idx)
 
 
 class AuViSubNet(nn.Module):
@@ -89,18 +76,15 @@ class AuViSubNet(nn.Module):
         h = x
         final_h = None
         for layer in range(self.num_layers):
-            ins = [h] if directions == 1 else [h, flip_sequences(h, lengths)]
-            projected = [self._cell(layer * directions + d).project(inp)
-                         for d, inp in enumerate(ins)]
-            outs, (hT, _) = lstm_sequence_stacked([p[0] for p in projected],
-                                                  [p[1] for p in projected])
-            carries = [hT[d] if lengths is None else carry_at(outs[d], lengths)
-                       for d in range(directions)]
             if directions == 1:
-                h, final_h = outs[0], carries[0]
+                xw, wh = self._cell(layer).project(h)
+                outs, (hT, _) = lstm_sequence_stacked([xw], [wh])
+                h = outs[0]
+                final_h = hT[0] if lengths is None else carry_at(h, lengths)
             else:
-                h = torch.cat([outs[0], flip_sequences(outs[1], lengths)], dim=-1)
-                final_h = torch.cat(carries, dim=-1)
+                h, h_f, h_b = bidirectional_lstm(self._cell(2 * layer), self._cell(2 * layer + 1),
+                                                 h, lengths)
+                final_h = torch.cat([h_f, h_b], dim=-1)
             if layer < self.num_layers - 1:
                 h = self.dropout(h)
         return self.linear_1(self.dropout(final_h))

@@ -1,12 +1,12 @@
 """The port stands alone: no file of `mmtpu_torch/`, and not `chip_smoke.py`,
 imports JAX, flax, optax, transformers, safetensors or the `mmtpu` package
 (the name is matched exactly, so `mmtpu_torch` itself passes); its BERT and
-checkpoint readers are its own. The card's machine has none of them, and
-neither has PyYAML, which the port may import only inside its YAML loader,
-nor pandas, sklearn, matplotlib, msgpack or (as far as is known) h5py,
-which the port never imports (its metrics are its own numpy versions of
-sklearn's), except matplotlib inside the embedding report's plotting
-function and h5py inside the real MM-IMDb reader."""
+checkpoint readers are its own. The port may import PyYAML only inside its
+YAML loader, and never pandas, sklearn, matplotlib, msgpack or h5py (its
+metrics are its own numpy versions of sklearn's), except matplotlib inside
+the embedding report's plotting function and h5py inside the real MM-IMDb
+and IEMOCAP readers: the card's machine has no JAX, sklearn or h5py, so the
+port must not need them there."""
 
 import ast
 from pathlib import Path
@@ -38,9 +38,10 @@ def test_no_jax_or_mmtpu_imports(path):
 
 # the exceptions, each imported inside the one function that needs it, as
 # mmtpu's: the embedding report draws its plots with matplotlib; the real
-# MM-IMDb reader opens its HDF5 files with h5py
+# MM-IMDb and IEMOCAP readers open their HDF5 files with h5py
 LAZY_HOST_ONLY = {("mmtpu_torch/reports/report.py", "matplotlib"),
-                  ("mmtpu_torch/data/mmimdb.py", "h5py")}
+                  ("mmtpu_torch/data/mmimdb.py", "h5py"),
+                  ("mmtpu_torch/data/iemocap.py", "h5py")}
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
@@ -70,7 +71,12 @@ EXPORT_SLICE = ("mmtpu_torch/ops/library.py", "mmtpu_torch/serving/export.py",
                 "mmtpu_torch/data/kinetics_sounds.py", "mmtpu_torch/models/kinetics_sounds.py")
 
 
-@pytest.mark.parametrize("rel", EXPORT_SLICE)
+# IEMOCAP and the recurrent registry encoders
+RECURRENT_SLICE = ("mmtpu_torch/data/iemocap.py", "mmtpu_torch/models/variational.py",
+                   "mmtpu_torch/models/domain.py")
+
+
+@pytest.mark.parametrize("rel", EXPORT_SLICE + RECURRENT_SLICE)
 def test_the_export_slice_is_scanned(rel):
     assert REPO / rel in PORT_FILES
 

@@ -45,7 +45,7 @@ from mmtpu_torch.checkpoints import from_jax_variables
 from mmtpu_torch.cli import common
 from mmtpu_torch.config.training import TrainingConfig
 from mmtpu_torch.models import build_module
-from mmtpu_torch.models.self_mm import flip_sequences
+from mmtpu_torch.models.lstm import flip_sequences
 from mmtpu_torch.ops import lstm as lstm_ops
 from mmtpu_torch.train import managers
 from mmtpu_torch.train import self_mm_step as step
