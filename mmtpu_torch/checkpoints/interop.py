@@ -52,6 +52,10 @@ port `state_dict` under the reference's torch key names:
   `OptimizedLSTMCell_{n}` and `GRUCell_{n}` (`ir`, `iz`, `in` with bias,
   `hr`, `hz` without, `hn` with), by the same rule; SeqEncoder's 1-D
   convolutions `proj_{a,t,v}` (kernel (K, I, O)) → Conv1d weight (O, I, K);
+  MulT's `proj_{a,t,v}/conv` (with bias) the same way; GCNet's raw
+  `DenseRGCNConv` leaves `w_rel` (R, F, H) and `w_root` (F, H) keep their
+  name and layout, and its stacks' cells (`base_rnn`, `grufusion`) and an
+  LSTMClassifier's are flax's `OptimizedLSTMCell_{n}` / `GRUCell_{n}`;
   a LanguageEmbeddingLayer's `embed` table and `bert_model/bert/...` tree
   map as BERT's do; the variational encoders' `rnn`, `cnn`, `wi`, `wh`,
   `attention_*`, `enc*`/`dec*` and `enc_bn` by the rules above;
@@ -97,9 +101,11 @@ _BLOCK_CHILDREN = {"conv_1": "conv_one", "conv_2": "conv_two",
 # mmtpu's known MNIST conv flattens (C, H, W): image 64×7×7, audio 64×5×15
 MNIST_FLATTENS = ((64, 7, 7), (64, 5, 15))
 _PARAM_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias", "embedding": "weight"}
-_RAW_LEAVES = {"wh": 2, "attention_vector_weight": 2}  # name → rank, kept as they are
+# name → rank, kept as they are: a fused LSTM's, and GCNet's DenseRGCNConv
+_RAW_LEAVES = {"wh": 2, "attention_vector_weight": 2, "w_rel": 3, "w_root": 2}
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
-_CONV1D = re.compile(r"proj_[atv]")  # SeqEncoder's 1-D convolutions (rank-3 kernels)
+# the 1-D convolutions (rank-3 kernels): SeqEncoder's `proj_[atv]`, MulT's `proj_[atv]/conv`
+_CONV1D = re.compile(r"(.*/)?proj_[atv](/conv)?")
 
 
 def _child_name(tree: Mapping[str, Any], key: str) -> str:
@@ -230,7 +236,7 @@ def from_jax_variables(
                 value = value.transpose(3, 2, 0, 1)
             elif value.ndim == 2:  # Dense (in, out) → Linear (out, in)
                 value = value.T
-            elif value.ndim == 3 and _CONV1D.fullmatch(path.rsplit("/", 1)[-1]):
+            elif value.ndim == 3 and _CONV1D.fullmatch(path):
                 value = value.transpose(2, 1, 0)  # 1-D conv (K, I, O) → (O, I, K)
             elif value.ndim == 3 and path.rsplit("/", 1)[-1] == "out":  # (heads, hd, d)
                 value = value.reshape(-1, value.shape[-1]).T

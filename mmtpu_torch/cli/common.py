@@ -407,9 +407,12 @@ _MODALITIES = {
 
 
 def modalities_for_model(model_type: str) -> List[Modality]:
+    """mmtpu's `modalities_for_model` (mmtpu/cli/train_multimodal.py) for the
+    model types that train through the generic step, with mmtpu's error for
+    every other one."""
     key = model_type.lower()
     if key not in _MODALITIES:
-        raise ValueError(f"model type {model_type!r} is not ported to mmtpu_torch yet")
+        raise ValueError(f"Unknown model type: {model_type}")
     return list(_MODALITIES[key])
 
 

@@ -36,7 +36,10 @@ members run_id..run_id+K-1 (seed + i) one after another, each with its own
 outputs: mmtpu's sequential path, which mmtpu's vmapped engine equals; the
 vmapped engine, `--stacked-folds` and data parallelism over several devices
 are not ported and raise (ROADMAP item 12); MMIN, RedCore and Self-MM take the
-sequential runs and folds, as in mmtpu. Other model types raise.
+sequential runs and folds, as in mmtpu. Other model types (MulT's `mult`
+and GCNet's `gcnet` among them, which train only through the registry, as
+in mmtpu) raise mmtpu's `ValueError: Unknown model type` where mmtpu's
+does, after the loaders are built.
 """
 
 from __future__ import annotations
@@ -50,8 +53,6 @@ import torch
 
 from mmtpu_torch.cli import common
 
-PORTED_MODEL_TYPES = ("avmnist", "kineticssounds", "utt-fusion", "utt_fusion",
-                      "uttfusionmodel", "mmin", "redcore", "self-mm", "self_mm", "mmimdb")
 CUSTOM_STEP_TYPES = ("mmin", "redcore", "self-mm", "self_mm")  # mmtpu stacks none of them
 
 
@@ -129,10 +130,6 @@ def run_single(cfg, args, device, cv_no=None, json_nesting: str = "reference",
         for ds_cfg in cfg.data.datasets.values():
             ds_cfg.kwargs["cv_no"] = cv_no
     mt = cfg.model.model_type.lower()
-    if mt not in PORTED_MODEL_TYPES:
-        raise NotImplementedError(
-            f"training model_type {cfg.model.model_type!r} is not ported to mmtpu_torch "
-            f"yet (ported: {', '.join(PORTED_MODEL_TYPES)})")
     if mt in ("mmin", "redcore"):
         from mmtpu_torch.cli import msa_runners
 

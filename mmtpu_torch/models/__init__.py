@@ -8,6 +8,7 @@ from mmtpu_torch.models.conv import ConvBlock, ConvBlockArgs, avg_pool, max_pool
 from mmtpu_torch.models.domain import DIVEncoder, LanguageEmbeddingLayer, SeqEncoder
 from mmtpu_torch.models.fc import FcClassifier, FcEncoder, MaxPoolFc, SimpleClassifier
 from mmtpu_torch.models.fusion import GatedBiModalNetwork, MaxOut, MultimodalPooling
+from mmtpu_torch.models.gcnet import GraphModel, GraphNetwork, MatchingAttention
 from mmtpu_torch.models.kinetics_sounds import (
     KineticsSounds,
     KineticsSoundsAudioEncoder,
@@ -15,6 +16,7 @@ from mmtpu_torch.models.kinetics_sounds import (
 )
 from mmtpu_torch.models.lenet import LeNet5, LeNet5Enhanced, LeNetEncoder
 from mmtpu_torch.models.lstm import (
+    LSTMClassifier,
     LSTMEncoder,
     LSTMEncoder2,
     can_stack_pair,
@@ -22,6 +24,7 @@ from mmtpu_torch.models.lstm import (
 )
 from mmtpu_torch.models.mmimdb import MLPGenreClassifier, MMIMDb, MMIMDbModalityEncoder
 from mmtpu_torch.models.mmin import MMIN
+from mmtpu_torch.models.mult import MultModalTransformer
 from mmtpu_torch.models.redcore import RedCore
 from mmtpu_torch.models.registry import build_module
 from mmtpu_torch.models.resnet import (
@@ -33,6 +36,7 @@ from mmtpu_torch.models.resnet import (
     ResNetEncoder,
 )
 from mmtpu_torch.models.self_mm import AuViSubNet, Self_MM
+from mmtpu_torch.models.seq_extras import EFModelAL, GatedTransformer
 from mmtpu_torch.models.textcnn import TextCNN
 from mmtpu_torch.models.tools import seeded_init
 from mmtpu_torch.models.transformer import ResidualAttentionBlock, Transformer
@@ -51,6 +55,12 @@ __all__ = [
     "BertModel",
     "BertTextEncoder",
     "GatedBiModalNetwork",
+    "GatedTransformer",
+    "GraphModel",
+    "GraphNetwork",
+    "MatchingAttention",
+    "MultModalTransformer",
+    "EFModelAL",
     "MaxOut",
     "MLPGenreClassifier",
     "MMIMDb",
@@ -90,6 +100,7 @@ __all__ = [
     "FcEncoder",
     "MaxPoolFc",
     "SimpleClassifier",
+    "LSTMClassifier",
     "LSTMEncoder",
     "LSTMEncoder2",
     "can_stack_pair",

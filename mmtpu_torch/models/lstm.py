@@ -27,8 +27,13 @@ Pooling methods: 'last' (the last state under length masking), 'attention'
 (softmax(u·tanh(W·h))·h), 'maxpool'; padded steps are masked to -inf out of
 the attention and maxpool reductions when lengths are given.
 
-mmtpu's `LSTMClassifier` is not ported: no config and no registry name
-reaches it.
+`LSTMClassifier` (EFModelAL's lexical branch): two stacked bidirectional
+layers of flax's per-gate cells (`OptimizedLSTMCell_{0..3}`: rnn1 forward
+and backward, then rnn2's), each layer one G = 2 launch through
+`bidirectional_lstm`, lengths from the mask as sum(int(mean(mask, -1))),
+flax's LayerNorm between the layers, then [h1; h2] → the pad-aware
+BatchNorm `bn` → `fc1` → dropout → ReLU → `fc2`. Returns (logits, the
+features after the ReLU).
 """
 
 from __future__ import annotations
@@ -39,6 +44,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mmtpu_torch.models.bert_text import FlaxLayerNorm
+from mmtpu_torch.models.norm import BatchNorm
+from mmtpu_torch.models.rng import GeneratorDropout
 from mmtpu_torch.ops.lstm import lstm_sequence, lstm_sequence_stacked
 
 EMBD_METHODS = ("last", "attention", "maxpool")
@@ -182,6 +190,33 @@ def bidirectional_lstm(fwd: RNNCell, bwd: RNNCell, x: torch.Tensor,
                                           [p[1] for p in projected])
     h_f, h_b = (hT[d] if lengths is None else carry_at(outs[d], lengths) for d in range(2))
     return torch.cat([outs[0], flip_sequences(outs[1], lengths)], dim=-1), h_f, h_b
+
+
+class LSTMClassifier(nn.Module):
+    def __init__(self, input_size: int, hidden_size: int, fc1_size: int, output_size: int,
+                 dropout_rate: float = 0.3) -> None:
+        super().__init__()
+        for n, width in enumerate((input_size, input_size, 2 * hidden_size, 2 * hidden_size)):
+            self.add_module(f"OptimizedLSTMCell_{n}", RNNCell(width, hidden_size))
+        self.layer_norm = FlaxLayerNorm(2 * hidden_size, eps=1e-6)
+        self.bn = BatchNorm(4 * hidden_size)
+        self.fc1 = nn.Linear(4 * hidden_size, fc1_size)
+        self.dropout = GeneratorDropout(dropout_rate)
+        self.fc2 = nn.Linear(fc1_size, output_size)
+
+    def _layer(self, first: int, x: torch.Tensor, lengths: Optional[torch.Tensor]):
+        return bidirectional_lstm(getattr(self, f"OptimizedLSTMCell_{first}"),
+                                  getattr(self, f"OptimizedLSTMCell_{first + 1}"), x, lengths)
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None):
+        lengths = None
+        if mask is not None:  # (B, seq, feat) → (B,), the reference's mask2length
+            lengths = mask.mean(dim=-1).to(torch.int32).sum(dim=-1)
+        out1, h1_f, h1_b = self._layer(0, x, lengths)
+        _, h2_f, h2_b = self._layer(2, self.layer_norm(out1), lengths)
+        h = self.fc1(self.bn(torch.cat([h1_f, h1_b, h2_f, h2_b], dim=-1)))
+        h = torch.relu(self.dropout(h))
+        return self.fc2(h), h
 
 
 # mmtpu registers the reference's near-duplicate LSTMEncoder2 as an alias.

@@ -59,14 +59,17 @@ def _factories() -> Dict[str, Callable[..., Any]]:
         domain,
         fc,
         fusion,
+        gcnet,
         kinetics_sounds,
         lenet,
         lstm,
         mmimdb,
         mmin,
+        mult,
         redcore,
         resnet,
         self_mm,
+        seq_extras,
         textcnn,
         transformer,
         utt_fusion,
@@ -141,6 +144,13 @@ def _factories() -> Dict[str, Callable[..., Any]]:
         "textcnn_var": variational.VariationalTextCNN,
         "linearvxe": variational.LinearVXE,
         "linear_vxe": variational.LinearVXE,
+        # the registry-only MSA families (mmtpu's train_multimodal refuses them)
+        "gcnet": gcnet.GraphModel,
+        "graph_model": gcnet.GraphModel,
+        "graph_network": gcnet.GraphNetwork,
+        "matching_attention": gcnet.MatchingAttention,
+        "mult": mult.MultModalTransformer,
+        "gated_transformer": seq_extras.GatedTransformer,
     }
 
 

@@ -9,7 +9,9 @@ sigmoid → the μ/logσ² head `muvar`, and the sample z = μ + ε·exp(½·log
 the reference samples in eval too). Returns (z, μ, logσ²).
 
 The attention is flax's `MultiHeadDotProductAttention`, written out as
-softmax(q·kᵀ/√head_dim)·v over the heads: flax's dropout on the attention
+softmax(q·kᵀ/√head_dim)·v over the heads (self-attention here; the gated
+transformer of `models/seq_extras.py` also uses its cross-attention and
+boolean mask): flax's dropout on the attention
 weights is broadcast (one (q, k) keep-mask shared by the batch and the
 heads, `broadcast_dropout=True`), which `F.scaled_dot_product_attention`'s
 per-element dropout is not. The dropouts and ε come from the run's
@@ -21,7 +23,7 @@ them.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -32,27 +34,41 @@ LN_EPS = 1e-6  # flax's LayerNorm epsilon (torch's default is 1e-5)
 
 
 class MultiHeadAttention(nn.Module):
-    def __init__(self, d_model: int, n_head: int, dropout: float = 0.2) -> None:
+    """flax's `MultiHeadDotProductAttention`: queries from `x`, keys and
+    values from `kv` (`x` itself when None, self-attention; `kv_dim` is
+    its width, `d_model` by default). `mask`, boolean and broadcast as
+    (1, 1, Tq, Tk) against (B, heads, Tq, Tk), keeps the logits where it
+    is True and sets the rest to float32's most negative value, flax's
+    masked-logit value."""
+
+    def __init__(self, d_model: int, n_head: int, dropout: float = 0.2,
+                 kv_dim: Optional[int] = None) -> None:
         super().__init__()
         if d_model % n_head:
             raise ValueError(f"d_model {d_model} is not divisible by {n_head} heads")
         self.n_head = n_head
         self.head_dim = d_model // n_head
+        kv_dim = d_model if kv_dim is None else kv_dim
         self.query = nn.Linear(d_model, d_model)
-        self.key = nn.Linear(d_model, d_model)
-        self.value = nn.Linear(d_model, d_model)
+        self.key = nn.Linear(kv_dim, d_model)
+        self.value = nn.Linear(kv_dim, d_model)
         self.out = nn.Linear(d_model, d_model)
         self.dropout = GeneratorDropout(dropout, broadcast_dims=(0, 1))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, kv: Optional[torch.Tensor] = None,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         B, T, _ = x.shape
+        kv = x if kv is None else kv
 
         def heads(t: torch.Tensor) -> torch.Tensor:  # (B, T, d) → (B, heads, T, head_dim)
-            return t.reshape(B, T, self.n_head, self.head_dim).transpose(1, 2)
+            return t.reshape(B, t.shape[1], self.n_head, self.head_dim).transpose(1, 2)
 
         q = heads(self.query(x)) / self.head_dim ** 0.5
-        k, v = heads(self.key(x)), heads(self.value(x))
-        weights = self.dropout(torch.softmax(q @ k.transpose(-1, -2), dim=-1))
+        k, v = heads(self.key(kv)), heads(self.value(kv))
+        logits = q @ k.transpose(-1, -2)
+        if mask is not None:
+            logits = logits.masked_fill(~mask, torch.finfo(logits.dtype).min)
+        weights = self.dropout(torch.softmax(logits, dim=-1))
         return self.out((weights @ v).transpose(1, 2).reshape(B, T, -1))
 
 

@@ -1,6 +1,8 @@
 """Train and eval steps of the port (counterpart of `apply_missing_mask`,
 `ClassificationTask`, `train_step_core`, `make_train_step` and
-`make_eval_step`, mmtpu/train/step.py).
+`make_eval_step`, mmtpu/train/step.py). A model may return
+{"logits", "aux_loss"} (MulT with its discriminator): the task's loss adds
+`aux_loss`, and its predictions and the steps' outputs take the logits.
 
 A missing modality is zeroed in the RAW input before its encoder, by the
 batch's `{mod}_mask` — not in the embedding: with BatchNorm running
@@ -10,7 +12,9 @@ In the port the model holds its weights, so a step takes only the batch
 loop copies them to the host once per epoch.
 
 The train step runs the train-mode forward with the batch's sample mask
-published to BatchNorm (`models/norm.py`), the padded-row-masked loss,
+published to BatchNorm (`models/norm.py`; the eval step publishes it too,
+for MulT's discriminator loss: BatchNorm in eval mode does not read it),
+the padded-row-masked loss,
 backward, the optional global-norm clip and `optimizer.step()`. The mask
 is published only when the host batch has padded rows, so a full batch
 takes BatchNorm's fused kernels. The clip scales the raw gradients before
@@ -81,16 +85,26 @@ class ClassificationTask:
         with batch_mask(bn_mask):
             return self.model(*self.inputs(batch))
 
-    def predictions(self, logits: torch.Tensor) -> torch.Tensor:
+    def predictions(self, logits) -> torch.Tensor:
+        logits = output_logits(logits)
         if self.multilabel:
             return (torch.sigmoid(logits) > self.binary_threshold).to(torch.int32)
         return logits.argmax(dim=-1)
 
-    def probabilities(self, logits: torch.Tensor) -> torch.Tensor:
+    def probabilities(self, logits) -> torch.Tensor:
+        logits = output_logits(logits)
         return torch.sigmoid(logits) if self.multilabel else torch.softmax(logits, dim=-1)
 
     def loss(self, logits, batch, sample_mask=None) -> torch.Tensor:
-        return self.loss_group(logits, batch["labels"], sample_mask=sample_mask)["total_loss"]
+        aux = logits.get("aux_loss", 0.0) if isinstance(logits, dict) else 0.0
+        return self.loss_group(output_logits(logits), batch["labels"],
+                               sample_mask=sample_mask)["total_loss"] + aux
+
+
+def output_logits(out) -> torch.Tensor:
+    """The logits of a model's output: a model with an auxiliary head
+    (MulT's discriminator) returns {"logits", "aux_loss"}."""
+    return out["logits"] if isinstance(out, dict) else out
 
 
 class MonomodalTask(ClassificationTask):
@@ -119,7 +133,7 @@ def train_step_core(task: ClassificationTask, state: TrainState,
     logits = task.apply(batch, train=True, bn_mask=sample_mask if padded else None)
     loss = task.loss(logits, batch, sample_mask=sample_mask)
     apply_gradients(state, loss)
-    return loss.detach(), logits.detach(), sample_mask
+    return loss.detach(), output_logits(logits).detach(), sample_mask
 
 
 def apply_gradients(state: TrainState, loss: torch.Tensor) -> None:
@@ -168,10 +182,12 @@ def make_eval_step(task: ClassificationTask, device: torch.device) -> Callable:
 
     @torch.inference_mode()
     def step(batch: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        padded = has_padded_rows(batch)
         batch = to_device(batch, device)
-        logits = task.apply(batch, train=False)
         sample_mask = batch.get("sample_mask")
-        loss = task.loss(logits, batch, sample_mask=sample_mask)
+        out = task.apply(batch, train=False, bn_mask=sample_mask if padded else None)
+        loss = task.loss(out, batch, sample_mask=sample_mask)
+        logits = output_logits(out)
         return {**_outputs(task, batch, loss, logits, sample_mask), "logits": logits}
 
     return step

@@ -7,12 +7,19 @@ against each other on the same numpy inputs:
 
 - the forward, in eval mode and in train mode, every output leaf within
   1e-5;
-- the gradient of Σ outputs · a seeded cotangent, every parameter's within
+- the gradient of Σ outputs · a fixed cotangent, every parameter's within
   1e-4 of that gradient's norm (a parameter the forward does not reach
-  has a zero gradient on both sides);
+  has a zero gradient on both sides); an attention's key bias, whose exact
+  gradient is 0 (the softmax over the keys ignores a shift they share),
+  holds only rounding on either side, within 1e-4 of the whole gradient's
+  norm, as `test_torch_port_redcore.py` holds it;
 - the `lstm` launches the port made in one forward: the group count of
   every call of the kernel's plain version, which on the CPU stands in
   for the kernel.
+
+mmtpu's side runs op by op, its forward and gradient as one `jax.vjp`:
+within a test process its primitives compile once per shape, so checks of
+one family at one size share them.
 
 The train forward's ε (the VAE sample) and dropouts are neutralised in
 both packages, as `_redcore_neutral.py` does for RedCore: mmtpu's
@@ -84,6 +91,13 @@ class LaunchCounter:
         mp.setattr(lstm_ops, "lstm_stacked_reference", counting)
 
 
+def cotangent(shape, i, xp):
+    """The cotangent of output `i`, cos(0.37·k + i) over its flat index k,
+    computed alike by `jax.numpy` and by torch (`xp`)."""
+    n = int(np.prod(shape))
+    return xp.cos(xp.arange(n, dtype=xp.float32) * 0.37 + i).reshape(tuple(shape))
+
+
 def _as_jax(a):
     return None if a is None else jnp.asarray(a)
 
@@ -106,7 +120,7 @@ def check(jax_module, port_module, args, kwargs=None, *, launches=None,
     variables = jax_module.init({"params": RNG, "sample": RNG, "dropout": RNG}, *jargs,
                                 train=False, **jkw)
     variables = jax.tree_util.tree_map(np.asarray, dict(variables))
-    params, stats = variables["params"], variables.get("batch_stats")
+    params, stats = variables.get("params", {}), variables.get("batch_stats")
     port_module.load_state_dict(from_jax_variables(params, stats, target=port_module),
                                 strict=True)
     mp = pytest.MonkeyPatch()
@@ -120,17 +134,13 @@ def check(jax_module, port_module, args, kwargs=None, *, launches=None,
                 if train and stats:
                     out, _ = jax_module.apply(v, *jargs, train=True, rngs=rngs,
                                               mutable=["batch_stats"], **jkw)
-                    return out
-                return jax_module.apply(v, *jargs, train=train, rngs=rngs, **jkw)
+                    return leaves(out)
+                return leaves(jax_module.apply(v, *jargs, train=train, rngs=rngs, **jkw))
 
-            want = [np.asarray(x) for x in leaves(apply(params))]
-            cot = [np.random.default_rng(len(want) + i).normal(size=w.shape).astype(np.float32)
-                   for i, w in enumerate(want)]
-
-            def loss(p):
-                return sum(jnp.sum(x * c) for x, c in zip(leaves(apply(p)), cot))
-
-            jgrads = jax.grad(loss)(params)
+            want, vjp = jax.vjp(apply, params)
+            jgrads = vjp([cotangent(o.shape, i, jnp).astype(o.dtype)
+                          for i, o in enumerate(want)])[0]
+            want = [np.asarray(x) for x in want]
             port_module.train(train)
             port_module.zero_grad()
             counter.groups.clear()
@@ -141,11 +151,18 @@ def check(jax_module, port_module, args, kwargs=None, *, launches=None,
             for g, w in zip(got, want):
                 np.testing.assert_allclose(g.detach().numpy(), w, rtol=TOL, atol=TOL)
             if any(g.requires_grad for g in got):  # a frozen module's have no graph
-                sum((g * torch.from_numpy(c)).sum() for g, c in zip(got, cot)).backward()
+                sum((g * cotangent(g.shape, i, torch)).sum()
+                    for i, g in enumerate(got)).backward()
+            jgrads = jax.tree_util.tree_map(np.asarray, jgrads)
             gstate = from_jax_variables(jgrads, None, target=port_module, require_all=False)
+            whole = np.sqrt(sum(float((w.double() ** 2).sum()) for w in gstate.values()))
             for name, p in port_module.named_parameters():
                 want_g = gstate[name].numpy()
                 got_g = np.zeros_like(want_g) if p.grad is None else p.grad.numpy()
+                if name.endswith("key.bias"):
+                    assert max(np.abs(want_g).max(), np.abs(got_g).max()) <= GRAD_TOL * whole, \
+                        (train, name, whole)
+                    continue
                 scale = max(float(np.linalg.norm(want_g)), 1e-6)
                 assert float(np.abs(got_g - want_g).max()) <= GRAD_TOL * scale, (train, name)
     finally:

@@ -387,3 +387,54 @@ def test_kernel_raises_on_what_it_does_not_take(cuda_device):
         lstm_sequence_stacked(xw.half(), wh.half(), h0.half(), c0.half())
     with pytest.raises(ValueError, match="one device"):
         lstm_sequence_stacked(xw, wh.cpu(), h0, c0)
+
+
+# the registry-only consumers of `bidirectional_lstm`: (factory, inputs, launches)
+def _gcnet(base):
+    from mmtpu_torch.models.gcnet import GraphModel
+
+    B, T = 3, 8
+    lengths = np.array([8, 5, 2], np.int32)
+    g = np.random.default_rng(3)
+    args = [g.normal(size=(B, T, 9)).astype(np.float32), g.integers(0, 2, (B, T)),
+            (np.arange(T)[None] < lengths[:, None]).astype(np.float32), lengths]
+    model = GraphModel(base, adim=3, tdim=4, vdim=2, D_e=5, graph_hidden_size=4, n_speakers=2,
+                       window_past=2, window_future=1, n_classes=4, dropout=0.0)
+    return model, args
+
+
+def _lstm_classifier():
+    from mmtpu_torch.models.lstm import LSTMClassifier
+
+    lengths = np.array([7, 3, 1, 5], np.int32)
+    g = np.random.default_rng(4)
+    mask = (np.arange(7)[None, :, None] < lengths[:, None, None]) * np.ones((1, 1, 6), np.float32)
+    return LSTMClassifier(6, 5, 4, 3, dropout_rate=0.0), [
+        g.normal(size=(4, 7, 6)).astype(np.float32), mask]
+
+
+BIDIRECTIONAL_CONSUMERS = {
+    "gcnet_lstm_base": (lambda: _gcnet("LSTM"), 6),  # 2 base + 2 fusion layers × 2 graph nets
+    "gcnet_gru_base": (lambda: _gcnet("GRU"), 4),   # the fusion layers only
+    "lstm_classifier": (_lstm_classifier, 2),        # EFModelAL's lexical branch
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(BIDIRECTIONAL_CONSUMERS))
+def test_bidirectional_layers_launch_once_each_on_card(cuda_device, name):
+    """One G = 2 launch per bidirectional LSTM layer of a forward on the
+    card, and the forward within 1e-5 of the same module on the CPU."""
+    make, launches = BIDIRECTIONAL_CONSUMERS[name]
+    torch.manual_seed(0)
+    model, arrays = make()
+    model.eval()
+    args = [torch.from_numpy(np.asarray(a)) for a in arrays]
+    with torch.no_grad():
+        want = model(*args)[0]
+        on_card = model.to(cuda_device)
+        before = lstm_sequence_stacked.launches
+        got = on_card(*[a.to(cuda_device) for a in args])[0]
+        torch.cuda.synchronize()
+    assert lstm_sequence_stacked.launches == before + launches
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5)

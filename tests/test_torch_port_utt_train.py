@@ -482,8 +482,10 @@ def test_resume_after_one_epoch_ends_as_an_uninterrupted_run(cli_runs, tmp_path)
 
 def test_other_msa_families_still_raise(tmp_path, monkeypatch):
     """Self-MM now trains in the port, through its own driver
-    (tests/test_torch_port_self_mm_cli.py holds it against mmtpu); the MSA
-    families not ported yet (MulT, GCNet) still raise."""
+    (tests/test_torch_port_self_mm_cli.py holds it against mmtpu); MulT and
+    GCNet train only through the registry, so `train_multimodal` refuses
+    them with mmtpu's own error."""
+    from mmtpu.cli import train_multimodal as jax_train_multimodal
     from mmtpu_torch.cli import train_multimodal
 
     monkeypatch.chdir(tmp_path)
@@ -499,5 +501,6 @@ def test_other_msa_families_still_raise(tmp_path, monkeypatch):
                                        f'model_type: "{model_type}"')
         other = tmp_path / f"{model_type}.yaml"
         other.write_text(text)
-        with pytest.raises(NotImplementedError, match="not ported"):
-            train_multimodal.main(["--config", str(other), "--run_id", "1", "--cpu"])
+        for package in (train_multimodal, jax_train_multimodal):
+            with pytest.raises(ValueError, match=f"Unknown model type: {model_type}"):
+                package.main(["--config", str(other), "--run_id", "1", "--cpu"])
