@@ -36,8 +36,9 @@ FcClassifier 192→[192, 64, 32]→3; batch 32, aligned T = 50):
              validation and 512 test, batch 128, 2 epochs): `train_monomodal`
              writes the audio handoff, `train_multimodal` fine-tunes from it
              (its audio encoder at epoch 0 must be the handoff's, and
-             `fused_mlp` must run once per validation and test batch and in
-             no train forward), and again from scratch; then a profiled
+             `fused_mlp` must run once per fused eval step of the
+             device-resident path, 1536 rows in 1024-row steps, and in no
+             train forward), and again from scratch; then a profiled
              window of train steps, and the first three train steps (and one
              with a padded tail) on the card against the CPU;
 6. train utt — MOSI UttFusion training through `train_multimodal.main` at
@@ -45,7 +46,7 @@ FcClassifier 192→[192, 64, 32]→3; batch 32, aligned T = 50):
              sizes (1284 train, 229 validation, 686 test; T = 50, batch 32,
              2 epochs, train pattern `atv` with audio and video missing at
              0.2, evaluation over the seven patterns): `lstm` must launch
-             once per train, validation and test batch; the MSA keys of
+             once per train batch and fused eval step (256 rows); the MSA keys of
              test_metrics.json; a profiled window of 8 train steps
              (launches per step, busy share); the first three train steps
              (where `clip` scales the gradients) and the epoch's padded
@@ -60,11 +61,12 @@ FcClassifier 192→[192, 64, 32]→3; batch 32, aligned T = 50):
              files and from the `.npy` sidecars; `train_avmnist` on the
              pretrained twin from phase 5's audio handoff, 2 epochs, with
              `--profile` and TensorBoard (the trace and the tfevents file
-             must be written; `fused_mlp` exactly 36 launches); the scratch
-             twin as a two-fold cross-validation (`fold_1/`, `fold_2/`, the
-             three `*_metrics_agg.json`; 72 launches) and as a
-             `--stacked-runs 2` sweep at 512/128/128 samples (runs 1 and 2,
-             seeds 42 and 43; twice one member's launches).
+             must be written; `fused_mlp` exactly 6 launches: 2 fused eval
+             steps per validation and test pass); the scratch twin as a
+             two-fold cross-validation (`fold_1/`, `fold_2/`, the three
+             `*_metrics_agg.json`; 12 launches) and as a `--stacked-runs 2`
+             sweep at 512/128/128 samples through the stacked engine (runs 1
+             and 2, seeds 42 and 43; one launch per stacked eval step: 9).
 
 8. shipped — the shipped-weights flow (plain-dict twins of
              configs/avmnist/shipped_wheights_{finetune,finetune_audiofix,
@@ -77,7 +79,7 @@ FcClassifier 192→[192, 64, 32]→3; batch 32, aligned T = 50):
              module within 1e-4 on the card; `train_multimodal.main` runs
              the three twins for 2 epochs (the image encoder at epoch 0 the
              file's in two of them; the audiofix groups at 5e-4 / 1e-4;
-             `fused_mlp` exactly 36 launches each; mmtpu's test keys);
+             `fused_mlp` exactly 6 launches each; mmtpu's test keys);
              predict on the fine-tune's best.pth against the CPU; a
              profiled window of 8 fine-tune train steps; three
              train steps with each of rmsprop (with and without momentum),
@@ -227,6 +229,42 @@ FcClassifier 192→[192, 64, 32]→3; batch 32, aligned T = 50):
              300), timed against `nn.LSTM` over 1496 and 300 input features,
              and (2, 16, 110, 300) with lengths.
 
+15. resident, stacked — the training-systems layer. (a) phase 5's scratch
+             fine-tune through `train_multimodal.main` on the device-resident
+             path the driver takes by default ("auto": its budget admits the
+             three splits, uploaded once, eval fused to 1024 rows) and again
+             streaming, from the same seed, cuDNN deterministic, TF32
+             off: epoch losses within 1e-5, test predictions equal where the
+             top-2 margin is above 1e-3, `fused_mlp` once per fused eval step
+             (6) and once per batch streaming (36), epoch-2 samples/s and the
+             busy share of a profiled train epoch of each. (b) a two-fold CV
+             of the same fine-tune (dropout 0) sequentially and with
+             `--stacked-folds`: each fold's first three train steps within
+             1e-4 / 1e-3 of its sequential run's; epoch 1's last step and
+             epoch 2's first teacher-forced (each fold set to its sequential
+             run's parameters, buffers, Adam state, step count and lr scale
+             before the step, then one stacked step): the loss within 1e-4,
+             the update and Adam's first moment within 1e-3 by global norm;
+             the epoch losses printed beside the sequential CV's own spread
+             when run again with its convolution weights in channels_last
+             (cuDNN's NHWC algorithms, deterministic still);
+             the same aggregate keys, `fused_mlp` once per stacked eval step
+             for both folds (36). (c) UttFusion at the published widths
+             (dropout 0, no test pass) with `--stacked-runs 3` and `5` (6 and
+             10 `lstm` groups per launch, one launch per stacked step: 184)
+             against the members run one after another at seed + i, each
+             member's first three train steps within 1e-4 / 1e-3 of its
+             run's, the padded tail (step 41, 4 real rows) and epoch 2's
+             first step teacher-forced as in (b), member 1 run again with
+             PyTorch's own convolutions instead of cuDNN's (cuDNN
+             deterministic throughout). Phase 2 also
+             holds the member-axis `fused_mlp` (K = 2, 3 at B = 128 and 1024)
+             and `lstm` at K·G = 6 and 10 (B = 32, T = 50, H = 64) under
+             `vmap` against their plain versions, timed, and `lstm` at the
+             fused eval steps' shapes (2, 256, 50, 64) (UttFusion), (1, 256,
+             50, 64) (the LSTMEncoder pretraining) and (2, 1024, 64, 128)
+             (IEMOCAP).
+
     python3 chip_smoke.py --train-only    # build, then phases 5 and 6 alone
     python3 chip_smoke.py --reader-only   # build, the audio pretraining, phase 7
     python3 chip_smoke.py --shipped-only  # build, phase 7's .pt files, phase 8
@@ -243,6 +281,8 @@ FcClassifier 192→[192, 64, 32]→3; batch 32, aligned T = 50):
     python3 chip_smoke.py --mmimdb-chain-only  # build, phase 13 (b) with its pretraining
     python3 chip_smoke.py --recurrent-only     # build, phase 13 (c)
     python3 chip_smoke.py --mult-only --gcnet-only --ef-only  # build, phase 14 (a)-(c)
+    python3 chip_smoke.py --resident-only # build, phase 15 (a)
+    python3 chip_smoke.py --stacked-only  # build, phase 2's member axis, phase 15 (b), (c)
 
 Prints a `kernels` JSON line, the card's name and power limit, and as the
 last line `{"ok": true, "device": {...}}`. Any failure exits non-zero
@@ -730,11 +770,18 @@ LSTM_CASES = [
     (2, 16, 110, 100, False, False, KERNEL_TOL, True),  # GCNet's base bi-LSTM (D_e 100)
     (2, 16, 110, 300, False, False, KERNEL_TOL, True),  # GCNet's fusion bi-LSTM (d_h 300)
     (2, 16, 110, 300, True, False, KERNEL_TOL, False),  # the same with lengths
+    (2, 256, 50, 64, False, False, KERNEL_TOL, True),  # UttFusion's fused eval step, 8 × 32
+    (1, 256, 50, 64, False, False, KERNEL_TOL, True),  # the LSTMEncoder pretraining's
+    (2, 1024, 64, 128, False, False, KERNEL_TOL, True),  # IEMOCAP's fused eval step, 8 × 128
 ]
 SELF_MM_LSTM = ((1, 32, 50, 16), (1, 32, 50, 32))
 PHASE13_LSTM = ((2, 128, 64, 128), (1, 128, 64, 256), (2, 128, 64, 130), (2, 128, 64, 342),
                 (2, 128, 64, 1024))
 PHASE14_LSTM = ((2, 16, 110, 100), (2, 16, 110, 300))
+# the device-resident path's fused eval steps (`_auto_eval_factor`): phase 6's
+# UttFusion and phase 12's UttFusion fine-tune, phase 12's LSTMEncoder
+# pretraining, phase 13's IEMOCAP folds
+FUSED_EVAL_LSTM = ((2, 256, 50, 64), (1, 256, 50, 64), (2, 1024, 64, 128))
 # the gradient checks: (G, B, T, H, lengths, non-zero h0/c0)
 LSTM_GRAD_CASES = [(2, 9, 11, 24, True, True), (1, 32, 50, 16, False, False),
                    (1, 32, 50, 32, False, False)]
@@ -747,7 +794,8 @@ LSTM_INPUT_SIZES = (5, 20)  # MOSI audio and video feature widths, by group
 LSTM_LIBRARY_INPUT = {(1, 32, 50, 32): (20,), (2, 128, 64, 128): (130, 342),
                       (1, 128, 64, 256): (130,), (2, 128, 64, 130): (130,),
                       (2, 128, 64, 342): (342,), (2, 128, 64, 1024): (1024,),
-                      (2, 16, 110, 100): (1496,), (2, 16, 110, 300): (300,)}
+                      (2, 16, 110, 100): (1496,), (2, 16, 110, 300): (300,),
+                      (2, 1024, 64, 128): (130, 342)}
 SLOW_CALL_MS = 1.0  # a call slower than this is timed over fewer iterations
 
 
@@ -1229,9 +1277,19 @@ def _run_cli(module, cfg_path: Path, tag: str, out_root: Path, name: str,
             "models": out_root / name / "models" / "1"}
 
 
-def _eval_batches(counts: dict, batch: int = TRAIN_BATCH, patterns: int = 3) -> dict:
-    """Eval batches per split: samples × patterns (ai/a/i) in batches."""
-    return {s: -(-counts[s] * patterns // batch) for s in ("validation", "test")}
+def _eval_batches(counts: dict, batch: int = TRAIN_BATCH, patterns: int = 3,
+                  fused: bool = True) -> dict:
+    """Eval steps per split: samples × patterns (ai/a/i) rows in batches of
+    `batch`, fused by the device-resident path's factor (the loop's own
+    `_auto_eval_factor`), or, with `fused` False, as a streaming loader forms
+    them (the stacked engine)."""
+    from mmtpu_torch.train.loop import _auto_eval_factor
+
+    steps = {}
+    for s in ("validation", "test"):
+        rows = counts[s] * patterns
+        steps[s] = -(-rows // (batch * (_auto_eval_factor(batch, rows) if fused else 1)))
+    return steps
 
 
 def _accuracies(record: dict) -> dict:
@@ -1509,10 +1567,10 @@ def utt_train_config(out_root: str, dropout: bool = True) -> dict:
 
 
 def utt_expected_launches() -> dict:
-    """`lstm` launches of the run: one per train, validation and test batch
-    as the loader forms them (train one pattern, the others seven)."""
+    """`lstm` launches of the run: one per train batch and per fused eval
+    step of the device-resident path (train one pattern, the others seven)."""
     train = -(-UTT_SAMPLES["train"] // UTT_BATCH)
-    per = {s: -(-UTT_SAMPLES[s] * UTT_PATTERNS // UTT_BATCH) for s in ("validation", "test")}
+    per = _eval_batches(UTT_SAMPLES, UTT_BATCH, UTT_PATTERNS)
     return {"train": train, **per,
             "total": TRAIN_EPOCHS * (train + per["validation"]) + per["test"]}
 
@@ -1937,7 +1995,8 @@ def phase_train_reader(dev, card: str, work: Path, handoff: Path) -> dict:
     sweep_cfg = paper_configs(str(out_root / "sweep"), sweep_data["csvs"], handoff)["scratch"]
     paths["sweep"] = work / "paper_scratch_sweep.json"
     paths["sweep"].write_text(json.dumps(sweep_cfg))
-    sweep_batches = _eval_batches(SWEEP_SAMPLES)
+    # the stacked engine: one member-axis launch per stacked eval step
+    sweep_batches = _eval_batches(SWEEP_SAMPLES, fused=False)
     member = TRAIN_EPOCHS * sweep_batches["validation"] + sweep_batches["test"]
     seeds = []
     real_init = common.init_model
@@ -1961,14 +2020,15 @@ def phase_train_reader(dev, card: str, work: Path, handoff: Path) -> dict:
     if rc != 0 or seeds != [SEED, SEED + 1] or trees["1"] != trees["2"] or \
             "test_metrics.json" not in trees["2"] or not (base / "models/2/best.pth").exists():
         raise AssertionError(f"[reader sweep] rc {rc}, seeds {seeds}, trees {trees}")
-    if sweep_launches != 2 * member:
+    if sweep_launches != member:
         raise AssertionError(f"[reader sweep] fused_mlp launched {sweep_launches} times, "
-                             f"expected 2 members × ({TRAIN_EPOCHS} × "
-                             f"{sweep_batches['validation']} + {sweep_batches['test']}) = "
-                             f"{2 * member}")
-    say_card(card, f"[reader sweep] --stacked-runs 2 at {SWEEP_SAMPLES} in {sweep_s:.2f} s; "
-             f"members run 1 and 2 seeded {seeds}; outputs {trees['2']}; fused_mlp launches "
-             f"{sweep_launches} = 2 × {member}")
+                             f"expected one per stacked eval step for both members: "
+                             f"{TRAIN_EPOCHS} × {sweep_batches['validation']} + "
+                             f"{sweep_batches['test']} = {member}")
+    say_card(card, f"[reader sweep] --stacked-runs 2 (the stacked engine) at {SWEEP_SAMPLES} "
+             f"in {sweep_s:.2f} s; members run 1 and 2 seeded {seeds}; outputs {trees['2']}; "
+             f"fused_mlp launches {sweep_launches} = {TRAIN_EPOCHS} × "
+             f"{sweep_batches['validation']} + {sweep_batches['test']} stacked eval steps")
     return {"csvs": data["csvs"], "build": build, "run": run, "launches": fine_tune,
             "cv_launches": cv_launches,
             "sweep_launches": sweep_launches, "cv_s": cv_s, "sweep_s": sweep_s}
@@ -4194,17 +4254,30 @@ def mono_configs(out_root: str) -> dict:
     return out
 
 
+def _resident_steps(split: str, loader) -> int:
+    """Steps of a split on the device-resident path: the train split's
+    batches; an eval split's samples × patterns rows in fused batches (the
+    loop's own `_auto_eval_factor`)."""
+    from mmtpu_torch.train.loop import _auto_eval_factor
+
+    if split == "train":
+        return len(loader)
+    rows = loader.dataset.num_samples * len(loader.pattern_vocab)
+    return -(-rows // (loader.batch_size * _auto_eval_factor(loader.batch_size, rows)))
+
+
 def _mono_batches(cfg_path: Path) -> dict:
     from mmtpu_torch.cli import common
 
     cfg = common.load_config(argparse.Namespace(config=str(cfg_path), run_id=1, seed=None))
-    return {s: len(cfg.data.build_loader(s, seed=SEED)) for s in cfg.data.datasets}
+    return {s: _resident_steps(s, cfg.data.build_loader(s, seed=SEED))
+            for s in cfg.data.datasets}
 
 
 def phase_mono(dev, card: str, work: Path) -> dict:
     """Phase 12 (c): `train_monomodal` on the card for the three encoders
-    without `hidden_dim` (the LSTMEncoder's `lstm` exactly once per train,
-    validation and test batch), each writing encoder_{mod}_best.pth; then
+    without `hidden_dim` (the LSTMEncoder's `lstm` exactly once per train
+    batch and fused eval step), each writing encoder_{mod}_best.pth; then
     the UttFusion and GMU fine-tunes through `train_multimodal.main`, each
     loaded encoder's state sha256 equal to its file's."""
     import torch
@@ -4389,14 +4462,14 @@ def iemocap_expected(pool: dict) -> dict:
     """Per fold and split the padded lengths the reader will give (each
     modality's longest utterance in the split, at most IEMOCAP_MAX_LEN), and
     the `lstm` launches they imply: one per forward where audio and video
-    share T (netA and netV stacked at G = 2), else two (G = 1 each)."""
+    share T (netA and netV stacked at G = 2), else two (G = 1 each); a
+    forward per train batch and per fused eval step."""
     from mmtpu_torch.data.iemocap import read_targets
     from mmtpu_torch.modalities import Modality
 
     shapes, total = {}, 0
     batches = {"train": -(-IEMOCAP_SAMPLES["train"] // IEMOCAP_BATCH),
-               **{s: -(-IEMOCAP_SAMPLES[s] * len(IEMOCAP_PATTERNS) // IEMOCAP_BATCH)
-                  for s in ("validation", "test")}}
+               **_eval_batches(IEMOCAP_SAMPLES, IEMOCAP_BATCH, len(IEMOCAP_PATTERNS))}
     for cv in range(1, IEMOCAP_FOLDS + 1):
         per = {}
         for split, ref in IEMOCAP_SPLITS.items():
@@ -5451,6 +5524,813 @@ def phase14(dev, card: str, mult: bool = True, gcnet: bool = True, ef: bool = Tr
     return out
 
 
+# Phase 15: the device-resident epoch and the stacked folds/runs engine.
+MEMBER_MLP_CASES = ((2, 128), (3, 128), (2, 1024), (3, 1024))  # (K members, B) at HEAD_DIMS
+MEMBER_LSTM_CASES = ((3, 2, 32, 50, 64), (5, 2, 32, 50, 64))  # (K, G, B, T, H): K·G = 6, 10
+RESIDENT_RTOL = 1e-5  # resident vs streaming epoch losses, same weights, cuDNN deterministic
+STACK_RTOL = (1e-4, 1e-3)  # stacked vs sequential train losses, step 1 and steps 2-3 (the
+# earlier phases' GPU-vs-CPU rule); epoch losses are reported beside them: over a whole
+# epoch Adam turns the grouped convolutions' rounding near g = 0 into ±lr steps
+TEACHER_RTOL = (1e-4, 1e-3)  # a teacher-forced stacked step vs its sequential step: the
+# loss; the update (parameters after minus before) and Adam's first moment, by global norm
+STACKED_RUNS = (3, 5)  # --stacked-runs on UttFusion: 6 and 10 lstm groups per launch
+MARGIN = 1e-3  # a prediction whose top-2 logit gap is below this may flip between two runs
+
+
+def phase_kernels_members(dev) -> dict:
+    """Phase 2, the member axis: `fused_mlp` with K members' weights and
+    `lstm` with K·G groups, each called as the stacked engine calls it
+    (under `torch.func.vmap`, one launch), against their plain versions (the
+    member-axis chain; the scan over the K·G groups), timed as the other
+    kernel rows are."""
+    import torch
+    from torch.func import vmap
+
+    from mmtpu_torch.ops import fused_mlp, lstm_sequence_stacked, lstm_stacked_reference
+    from mmtpu_torch.ops.fused_mlp import fused_mlp_members_reference
+
+    g = torch.Generator().manual_seed(SEED + 15)
+    dims, n = HEAD_DIMS, len(HEAD_DIMS) - 1
+    stacked_mlp = vmap(lambda x, *p: fused_mlp(x, p[:n], p[n:]))
+    mlp, max_err = {}, 0.0
+    for K, B in MEMBER_MLP_CASES:
+        x = torch.randn(K, B, dims[0], generator=g).to(dev)
+        ws = [(torch.randn(K, o, i, generator=g) / i ** 0.5).to(dev)
+              for i, o in zip(dims[:-1], dims[1:])]
+        bs = [(0.1 * torch.randn(K, o, generator=g)).to(dev) for o in dims[1:]]
+
+        @torch.no_grad()
+        def kernel():
+            return stacked_mlp(x, *ws, *bs)
+
+        def plain():
+            return fused_mlp_members_reference(x, ws, bs)
+
+        before = fused_mlp.launches
+        got = kernel()
+        launches = fused_mlp.launches - before
+        err = (got - plain()).abs().max().item()
+        label = f"fused_mlp K={K} B={B} {dims}"
+        say(f"[kernels] {label} under vmap: {launches} launch, max |kernel - plain| {err:.3e}")
+        if launches != 1 or got.shape != (K, B, dims[-1]) or err > KERNEL_TOL:
+            raise AssertionError(f"{label}: {launches} launches, shape {tuple(got.shape)}, "
+                                 f"error {err}")
+        max_err = max(max_err, err)
+        p1, k1, k2, p2 = (event_ms(f) for f in (plain, kernel, kernel, plain))
+        kd = own_device_ms(kernel, "fused_mlp")
+        pd = device_breakdown(lambda: [plain() for _ in range(100)])["device_ms"] / 100
+        params = sum(i * o + o for i, o in zip(dims[:-1], dims[1:]))
+        bound, bound_by = _bound(4 * K * (B * dims[0] + params + B * dims[-1]),
+                                 2 * K * B * sum(i * o for i, o in zip(dims[:-1], dims[1:])))
+        mlp[(K, B)] = {"ms": statistics.mean([k1, k2]), "plain_ms": statistics.mean([p1, p2]),
+                       "device_ms": kd, "plain_device_ms": pd, "bound_ms": bound,
+                       "bound_by": bound_by, "library_ms": None, "max_abs_err": err}
+        say(f"[kernels] {label}: per call kernel {k1:.4f}/{k2:.4f} ms, plain (batched chain) "
+            f"{p1:.4f}/{p2:.4f} ms (events); device time kernel {kd} ms, plain {pd} ms "
+            f"(profiler); bound {bound:.6f} ms ({bound_by})")
+
+    lstm = {}
+    for seed, (K, G, B, T, H) in enumerate(MEMBER_LSTM_CASES):
+        xw, wh, _, _, _ = _lstm_inputs(dev, K * G, B, T, H, False, False, 150 + seed)
+        xw, wh = xw.view(K, G, B, T, 4 * H), wh.view(K, G, H, 4 * H)
+        stacked_lstm = vmap(lambda a, w: lstm_sequence_stacked(a, w)[0])
+
+        @torch.no_grad()
+        def kernel():
+            return stacked_lstm(xw, wh)
+
+        def plain():
+            return lstm_stacked_reference(xw.view(K * G, B, T, 4 * H),
+                                          wh.view(K * G, H, 4 * H))[0]
+
+        before = lstm_sequence_stacked.launches
+        got = kernel()
+        launches = lstm_sequence_stacked.launches - before
+        err = (got.reshape(K * G, B, T, H) - plain()).abs().max().item()
+        label = f"lstm K={K} × G={G} (K·G={K * G}) B={B} T={T} H={H}"
+        say(f"[kernels] {label} under vmap: {launches} launch, max |kernel - plain| {err:.3e}")
+        if launches != 1 or err > KERNEL_TOL:
+            raise AssertionError(f"{label}: {launches} launches, error {err}")
+        max_err = max(max_err, err)
+        slow = dict(iters=10, repeats=3, warmup=2)
+        p1, k1, k2, p2 = (event_ms(plain, **slow), event_ms(kernel), event_ms(kernel),
+                          event_ms(plain, **slow))
+        kd = own_device_ms(kernel, "lstm")
+        pd = device_breakdown(lambda: [plain() for _ in range(3)])["device_ms"] / 3
+        bound, bound_by = lstm_bound_ms(K * G, B, T, H)
+        library, ours, diff = _lstm_library(dev, K * G, B, T, H, 150 + seed)
+        if diff > LIBRARY_TOL:
+            raise AssertionError(f"{label}: nn.LSTM differs by {diff}")
+        l1, o1, l2 = event_ms(library), event_ms(ours), event_ms(library)
+        lstm[(K, G, B, T, H)] = {
+            "ms": statistics.mean([k1, k2]), "plain_ms": statistics.mean([p1, p2]),
+            "device_ms": kd, "plain_device_ms": pd, "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": statistics.mean([l1, l2]), "with_projection_ms": o1,
+            "max_abs_err": err, "serial_steps": T}
+        say(f"[kernels] {label}: per call kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} "
+            f"ms (events); device time kernel {kd} ms, plain {pd} ms (profiler); bound "
+            f"{bound:.6f} ms ({bound_by}); nn.LSTM ×{K * G} (projection included) "
+            f"{l1:.4f}/{l2:.4f} ms vs projection + kernel {o1:.4f} ms")
+    return {"mlp": mlp, "lstm": lstm, "max_err": max_err}
+
+
+@contextlib.contextmanager
+def _loops(mode: Optional[str], seen: list):
+    """Every `TrainLoop` a driver builds inside the `with` body is appended
+    to `seen`, and takes `device_resident=mode` unless `mode` is None (the
+    driver's own choice, mmtpu's default "auto")."""
+    from mmtpu_torch.train import loop as loop_mod
+
+    real = loop_mod.TrainLoop
+
+    class Recorded(real):
+        def __init__(self, *args, **kwargs):
+            if mode is not None:
+                kwargs["device_resident"] = mode
+            super().__init__(*args, **kwargs)
+            seen.append(self)
+
+    loop_mod.TrainLoop = Recorded
+    try:
+        yield
+    finally:
+        loop_mod.TrainLoop = real
+
+
+def _epoch_losses(metrics: Path) -> list:
+    """(train, validation) loss per epoch of an epoch_metrics.json."""
+    return [(e["train"]["loss"], e["validation"]["loss"])
+            for e in json.loads((metrics / "epoch_metrics.json").read_text()) if "epoch" in e]
+
+
+def _loss_rel(got: list, want: list) -> list:
+    """Per epoch the largest relative difference of the two losses."""
+    return [max(abs(a - b) / max(abs(b), 1e-12) for a, b in zip(g, w))
+            for g, w in zip(got, want)]
+
+
+@contextlib.contextmanager
+def _train_step_losses(seq: list, stk: list):
+    """The train losses of every step inside the `with` body: per resident
+    epoch of a sequential run its (steps,) losses into `seq`, per stacked
+    step its (K,) losses (left on the device until the body ends) into
+    `stk`."""
+    from mmtpu_torch.train import device_loop as dl
+    from mmtpu_torch.train.stacked import StackedModel
+
+    real_epoch, real_step = dl.run_train_epoch, StackedModel.train_step
+
+    def epoch(*args, **kwargs):
+        outs = real_epoch(*args, **kwargs)
+        seq.append([float(v) for v in outs["loss"]])
+        return outs
+
+    def step(self, *args, **kwargs):
+        out = real_step(self, *args, **kwargs)
+        stk.append(out["loss"])
+        return out
+
+    dl.run_train_epoch, StackedModel.train_step = epoch, step
+    try:
+        yield
+    finally:
+        dl.run_train_epoch, StackedModel.train_step = real_epoch, real_step
+        stk[:] = [v.tolist() for v in stk]
+
+
+def _first_steps_rel(seq: list, stk: list, member: int, steps: int = 3) -> list:
+    """Relative difference of member's first `steps` train losses, stacked
+    (stk: per step K losses) vs its sequential run (seq: its first epoch)."""
+    return [abs(stk[t][member] - seq[t]) / max(abs(seq[t]), 1e-12) for t in range(steps)]
+
+
+def _check_first_steps(tag: str, rel: list) -> None:
+    worst = [max(r[0] for r in rel), max(max(r[1:]) for r in rel)]
+    if worst[0] > STACK_RTOL[0] or worst[1] > STACK_RTOL[1]:
+        raise AssertionError(f"{tag} first train steps' losses differ from the sequential "
+                             f"runs': {rel} (tolerances {STACK_RTOL}: step 1, steps 2-3)")
+
+
+def _train_snapshot(state) -> dict:
+    """A sequential run's parameters and buffers, its optimizer's state by
+    parameter name, its step count and lr scale, cloned."""
+    opt = state.optimizer
+    scales = {g["lr"] / g["base_lr"] for g in opt.param_groups}
+    if len(scales) != 1:
+        raise AssertionError(f"the optimizer's groups have lr scales {scales}")
+    named = dict(state.model.named_parameters())
+    moments, counts = {}, set()
+    for n, p in named.items():
+        st = opt.state.get(p, {})
+        moments[n] = {k: v.detach().clone() for k, v in st.items()
+                      if getattr(v, "shape", None) == p.shape}
+        counts.add(int(st.get("step", 0)))
+    if len(counts) != 1:
+        raise AssertionError(f"the optimizer's parameters have step counts {counts}")
+    return {"params": {n: p.detach().clone() for n, p in named.items()},
+            "buffers": {n: b.detach().clone() for n, b in state.model.named_buffers()},
+            "moments": moments, "count": counts.pop(), "lr_scale": scales.pop()}
+
+
+@contextlib.contextmanager
+def _teacher_capture(at: tuple, seq: list, stk: list):
+    """Inside the `with` body, at each train step index in `at` (counted from
+    0 over a run's train steps, epochs included): a sequential run's step
+    (`train_step_core` on the resident path) appends to its record in `seq`
+    (one dict per run, in order) its snapshot before the step, its batch, its
+    loss and its parameters and optimizer state after; a stacked run's step
+    appends (step index, `StackedModel`, host batch) to `stk`. Every record
+    also counts its run's train steps under "steps"."""
+    from mmtpu_torch.train import device_loop as dl
+    from mmtpu_torch.train.stacked import StackedModel
+
+    real_core, real_step = dl.train_step_core, StackedModel.train_step
+    runs, stk_steps = {}, {}
+
+    def core(task, state, batch, padded=True):
+        if id(state) not in runs:  # the entry keeps the state alive: its id is not reused
+            runs[id(state)] = (state, {"steps": 0})
+            seq.append(runs[id(state)][1])
+        rec = runs[id(state)][1]
+        step, rec["steps"] = rec["steps"], rec["steps"] + 1
+        if step not in at:
+            return real_core(task, state, batch, padded)
+        before = _train_snapshot(state)
+        out = real_core(task, state, batch, padded)
+        rec[step] = {"before": before, "after": _train_snapshot(state), "loss": float(out[0]),
+                     "batch": {k: v.detach().cpu().numpy() for k, v in batch.items()}}
+        return out
+
+    def step(self, host_batch, device):
+        i = stk_steps.get(id(self), 0)
+        stk_steps[id(self)] = i + 1
+        if i in at:
+            stk.append((i, self, {k: np.array(v) for k, v in host_batch.items()}))
+        return real_step(self, host_batch, device)
+
+    dl.train_step_core, StackedModel.train_step = core, step
+    try:
+        yield
+    finally:
+        dl.train_step_core, StackedModel.train_step = real_core, real_step
+
+
+def _norm_rel(got: dict, want: dict, base: dict) -> float:
+    """‖got − want‖ / ‖want − base‖ over every tensor of the dicts (base
+    None: ‖got − want‖ / ‖want‖)."""
+    num = sum(float(((got[n] - w) ** 2).sum()) for n, w in want.items())
+    den = sum(float(((w - (0 if base is None else base[n])) ** 2).sum()) for n, w in want.items())
+    return (num / max(den, 1e-30)) ** 0.5
+
+
+def _load_members(stacked, snaps: list) -> None:
+    """Member k of `stacked` set to snapshot k's state before its step:
+    parameters, buffers, the optimizer's state, step count and lr scale."""
+    import torch
+
+    opt = stacked.optimizer
+    with torch.no_grad():
+        for n, p in stacked.params.items():
+            p.copy_(torch.stack([s["before"]["params"][n] for s in snaps]))
+        for n, b in stacked.buffers.items():
+            b.copy_(torch.stack([s["before"]["buffers"][n] for s in snaps]))
+        for n, st in opt.state.items():
+            for key, v in st.items():
+                v.copy_(torch.stack([s["before"]["moments"][n][key] for s in snaps]))
+        opt.count.copy_(torch.tensor([s["before"]["count"] for s in snaps]))
+        opt.lr_scale.copy_(torch.tensor([s["before"]["lr_scale"] for s in snaps]))
+
+
+def _first_moment(opt) -> str:
+    return next(iter(opt.STATE[opt.kind]))
+
+
+def _member_rows(stacked, losses: list, refs: list, snaps: list) -> list:
+    """Per member the relative difference of the stacked step's loss, update
+    and first moment from a reference step's ({"loss", "params", "moment"})
+    taken from the same state."""
+    opt = stacked.optimizer
+    first = _first_moment(opt)
+    rows = []
+    for k, (ref, snap) in enumerate(zip(refs, snaps)):
+        params = {n: p[k] for n, p in stacked.params.items()}
+        moment = {n: st[first][k] for n, st in opt.state.items()}
+        rows.append({"loss": abs(losses[k] - ref["loss"]) / max(abs(ref["loss"]), 1e-12),
+                     "update": _norm_rel(params, ref["params"], snap["before"]["params"]),
+                     "moment": _norm_rel(moment, ref["moment"], None)})
+    return rows
+
+
+def _float64_states(stacked, snaps: list) -> list:
+    """Per member a float64 `TrainState` at its snapshot's state before the
+    step: a copy of the member's model, and a torch optimizer of the same
+    class and groups holding the snapshot's moments, step count and lr."""
+    import copy
+
+    import torch
+
+    from mmtpu_torch.train.state import TrainState
+
+    if stacked.optimizer.kind not in ("adam", "adamw"):
+        raise AssertionError(f"float64 teacher forcing takes Adam, not {stacked.optimizer.kind}")
+    states = []
+    for src, snap in zip(stacked.states, snaps):
+        model = copy.deepcopy(src.model).double()
+        named = dict(model.named_parameters())
+        with torch.no_grad():
+            for n, p in named.items():
+                p.copy_(snap["before"]["params"][n])
+            for n, b in model.named_buffers():
+                b.copy_(snap["before"]["buffers"][n])
+        names = {id(p): n for n, p in src.model.named_parameters()}
+        own = {id(p): n for n, p in named.items()}
+        opt = type(src.optimizer)([
+            {**{k: v for k, v in g.items() if k != "params"},
+             "lr": g["base_lr"] * snap["before"]["lr_scale"],
+             "params": [named[names[id(p)]] for p in g["params"]]}
+            for g in src.optimizer.param_groups])
+        for g in opt.param_groups:
+            on_device = g.get("fused") or g.get("capturable")  # torch keeps the step there
+            for p in g["params"]:
+                n = own[id(p)]
+                opt.state[p] = {
+                    "step": torch.tensor(float(snap["before"]["count"]),
+                                         device=p.device if on_device else None),
+                    **{k: v.double() for k, v in snap["before"]["moments"][n].items()}}
+        states.append(TrainState(model, opt, clip=src.clip))
+    return states
+
+
+def _float64_steps(stacked, snaps: list, host_batch: dict, dev) -> tuple:
+    """The step from the snapshots' states in float64, once through the
+    sequential path (`train_step_core`, member by member) and once through
+    a float64 twin of `stacked`: (stacked twin, its losses, the sequential
+    references)."""
+    import copy
+
+    from mmtpu_torch.train.stacked import StackedModel
+    from mmtpu_torch.train.step import has_padded_rows, to_device, train_step_core
+
+    host = _as_float64(host_batch)
+    task = copy.copy(stacked.task)
+    first = _first_moment(stacked.optimizer)
+    refs = []
+    with _float64_losses():
+        for k, st in enumerate(_float64_states(stacked, snaps)):
+            member = {key: v[k] for key, v in host.items()}
+            task.model = st.model
+            loss, _, _ = train_step_core(task, st, to_device(member, dev),
+                                         has_padded_rows(member))
+            named = dict(st.model.named_parameters())
+            refs.append({"loss": float(loss),
+                         "params": {n: p.detach() for n, p in named.items()},
+                         "moment": {n: st.optimizer.state[p][first] for n, p in named.items()}})
+        states = _float64_states(stacked, snaps)
+        task.model = states[0].model
+        twin = StackedModel(task, states)
+        _load_members(twin, snaps)
+        losses = twin.train_step(host, dev)["loss"].tolist()
+    return twin, losses, refs
+
+
+def _teacher_forced(tag: str, stacked, step: int, host_batch: dict, recs: list, dev,
+                    float64: bool = False) -> dict:
+    """Member k of `stacked` set to sequential run k's state before train
+    step `step` (`_load_members`), then one stacked step on the stacked
+    run's own batch of that step; its loss, update and Adam's first moment
+    against the sequential step's, per member. The batch's real rows must
+    equal the sequential step's. Held to TEACHER_RTOL in float32, or, with
+    `float64` (a BatchNorm path: in float32 either path misses the exact
+    gradient by ~1e-3 of its norm, phase 5), the float32 loss and then the
+    same step from the same states in float64 on both paths."""
+    snaps = [r[step] for r in recs]
+    keep = np.asarray(host_batch["sample_mask"]) > 0
+    for k, snap in enumerate(snaps):
+        diff = [key for key, v in snap["batch"].items() if key in host_batch
+                and not np.array_equal(v[keep[k]], np.asarray(host_batch[key][k])[keep[k]])]
+        if diff or not keep[k].any():
+            raise AssertionError(f"{tag} step {step}: member {k}'s batch differs from its "
+                                 f"sequential run's in {diff} ({int(keep[k].sum())} real rows)")
+    _load_members(stacked, snaps)
+    losses = stacked.train_step(host_batch, dev)["loss"].tolist()
+    first = _first_moment(stacked.optimizer)
+    refs = [{"loss": s["loss"], "params": s["after"]["params"],
+             "moment": {n: m[first] for n, m in s["after"]["moments"].items()}} for s in snaps]
+    out = {"float32": _member_rows(stacked, losses, refs, snaps)}
+    if float64:
+        out["float64"] = _member_rows(*_float64_steps(stacked, snaps, host_batch, dev), snaps)
+
+    def show(rows):
+        return (f"the loss {[r['loss'] for r in rows]}, the update {[r['update'] for r in rows]}, "
+                f"the first moment {[r['moment'] for r in rows]}")
+
+    say(f"{tag} teacher-forced step {step + 1} ({int(keep[0].sum())} real rows, lr scales "
+        f"{[s['before']['lr_scale'] for s in snaps]}, Adam counts "
+        f"{[s['before']['count'] + 1 for s in snaps]}): per member relative difference, "
+        f"float32 {show(out['float32'])}"
+        + (f"; float64 {show(out['float64'])}" if float64 else "")
+        + f" (tolerances {TEACHER_RTOL})")
+    held = out["float64"] if float64 else out["float32"]
+    worst = [max(r["loss"] for r in out["float32"] + held),
+             max(max(r["update"], r["moment"]) for r in held)]
+    if worst[0] > TEACHER_RTOL[0] or worst[1] > TEACHER_RTOL[1]:
+        raise AssertionError(f"{tag} teacher-forced step {step + 1} differs from the "
+                             f"sequential step: {out} (tolerances {TEACHER_RTOL})")
+    return out
+
+
+def _check_teacher(tag: str, seq: list, stk: list, at: tuple, steps: int, dev,
+                   float64: bool = False) -> dict:
+    """Every sequential run took `steps` train steps; each stacked run's
+    captured steps teacher-forced against the first K sequential runs."""
+    if [r["steps"] for r in seq] != [steps] * len(seq):
+        raise AssertionError(f"{tag} sequential runs took {[r['steps'] for r in seq]} train "
+                             f"steps, expected {steps} each")
+    if sorted(i for i, _, _ in stk) != sorted(at * (len(stk) // len(at))) or not stk:
+        raise AssertionError(f"{tag} stacked steps captured {[i for i, _, _ in stk]}")
+    return {(st.k, i): _teacher_forced(f"{tag} K={st.k}", st, i, batch, seq[:st.k], dev,
+                                       float64)
+            for i, st, batch in stk}
+
+
+def _test_logits(loop, dev) -> "torch.Tensor":
+    """The loop's model (its best, as test() restored it) over the test
+    split's batches as the loader forms them, eval mode."""
+    import torch
+
+    from mmtpu_torch.train.step import output_logits, to_device
+
+    out = []
+    with torch.no_grad():
+        for batch in loop.loaders["test"]:
+            keep = torch.from_numpy(batch["sample_mask"] > 0)
+            logits = output_logits(loop.task.apply(to_device(batch, dev), train=False))
+            out.append(logits.float().cpu()[keep])
+    return torch.cat(out)
+
+
+def _cudnn(deterministic: bool) -> None:
+    import torch
+
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = deterministic, False
+
+
+def phase_resident(dev, card: str, work: Path) -> dict:
+    """Phase 15 (a): phase 5's scratch fine-tune (ResNet18/34, batch 128,
+    2048/512/512, 2 epochs) through `train_multimodal.main` on the
+    device-resident path the driver's default ("auto", its budget admitting
+    all three splits) and again streaming ("off"), from the same seed, cuDNN
+    deterministic, TF32 off: epoch losses within 1e-5, test predictions
+    equal where the top-2 margin is clear, `fused_mlp` exactly once per
+    fused eval step (once per batch streaming), epoch-2 samples/s and the
+    busy share of one more profiled train epoch of each."""
+    from mmtpu_torch.cli import train_multimodal
+
+    out_root = work / "resident"
+    cfg = train_configs(str(out_root))["scratch"]
+    _cudnn(True)
+    fused = _eval_batches(TRAIN_SAMPLES, TRAIN_BATCH)
+    plain = _eval_batches(TRAIN_SAMPLES, TRAIN_BATCH, fused=False)
+    want = {mode: TRAIN_EPOCHS * b["validation"] + b["test"]
+            for mode, b in (("on", fused), ("off", plain))}
+    runs, loops, launches = {}, {}, {}
+    try:
+        for mode in ("off", "on"):
+            name = f"{SCRATCH_NAME}_Resident_{mode}"
+            cfg["experiment"]["name"] = cfg["model"]["name"] = name
+            path = work / f"resident_{mode}.json"
+            path.write_text(json.dumps(cfg))
+            seen = []
+            reset_counts()
+            with _loops(None if mode == "on" else mode, seen):
+                runs[mode] = _run_cli(train_multimodal, path, f"[resident {mode}]", out_root,
+                                      name)
+            launches[mode] = read_counts()
+            loops[mode] = seen[0]
+            admitted = sorted(loops[mode]._resident)
+            if launches[mode] != {"fused_mlp": want[mode], "lstm": 0} or admitted != (
+                    ["test", "train", "validation"] if mode == "on" else []):
+                raise AssertionError(f"[resident {mode}] launches {launches[mode]}, expected "
+                                     f"fused_mlp {want[mode]}; resident splits {admitted}")
+            runs[mode]["metrics"] = out_root / name / "metrics" / "1"
+    finally:
+        _cudnn(False)
+    rel = _loss_rel(_epoch_losses(runs["on"]["metrics"]), _epoch_losses(runs["off"]["metrics"]))
+    if max(rel) > RESIDENT_RTOL:
+        raise AssertionError(f"[resident] epoch losses differ from streaming: {rel}")
+    logits = {mode: _test_logits(loops[mode], dev) for mode in ("off", "on")}
+    top2 = logits["off"].topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > MARGIN
+    flips = int((logits["on"].argmax(-1) != logits["off"].argmax(-1))[clear].sum())
+    if flips:
+        raise AssertionError(f"[resident] {flips} test predictions with a clear margin differ")
+    busy = {}
+    for mode, loop in loops.items():
+        brk = device_breakdown(lambda: loop.train_epoch(TRAIN_EPOCHS + 1), aten_ops=False)
+        loop.recorder.reset()
+        busy[mode] = brk["device_ms"] / brk["profiled_wall_ms"]
+    for mode in ("off", "on"):
+        say_card(card, f"[resident {mode}] epoch {TRAIN_EPOCHS} train "
+                 f"{runs[mode]['epoch_s']:.3f} s = {runs[mode]['samples_per_s']:.1f} samples/s "
+                 f"(B={TRAIN_BATCH}); busy share of a profiled train epoch {busy[mode]:.3f}; "
+                 f"fused_mlp launches {launches[mode]['fused_mlp']} (eval steps per split "
+                 f"{fused if mode == 'on' else plain}); peak device memory "
+                 f"{runs[mode]['peak_bytes'] / 2**20:.1f} MiB")
+    say(f"[resident] epoch losses resident vs streaming, largest relative difference per "
+        f"epoch {rel} (tolerance {RESIDENT_RTOL}); test predictions equal on "
+        f"{int(clear.sum())} of {clear.numel()} rows with a top-2 margin above {MARGIN}")
+    return {"runs": runs, "launches": launches, "busy": busy, "loss_rel": rel,
+            "eval_steps": fused}
+
+
+@contextlib.contextmanager
+def _channels_last(on: bool = True):
+    """With `on`, every `TrainLoop` built inside the `with` body holds its
+    model's 4-D weights in channels_last, so cuDNN (deterministic still)
+    runs the convolutions with its NHWC algorithms: the same arithmetic,
+    summed in another order."""
+    import torch
+
+    from mmtpu_torch.train import loop as loop_mod
+
+    real = loop_mod.TrainLoop
+
+    class ChannelsLast(real):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.state.model.to(memory_format=torch.channels_last)
+
+    loop_mod.TrainLoop = ChannelsLast if on else real
+    try:
+        yield
+    finally:
+        loop_mod.TrainLoop = real
+
+
+@contextlib.contextmanager
+def _native_convolutions(on: bool = True):
+    """With `on`, cuDNN off inside the `with` body: PyTorch's own
+    convolutions. UttFusion has no other cuDNN operation (its LSTMs are the
+    `lstm` kernel, its classifier has no BatchNorm), so only the
+    convolutions' algorithm changes."""
+    import torch
+
+    enabled = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = not on
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.enabled = enabled
+
+
+def phase_stacked_folds(dev, card: str, work: Path) -> dict:
+    """Phase 15 (b): two-fold CV of phase 5's scratch fine-tune (dropout 0:
+    a stacked member's masks are not its sequential run's) sequentially and
+    with `--stacked-folds`, cuDNN deterministic: each fold's first three
+    train steps within 1e-4 (step 1) and 1e-3 (steps 2-3) of the sequential
+    fold's; epoch 1's last step and epoch 2's first teacher-forced (each
+    fold set to its sequential run's state before the step) within
+    TEACHER_RTOL; the epoch losses beside them, and beside those the
+    sequential CV's own spread when run again with its convolutions in
+    cuDNN's NHWC algorithms (`_channels_last`, still deterministic); the
+    same `{split}_metrics_agg.json` keys, `fused_mlp`
+    exactly once per stacked eval step for both folds."""
+    from mmtpu_torch.cli import train_multimodal
+
+    out_root = work / "stacked_folds"
+    cfg = train_configs(str(out_root))["scratch"]
+    cfg["model"]["dropout"] = 0.0
+    cfg["experiment"]["cross_validation"] = 2
+    n_train = -(-TRAIN_SAMPLES["train"] // TRAIN_BATCH)
+    at = (n_train - 1, n_train)  # epoch 1's last train step, epoch 2's first
+    steps = {"seq": _eval_batches(TRAIN_SAMPLES, TRAIN_BATCH),
+             "stk": _eval_batches(TRAIN_SAMPLES, TRAIN_BATCH, fused=False)}
+    steps["alg"] = steps["seq"]
+    want = {kind: (2 if kind != "stk" else 1)
+            * (TRAIN_EPOCHS * b["validation"] + b["test"]) for kind, b in steps.items()}
+    runs, steps_seq, steps_stk, seq_caps, stk_caps = {}, [], [], [], []
+    for kind, extra in (("seq", ()), ("stk", ("--stacked-folds",)), ("alg", ())):
+        name = f"{SCRATCH_NAME}_CV_{kind}"
+        cfg["experiment"]["name"] = cfg["model"]["name"] = name
+        path = work / f"folds_{kind}.json"
+        path.write_text(json.dumps(cfg))
+        reset_counts()
+        t0 = time.perf_counter()
+        _cudnn(True)
+        try:
+            with contextlib.ExitStack() as hooks:
+                hooks.enter_context(_channels_last(kind == "alg"))
+                if kind != "alg":
+                    hooks.enter_context(_train_step_losses(steps_seq, steps_stk))
+                    hooks.enter_context(_teacher_capture(at, seq_caps, stk_caps))
+                rc = train_multimodal.main(["--config", str(path), "--run_id", "1", *extra])
+        finally:
+            _cudnn(False)
+        if rc != 0:
+            raise AssertionError(f"[stacked folds {kind}] non-zero exit")
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+        if counts != {"fused_mlp": want[kind], "lstm": 0}:
+            raise AssertionError(f"[stacked folds {kind}] launches {counts}, expected "
+                                 f"fused_mlp {want[kind]}")
+        metrics = out_root / name / "metrics" / "1"
+        runs[kind] = {"seconds": seconds, "launches": counts, "metrics": metrics,
+                      "losses": [_epoch_losses(metrics / f"fold_{f}") for f in (1, 2)],
+                      "agg": {s: json.loads((metrics / f"{s}_metrics_agg.json").read_text())
+                              for s in ("train", "validation", "test")},
+                      "epoch_s": [json.loads((metrics / f"fold_{f}/epoch_metrics.json")
+                                             .read_text())[TRAIN_EPOCHS - 1]["train"]["timing"]
+                                  ["total_time"] for f in (1, 2)]}
+    rel = [_loss_rel(a, b) for a, b in zip(runs["stk"]["losses"], runs["seq"]["losses"])]
+    worst = [max(r[e] for r in rel) for e in range(TRAIN_EPOCHS)]
+    alg = [_loss_rel(a, b) for a, b in zip(runs["alg"]["losses"], runs["seq"]["losses"])]
+    alg_worst = [max(r[e] for r in alg) for e in range(TRAIN_EPOCHS)]
+    # the sequential CV trained fold 1 then fold 2, TRAIN_EPOCHS resident epochs each
+    first = [_first_steps_rel(steps_seq[f * TRAIN_EPOCHS], steps_stk, f) for f in (0, 1)]
+    _check_first_steps("[stacked folds]", first)
+    _cudnn(True)
+    try:
+        teacher = _check_teacher("[stacked folds]", seq_caps, stk_caps, at,
+                                 TRAIN_EPOCHS * n_train, dev, float64=True)
+    finally:
+        _cudnn(False)
+    del seq_caps[:], stk_caps[:]
+    keys = {k: {s: sorted(a[0]) for s, a in r["agg"].items()} for k, r in runs.items()}
+    if keys["stk"] != keys["seq"]:
+        raise AssertionError(f"[stacked folds] aggregate keys {keys}")
+    n = TRAIN_SAMPLES["train"]
+    seq_rate = 2 * n / sum(runs["seq"]["epoch_s"])
+    stk_rate = 2 * n / runs["stk"]["epoch_s"][0]
+    say_card(card, f"[stacked folds] 2 folds sequential {runs['seq']['seconds']:.2f} s, "
+             f"stacked {runs['stk']['seconds']:.2f} s through train_multimodal.main; epoch "
+             f"{TRAIN_EPOCHS} train samples/s over both folds: sequential {seq_rate:.1f}, "
+             f"stacked {stk_rate:.1f}; fused_mlp launches sequential "
+             f"{runs['seq']['launches']['fused_mlp']}, stacked "
+             f"{runs['stk']['launches']['fused_mlp']} (one per stacked eval step: "
+             f"{TRAIN_EPOCHS} × {steps['stk']['validation']} + {steps['stk']['test']})")
+    say(f"[stacked folds] first three train steps stacked vs sequential, relative "
+        f"difference per fold {first} (tolerances {STACK_RTOL}: step 1, steps 2-3; cuDNN "
+        f"deterministic); per-fold epoch losses, largest relative difference per epoch: "
+        f"stacked vs sequential {worst}, the sequential CV again with NHWC convolutions vs "
+        f"NCHW {alg_worst}; aggregate keys equal")
+    return {"runs": runs, "loss_rel": worst, "first_steps_rel": first, "teacher": teacher,
+            "algorithm_rel": alg_worst,
+            "samples_per_s": {"seq": seq_rate, "stk": stk_rate}}
+
+
+def phase_stacked_runs(dev, card: str, work: Path) -> dict:
+    """Phase 15 (c): UttFusion at the published widths (1284/229/686, T =
+    50, batch 32, 2 epochs, dropout 0, `--skip-test`: phase 6 tests this
+    model) with `--stacked-runs 3` and `5`
+    (6 and 10 lstm groups per launch) against its members run one after
+    another at seed + i, cuDNN deterministic: each member's first three
+    train steps within 1e-4 / 1e-3; the padded tail (step 41, 4 real rows)
+    and epoch 2's first step teacher-forced (each member set to its
+    sequential run's state before the step) within TEACHER_RTOL; the epoch
+    losses beside them, and beside those member 1 run again with PyTorch's
+    own convolutions (`_native_convolutions`; TextCNN's single input
+    channel leaves NHWC the same layout); `lstm` exactly once per stacked
+    train and eval step,
+    and once per train batch and fused eval step of each sequential run."""
+    from mmtpu_torch.cli import train_multimodal
+
+    out_root = work / "stacked_runs"
+    cfg = utt_train_config(str(out_root), dropout=False)
+    seed = int(cfg["experiment"]["seed"])
+    train = -(-UTT_SAMPLES["train"] // UTT_BATCH)
+    at = (train - 1, train)  # the padded tail, epoch 2's first train step
+    stk_steps = _eval_batches(UTT_SAMPLES, UTT_BATCH, UTT_PATTERNS, fused=False)
+    want_stk = TRAIN_EPOCHS * (train + stk_steps["validation"])
+    want_seq = TRAIN_EPOCHS * (train + utt_expected_launches()["validation"])
+
+    seq, steps_seq, seq_caps = [], [], []
+    name = f"{UTT_NAME}_Sequential"
+    cfg["experiment"]["name"] = cfg["model"]["name"] = name
+    path = work / "runs_seq.json"
+    path.write_text(json.dumps(cfg))
+    # members 1..5 at seed + i, then member 1 again with native convolutions
+    for i, run_id in [(i, i + 1) for i in range(max(STACKED_RUNS))] + [(0, 9)]:
+        alg = run_id == 9
+        reset_counts()
+        _cudnn(True)
+        try:
+            with contextlib.ExitStack() as hooks:
+                hooks.enter_context(_native_convolutions(alg))
+                if not alg:
+                    hooks.enter_context(_train_step_losses(steps_seq, []))
+                    hooks.enter_context(_teacher_capture(at, seq_caps, []))
+                rc = train_multimodal.main(["--config", str(path), "--run_id", str(run_id),
+                                            "--seed", str(seed + i), "--skip-test"])
+        finally:
+            _cudnn(False)
+        if rc != 0:
+            raise AssertionError(f"[stacked runs] sequential run {run_id}: non-zero exit")
+        counts = read_counts()
+        if counts != {"fused_mlp": 0, "lstm": want_seq}:
+            raise AssertionError(f"[stacked runs] sequential run {run_id}: launches {counts}, "
+                                 f"expected lstm {want_seq}")
+        metrics = out_root / name / "metrics" / str(run_id)
+        seq.append({"losses": _epoch_losses(metrics), "epoch_s": json.loads(
+            (metrics / "epoch_metrics.json").read_text())[TRAIN_EPOCHS - 1]["train"]["timing"]
+            ["total_time"]})
+    alg_rel = _loss_rel(seq.pop()["losses"], seq[0]["losses"])
+    say(f"[stacked runs] member 1 again with native convolutions vs cuDNN's: epoch losses, "
+        f"relative difference per epoch {alg_rel}")
+    stacked = {}
+    for k in STACKED_RUNS:
+        name = f"{UTT_NAME}_Stacked{k}"
+        cfg["experiment"]["name"] = cfg["model"]["name"] = name
+        path = work / f"runs_stk{k}.json"
+        path.write_text(json.dumps(cfg))
+        reset_counts()
+        steps_stk, stk_caps = [], []
+        _cudnn(True)
+        t0 = time.perf_counter()
+        try:
+            with _train_step_losses([], steps_stk), _teacher_capture(at, [], stk_caps):
+                rc = train_multimodal.main(["--config", str(path), "--run_id", "1",
+                                            "--stacked-runs", str(k), "--skip-test"])
+        finally:
+            _cudnn(False)
+        if rc != 0:
+            raise AssertionError(f"[stacked runs {k}] non-zero exit")
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+        if counts != {"fused_mlp": 0, "lstm": want_stk}:
+            raise AssertionError(f"[stacked runs {k}] launches {counts}, expected lstm "
+                                 f"{want_stk}: one per stacked step of {2 * k} groups")
+        metrics = out_root / name / "metrics"
+        losses = [_epoch_losses(metrics / str(i + 1)) for i in range(k)]
+        rel = [_loss_rel(got, seq[i]["losses"]) for i, got in enumerate(losses)]
+        worst = [max(r[e] for r in rel) for e in range(TRAIN_EPOCHS)]
+        first = [_first_steps_rel(steps_seq[i * TRAIN_EPOCHS], steps_stk, i) for i in range(k)]
+        _check_first_steps(f"[stacked runs {k}]", first)
+        _cudnn(True)
+        try:
+            teacher = _check_teacher(f"[stacked runs {k}]", seq_caps, stk_caps, at,
+                                     TRAIN_EPOCHS * train, dev)
+        finally:
+            _cudnn(False)
+        del stk_caps[:]
+        epoch_s = json.loads((metrics / "1/epoch_metrics.json").read_text())[
+            TRAIN_EPOCHS - 1]["train"]["timing"]["total_time"]
+        rates = {"stk": k * UTT_SAMPLES["train"] / epoch_s,
+                 "seq": k * UTT_SAMPLES["train"] / sum(r["epoch_s"] for r in seq[:k])}
+        stacked[k] = {"seconds": seconds, "launches": counts, "loss_rel": worst,
+                      "first_steps_rel": first, "teacher": teacher, "samples_per_s": rates}
+        say_card(card, f"[stacked runs {k}] {seconds:.2f} s through train_multimodal.main; "
+                 f"epoch {TRAIN_EPOCHS} train samples/s over the {k} members: stacked "
+                 f"{rates['stk']:.1f}, the {k} sequential runs {rates['seq']:.1f}; lstm launches "
+                 f"{counts['lstm']} (one per stacked step, {2 * k} groups each)")
+        say(f"[stacked runs {k}] members vs the sequential runs at seed + i: first three "
+            f"train steps' relative differences {first} (tolerances {STACK_RTOL}); epoch "
+            f"losses, largest relative difference per epoch {worst} (member 1 with "
+            f"native convolutions vs cuDNN's: {alg_rel})")
+    return {"stacked": stacked, "seq_launches": want_seq, "algorithm_rel": alg_rel}
+
+
+def say_phase15(card: str, resident: Optional[dict], folds: Optional[dict],
+                runs: Optional[dict], seconds: float) -> None:
+    if resident:
+        say_card(card, "[summary] resident fine-tune: epoch-2 train samples/s resident "
+                 f"{resident['runs']['on']['samples_per_s']:.1f}, streaming "
+                 f"{resident['runs']['off']['samples_per_s']:.1f}; busy share resident "
+                 f"{resident['busy']['on']:.3f}, streaming {resident['busy']['off']:.3f}; "
+                 f"fused_mlp {resident['launches']['on']['fused_mlp']} vs "
+                 f"{resident['launches']['off']['fused_mlp']}")
+    def forced(teacher):  # the largest loss and update/moment differences of its steps
+        out = []
+        for kind in ("float32", "float64"):
+            rows = [r for step in teacher.values() for r in step.get(kind, [])]
+            if rows:
+                out.append(f"{kind} loss {max(r['loss'] for r in rows):.3e}, update "
+                           f"{max(r['update'] for r in rows):.3e}, first moment "
+                           f"{max(r['moment'] for r in rows):.3e}")
+        return "teacher-forced steps: " + "; ".join(out)
+
+    if folds:
+        say_card(card, f"[summary] stacked folds: samples/s stacked "
+                 f"{folds['samples_per_s']['stk']:.1f}, sequential "
+                 f"{folds['samples_per_s']['seq']:.1f}; {forced(folds['teacher'])}; epoch "
+                 f"losses stacked vs sequential {folds['loss_rel']}, sequential with NHWC "
+                 f"vs NCHW convolutions {folds['algorithm_rel']}")
+    if runs:
+        for k, r in runs["stacked"].items():
+            say_card(card, f"[summary] stacked runs {k}: samples/s stacked "
+                     f"{r['samples_per_s']['stk']:.1f}, sequential "
+                     f"{r['samples_per_s']['seq']:.1f}; lstm {r['launches']['lstm']}; "
+                     f"{forced(r['teacher'])}; epoch losses stacked vs sequential "
+                     f"{r['loss_rel']}, member 1 with native vs cuDNN convolutions "
+                     f"{runs['algorithm_rel']}")
+    say(f"[summary] phase 15 {seconds:.1f} s")
+
+
+def phase15(dev, card: str, work: Path, resident: bool = True, stacked: bool = True) -> dict:
+    return {"resident": phase_resident(dev, card, work) if resident else None,
+            "folds": phase_stacked_folds(dev, card, work) if stacked else None,
+            "runs": phase_stacked_runs(dev, card, work) if stacked else None}
+
+
 def kernel_record(name: str, source: str, replaces: str, shape: str, kern: dict, t: dict,
                   pred: dict, srv: dict) -> dict:
     return {
@@ -5529,6 +6409,12 @@ def main(argv=None) -> int:
     parser.add_argument("--ef-only", action="store_true",
                         help="build the kernels and run phase 14's EFModelAL alone (no kernels "
                              "or ok line)")
+    parser.add_argument("--resident-only", action="store_true",
+                        help="build the kernels and run phase 15's device-resident fine-tune "
+                             "alone (no kernels or ok line)")
+    parser.add_argument("--stacked-only", action="store_true",
+                        help="build the kernels and run phase 2's member-axis kernels and "
+                             "phase 15's stacked folds and runs alone (no kernels or ok line)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU",
@@ -5655,8 +6541,23 @@ def main(argv=None) -> int:
         shutil.rmtree(work, ignore_errors=True)
         return 0
 
+    if args.resident_only or args.stacked_only:
+        try:
+            t0 = time.perf_counter()
+            if args.stacked_only:
+                phase_kernels_members(dev)
+            p15 = phase15(dev, smi, work, args.resident_only, args.stacked_only)
+            say_phase15(smi, p15["resident"], p15["folds"], p15["runs"],
+                        time.perf_counter() - t0)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        return 0
+
     mlp = phase_kernels_mlp(dev)
     lstm = phase_kernels_lstm(dev)
+    members = phase_kernels_members(dev)
+    for kern, rows in ((mlp, members["mlp"]), (lstm, members["lstm"])):
+        kern["max_err"] = max(kern["max_err"], *(t["max_abs_err"] for t in rows.values()))
     try:
         av_cfg = work / "avmnist.json"
         av_cfg.write_text(json.dumps(smoke_config(out_root=str(work / "out"))))
@@ -5697,10 +6598,12 @@ def main(argv=None) -> int:
         recurrent = phase_recurrent(dev, pool)
         t_14 = time.perf_counter()
         p14 = phase14(dev, smi)
-        t_train, t_utt, t_reader, t_shipped, t_cmam, t_msa, t_11, t_12, t_13, t_14 = (
+        t_15 = time.perf_counter()
+        p15 = phase15(dev, smi, work)
+        t_train, t_utt, t_reader, t_shipped, t_cmam, t_msa, t_11, t_12, t_13, t_14, t_15 = (
             t_utt - t_train, t_reader - t_utt, t_shipped - t_reader, t_cmam - t_shipped,
             t_msa - t_cmam, t_11 - t_msa, t_12 - t_11, t_13 - t_12, t_14 - t_13,
-            time.perf_counter() - t_14)
+            t_15 - t_14, time.perf_counter() - t_15)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -5736,6 +6639,7 @@ def main(argv=None) -> int:
     say_phase12(smi, export, ks, mono, t_12)
     say_phase13(smi, iemocap, chain, recurrent, t_13)
     say_phase14(smi, p14["mult"], p14["gcnet"], p14["ef"], t_14)
+    say_phase15(smi, p15["resident"], p15["folds"], p15["runs"], t_15)
     say(f"[summary] fused_mlp B=1024 {json.dumps(mlp['timings'][1024])}")
     for batch, t in mlp["shipped"].items():
         say(f"[summary] fused_mlp {SHIPPED_HEAD_DIMS} B={batch} {json.dumps(t)}")
@@ -5763,7 +6667,13 @@ def main(argv=None) -> int:
              **{f"mult_{kind}": r["launches"]["fused_mlp"] for kind, r in p14["mult"].items()},
              "gcnet": p14["gcnet"]["launches"]["fused_mlp"]},
          "shipped_head": {"dims": SHIPPED_HEAD_DIMS, "max_abs_err": mlp["shipped_err"],
-                          **{f"B={b}": t for b, t in mlp["shipped"].items()}}},
+                          **{f"B={b}": t for b, t in mlp["shipped"].items()}},
+         "member_axis": {f"K={k}, B={b}": t for (k, b), t in members["mlp"].items()},
+         "phase15_launches": {
+             "resident_fine_tune": p15["resident"]["launches"]["on"]["fused_mlp"],
+             "streaming_fine_tune": p15["resident"]["launches"]["off"]["fused_mlp"],
+             **{f"folds_{k}": r["launches"]["fused_mlp"]
+                for k, r in p15["folds"]["runs"].items()}}},
         {**kernel_record("lstm", "mmtpu_torch/ops/csrc/lstm.cu", "mmtpu/ops/lstm.py:61",
                          f"G={G}, B={B}, T={T}, H={H}, float32; library_ms is {G} nn.LSTM "
                          "calls, projection included (with_projection_ms is ours with it)",
@@ -5791,6 +6701,13 @@ def main(argv=None) -> int:
                             for k in PHASE13_LSTM},
          "phase14_shapes": {"G={}, B={}, T={}, H={}".format(*k): lstm["timings"][k]
                             for k in PHASE14_LSTM},
+         "fused_eval_shapes": {"G={}, B={}, T={}, H={}".format(*k): lstm["timings"][k]
+                               for k in FUSED_EVAL_LSTM},
+         "member_axis": {"K={}, G={}, B={}, T={}, H={}".format(*k): t
+                         for k, t in members["lstm"].items()},
+         "phase15_launches": {f"stacked_runs_{k}": r["launches"]["lstm"]
+                              for k, r in p15["runs"]["stacked"].items()}
+         | {"sequential_member": p15["runs"]["seq_launches"]},
          "with_projection_ms": lstm["timings"][LSTM_MAIN]["with_projection_ms"],
          "grad_max_abs_err": lstm["grad_err"],
          "serial_steps": T},

@@ -126,24 +126,26 @@ def standard_arg_parser(description: str) -> argparse.ArgumentParser:
                         "<log_path>/profile/trace.json (a Chrome trace)")
     p.add_argument("--eval-batch-factor", "--eval_batch_factor", dest="eval_batch_factor",
                    type=int, default=None, metavar="N",
-                   help="Parsed and stored; no effect in the port. mmtpu fuses the "
-                        "patterns x samples eval product only on its device-resident "
-                        "scan path, which the port does not have; on mmtpu's streaming "
-                        "path the flag has no effect either")
+                   help="Fuse N loader batches of the patterns x samples eval product "
+                        "into each eval step on the device-resident path (default: grow "
+                        "toward 1024 rows, at most 8x); the losses are reduced per "
+                        "original batch, so the results do not change. No effect on a "
+                        "split that streams")
     p.add_argument("--epochs", type=int, default=None, metavar="N",
                    help="Override training.epochs")
     p.add_argument("--resume", action="store_true",
                    help="Continue an interrupted run from its rolling last.pth")
     p.add_argument("--stacked-folds", "--stacked_folds", dest="stacked_folds",
                    action="store_true",
-                   help="Cross-validation only: mmtpu's vmapped all-folds engine, not "
-                        "ported (raises); with --resume or data_parallel > 1 mmtpu falls "
-                        "back to sequential folds, and so does the port")
+                   help="Cross-validation only: train all folds as one vmapped program; "
+                        "with --resume or data_parallel > 1, and for MMIN, RedCore and "
+                        "Self-MM, the folds run one after another, as in mmtpu")
     p.add_argument("--stacked-runs", "--stacked_runs", dest="stacked_runs", type=int,
                    default=0, metavar="K",
                    help="Train K repeat runs, run_id..run_id+K-1, member i seeded seed+i, "
-                        "each with its own run_id-scoped outputs, one after another "
-                        "(mmtpu's sequential path, which its vmapped engine equals)")
+                        "each with its own run_id-scoped outputs, as one vmapped program "
+                        "(one after another on a CV config, with --resume or "
+                        "data_parallel > 1, and for MMIN, RedCore and Self-MM)")
     return p
 
 

@@ -71,6 +71,7 @@ def run(args) -> int:
         vocab_override=[str(modality)] * len(any_loader.pattern_vocab),
         metrics_postprocess=add_plain_accuracy,
         resume=args.resume,
+        eval_batch_factor=getattr(args, "eval_batch_factor", None),
     )
     if cfg.experiment.dry_run:
         recorder.close()

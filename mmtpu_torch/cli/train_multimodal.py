@@ -31,12 +31,13 @@ mmtpu; its dropouts draw from the run's generator.
 `experiment.cross_validation: K` runs K folds, each with `cv_no` set in
 every dataset's kwargs and its outputs under `fold_<k>/`, then writes the
 per-epoch means of every metric over the folds to
-`{train,validation,test}_metrics_agg.json`. `--stacked-runs K` runs the K
-members run_id..run_id+K-1 (seed + i) one after another, each with its own
-outputs: mmtpu's sequential path, which mmtpu's vmapped engine equals; the
-vmapped engine, `--stacked-folds` and data parallelism over several devices
-are not ported and raise (ROADMAP item 12); MMIN, RedCore and Self-MM take the
-sequential runs and folds, as in mmtpu. Other model types (MulT's `mult`
+`{train,validation,test}_metrics_agg.json`. `--stacked-folds` trains all K
+folds as ONE vmapped program, and `--stacked-runs K` the K members
+run_id..run_id+K-1 (seed + i), each member with its own outputs in the
+sequential schema (`cli/stacked_cv.py`); MMIN, RedCore and Self-MM, a
+data_parallel other than 1, `--resume`, and `--stacked-runs` on a CV config
+take mmtpu's sequential runs and folds instead. Data parallelism over
+several devices is not ported and raises (ROADMAP item 12). Other model types (MulT's `mult`
 and GCNet's `gcnet` among them, which train only through the registry, as
 in mmtpu) raise mmtpu's `ValueError: Unknown model type` where mmtpu's
 does, after the loaders are built.
@@ -84,23 +85,27 @@ def route(cfg, args, device, json_nesting: str = "reference") -> int:
     of epoch_metrics.json)."""
     runs = int(getattr(args, "stacked_runs", 0) or 0)
     if runs > 1:
-        if not cfg.experiment.cross_validation:
-            reason = _stacked_fallback_reason(cfg, args, "--stacked-runs")
-            if reason is None:
-                print(f"--stacked-runs {runs}: mmtpu's vmapped engine is not ported "
-                      f"({common.ROADMAP_SYSTEMS}); running the members one after another, "
-                      "mmtpu's sequential path", flush=True)
-            else:
-                print(f"{reason}; falling back to sequential runs", flush=True)
+        if cfg.experiment.cross_validation:
+            # no run-stacking engine for CV (the member axis is the folds):
+            # the K repeats run one after another, as run_n.sh would
+            print(f"--stacked-runs with a cross-validation config runs the {runs} repeats "
+                  "sequentially (use --stacked-folds to stack folds within each run)",
+                  flush=True)
+            return sequential_runs(args, device, json_nesting=json_nesting)
+        reason = _stacked_fallback_reason(cfg, args, "--stacked-runs")
+        if reason is None:
+            from mmtpu_torch.cli import stacked_cv
+
+            return stacked_cv.run_repeat(args, device, json_nesting=json_nesting)
+        print(f"{reason}; falling back to sequential runs", flush=True)
         return sequential_runs(args, device, json_nesting=json_nesting)
     if cfg.experiment.cross_validation:
         if getattr(args, "stacked_folds", False):
             reason = _stacked_fallback_reason(cfg, args)
             if reason is None:
-                raise NotImplementedError(
-                    "--stacked-folds: mmtpu's vmapped fold engine is not ported to "
-                    f"mmtpu_torch ({common.ROADMAP_SYSTEMS}); it runs every fold for its "
-                    "full epochs, so sequential folds would write other results")
+                from mmtpu_torch.cli import stacked_cv
+
+                return stacked_cv.run(cfg, args, device, json_nesting=json_nesting)
             print(f"{reason}; falling back to sequential CV", flush=True)
         return main_cross_validation(cfg, args, device, json_nesting=json_nesting)
     return run_single(cfg, args, device, json_nesting=json_nesting)
@@ -164,6 +169,7 @@ def run_single(cfg, args, device, cv_no=None, json_nesting: str = "reference",
         group_name=next(iter(cfg.metrics.groups), "classification"),
         print_interval=cfg.experiment.train_print_interval_epochs,
         json_nesting=json_nesting, run_id=args.run_id, resume=args.resume,
+        eval_batch_factor=getattr(args, "eval_batch_factor", None),
     )
     if cfg.experiment.dry_run:
         recorder.close()

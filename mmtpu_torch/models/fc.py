@@ -55,6 +55,11 @@ class FcEncoder(_FcStack):
     def get_embedding_size(self) -> int:
         return self.layers[-1] if self.layers else self.input_dim
 
+    @property
+    def hidden_dim(self) -> int:
+        """The embedding width, which a fusion model sizes its head by."""
+        return self.get_embedding_size()
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if x.dim() > 2:
             x = x.reshape(x.shape[0], -1)

@@ -91,7 +91,13 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
             y = y * self.weight.reshape(shape) + self.bias.reshape(shape)
             mean, var = mean.detach(), var.detach()
         with torch.no_grad():
-            self.running_mean.lerp_(mean, self.momentum)
-            self.running_var.lerp_(var, self.momentum)
+            if torch._C._functorch.is_functorch_wrapped_tensor(self.running_mean):
+                # stacked members (vmap): lerp_ has no batching rule, the
+                # out-of-place lerp has, and copy_ writes it through
+                self.running_mean.copy_(torch.lerp(self.running_mean, mean, self.momentum))
+                self.running_var.copy_(torch.lerp(self.running_var, var, self.momentum))
+            else:
+                self.running_mean.lerp_(mean, self.momentum)
+                self.running_var.lerp_(var, self.momentum)
             self.num_batches_tracked.add_(1)
         return y

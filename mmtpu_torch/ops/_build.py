@@ -10,7 +10,8 @@ at once, and waits for them together.
 Nothing here runs at import time: a CPU-only host imports the port without
 nvcc, and only a launch on a CUDA tensor needs the build. Also here: what
 every launch asks of its device (`sm90_device`, `on_device`), kept cheap,
-and whether an eager call goes round the operator (`direct_launch`).
+whether an eager call goes round the operator (`direct_launch`), and
+whether a call is under a `torch.func` transform (`transformed`).
 """
 
 from __future__ import annotations
@@ -76,6 +77,16 @@ def direct_launch(device: torch.device) -> bool:
     700 W, PERF.md §6); a traced call (torch.export,
     torch.compile) takes the operator, so the graph holds it."""
     return device.type == "cuda" and not torch.compiler.is_compiling()
+
+
+def transformed(*tensors) -> bool:
+    """Whether any of `tensors` is wrapped by a `torch.func` transform
+    (`vmap`'s batched tensor, `grad`'s tracked one). Such a tensor has no
+    storage a kernel could read: the wrappers then take the operator or
+    their autograd Function, whose vmap rules hand the kernel plain
+    tensors. None entries are skipped."""
+    wrapped = torch._C._functorch.is_functorch_wrapped_tensor
+    return any(t is not None and wrapped(t) for t in tensors)
 
 
 def nvcc_path() -> str:

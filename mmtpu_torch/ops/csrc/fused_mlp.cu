@@ -52,6 +52,13 @@
 //     chain so wide that one row's two activation buffers, the biases and
 //     one weight row do not fit is refused, by the wrapper.
 //
+// Member axis (the counterpart of Pallas's batching rule, which adds a grid
+// axis): K independent chains of the same dims in one launch, grid
+// (blocks, K). Block (i, m) runs chain m: its x, logits, weights and biases
+// start `m·stride` floats after the given bases, where a stride of 0 shares
+// one tensor among all members. With K = 1 and no strides it is the plain
+// call.
+//
 // Chosen against: lanes along k with one shuffle reduction per accumulator
 // (five shuffle rounds for every output); rows padded to a stride ≡ 16 mod 32
 // (conflict-free too, but one bulk copy per row); wgmma (64-row tiles: two
@@ -79,6 +86,9 @@ struct MlpParams {
   int act_stride;  // floats between rows of an activation buffer, a multiple of 4
   int bias_floats; // all layers' outputs, rounded up to a multiple of 4
   int w_floats;    // size of the weights region
+  long long w_ms[MMTPU_MLP_MAX_LAYERS];  // floats between members' weights (0: shared)
+  long long b_ms[MMTPU_MLP_MAX_LAYERS];  // floats between members' biases (0: shared)
+  long long x_ms, out_ms;                // floats between members' inputs and outputs
 };
 
 // Floats between weight rows in shared memory: K rounded up to a multiple of 4.
@@ -134,6 +144,9 @@ fused_mlp_kernel(const float* __restrict__ x, float* __restrict__ out, MlpParams
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int cg = lane >> 2, kg = lane & 3;
   const int n_tiles = (p.batch + R - 1) / R;
+  const long long member = blockIdx.y;
+  x += member * p.x_ms;
+  out += member * p.out_ms;
 
   if (tid == 0) {
     for (int l = 0; l < p.n_layers; ++l)
@@ -146,13 +159,15 @@ fused_mlp_kernel(const float* __restrict__ x, float* __restrict__ out, MlpParams
     for (int l = 0; l < p.n_layers; ++l) {
       const int K = p.dims[l], N = p.dims[l + 1];
       if (p.bulk_mask >> l & 1)
-        bulk_copy(w_region + off, p.w[l], 4u * N * K, smem_addr(mbar + l));
+        bulk_copy(w_region + off, p.w[l] + member * p.w_ms[l], 4u * N * K,
+                  smem_addr(mbar + l));
       off += (size_t)N * weight_stride(K);
     }
   }
   for (int l = 0, off = 0; l < p.n_layers; ++l) {
     const int N = p.dims[l + 1];
-    for (int i = tid; i < N; i += MMTPU_MLP_THREADS) bias_s[off + i] = __ldg(p.b[l] + i);
+    const float* bl = p.b[l] + member * p.b_ms[l];
+    for (int i = tid; i < N; i += MMTPU_MLP_THREADS) bias_s[off + i] = __ldg(bl + i);
     off += N;
   }
 
@@ -175,7 +190,7 @@ fused_mlp_kernel(const float* __restrict__ x, float* __restrict__ out, MlpParams
     for (int l = 0; l < p.n_layers; ++l) {
       const int K = p.dims[l], N = p.dims[l + 1], S = weight_stride(K);
       const int chunks = S >> 2, n_groups = (chunks + 3) >> 2;
-      const float* __restrict__ W = p.w[l];
+      const float* __restrict__ W = p.w[l] + member * p.w_ms[l];
       const float* in = acts + (l & 1) * R * AS;
       float* nxt = acts + ((l + 1) & 1) * R * AS;
       const bool last = l == p.n_layers - 1;
@@ -290,8 +305,8 @@ fused_mlp_kernel(const float* __restrict__ x, float* __restrict__ out, MlpParams
 }
 
 template <int R>
-static int launch(const float* x, float* out, const MlpParams& p, int grid, int smem_bytes,
-                  cudaStream_t stream) {
+static int launch(const float* x, float* out, const MlpParams& p, int grid, int members,
+                  int smem_bytes, cudaStream_t stream) {
   // the attribute is kept per device: set it when a launch needs more than
   // this process has allowed there so far (the wrapper serialises launches)
   static int allowed[MMTPU_MLP_MAX_DEVICES];
@@ -305,7 +320,7 @@ static int launch(const float* x, float* out, const MlpParams& p, int grid, int 
     if (e != cudaSuccess) return (int)e;
     allowed[dev] = smem_bytes;
   }
-  fused_mlp_kernel<R><<<grid, MMTPU_MLP_THREADS, smem_bytes, stream>>>(x, out, p);
+  fused_mlp_kernel<R><<<dim3(grid, members), MMTPU_MLP_THREADS, smem_bytes, stream>>>(x, out, p);
   return (int)cudaGetLastError();
 }
 
@@ -317,14 +332,20 @@ extern "C" {
 // floats between activation rows, ≥ every dims[i] with i < n_layers rounded
 // up to 4; bulk_mask: bit i set where layer i's base pointer and 4·dims[i] are
 // multiples of 16; smem_bytes: header + biases + two activation buffers + the
-// weights region; resident: the region holds every layer at once. The caller sizes
+// weights region; resident: the region holds every layer at once. members:
+// chains in the launch (grid.y); x_ms, out_ms and the n_layers entries of w_ms
+// and b_ms: floats between two members' tensors, 0 where all share one (a
+// bulk-copied layer's w_ms must keep 16-byte alignment). The caller sizes
 // them (`chain_plan` in the wrapper); this checks again.
 int mmtpu_fused_mlp_forward(const void* x, void* out, int batch, int n_layers,
                             const int* dims, const void* const* w,
                             const void* const* b, int rows, int grid, int act_stride,
-                            int bulk_mask, int resident, int smem_bytes, void* stream) {
+                            int bulk_mask, int resident, int smem_bytes, int members,
+                            long long x_ms, long long out_ms, const long long* w_ms,
+                            const long long* b_ms, void* stream) {
   if (n_layers < 1 || n_layers > MMTPU_MLP_MAX_LAYERS || batch < 1 || grid < 1 ||
-      act_stride % 4 != 0 || smem_bytes > MMTPU_MLP_SMEM_LIMIT)
+      act_stride % 4 != 0 || smem_bytes > MMTPU_MLP_SMEM_LIMIT || members < 1 ||
+      members > 65535 || x_ms < 0 || out_ms < 0)
     return (int)cudaErrorInvalidValue;
   MlpParams p;
   p.n_layers = n_layers;
@@ -332,6 +353,8 @@ int mmtpu_fused_mlp_forward(const void* x, void* out, int batch, int n_layers,
   p.bulk_mask = bulk_mask;
   p.resident = resident;
   p.act_stride = act_stride;
+  p.x_ms = x_ms;
+  p.out_ms = out_ms;
   long long all = 0, outs = 0;
   for (int i = 0; i <= n_layers; ++i) {
     p.dims[i] = dims[i];
@@ -345,10 +368,13 @@ int mmtpu_fused_mlp_forward(const void* x, void* out, int batch, int n_layers,
   for (int i = 0; i < n_layers; ++i) {
     const int S = weight_stride(dims[i]);
     if (S > act_stride || S > p.w_floats) return (int)cudaErrorInvalidValue;
+    if (w_ms[i] < 0 || b_ms[i] < 0) return (int)cudaErrorInvalidValue;
     if (bulk_mask >> i & 1) {
-      if (dims[i] % 4 != 0 || reinterpret_cast<uintptr_t>(w[i]) % 16 != 0)
+      if (dims[i] % 4 != 0 || reinterpret_cast<uintptr_t>(w[i]) % 16 != 0 || w_ms[i] % 4 != 0)
         return (int)cudaErrorInvalidValue;
     }
+    p.w_ms[i] = w_ms[i];
+    p.b_ms[i] = b_ms[i];
     all += (long long)dims[i + 1] * S;
     p.w[i] = static_cast<const float*>(w[i]);
     p.b[i] = static_cast<const float*>(b[i]);
@@ -358,10 +384,10 @@ int mmtpu_fused_mlp_forward(const void* x, void* out, int batch, int n_layers,
   float* of = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (rows) {
-    case 1: return launch<1>(xf, of, p, grid, smem_bytes, s);
-    case 2: return launch<2>(xf, of, p, grid, smem_bytes, s);
-    case 4: return launch<4>(xf, of, p, grid, smem_bytes, s);
-    case 8: return launch<8>(xf, of, p, grid, smem_bytes, s);
+    case 1: return launch<1>(xf, of, p, grid, members, smem_bytes, s);
+    case 2: return launch<2>(xf, of, p, grid, members, smem_bytes, s);
+    case 4: return launch<4>(xf, of, p, grid, members, smem_bytes, s);
+    case 8: return launch<8>(xf, of, p, grid, members, smem_bytes, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

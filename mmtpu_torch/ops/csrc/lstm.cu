@@ -76,7 +76,7 @@
 
 #include <cuda_runtime.h>
 
-#define MMTPU_LSTM_MAX_GROUPS 8
+#define MMTPU_LSTM_MAX_GROUPS 64  // the pointer tables are kernel parameters: 1 KB
 #define MMTPU_LSTM_MAX_THREADS 1024
 #define MMTPU_LSTM_KREG_THREADS 512   // most threads a block with register rows may have
 #define MMTPU_LSTM_SMEM_LIMIT 232448  // bytes a block may use on sm_90

@@ -27,6 +27,12 @@ tables handed over by pointer are preallocated.
 Only the forward is a kernel, as in mmtpu. Its backward (`_FusedMLP`) is
 the plain recompute of mmtpu's `_bwd`, so differentiating through the
 kernel gives the right gradient.
+
+Member axis (mmtpu's stacked eval: Pallas's batching rule adds a grid
+axis): under `torch.func.vmap` the K members' chains run in ONE launch
+whose grid covers tiles × members (`_launch_members`, x (K, B, in),
+weights (K, out, in), biases (K, out), a member stride of 0 for a tensor
+all members share); `fused_mlp_members_reference` is its plain version.
 """
 
 from __future__ import annotations
@@ -165,6 +171,8 @@ _kernel = None
 _c_dims = (ctypes.c_int * (MAX_LAYERS + 1))()
 _c_w = (ctypes.c_void_p * MAX_LAYERS)()
 _c_b = (ctypes.c_void_p * MAX_LAYERS)()
+_c_w_ms = (ctypes.c_longlong * MAX_LAYERS)()
+_c_b_ms = (ctypes.c_longlong * MAX_LAYERS)()
 
 
 def _kernel_fn():
@@ -174,21 +182,38 @@ def _kernel_fn():
         fn = _build.load("fused_mlp").mmtpu_fused_mlp_forward
         fn.argtypes = (
             [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
-            + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+            + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p] * 3
         )
         fn.restype = ctypes.c_int
         _kernel = fn
     return _kernel
 
 
-def _launch(x, weights, biases) -> torch.Tensor:
+def _member_stride(t: torch.Tensor, members: int) -> int:
+    """Floats between two members of `t` (K, ...): 0 when they share one
+    tensor (an expanded one, or K = 1)."""
+    if t.shape[0] != members:
+        raise ValueError(f"fused_mlp: {members} members, got a tensor of {tuple(t.shape)}")
+    return 0 if members == 1 else t.stride(0)
+
+
+_NO_STRIDES = (0,) * MAX_LAYERS
+
+
+def _run(x, weights, biases, members: int = 1, x_ms: int = 0,
+         w_ms=_NO_STRIDES, b_ms=_NO_STRIDES) -> torch.Tensor:
+    """One launch over `members` chains. x, weights and biases are member
+    0's (B, d0), (out, in) and (out,); member m's lie m·stride floats after
+    them. Returns (members, B, dn), or (B, dn) for one member."""
     dims = _check(x, weights, biases)
     index, num_sms = _build.sm90_device(x.device, "fused_mlp")
     batch, n = x.shape[0], len(weights)
-    out = torch.empty((batch, dims[-1]), device=x.device, dtype=x.dtype)
+    shape = (members, batch, dims[-1]) if members > 1 else (batch, dims[-1])
+    out = torch.empty(shape, device=x.device, dtype=x.dtype)
     if batch == 0:
         return out
-    plan = chain_plan(batch, dims, num_sms)
+    # each member's chain gets its share of the SMs
+    plan = chain_plan(batch, dims, max(num_sms // members, 1))
     fn = _kernel or _kernel_fn()
     with _launch_lock, _build.on_device(index):
         bulk_mask = 0
@@ -196,29 +221,83 @@ def _launch(x, weights, biases) -> torch.Tensor:
             _c_dims[i] = dims[i]
             _c_w[i] = weights[i].data_ptr()
             _c_b[i] = biases[i].data_ptr()
-            bulk_mask |= bulk_copy_ok(weights[i]) << i
+            _c_w_ms[i] = w_ms[i]
+            _c_b_ms[i] = b_ms[i]
+            bulk_mask |= (bulk_copy_ok(weights[i]) and w_ms[i] % 4 == 0) << i
         _c_dims[n] = dims[n]
         rc = fn(x.data_ptr(), out.data_ptr(), batch, n, _c_dims, _c_w, _c_b,
                 plan.rows, plan.grid, plan.act_stride, bulk_mask, plan.resident,
-                plan.smem_bytes, _build.current_stream(index))
+                plan.smem_bytes, members, x_ms, batch * dims[-1], _c_w_ms, _c_b_ms,
+                _build.current_stream(index))
         if rc == 0:
             fused_mlp.launches += 1
     if rc != 0:
         raise RuntimeError(
             f"fused_mlp: kernel launch failed with CUDA error {rc} "
-            f"(batch {batch}, dims {dims}, {plan}, bulk mask {bulk_mask:#x})"
+            f"(members {members}, batch {batch}, dims {dims}, {plan}, bulk mask {bulk_mask:#x})"
         )
+    return out
+
+
+def _launch(x, weights, biases) -> torch.Tensor:
+    """One launch of one chain: x (B, d0) → (B, dn)."""
+    return _run(x, weights, biases)
+
+
+def _launch_members(x, weights, biases) -> torch.Tensor:
+    """One launch of K chains, the member axis leading every tensor: x
+    (K, B, d0), weights (K, out, in), biases (K, out) → (K, B, dn). A
+    member axis of stride 0 (an expanded tensor) shares that tensor; each
+    member must be contiguous."""
+    k = x.shape[0]
+    out = _run(x[0], [w[0] for w in weights], [b[0] for b in biases], k,
+               _member_stride(x, k), [_member_stride(w, k) for w in weights],
+               [_member_stride(b, k) for b in biases])
+    return out if k > 1 else out[None]
+
+
+def fused_mlp_members(x, weights, biases) -> torch.Tensor:
+    """K chains with the member axis leading: the kernel's member launch on
+    CUDA, the plain batched chain on the CPU."""
+    if x.device.type == "cuda":
+        return _launch_members(x, weights, biases)
+    return fused_mlp_members_reference(x, weights, biases)
+
+
+def fused_mlp_members_reference(x, weights, biases):
+    """The plain chain with a leading member axis: x (K, B, d0), weights
+    (K, out, in), biases (K, out); member k's chain on its own slices."""
+    h = x
+    for i, (w, b) in enumerate(zip(weights, biases)):
+        h = torch.baddbmm(b.unsqueeze(1), h, w.transpose(1, 2))
+        if i < len(weights) - 1:
+            h = torch.relu(h)
+    return h
+
+
+def fold_members(members: int, in_dims, tensors):
+    """Each tensor with its vmapped axis moved to the front, (K, ...): an
+    axis of None (a tensor shared by every member) expands without a copy;
+    a batched one is made contiguous."""
+    out = []
+    for t, d in zip(tensors, in_dims):
+        if d is None:
+            out.append(t.expand(members, *t.shape))
+        else:
+            out.append(t.movedim(d, 0).contiguous())
     return out
 
 
 def recompute_grads(x, weights, biases, g):
     """(dx, dWs, dbs) of the chain for output cotangent g, recomputing the
-    activations in plain PyTorch (mmtpu's `_bwd`, with (out, in) weights)."""
+    activations in plain PyTorch (mmtpu's `_bwd`, with (out, in) weights).
+    The chain runs on the last two axes, so every tensor may carry a leading
+    member axis: x (K, B, d0), weights (K, out, in), biases (K, out)."""
     n = len(weights)
     acts = [x]
     h = x
     for i, (w, b) in enumerate(zip(weights, biases)):
-        h = torch.addmm(b, h, w.t())
+        h = h @ w.transpose(-1, -2) + b.unsqueeze(-2)
         if i < n - 1:
             h = torch.relu(h)
         acts.append(h)
@@ -227,21 +306,33 @@ def recompute_grads(x, weights, biases, g):
     for i in reversed(range(n)):
         if i < n - 1:  # through the ReLU (not after the last layer)
             dx = dx * (acts[i + 1] > 0)
-        dws[i] = dx.t() @ acts[i]
-        dbs[i] = dx.sum(dim=0)
+        dws[i] = dx.transpose(-1, -2) @ acts[i]
+        dbs[i] = dx.sum(dim=-2)
         dx = dx @ weights[i]
     return dx, dws, dbs
 
 
 class _FusedMLP(torch.autograd.Function):
-    """Kernel forward; backward is the plain recompute (`recompute_grads`)."""
+    """Kernel forward (the plain chain on the CPU); backward is the plain
+    recompute (`recompute_grads`). An x of three axes carries a leading
+    member axis (x (K, B, d0), weights (K, out, in), biases (K, out)): K
+    chains in ONE member-axis launch, which is what `torch.func.vmap` folds
+    the members into."""
 
     @staticmethod
-    def forward(ctx, x, n_layers: int, *params):
+    def forward(x, n_layers: int, *params):
         weights, biases = params[:n_layers], params[n_layers:]
+        if x.dim() == 3:
+            return fused_mlp_members(x, weights, biases)
+        if x.device.type == "cuda":
+            return _launch(x, weights, biases)
+        return fused_mlp_reference(x, weights, biases)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, n_layers, *params = inputs
         ctx.n_layers = n_layers
         ctx.save_for_backward(x, *params)
-        return _launch(x, weights, biases)
 
     @staticmethod
     def backward(ctx, g):
@@ -249,6 +340,12 @@ class _FusedMLP(torch.autograd.Function):
         n = ctx.n_layers
         dx, dws, dbs = recompute_grads(x, params[:n], params[n:], g)
         return (dx, None, *dws, *dbs)
+
+    @staticmethod
+    def vmap(info, in_dims, x, n_layers: int, *params):
+        x_dim, _, *p_dims = in_dims
+        folded = fold_members(info.batch_size, [x_dim, *p_dims], [x, *params])
+        return _FusedMLP.apply(folded[0], n_layers, *folded[1:]), 0
 
 
 def fused_mlp(x: torch.Tensor, weights: Sequence[torch.Tensor],
@@ -262,16 +359,20 @@ def fused_mlp(x: torch.Tensor, weights: Sequence[torch.Tensor],
     eager call on CUDA launches the same kernel without the dispatcher
     (`_build.direct_launch`). A call that needs a gradient takes the plain
     chain on the CPU and `_FusedMLP` (the kernel, then the plain recompute)
-    on CUDA."""
+    on CUDA. Under a `torch.func` transform (`vmap` over stacked members,
+    `grad`) every call takes the operator or `_FusedMLP`, on either device,
+    whose vmap rules fold the members into one member-axis launch (the
+    plain batched chain on the CPU)."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_mlp: no kernel for device {x.device}")
+    transformed = _build.transformed(x, *weights, *biases)
     if torch.is_grad_enabled() and any(
         t.requires_grad for t in (x, *weights, *biases)
     ):
-        if x.device.type == "cpu":
+        if x.device.type == "cpu" and not transformed:
             return fused_mlp_reference(x, weights, biases)
         return _FusedMLP.apply(x, len(weights), *weights, *biases)
-    if _build.direct_launch(x.device):
+    if _build.direct_launch(x.device) and not transformed:
         return _launch(x, weights, biases)
     return torch.ops.mmtpu.fused_mlp(x, list(weights), list(biases))
 

@@ -55,6 +55,7 @@ def main() -> int:
     c_dims = (ctypes.c_int * (n + 1))(*DIMS)
     c_w = (ctypes.c_void_p * n)(*[w.data_ptr() for w in ws])
     c_b = (ctypes.c_void_p * n)(*[b.data_ptr() for b in bs])
+    c_zero = (ctypes.c_longlong * n)()  # one member: no member strides
     weights = 4 * sum(o * weight_stride(i) for i, o in zip(DIMS, DIMS[1:]))
     side = torch.cuda.Stream()
     for batch in BATCHES:
@@ -68,7 +69,8 @@ def main() -> int:
 
                 def launch():
                     rc = fn(x.data_ptr(), out.data_ptr(), batch, n, c_dims, c_w, c_b, rows,
-                            grid, DIMS[0], 2 ** n - 1, True, smem, side.cuda_stream)
+                            grid, DIMS[0], 2 ** n - 1, True, smem, 1, 0, 0, c_zero, c_zero,
+                            side.cuda_stream)
                     if rc != 0:
                         raise RuntimeError(f"launch failed with CUDA error {rc}")
 

@@ -28,9 +28,16 @@ Dispatch, by where `xw` lies (through the operator `mmtpu::lstm` of
 - CUDA tensors → the kernel, or an error. There is no fallback: a CUDA input
   the kernel does not take raises (dtype other than float32, a
   non-contiguous tensor, tensors on different devices, an architecture other
-  than sm_90, more than MAX_GROUPS groups, or a hidden size whose state for
-  one batch row, about 12·H bytes, exceeds the 227 KB of shared memory a
-  block may use).
+  than sm_90, or a hidden size whose state for one batch row, about 12·H
+  bytes, exceeds the 227 KB of shared memory a block may use). A call of
+  more than MAX_GROUPS groups (the pointer tables are kernel parameters)
+  launches once per MAX_GROUPS groups, each launch counted.
+
+Member axis (mmtpu's stacked engine vmaps the recurrence over members):
+under `torch.func.vmap` the K members fold into the group axis, one call
+of K·G groups, member k's group g at k·G + g; its `xw` and `wh` are the
+contiguous slices of the batched tensors, handed over by pointer without a
+copy (`fold_groups`).
 
 A launch costs the host little beside the launch itself: the device's
 properties are read once, the plan is cached by (G, B, H, SMs), the pointer
@@ -38,8 +45,9 @@ tables are preallocated, and the device is switched only when it is not the
 current one.
 
 Only the forward is a kernel, as in mmtpu. Its backward (`_LSTM`) recomputes
-through the plain scan (`lstm_recompute_grads`, mmtpu's `_bwd`), so
-differentiating through the kernel gives the plain scan's gradient.
+through the plain scan (`lstm_recompute_stacked_grads`, mmtpu's `_bwd` for
+all groups at once), so differentiating through the kernel gives the plain
+scan's gradient.
 """
 
 from __future__ import annotations
@@ -53,7 +61,7 @@ import torch
 
 from mmtpu_torch.ops import _build
 
-MAX_GROUPS = 8  # MMTPU_LSTM_MAX_GROUPS in csrc/lstm.cu
+MAX_GROUPS = 64  # groups of one launch: MMTPU_LSTM_MAX_GROUPS in csrc/lstm.cu
 MAX_THREADS = 1024
 KREG_THREADS = 512  # most threads of a block that holds rows of wh in registers
 ROW_TILES = (1, 2, 4, 8)  # batch rows per block the kernel is built for
@@ -166,11 +174,13 @@ def launch_plan(groups: int, batch: int, hidden: int, num_sms: int) -> LaunchPla
     return LaunchPlan(rows, kreg, stage_k, h_stride, threads)
 
 
-def _check(xws, whs, h0, c0, lengths) -> Tuple[int, int, int, int]:
+def _check(xws, whs, h0, c0, lengths, max_groups: Optional[int] = MAX_GROUPS
+           ) -> Tuple[int, int, int, int]:
     """Shapes, dtypes, devices and layouts the kernel takes → (G, B, T, H).
-    `h0` and `c0` may each be None (zeros)."""
+    `h0` and `c0` may each be None (zeros). `max_groups`: the most groups of
+    one launch, None for a call that launches as often as it must."""
     G = len(xws)
-    if not 1 <= G <= MAX_GROUPS or len(whs) != G:
+    if not 1 <= G <= (max_groups or G) or len(whs) != G:
         raise ValueError(
             f"lstm: need 1..{MAX_GROUPS} groups and one wh per xw, got "
             f"{G} xw and {len(whs)} wh"
@@ -228,9 +238,15 @@ def _kernel_fn():
     return _kernel
 
 
+def _at(t: Optional[torch.Tensor], offset: int):
+    """The address `offset` 4-byte elements into `t`; None stays None."""
+    return None if t is None else t.data_ptr() + 4 * offset
+
+
 def _launch(xws, whs, h0, c0, lengths):
-    """One kernel launch over all groups → (out (G, B, T, H), hT, cT)."""
-    G, B, T, H = _check(xws, whs, h0, c0, lengths)
+    """The kernel over all groups → (out (G, B, T, H), hT, cT): one launch,
+    or one per MAX_GROUPS groups beyond that."""
+    G, B, T, H = _check(xws, whs, h0, c0, lengths, max_groups=None)
     dev = xws[0].device
     index, num_sms = _build.sm90_device(dev, "lstm")
     out = torch.empty((G, B, T, H), device=dev, dtype=torch.float32)
@@ -243,71 +259,123 @@ def _launch(xws, whs, h0, c0, lengths):
             else:
                 dst.copy_(src)
         return out, hT, cT
-    plan = launch_plan(G, B, H, num_sms)
     fn = _kernel or _kernel_fn()
-    with _launch_lock, _build.on_device(index):
-        for g in range(G):
-            _c_xw[g] = xws[g].data_ptr()
-            _c_wh[g] = whs[g].data_ptr()
-        rc = fn(_c_xw, _c_wh,
-                None if h0 is None else h0.data_ptr(),
-                None if c0 is None else c0.data_ptr(),
-                None if lengths is None else lengths.data_ptr(),
-                out.data_ptr(), hT.data_ptr(), cT.data_ptr(),
-                G, B, T, H, *plan, _build.current_stream(index))
-        if rc == 0:
-            lstm_sequence_stacked.launches += 1
-    if rc != 0:
-        raise RuntimeError(
-            f"lstm: kernel launch failed with CUDA error {rc} (G={G}, B={B}, T={T}, "
-            f"H={H}, {plan}, smem {plan.smem_bytes(H)} B)"
-        )
+    for g0 in range(0, G, MAX_GROUPS):
+        n = min(MAX_GROUPS, G - g0)
+        plan = launch_plan(n, B, H, num_sms)
+        state = g0 * B * H
+        with _launch_lock, _build.on_device(index):
+            for g in range(n):
+                _c_xw[g] = xws[g0 + g].data_ptr()
+                _c_wh[g] = whs[g0 + g].data_ptr()
+            rc = fn(_c_xw, _c_wh, _at(h0, state), _at(c0, state), _at(lengths, g0 * B),
+                    _at(out, state * T), _at(hT, state), _at(cT, state),
+                    n, B, T, H, *plan, _build.current_stream(index))
+            if rc == 0:
+                lstm_sequence_stacked.launches += 1
+        if rc != 0:
+            raise RuntimeError(
+                f"lstm: kernel launch failed with CUDA error {rc} (G={n} of {G}, B={B}, "
+                f"T={T}, H={H}, {plan}, smem {plan.smem_bytes(H)} B)"
+            )
     return out, hT, cT
 
 
 def lstm_recompute_grads(xw, wh, h0, c0, lengths, g_out, g_h, g_c):
     """(dxw, dwh, dh0, dc0) of one LSTM for the cotangents of (outputs, h, c),
     differentiating the plain scan on the saved inputs (mmtpu's `_bwd`)."""
-    B, H = xw.shape[0], wh.shape[0]
-    with torch.enable_grad():
-        ins = [
-            (xw.new_zeros((B, H)) if t is None else t.detach()).requires_grad_()
-            for t in (xw, wh, h0, c0)
-        ]
-        out, (h, c) = lstm_reference(*ins, lengths)
-        grads = torch.autograd.grad(
-            (out, h, c), ins, (g_out, g_h, g_c), allow_unused=True
-        )
-    return tuple(torch.zeros_like(t) if g is None else g for g, t in zip(grads, ins))
+    grads = lstm_recompute_stacked_grads(
+        xw[None], wh[None], _lead(h0), _lead(c0), _lead(lengths),
+        g_out[None], g_h[None], g_c[None])
+    return tuple(g[0] for g in grads)
+
+
+def lstm_recompute_stacked_grads(xw, wh, h0, c0, lengths, g_out, g_h, g_c):
+    """`lstm_recompute_grads` of G groups at once: xw (G, B, T, 4H), wh
+    (G, H, 4H), the states (G, B, H) or None (zeros, whose gradients are
+    returned all the same), lengths (G, B) or None; one `torch.func.vjp`
+    through the plain stacked scan, so it also runs inside a transform."""
+    G, B, H = xw.shape[0], xw.shape[1], wh.shape[1]
+    h0 = xw.new_zeros((G, B, H)) if h0 is None else h0
+    c0 = xw.new_zeros((G, B, H)) if c0 is None else c0
+
+    def scan(xw, wh, h0, c0):
+        out, (h, c) = lstm_stacked_reference(xw, wh, h0, c0, lengths)
+        return out, h, c
+
+    _, pullback = torch.func.vjp(scan, xw, wh, h0, c0)
+    return pullback((g_out, g_h, g_c))
+
+
+def fold_groups(members: int, groups: int, in_dims, xws, whs, h0, c0, lengths):
+    """K members' G groups as one call of K·G groups, member k's group g at
+    k·G + g. `in_dims` are vmap's: per xw, per wh, then h0, c0, lengths
+    (None: shared by every member). Member slices of a batched xw or wh are
+    views of its contiguous (K, ...) layout; a shared one is the same
+    tensor K times. States and lengths become (K·G, ...)."""
+    xw_dims, wh_dims = in_dims[:groups], in_dims[groups:2 * groups]
+    h_dim, c_dim, l_dim = in_dims[2 * groups:]
+
+    def per_member(t, d):
+        return [t] * members if d is None else t.movedim(d, 0).contiguous().unbind(0)
+
+    def lead(t, d):  # (K·G, ...) from (G, ...) per member
+        if t is None:
+            return None
+        t = t.expand(members, *t.shape) if d is None else t.movedim(d, 0)
+        return t.reshape(members * groups, *t.shape[2:])
+
+    xs = [per_member(t, d) for t, d in zip(xws, xw_dims)]
+    ws = [per_member(t, d) for t, d in zip(whs, wh_dims)]
+    return ([xs[g][k] for k in range(members) for g in range(groups)],
+            [ws[g][k] for k in range(members) for g in range(groups)],
+            lead(h0, h_dim), lead(c0, c_dim), lead(lengths, l_dim))
+
+
+def _unfold(members: int, t: torch.Tensor) -> torch.Tensor:
+    """(K·G, ...) → (K, G, ...)."""
+    return t.reshape(members, t.shape[0] // members, *t.shape[1:])
 
 
 class _LSTM(torch.autograd.Function):
-    """Kernel forward; backward is the plain recompute, group by group."""
+    """Kernel forward (the plain scan on the CPU); backward is the plain
+    recompute of all groups at once. Under `torch.func.vmap` the members
+    fold into the group axis (`fold_groups`): one call of K·G groups."""
 
     @staticmethod
-    def forward(ctx, groups: int, lengths, h0, c0, *xw_wh):
+    def forward(groups: int, lengths, h0, c0, *xw_wh):
+        xws, whs = list(xw_wh[:groups]), list(xw_wh[groups:])
+        if xws[0].device.type == "cuda":
+            return _launch(xws, whs, h0, c0, lengths)
+        out, (h, c) = lstm_stacked_reference(xws, whs, h0, c0, lengths)
+        # with T = 0 the final state is the initial one: no output may alias an input
+        return out, (h.clone() if h is h0 else h), (c.clone() if c is c0 else c)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        groups, lengths, h0, c0, *xw_wh = inputs
         ctx.groups = groups
-        ctx.lengths = lengths
-        ctx.save_for_backward(h0, c0, *xw_wh)
-        return _launch(list(xw_wh[:groups]), list(xw_wh[groups:]), h0, c0, lengths)
+        ctx.save_for_backward(lengths, h0, c0, *xw_wh)
 
     @staticmethod
     def backward(ctx, g_out, g_h, g_c):
-        h0, c0, *xw_wh = ctx.saved_tensors
+        lengths, h0, c0, *xw_wh = ctx.saved_tensors
         G = ctx.groups
-        per_group = [
-            lstm_recompute_grads(
-                xw_wh[g], xw_wh[G + g],
-                None if h0 is None else h0[g], None if c0 is None else c0[g],
-                None if ctx.lengths is None else ctx.lengths[g],
-                g_out[g], g_h[g], g_c[g],
-            )
-            for g in range(G)
-        ]
-        dxw, dwh, dh0, dc0 = zip(*per_group)
-        return (None, None,
-                None if h0 is None else torch.stack(dh0),
-                None if c0 is None else torch.stack(dc0), *dxw, *dwh)
+        dxw, dwh, dh0, dc0 = lstm_recompute_stacked_grads(
+            torch.stack(xw_wh[:G]), torch.stack(xw_wh[G:]), h0, c0, lengths,
+            g_out, g_h, g_c)
+        return (None, None, None if h0 is None else dh0, None if c0 is None else dc0,
+                *dxw.unbind(0), *dwh.unbind(0))
+
+    @staticmethod
+    def vmap(info, in_dims, groups: int, lengths, h0, c0, *xw_wh):
+        K = info.batch_size
+        _, l_dim, h_dim, c_dim, *t_dims = in_dims
+        xws, whs, h0, c0, lengths = fold_groups(
+            K, groups, [*t_dims, h_dim, c_dim, l_dim], xw_wh[:groups], xw_wh[groups:],
+            h0, c0, lengths)
+        out, h, c = _LSTM.apply(K * groups, lengths, h0, c0, *xws, *whs)
+        return (_unfold(K, out), _unfold(K, h), _unfold(K, c)), (0, 0, 0)
 
 
 def lstm_sequence_stacked(
@@ -327,18 +395,21 @@ def lstm_sequence_stacked(
     `lstm_sequence_stacked.launches`) or raises, on the CPU it is the plain
     scan. An eager call on CUDA launches the same kernel without the
     dispatcher (`_build.direct_launch`). A call that needs a gradient takes
-    the plain scan on the CPU and `_LSTM` on CUDA."""
+    the plain scan on the CPU and `_LSTM` on CUDA. Under a `torch.func`
+    transform every call takes the operator or `_LSTM`, on either device,
+    whose vmap rules fold the members into the group axis."""
     xws, whs = _groups(xw), _groups(wh)
     device = xws[0].device
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"lstm: no kernel for device {device}")
+    transformed = _build.transformed(*xws, *whs, h0, c0, lengths)
     if torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in (*xws, *whs, h0, c0)
     ):
-        if device.type == "cpu":
+        if device.type == "cpu" and not transformed:
             return lstm_stacked_reference(xw, wh, h0, c0, lengths)
         out, h, c = _LSTM.apply(len(xws), lengths, h0, c0, *xws, *whs)
-    elif _build.direct_launch(device):
+    elif _build.direct_launch(device) and not transformed:
         out, h, c = _launch(xws, whs, h0, c0, lengths)
     else:
         out, h, c = torch.ops.mmtpu.lstm(xws, whs, h0, c0, lengths)

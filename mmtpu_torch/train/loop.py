@@ -8,8 +8,16 @@ pattern-suffixed metric), early stopping, best checkpoints, the host-side
 LR scale, the rolling resume point, and the test-time restore of the best
 checkpoint. The step's outputs stay on the device until the epoch ends and
 are copied to the host once (the recorder's `_materialize`). mmtpu's
-device-resident scan (and with it `--eval-batch-factor`'s fused eval) and
-the monitor are not ported.
+monitor is not ported.
+
+The device-resident epoch (`train/device_loop.py`, mmtpu's scan path):
+with `device_resident` "auto" (the default) or "on", a loop with the
+standard steps (no `step_builders`, no `record_fn`) uploads each split
+that fits once, train first, then validation, then the rest, against ONE
+cumulative budget ("auto"; "on" admits every split), and runs its epochs
+from the device; a split that does not fit streams. Eval on the resident
+path fuses `eval_batch_factor` loader batches per step (None: grow toward
+1024 rows, at most 8, `_auto_eval_factor`), with the same results.
 
 For other training tasks (C-MAM), as in mmtpu: `step_builders` replaces the
 train and eval step factories, `record_fn(recorder, out, vocab)` the
@@ -23,6 +31,7 @@ report writes.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import logging
 import re
@@ -90,6 +99,31 @@ def resolve_save_target(val_metrics: Dict[str, Any], save_metric: str) -> float:
                      f"Available: {available}")
 
 
+def _auto_eval_factor(batch_size: int, eval_total: int, target_rows: int = 1024) -> int:
+    """Fused-eval batch factor: grow the rows per step toward `target_rows`
+    without exceeding the epoch, at most 8×."""
+    if batch_size <= 0:
+        return 1
+    factor = max(1, min(8, target_rows // batch_size))
+    steps = -(-eval_total // batch_size)
+    return max(1, min(factor, steps))
+
+
+@dataclasses.dataclass
+class ResidentSplit:
+    """A split on the resident path: its data on the device, its loader
+    (the dataset, batch and order settings the schedule follows), and the
+    loader batches fused into each step."""
+
+    data: Any
+    loader: Any
+    sub_batches: int
+
+    @property
+    def batch_size(self) -> int:
+        return self.loader.batch_size * self.sub_batches
+
+
 def _jsonable(obj: Any) -> Any:
     if isinstance(obj, dict):
         return {str(k): _jsonable(v) for k, v in obj.items()}
@@ -129,6 +163,8 @@ class TrainLoop:
         resume: bool = False,
         record_fn: Optional[Callable] = None,
         step_builders: Optional[Tuple[Callable, Callable]] = None,
+        device_resident: str = "auto",
+        eval_batch_factor: Optional[int] = None,
     ) -> None:
         # vocab_override renames the recorder's pattern vocabulary (the
         # monomodal entry point records under the MODALITY name);
@@ -164,6 +200,38 @@ class TrainLoop:
             "train": [], "validation": []}
         self.test_metrics_nested: Dict[str, Dict[str, Any]] = {}
         self._phase_terms: List[Dict[str, torch.Tensor]] = []
+        self._resident: Dict[str, ResidentSplit] = {}
+        if (device_resident in ("auto", "on") and step_builders is None
+                and record_fn is None):
+            self._admit(device_resident, eval_batch_factor)
+
+    def _admit(self, mode: str, eval_batch_factor: Optional[int]) -> None:
+        """Upload the splits that fit. "auto" budgets the CUMULATIVE bytes
+        (every admitted split stays on the device for the whole run): train
+        first, it runs every epoch, then validation, then the rest."""
+        from mmtpu_torch.train import device_loop as dl
+
+        remaining = dl.DEFAULT_BUDGET_BYTES
+        priority = {"train": 0, "validation": 1}
+        for split, loader in sorted(self.loaders.items(),
+                                    key=lambda kv: priority.get(kv[0], 2)):
+            ds = getattr(loader, "dataset", None)
+            if ds is None or not getattr(ds, "arrays", None):
+                continue
+            if mode == "auto":
+                nbytes = dl.dataset_nbytes(ds)
+                if nbytes > remaining:
+                    continue
+                remaining -= nbytes
+            if split == "train":
+                factor = 1
+            elif eval_batch_factor is None:
+                factor = _auto_eval_factor(loader.batch_size,
+                                           ds.num_samples * len(ds.pattern_vocab()))
+            else:
+                factor = max(1, int(eval_batch_factor))
+            self._resident[split] = ResidentSplit(
+                dl.DeviceResidentData.upload(ds, self.device), loader, factor)
 
     # -- epochs -----------------------------------------------------------------
 
@@ -202,10 +270,41 @@ class TrainLoop:
             self.timing_history[split].append(time.time() - t0)
         return float(torch.stack(losses).float().mean().item()) if losses else 0.0
 
+    def _resident_epoch(self, split: str, epoch: int) -> float:
+        """The device-resident path: the epoch's schedule keyed by the
+        epoch index (the streaming loader counts epochs from 0), the outputs
+        on the host once, the recorder fed from them flattened; the loss is
+        the mean over the (original) batches with a real row."""
+        from mmtpu_torch.train import device_loop as dl
+
+        rs = self._resident[split]
+        loader, ds = rs.loader, rs.loader.dataset
+        t0 = time.time()
+        schedule = dl.build_schedule(ds, rs.batch_size, max(epoch - 1, 0), loader.shuffle,
+                                     loader.seed, ds.split, drop_last=loader.drop_last,
+                                     base_batch_size=loader.batch_size)
+        if split == "train":
+            outs = dl.run_train_epoch(self.task, self.state, rs.data, schedule, self.device)
+        else:
+            outs = dl.run_eval_epoch(self.task, rs.data, schedule, self.device, rs.sub_batches)
+        if split in self.timing_history:
+            self.timing_history[split].append(time.time() - t0)
+        flat = {k: v.reshape((-1,) + v.shape[2:]) for k, v in outs.items() if k != "loss"}
+        self.recorder.update_group_ids(self.group_name, flat["preds"], flat["labels"],
+                                       flat["pattern_id"], self._vocab(ds.pattern_vocab()),
+                                       flat["sample_mask"])
+        loss = outs["loss"].reshape(-1)
+        live = outs["sample_mask"].reshape(loss.shape[0], -1).max(axis=1) > 0
+        return float(np.sum(np.where(live, loss, 0.0)) / max(np.sum(live), 1))
+
     def train_epoch(self, epoch: int) -> float:
+        if "train" in self._resident:
+            return self._resident_epoch("train", epoch)
         return self._epoch("train", self.train_step)
 
     def eval_epoch(self, split: str) -> float:
+        if split in self._resident:
+            return self._resident_epoch(split, 0)
         return self._epoch(split, self.eval_step)
 
     def _metrics(self, raw: Dict[str, Dict[str, Any]], loss: float,

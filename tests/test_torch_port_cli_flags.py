@@ -7,7 +7,8 @@
 - `--data-parallel`: 1 and -1 run on one device, N beyond the visible
   devices raises mmtpu's ValueError, any other N > 1 (DDP) raises
   NotImplementedError;
-- `--stacked-folds` on a cross-validation config raises NotImplementedError;
+- `--stacked-folds` on a cross-validation config reaches the stacked engine,
+  and falls back to sequential folds with `--resume` or data_parallel;
 - `monitoring.enabled: true` raises unless `--disable_monitoring`;
 - `--profile` writes a torch.profiler trace and `tensorboard_path` a
   tfevents file through `train_multimodal.main`.
@@ -114,13 +115,19 @@ def test_data_parallel_two_raises_through_the_cli(module, tmp_path):
                        extra=("--data-parallel", "2"))
 
 
-def test_stacked_folds_raises_and_falls_back_as_mmtpu(tmp_path):
-    from mmtpu_torch.cli import common, train_multimodal
+def test_stacked_folds_raises_and_falls_back_as_mmtpu(tmp_path, monkeypatch):
+    """--stacked-folds reaches the stacked engine (it raised before the
+    engine was ported); with --resume or data_parallel it falls back to
+    sequential folds, as mmtpu does."""
+    from mmtpu_torch.cli import common, stacked_cv, train_multimodal
 
     cfg_path = _config(tmp_path, "synthetic_cv.yaml")
-    with pytest.raises(NotImplementedError, match="--stacked-folds.*ROADMAP.md item 12"):
-        run_cli_inproc("mmtpu_torch.cli.train_multimodal", cfg_path, run_id="1",
-                       extra=("--stacked-folds",))
+    reached = []
+    monkeypatch.setattr(stacked_cv, "run", lambda cfg, args, device, json_nesting:
+                        reached.append(int(cfg.experiment.cross_validation)) or 0)
+    assert run_cli_inproc("mmtpu_torch.cli.train_multimodal", cfg_path, run_id="1",
+                          extra=("--stacked-folds",)) == 0
+    assert reached == [2]
     args = common.standard_arg_parser("x").parse_args(
         ["--config", str(cfg_path), "--stacked-folds", "--resume", "--cpu"])
     cfg = common.load_config(args)

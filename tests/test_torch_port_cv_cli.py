@@ -6,10 +6,11 @@ configs with LeNet encoders (`configs/avmnist/synthetic_{cv,runs}.yaml`):
   files and directories (`fold_1/`, `fold_2/`, the run log, the
   `{train,validation,test}_metrics_agg.json`), the same JSON keys, and as
   many fold and epoch records;
-- `--stacked-runs 2` on `synthetic_runs.yaml` through the port's
-  `train_multimodal` against mmtpu's `sequential_runs` (called directly, so
-  that mmtpu takes its sequential path): the same output tree, the same
-  JSON keys, members run 1 and 2 seeded 11 and 12 in both.
+- `--stacked-runs 2` on `synthetic_runs.yaml` through both packages'
+  `sequential_runs` (called directly, so that both take the sequential
+  sweep; the stacked engine is `tests/test_torch_port_stacked.py`'s): the
+  same output tree, the same JSON keys, members run 1 and 2 seeded 11 and
+  12 in both.
 
 The two packages draw different initial weights, so metric values differ;
 checkpoints are compared by name (`.ckpt` in mmtpu, `.pth` in the port).
@@ -21,6 +22,7 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch
 
 REPO = Path(__file__).resolve().parent.parent
 CONFIGS = REPO / "configs" / "avmnist"
@@ -96,8 +98,11 @@ def runs(tmp_path_factory):
                 jax_common.apply_platform(args)
                 assert jax_train_multimodal.sequential_runs(args, 2) == 0
             else:
-                assert run_cli_inproc("mmtpu_torch.cli.train_multimodal", cfg, run_id="1",
-                                      extra=("--stacked-runs", "2")) == 0
+                from mmtpu_torch.cli import train_multimodal
+
+                args = common.standard_arg_parser("x").parse_args(
+                    ["--config", str(cfg), "--run_id", "1", "--cpu", "--stacked-runs", "2"])
+                assert train_multimodal.sequential_runs(args, torch.device("cpu")) == 0
             out[pkg] = {"cv": root / "cv", "runs": root / "runs", "seeds": seeds}
             mp.undo()
     finally:

@@ -2,7 +2,8 @@
 the pad-aware BatchNorm in train mode, one train step of a small AVMNIST
 (padded tail, missing modalities, dropout 0, TF32 off), and one train step
 of UttFusion at its published widths, whose LSTM forward is the `lstm`
-kernel on the card and the plain scan on the CPU. These need an NVIDIA GPU
+kernel on the card and the plain scan on the CPU; both kernels under
+`torch.func.vmap` over stacked members, one launch for all members. These need an NVIDIA GPU
 and skip without one. The module imports neither JAX nor
 mmtpu, so on the card's machine run
 
@@ -233,8 +234,9 @@ def _write_reader_files(root, counts, seed=8):
 def test_reader_fed_full_width_fine_tune_on_card(cuda_device, tmp_path):
     """`train_avmnist` for one epoch at the paper's widths (ResNet18 audio,
     hidden 64; ResNet34 image, hidden 128; head 192→128→64→10), fed by the
-    AVMNIST reader from `.pt` files: `fused_mlp` runs once per validation
-    and test batch (ai/a/i, batch 128) and in no train forward."""
+    AVMNIST reader from `.pt` files: `fused_mlp` runs once per fused eval
+    step of the device-resident path (128 × ai/a/i = 384 rows, factor 3:
+    one step per validation and test pass) and in no train forward."""
     import json
 
     from mmtpu_torch.cli import train_avmnist
@@ -272,6 +274,44 @@ def test_reader_fed_full_width_fine_tune_on_card(cuda_device, tmp_path):
     path.write_text(json.dumps(cfg))
     fused_mlp.launches = 0
     assert train_avmnist.main(["--config", str(path), "--run_id", "1"]) == 0
-    assert fused_mlp.launches == 3 + 3  # 1 epoch × 3 validation + 3 test batches
+    assert fused_mlp.launches == 1 + 1  # 1 epoch × 1 validation + 1 test fused step
     test = json.loads((out / "metrics/test_metrics.json").read_text())[0]
     assert all(np.isfinite(test[k]) for k in ("loss", "accuracy_AI", "accuracy_A", "accuracy_I"))
+
+
+@pytest.mark.cuda
+def test_stacked_kernels_launch_once_per_call_on_card(cuda_device):
+    """On the card a stacked UttFusion forward launches `lstm` once for the
+    K·G groups (K = 5, G = 2: ten groups, beyond the old limit of eight) and
+    a stacked AVMNIST head `fused_mlp` once for both members, each against
+    the members run one by one."""
+    import importlib
+
+    from mmtpu_torch.ops import fused_mlp, lstm_sequence_stacked
+
+    ops_lstm = importlib.import_module("mmtpu_torch.ops.lstm")
+    ops_mlp = importlib.import_module("mmtpu_torch.ops.fused_mlp")
+
+    g = torch.Generator().manual_seed(0)
+    Km, B, T, H = 5, 32, 50, 64
+    xw = [torch.randn(Km, B, T, 4 * H, generator=g).to(cuda_device) for _ in range(2)]
+    wh = [(0.1 * torch.randn(Km, H, 4 * H, generator=g)).to(cuda_device) for _ in range(2)]
+    before = lstm_sequence_stacked.launches
+    with torch.no_grad():
+        out, (h, _) = torch.func.vmap(lambda a, b, c, d: lstm_sequence_stacked([a, b], [c, d]))(
+            *xw, *wh)
+    assert lstm_sequence_stacked.launches == before + 1
+    for k in range(Km):
+        want, _ = ops_lstm.lstm_stacked_reference([t[k] for t in xw], [t[k] for t in wh])
+        torch.testing.assert_close(out[k], want, rtol=1e-5, atol=1e-5)
+    dims = (192, 128, 64, 10)
+    x = torch.randn(2, 1024, 192, generator=g).to(cuda_device)
+    ws = [(torch.randn(2, o, i, generator=g) / i ** 0.5).to(cuda_device)
+          for i, o in zip(dims, dims[1:])]
+    bs = [(0.1 * torch.randn(2, o, generator=g)).to(cuda_device) for o in dims[1:]]
+    before = fused_mlp.launches
+    with torch.no_grad():
+        got = torch.func.vmap(lambda x, *p: fused_mlp(x, p[:3], p[3:]))(x, *ws, *bs)
+    assert fused_mlp.launches == before + 1
+    want = ops_mlp.fused_mlp_members_reference(x, ws, bs)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
