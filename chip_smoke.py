@@ -18,7 +18,10 @@ FcClassifier 192→[192, 64, 32]→3; batch 32, aligned T = 50):
              memory), with timings (CUDA events per call, the host's wall
              time per launch, profiler device time); the LSTM also against
              `torch.nn.LSTM` as the library's call, and its gradient against
-             autograd through the plain scan;
+             autograd through the plain scan. The LSTM is timed at the main
+             shape, at H >= 256 and at the ranks' shards (every shape is held
+             against the plain scan). Every profiled window records the
+             device activity alone (not the ATen operators);
 3. predict — the `predict` entry over a synthetic test split, once per
              model (AVMNIST: 1000 samples × ai/a/i, batch 128; UttFusion:
              686 samples × 7 patterns = 4802 visits, batch 32); logits
@@ -265,6 +268,27 @@ FcClassifier 192→[192, 64, 32]→3; batch 32, aligned T = 50):
              50, 64) (the LSTMEncoder pretraining) and (2, 1024, 64, 128)
              (IEMOCAP).
 
+16. mesh    — data parallelism (`mmtpu_torch/parallel/`) on the one card. (a)
+             phase 15's scratch fine-tune (dropout 0, cuDNN deterministic,
+             TF32 off) through `train_multimodal.main` in one process and as
+             two ranks on cuda:0 over gloo (`parallel.launch` with explicit
+             devices): step 1's loss within 1e-4, steps 2-3 within 1e-3, from
+             the initial weights step 1's and a padded step's (28 real rows,
+             none on rank 1) float64 gradients within 1e-6 of each norm, the
+             epoch-2 validation loss within 1e-3, the ranks' state_dict
+             sha256 equal after each epoch, `fused_mlp` 6 per rank as in one
+             process, every file written by rank 0 alone; the gradient
+             all-reduce's bytes and time per step, and samples/s of two
+             processes sharing one card. (b) phase 6's UttFusion (dropout 0,
+             float32) the same way: step 1 and the padded tail (4 real rows
+             of 32, none on rank 1) within 1e-5, steps 2-3 within 1e-3, step
+             1's gradients within 1e-4 of each norm, `lstm` 115 per rank. (c)
+             (b)'s steps as one rank over NCCL, within 1e-5. (d) the CLI on
+             one card: `--data-parallel 2` raises mmtpu's ValueError,
+             `--data-parallel -1` trains in the one process. Phase 2 also
+             holds `fused_mlp` at B = 64 and 512 and `lstm` at (2, 16, 50,
+             64) and (2, 128, 50, 64), the ranks' shards.
+
     python3 chip_smoke.py --train-only    # build, then phases 5 and 6 alone
     python3 chip_smoke.py --reader-only   # build, the audio pretraining, phase 7
     python3 chip_smoke.py --shipped-only  # build, phase 7's .pt files, phase 8
@@ -283,6 +307,7 @@ FcClassifier 192→[192, 64, 32]→3; batch 32, aligned T = 50):
     python3 chip_smoke.py --mult-only --gcnet-only --ef-only  # build, phase 14 (a)-(c)
     python3 chip_smoke.py --resident-only # build, phase 15 (a)
     python3 chip_smoke.py --stacked-only  # build, phase 2's member axis, phase 15 (b), (c)
+    python3 chip_smoke.py --mesh-only     # build, phase 16
 
 Prints a `kernels` JSON line, the card's name and power limit, and as the
 last line `{"ok": true, "device": {...}}`. Any failure exits non-zero
@@ -557,19 +582,17 @@ def host_ms(fn, iters: int = 200, repeats: int = 5) -> float:
     return statistics.median(times)
 
 
-def device_breakdown(fn, top: int = 6, aten_ops: bool = True) -> dict:
+def device_breakdown(fn, top: int = 6) -> dict:
     """Run `fn` once under torch.profiler: device time summed over every
     kernel, the host wall time of the profiled run, the device time of the
     port's own kernels, and the kernels that took the most device time.
-    `aten_ops=False` records the device activity alone (the kernels and the
-    runtime's launch calls, not the ATen operators), whose post-processing
-    is several times cheaper for a window of hundreds of thousands of
-    launches."""
+    It records the device activity alone (the kernels and the runtime's
+    launch calls, which `top_host` then lists), not the ATen operators,
+    whose post-processing would cost seconds a window."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    activities = [ProfilerActivity.CPU] if aten_ops else []
-    with profile(activities=activities + [ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -686,7 +709,7 @@ def phase_kernels_mlp(dev) -> dict:
     # (dims, batch, what is special): the head at the path's batch sizes, odd
     # widths, layer 1 off the 16-byte grid, and a chain too wide to stay in
     # shared memory (16.8 MB of weights, streamed through it)
-    cases = [(HEAD_DIMS, b, "") for b in (1, 37, 64, 128, 1024)] + [
+    cases = [(HEAD_DIMS, b, "") for b in (1, 37, 64, 128, 512, 1024)] + [
         (SHIPPED_HEAD_DIMS, b, "") for b in (128, 1024)] + [
         ([100, 300, 7], 37, ""),
         (HEAD_DIMS, 128, "layer 1 a misaligned view"),
@@ -718,7 +741,7 @@ def phase_kernels_mlp(dev) -> dict:
     timings = {}
     for dims in (HEAD_DIMS, SHIPPED_HEAD_DIMS):
         ws, bs = layers(dims)
-        for batch in (128, 1024):
+        for batch in (128, 1024) + (MESH_MLP_BATCHES if dims == HEAD_DIMS else ()):
             x = torch.randn(batch, dims[0], generator=g).to(dev)
             # turns: plain, kernel, kernel, plain
             p1 = event_ms(lambda: fused_mlp_reference(x, ws, bs))
@@ -748,40 +771,44 @@ def phase_kernels_mlp(dev) -> dict:
                 f"({bound_by})")
     return {"max_err": max_err, "shipped_err": shipped_err,
             "timings": {b: timings[(HEAD_DIMS[0], b)] for b in (128, 1024)},
+            "mesh": {b: timings[(HEAD_DIMS[0], b)] for b in MESH_MLP_BATCHES},
             "shipped": {b: timings[(SHIPPED_HEAD_DIMS[0], b)] for b in (128, 1024)}}
 
 
-# LSTM shapes: (G, B, T, H, lengths in [0, T], non-zero h0/c0, tolerance, timed)
+# LSTM shapes: (G, B, T, H, lengths in [0, T], non-zero h0/c0, tolerance, timed).
+# Every shape is held against the plain scan; the script times the main shape,
+# the widths where the kernel loses to `nn.LSTM` (H >= 256) and the ranks'
+# shards, to stay inside its time (the other shapes' times stand in PERF.md §6;
+# `True` in a case's last field times it again)
 LSTM_CASES = [
-    (1, 32, 50, 64, False, False, KERNEL_TOL, True),
+    (1, 32, 50, 64, False, False, KERNEL_TOL, False),
     (2, 32, 50, 64, False, False, KERNEL_TOL, True),   # the UttFusion forward
-    (1, 128, 50, 32, False, False, KERNEL_TOL, True),
-    (1, 32, 400, 64, True, False, LSTM_TOL_LONG, True),
+    (1, 128, 50, 32, False, False, KERNEL_TOL, False),
+    (1, 32, 400, 64, True, False, LSTM_TOL_LONG, False),
     (1, 5, 7, 24, False, True, KERNEL_TOL, False),
-    (1, 32, 50, 128, False, False, KERNEL_TOL, True),
+    (1, 32, 50, 128, False, False, KERNEL_TOL, False),
     (2, 64, 50, 64, False, False, KERNEL_TOL, False),  # the server's largest micro-batch
-    (1, 32, 50, 16, False, False, KERNEL_TOL, True),   # Self-MM's audio AuViSubNet
-    (1, 32, 50, 32, False, False, KERNEL_TOL, True),   # Self-MM's video AuViSubNet
-    (2, 128, 64, 128, False, False, KERNEL_TOL, True),  # IEMOCAP's netA and netV stacked
+    (1, 32, 50, 16, False, False, KERNEL_TOL, False),   # Self-MM's audio AuViSubNet
+    (1, 32, 50, 32, False, False, KERNEL_TOL, False),   # Self-MM's video AuViSubNet
+    (2, 128, 64, 128, False, False, KERNEL_TOL, False),  # IEMOCAP's netA and netV stacked
     (1, 128, 64, 256, False, False, KERNEL_TOL, True),  # VariationalLSTMEncoder at 2 × 128
-    (2, 128, 64, 130, False, False, KERNEL_TOL, True),  # SeqEncoder's audio bi-LSTM
+    (2, 128, 64, 130, False, False, KERNEL_TOL, False),  # SeqEncoder's audio bi-LSTM
     (2, 128, 64, 342, False, False, KERNEL_TOL, True),  # SeqEncoder's video bi-LSTM
     (2, 128, 64, 1024, False, False, KERNEL_TOL, True),  # SeqEncoder's text bi-LSTM
-    (2, 16, 110, 100, False, False, KERNEL_TOL, True),  # GCNet's base bi-LSTM (D_e 100)
+    (2, 16, 110, 100, False, False, KERNEL_TOL, False),  # GCNet's base bi-LSTM (D_e 100)
     (2, 16, 110, 300, False, False, KERNEL_TOL, True),  # GCNet's fusion bi-LSTM (d_h 300)
     (2, 16, 110, 300, True, False, KERNEL_TOL, False),  # the same with lengths
-    (2, 256, 50, 64, False, False, KERNEL_TOL, True),  # UttFusion's fused eval step, 8 × 32
-    (1, 256, 50, 64, False, False, KERNEL_TOL, True),  # the LSTMEncoder pretraining's
-    (2, 1024, 64, 128, False, False, KERNEL_TOL, True),  # IEMOCAP's fused eval step, 8 × 128
+    (2, 256, 50, 64, False, False, KERNEL_TOL, False),  # UttFusion's fused eval step, 8 × 32
+    (1, 256, 50, 64, False, False, KERNEL_TOL, False),  # the LSTMEncoder pretraining's
+    (2, 1024, 64, 128, False, False, KERNEL_TOL, False),  # IEMOCAP's fused eval step, 8 × 128
+    (2, 16, 50, 64, False, False, KERNEL_TOL, True),  # UttFusion's train batch on 2 ranks
+    (2, 128, 50, 64, False, False, KERNEL_TOL, True),  # its fused eval step on 2 ranks
 ]
-SELF_MM_LSTM = ((1, 32, 50, 16), (1, 32, 50, 32))
-PHASE13_LSTM = ((2, 128, 64, 128), (1, 128, 64, 256), (2, 128, 64, 130), (2, 128, 64, 342),
-                (2, 128, 64, 1024))
-PHASE14_LSTM = ((2, 16, 110, 100), (2, 16, 110, 300))
-# the device-resident path's fused eval steps (`_auto_eval_factor`): phase 6's
-# UttFusion and phase 12's UttFusion fine-tune, phase 12's LSTMEncoder
-# pretraining, phase 13's IEMOCAP folds
-FUSED_EVAL_LSTM = ((2, 256, 50, 64), (1, 256, 50, 64), (2, 1024, 64, 128))
+# the widths where the kernel loses to `nn.LSTM` (ROADMAP §2's perf_opt item)
+WIDE_LSTM = ((1, 128, 64, 256), (2, 128, 64, 342), (2, 128, 64, 1024), (2, 16, 110, 300))
+# phase 16's shards: each of two ranks holds half of a global batch
+MESH_LSTM = ((2, 16, 50, 64), (2, 128, 50, 64))
+MESH_MLP_BATCHES = (64, 512)  # AVMNIST's streaming eval batch of 128 and fused step of 1024
 # the gradient checks: (G, B, T, H, lengths, non-zero h0/c0)
 LSTM_GRAD_CASES = [(2, 9, 11, 24, True, True), (1, 32, 50, 16, False, False),
                    (1, 32, 50, 32, False, False)]
@@ -5060,14 +5087,14 @@ def mult_setup(device, discriminator: bool, dropout: bool = True):
     return model, make_train_step(task, state, device)
 
 
-def _profile_steps(card: str, tag: str, fn, steps: int, aten_ops: bool = True) -> dict:
+def _profile_steps(card: str, tag: str, fn, steps: int) -> dict:
     """`steps` train steps under the profiler: kernels and launch calls per
     step, the device's busy share, the `lstm` launches among them."""
     import torch
 
     torch.cuda.synchronize()
     reset_counts()
-    brk = device_breakdown(fn, top=8, aten_ops=aten_ops)
+    brk = device_breakdown(fn, top=8)
     counts = read_counts()
     busy = brk["device_ms"] / brk["profiled_wall_ms"]
     say_card(card, f"{tag} {steps} train steps: {brk['kernel_events'] / steps:.1f} device "
@@ -5183,7 +5210,7 @@ def phase_mult(dev, card: str, discriminator: bool, batches: list) -> dict:
              f"{np.mean(losses):.4f}; launches {counts}")
     window = batches[:8]
     profile = _profile_steps(card, f"{tag} profile", lambda: [step(b) for b in window],
-                             len(window), aten_ops=False)
+                             len(window))
     if profile["counts"] != {"fused_mlp": 0, "lstm": 0}:
         raise AssertionError(f"{tag} kernels launched in the profiled steps")
     check = phase_mult_check(dev, discriminator, batches)
@@ -5432,7 +5459,7 @@ def phase_gcnet(dev, card: str) -> dict:
              f"{np.mean(losses):.4f}; launches {counts} (derived {want})")
     window = batches[:GCNET_PROFILE_STEPS]
     profile = _profile_steps(card, "[gcnet profile]", lambda: [step(b) for b in window],
-                             len(window), aten_ops=False)
+                             len(window))
     if profile["counts"]["lstm"] != len(window) * GCNET_LSTM_PER_FORWARD["LSTM"]:
         raise AssertionError(f"[gcnet] profiled launches {profile['counts']}")
     checks = {base: phase_gcnet_check(dev, base, batches) for base in ("LSTM", "GRU")}
@@ -6026,7 +6053,7 @@ def phase_resident(dev, card: str, work: Path) -> dict:
         raise AssertionError(f"[resident] {flips} test predictions with a clear margin differ")
     busy = {}
     for mode, loop in loops.items():
-        brk = device_breakdown(lambda: loop.train_epoch(TRAIN_EPOCHS + 1), aten_ops=False)
+        brk = device_breakdown(lambda: loop.train_epoch(TRAIN_EPOCHS + 1))
         loop.recorder.reset()
         busy[mode] = brk["device_ms"] / brk["profiled_wall_ms"]
     for mode in ("off", "on"):
@@ -6331,6 +6358,504 @@ def phase15(dev, card: str, work: Path, resident: bool = True, stacked: bool = T
             "runs": phase_stacked_runs(dev, card, work) if stacked else None}
 
 
+# Phase 16: data parallelism, on one card. The fine-tunes of phases 5 and 6
+# through `main` as two ranks on cuda:0 (gloo between them) against one
+# process, from the same seed; one rank over NCCL; the CLI's rules.
+MESH_RANKS = 2
+MESH_DEVICE = "cuda:0"  # every rank's, and the single process's
+MESH_NCCL = "nccl"  # (c)'s backend
+MESH_TIMEOUT_S = 600  # the ranks' process group and every collective
+MESH_VAL_RTOL = 1e-3  # epoch-2 validation loss, two ranks vs one process, float64
+MESH_NCCL_RTOL = 1e-5  # one NCCL rank vs one process: the same arithmetic
+MESH_REAL_ROWS = 28  # the AVMNIST check's padded batch: its real rows, all on rank 0
+# (a)'s float64 runs (the epoch-level check): the fine-tune at full width on
+# fewer samples, 4 train steps an epoch, 2 fused eval steps a pass
+MESH_F64_SAMPLES = {"train": 512, "validation": 128, "test": 128}
+
+
+@contextlib.contextmanager
+def _mesh_probe(rec: dict, out_root: Path, mesh):
+    """Inside the `with` body: per device-resident train epoch its steps'
+    losses (a rank's shares of the global ones), per epoch the model's
+    state_dict sha256, per step the gradient all-reduce's bytes and time
+    (the card synchronised before and after), and every file under
+    `out_root` this process opens for writing or `torch.save`s."""
+    import builtins
+    import io
+
+    import torch
+
+    from mmtpu_torch.train import device_loop as dl
+    from mmtpu_torch.train.loop import TrainLoop
+
+    rec.update(losses=[], hashes=[], reduce=[], writes=[])
+    real = (dl.run_train_epoch, TrainLoop._save_resume_point, builtins.open, io.open,
+            torch.save)
+
+    def epoch(*args, **kwargs):
+        outs = real[0](*args, **kwargs)
+        rec["losses"].append([float(v) for v in outs["loss"]])
+        return outs
+
+    def resume_point(self, epoch_no, best):
+        rec["hashes"].append(_state_hash(self.state.model.state_dict()))
+        return real[1](self, epoch_no, best)
+
+    def written(path):
+        if isinstance(path, (str, Path)) and str(path).startswith(str(out_root)):
+            rec["writes"].append(str(path))
+
+    def opener(fn):
+        def opened(file, mode="r", *args, **kwargs):
+            if any(c in str(mode) for c in "wax+"):
+                written(file)
+            return fn(file, mode, *args, **kwargs)
+        return opened
+
+    def save(obj, f, *args, **kwargs):
+        written(f)
+        return real[4](obj, f, *args, **kwargs)
+
+    if mesh is not None:
+        reduce_grads = mesh.all_reduce_grads
+
+        def timed(params):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            nbytes = reduce_grads(params)
+            torch.cuda.synchronize()
+            rec["reduce"].append((nbytes, time.perf_counter() - t0))
+            return nbytes
+
+        mesh.all_reduce_grads = timed
+    dl.run_train_epoch, TrainLoop._save_resume_point = epoch, resume_point
+    builtins.open, io.open, torch.save = opener(real[2]), opener(real[3]), save
+    try:
+        yield
+    finally:
+        dl.run_train_epoch, TrainLoop._save_resume_point = real[0], real[1]
+        builtins.open, io.open, torch.save = real[2], real[3], real[4]
+        if mesh is not None:
+            mesh.all_reduce_grads = reduce_grads
+
+
+@contextlib.contextmanager
+def _float64_run():
+    """Inside the `with` body a training entry point runs in float64: the
+    model after its seeded init, every dataset's float32 arrays and the
+    criteria; the AVMNIST head on its plain chain (the kernel takes float32
+    only)."""
+    from mmtpu_torch.cli import common
+    from mmtpu_torch.models import avmnist
+    from mmtpu_torch.ops import fused_mlp_reference
+
+    real = common.init_model, common.build_all_loaders, avmnist.fused_mlp
+
+    def init(*args, **kwargs):
+        return real[0](*args, **kwargs).double()
+
+    def loaders(*args, **kwargs):
+        out = real[1](*args, **kwargs)
+        for loader in out.values():
+            arrays = loader.dataset.arrays
+            for m, a in arrays.items():
+                if a.dtype == np.float32:
+                    arrays[m] = a.astype(np.float64)
+        return out
+
+    common.init_model, common.build_all_loaders, avmnist.fused_mlp = (
+        init, loaders, fused_mlp_reference)
+    try:
+        with _float64_losses():
+            yield
+    finally:
+        common.init_model, common.build_all_loaders, avmnist.fused_mlp = real
+
+
+def _mesh_steps(dev, mesh, cfg: str, float64: bool, pad_rows: Optional[int]) -> dict:
+    """From the initial weights (`_training_setup`, replicated from rank 0
+    on a mesh), one train step on the first train batch and one on a
+    padded batch (the split's last batch, or the third batch with its last
+    `pad_rows` rows zeroed); per step the global loss and every parameter's
+    gradient as the optimizer sees it (summed over the ranks)."""
+    from mmtpu_torch.parallel.mesh import replicate
+
+    config, batches = _train_batches(Path(cfg), 3)
+    if pad_rows is None:
+        padded = list(config.data.build_loader("train", seed=config.experiment.seed))[-1]
+    else:
+        padded = {k: v.copy() for k, v in batches[2].items()}
+        for k in ("audio", "image", "labels", "audio_mask", "image_mask", "sample_mask"):
+            padded[k][-pad_rows:] = 0
+    out = {}
+    for tag, batch in (("step 1", batches[0]), ("padded", padded)):
+        model, state, step = _training_setup(config, dev)
+        if float64:
+            model.double()
+            batch = _as_float64(batch)
+        if mesh is not None:
+            replicate(model, mesh)
+            state.mesh = mesh
+        with _float64_losses() if float64 else contextlib.nullcontext():
+            loss = float(step(batch)["loss"])
+        if mesh is not None:
+            loss = float(sum(mesh.gather(loss)))
+        out[tag] = {"loss": loss, "real_rows": int(batch["sample_mask"].sum()),
+                    "grads": {n: p.grad.detach().cpu().clone()
+                              for n, p in model.named_parameters()}}
+    return out
+
+
+def _mesh_job(job: dict) -> int:
+    """Phase 16's work in one process: in a rank of a launched mesh (the
+    ranks run it through `mmtpu_torch.parallel.launch`), or in the parent
+    as the single-process run. `job["runs"]`: `train_multimodal.main`'s
+    argv, each run under `_mesh_probe` (and `_float64_run` where asked) with
+    the kernels' launches counted; `job["steps"]`: `_mesh_steps`'
+    arguments. What it saw goes to `<out>/<rank or single>.pt`."""
+    import torch
+
+    from mmtpu_torch.cli import train_multimodal
+    from mmtpu_torch.parallel.mesh import get_default_mesh
+
+    mesh = get_default_mesh()
+    dev = mesh.device if mesh is not None else torch.device(MESH_DEVICE)
+    _cudnn(True)
+    rec = {"backend": mesh.backend if mesh is not None else None, "runs": []}
+    for run in job.get("runs", ()):
+        seen = {}
+        reset_counts()
+        t0 = time.perf_counter()
+        with _mesh_probe(seen, Path(job["out_root"]), mesh), \
+                _float64_run() if run["float64"] else contextlib.nullcontext():
+            rc = train_multimodal.main(list(run["argv"]))
+        if rc != 0:
+            return rc
+        seen["seconds"], seen["launches"] = time.perf_counter() - t0, read_counts()
+        rec["runs"].append(seen)
+    if job.get("steps"):
+        rec["steps"] = _mesh_steps(dev, mesh, **job["steps"])
+    torch.save(rec, Path(job["out"]) / (f"rank{mesh.rank}.pt" if mesh else "single.pt"))
+    return 0
+
+
+def _mesh_jobs_in_turn(jobs: list) -> int:
+    """Every job of `jobs` in this rank, one after another (one process
+    start-up for all)."""
+    for job in jobs:
+        rc = _mesh_job(job)
+        if rc != 0:
+            return rc
+    return 0
+
+
+def _mesh_run(tag: str, jobs: list, devices, backend: str) -> list:
+    """`jobs` in one rank per device of `devices` over `backend`; per job
+    what each rank saw."""
+    import torch
+
+    from mmtpu_torch.parallel import MeshConfig, create_mesh
+    from mmtpu_torch.parallel.launch import launch
+
+    mesh = create_mesh(MeshConfig(len(devices)), devices=devices, backend=backend)
+    t0 = time.perf_counter()
+    rc = launch(mesh, _mesh_jobs_in_turn, (jobs,), timeout=MESH_TIMEOUT_S)
+    if rc != 0:
+        raise AssertionError(f"{tag}: a rank exited with code {rc}")
+    say(f"{tag} {len(devices)} ranks over {backend} on {[str(d) for d in devices]}: "
+        f"{time.perf_counter() - t0:.1f} s, process start-up included")
+    return [[torch.load(Path(job["out"]) / f"rank{r}.pt", weights_only=False)
+             for r in range(len(devices))] for job in jobs]
+
+
+def _mesh_single(job: dict) -> dict:
+    import torch
+
+    if _mesh_job(job) != 0:
+        raise AssertionError(f"{job['runs']}: non-zero exit code")
+    return torch.load(Path(job["out"]) / "single.pt", weights_only=False)
+
+
+def _mesh_jobs(work: Path, tag: str, runs: list, steps: dict) -> tuple:
+    """The single process's job and the ranks': each (name, config dict,
+    float64) of `runs` through `train_multimodal.main` as run ids 1 (one
+    process) and 2 (the ranks), and the steps' check from the first
+    config."""
+    out_root = work / tag
+    paths = []
+    for name, cfg, _ in runs:
+        cfg["experiment"]["name"] = cfg["model"]["name"] = name
+        paths.append(work / f"{name}.json")
+        paths[-1].write_text(json.dumps(cfg))
+    jobs = []
+    for run_id in ("1", "2"):
+        out = work / f"{tag}_{run_id}"
+        out.mkdir(parents=True)
+        jobs.append({"runs": [{"argv": ["--config", str(p), "--run_id", run_id],
+                               "float64": f64} for p, (_, _, f64) in zip(paths, runs)],
+                     "out_root": str(out_root), "out": str(out),
+                     "steps": {**steps, "cfg": str(paths[0])}})
+    return out_root, jobs
+
+
+def _summed_losses(ranks: list, i: int) -> list:
+    """Per epoch of run `i` the global train-step losses: the ranks' shares
+    summed."""
+    return [[sum(v) for v in zip(*epoch)]
+            for epoch in zip(*(r["runs"][i]["losses"] for r in ranks))]
+
+
+def _mesh_epochs(out_root: Path, name: str, run_id: str) -> list:
+    return [(e["train"]["loss"], e["validation"]["loss"], e["train"]["timing"]["total_time"])
+            for e in json.loads((out_root / name / "metrics" / run_id
+                                 / "epoch_metrics.json").read_text()) if "epoch" in e]
+
+
+def _mesh_compare(tag: str, card: str, out_root: Path, names: list, single: dict, ranks: list,
+                  want: dict, train_samples: int, loss_rtol: tuple, grad_tol: float,
+                  pad_rtol: float) -> dict:
+    """Two ranks against one process: run 0's first three train steps, its
+    launches per rank, the ranks' states after every epoch of every run,
+    every file written by rank 0 alone; the steps' losses and gradients;
+    each run's epoch losses (judged in a float64 run, printed otherwise);
+    the gradient all-reduce and samples/s of run 0."""
+    import torch
+
+    seq, got = single["runs"][0]["losses"][0], _summed_losses(ranks, 0)[0]
+    rel = [abs(got[t] - seq[t]) / abs(seq[t]) for t in range(3)]
+    for i in range(len(names)):
+        hashes = [r["runs"][i]["hashes"] for r in ranks]
+        if len(hashes[0]) != TRAIN_EPOCHS or any(h != hashes[0] for h in hashes):
+            raise AssertionError(f"{tag} {names[i]}: the ranks' states differ after an epoch: "
+                                 f"{hashes}")
+        if ranks[1]["runs"][i]["writes"] or not ranks[0]["runs"][i]["writes"]:
+            raise AssertionError(f"{tag} {names[i]}: rank 1 wrote "
+                                 f"{ranks[1]['runs'][i]['writes'][:5]}")
+    launches = [r["runs"][0]["launches"] for r in ranks] + [single["runs"][0]["launches"]]
+    if any(n != want for n in launches):
+        raise AssertionError(f"{tag}: launches per rank, then one process, {launches}; "
+                             f"expected {want}")
+    steps = {}
+    for key in ("step 1", "padded"):
+        one, two = single["steps"][key], ranks[0]["steps"][key]
+        if any(not torch.equal(r["steps"][key]["grads"][n], g)
+               for r in ranks[1:] for n, g in two["grads"].items()):
+            raise AssertionError(f"{tag} {key}: the ranks' summed gradients differ")
+        err = _grad_errors(two["grads"], one["grads"])
+        steps[key] = {"loss_rel": abs(two["loss"] - one["loss"]) / abs(one["loss"]),
+                      "grad_err": max(err.values()), "worst": _worst(err),
+                      "real_rows": one["real_rows"]}
+    epochs = {}
+    for name, f64 in names:
+        one, two = (_mesh_epochs(out_root, name, r) for r in "12")
+        val_rel = [abs(b[1] - a[1]) / abs(a[1]) for a, b in zip(one, two)]
+        epochs[name] = {"val_rel": val_rel, "float64": f64, "one": one, "two": two}
+        say(f"{tag} {name} ({'float64' if f64 else 'float32'}): epoch (train loss, validation "
+            f"loss) one process {[e[:2] for e in one]}, two ranks {[e[:2] for e in two]}; "
+            f"validation relative {val_rel}" + (
+                f" (tolerance {MESH_VAL_RTOL} at epoch {TRAIN_EPOCHS})" if f64 else
+                " (float32: printed; a sequential ResNet run moved 3.7e-2 at epoch 2 under "
+                "channels_last alone)"))
+    reduce = ranks[0]["runs"][0]["reduce"]
+    nbytes = sorted({n for n, _ in reduce})
+    reduce_ms = [s * 1e3 for _, s in reduce]
+    first = epochs[names[0][0]]
+    sps = {k: train_samples / first[k][-1][2] for k in ("one", "two")}
+    say(f"{tag} train losses of steps 1-3, one process {seq[:3]}, two ranks {got[:3]}: "
+        f"relative {rel} (tolerances {loss_rtol})")
+    for key, s in steps.items():
+        say(f"{tag} {key} ({s['real_rows']} real rows) from the initial weights: loss relative "
+            f"{s['loss_rel']:.3e} (tolerance {pad_rtol}), gradients worst parameter "
+            f"{s['grad_err']:.3e} of its norm (tolerance {grad_tol}), worst {s['worst']}")
+    say(f"{tag} the ranks' state_dict sha256 after each epoch "
+        f"{[r['hashes'] for r in ranks[0]['runs']]}, equal on every rank; launches per rank "
+        f"{launches[:-1]}, one process {launches[-1]}; files written by rank 0 "
+        f"{[len(r['writes']) for r in ranks[0]['runs']]}, by rank 1 0")
+    say_card(card, f"{tag} gradient all-reduce per step (gloo, two ranks on one card): "
+             f"{nbytes} bytes, {statistics.median(reduce_ms):.3f} ms median over "
+             f"{len(reduce_ms)} steps (min {min(reduce_ms):.3f}, max {max(reduce_ms):.3f})")
+    say_card(card, f"{tag} epoch {TRAIN_EPOCHS} train samples/s: one process {sps['one']:.1f}, "
+             f"two processes sharing one card {sps['two']:.1f} (not a scaling number); "
+             f"main's wall time one process {single['runs'][0]['seconds']:.1f} s, two ranks "
+             f"{ranks[0]['runs'][0]['seconds']:.1f} s")
+    if rel[0] > loss_rtol[0] or max(rel[1:]) > loss_rtol[1]:
+        raise AssertionError(f"{tag}: train losses differ from one process: {rel}")
+    for key, s in steps.items():
+        if s["grad_err"] > grad_tol or s["loss_rel"] > pad_rtol:
+            raise AssertionError(f"{tag} {key}: loss {s['loss_rel']}, gradients "
+                                 f"{s['grad_err']} ({s['worst']})")
+    for name, e in epochs.items():
+        if e["float64"] and e["val_rel"][-1] > MESH_VAL_RTOL:
+            raise AssertionError(f"{tag} {name}: epoch-{TRAIN_EPOCHS} validation loss differs "
+                                 f"by {e['val_rel']}")
+    return {"loss_rel": rel, "epochs": epochs, "steps": steps, "reduce_bytes": nbytes,
+            "reduce_ms": statistics.median(reduce_ms), "samples_per_s": sps,
+            "launches": launches[0], "seconds": ranks[0]["runs"][0]["seconds"]}
+
+
+def _mesh_avmnist_jobs(work: Path) -> tuple:
+    """Phase 16 (a)'s jobs: phase 15's scratch fine-tune (dropout 0) and
+    the same in float64 on 512/128/128 samples; the steps in float64 with
+    a padded batch of 28 real rows, none on rank 1."""
+    import copy
+
+    cfg = train_configs(str(work / "mesh_avmnist"))["scratch"]
+    cfg["model"]["dropout"] = 0.0
+    cfg64 = copy.deepcopy(cfg)
+    for split, n in MESH_F64_SAMPLES.items():
+        cfg64["data"]["datasets"][split]["kwargs"]["num_samples"] = n
+    names = [(f"{SCRATCH_NAME}_Mesh", False), (f"{SCRATCH_NAME}_Mesh_Float64", True)]
+    return names, _mesh_jobs(
+        work, "mesh_avmnist", [(names[0][0], cfg, False), (names[1][0], cfg64, True)],
+        {"float64": True, "pad_rows": TRAIN_BATCH - MESH_REAL_ROWS})
+
+
+def phase_mesh_avmnist(card: str, prepared: tuple, single: dict, ranks: list) -> dict:
+    """Phase 16 (a), the fine-tune in one process against two ranks on
+    cuda:0 over gloo: step 1's loss within 1e-4, steps 2-3 within 1e-3, step
+    1's and the padded step's float64 gradients within 1e-6 of each
+    parameter's norm, the ranks' states equal after each epoch, `fused_mlp`
+    6 per rank, rank 0 alone writing; the float64 run's epoch-2 validation
+    loss within 1e-3 (in float32 the runs' own rounding, amplified by Adam
+    near g = 0, moves it by more: printed)."""
+    names, (out_root, _) = prepared
+    fused = _eval_batches(TRAIN_SAMPLES, TRAIN_BATCH)
+    want = {"fused_mlp": TRAIN_EPOCHS * fused["validation"] + fused["test"], "lstm": 0}
+    return _mesh_compare("[mesh avmnist]", card, out_root, names, single, ranks, want,
+                         TRAIN_SAMPLES["train"], (TRAIN_LOSS_RTOL, TRAIN_LATER_RTOL),
+                         TRAIN_GRAD64_TOL, TRAIN_LOSS_RTOL)
+
+
+def _mesh_utt_jobs(work: Path) -> tuple:
+    """Phase 16 (b)'s jobs: phase 6's UttFusion, dropout 0, float32."""
+    cfg = utt_train_config(str(work / "mesh_utt"), dropout=False)
+    names = [(f"{UTT_NAME}_Mesh", False)]
+    return names, _mesh_jobs(work, "mesh_utt", [(names[0][0], cfg, False)],
+                             {"float64": False, "pad_rows": None})
+
+
+def _mesh_nccl(work: Path, steps: dict):
+    """Phase 16 (c), started on a thread beside (d), after every timed run:
+    (b)'s steps as one rank over NCCL. Returns a function that waits for it
+    and gives what the rank saw (or raises what the launch raised)."""
+    import threading
+
+    import torch
+
+    job = {"out": str(work / "mesh_nccl"), "steps": steps}
+    Path(job["out"]).mkdir()
+    done = {}
+
+    def run():
+        try:
+            done["rank"] = _mesh_run("[mesh nccl]", [job], [torch.device(MESH_DEVICE)],
+                                     MESH_NCCL)[0][0]
+        except BaseException as e:  # noqa: BLE001 — re-raised by the waiter
+            done["error"] = e
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+
+    def wait() -> dict:
+        thread.join(MESH_TIMEOUT_S)
+        if thread.is_alive():
+            raise AssertionError("[mesh nccl] the rank did not end within the timeout")
+        if "error" in done:
+            raise done["error"]
+        return done["rank"]
+
+    return wait
+
+
+def phase_mesh_utt(card: str, prepared: tuple, single: dict, ranks: list,
+                   nccl: dict) -> dict:
+    """Phase 16 (b): phase 6's UttFusion at the published widths (dropout
+    0, float32, the kernel's only type) in one process against two ranks on
+    cuda:0 over gloo: step 1 and the padded tail (4 real rows of 32, none
+    on rank 1) within 1e-5, steps 2-3 within 1e-3, step 1's gradients within
+    1e-4 of each norm, the states equal after each epoch, `lstm` 115 per
+    rank; then (c)'s one NCCL rank against the same steps, within 1e-5."""
+    names, (out_root, _) = prepared
+    want = {"fused_mlp": 0, "lstm": utt_expected_launches()["total"]}
+    if ranks[0]["steps"]["padded"]["real_rows"] > UTT_BATCH // MESH_RANKS:
+        raise AssertionError("[mesh utt] the padded tail has real rows on rank 1")
+    res = _mesh_compare("[mesh utt]", card, out_root, names, single, ranks, want,
+                        UTT_SAMPLES["train"], (UTT_LOSS_RTOL, TRAIN_LATER_RTOL), UTT_GRAD_TOL,
+                        UTT_LOSS_RTOL)
+    nccl_rel = {k: abs(nccl["steps"][k]["loss"] - single["steps"][k]["loss"])
+                / abs(single["steps"][k]["loss"]) for k in single["steps"]}
+    say(f"[mesh nccl] backend {nccl['backend']}, one rank: losses of step 1 and the padded "
+        f"tail relative to one process {nccl_rel} (tolerance {MESH_NCCL_RTOL})")
+    if nccl["backend"] != MESH_NCCL or max(nccl_rel.values()) > MESH_NCCL_RTOL:
+        raise AssertionError(f"[mesh nccl] {nccl['backend']}: {nccl_rel}")
+    return {**res, "nccl_rel": nccl_rel}
+
+
+def phase_mesh_cli(dev, work: Path) -> None:
+    """Phase 16 (d): on one card `--data-parallel 2` raises mmtpu's
+    ValueError before a rank starts; `--data-parallel -1` trains on the one
+    device, in this process."""
+    from mmtpu_torch.cli import train_multimodal
+    from mmtpu_torch.parallel import launch as launch_mod
+
+    cfg = utt_train_config(str(work / "mesh_cli"), dropout=False)
+    for split in cfg["data"]["datasets"].values():  # the rule, not the training: small splits
+        split["kwargs"]["num_samples"] = 2 * UTT_BATCH
+    path = work / "mesh_cli.json"
+    path.write_text(json.dumps(cfg))
+    argv = ["--config", str(path), "--run_id", "1", "--epochs", "1", "--skip-test"]
+    try:
+        train_multimodal.main([*argv, "--data-parallel", "2"])
+    except ValueError as e:
+        if "data_parallel=2 but only 1 devices visible" not in str(e):
+            raise
+        say(f"[mesh cli] --data-parallel 2 on one card: ValueError: {e}")
+    else:
+        raise AssertionError("[mesh cli] --data-parallel 2 on one card did not raise")
+    real, started = launch_mod.run_cli, []
+    launch_mod.run_cli = lambda *a, **k: started.append(a) or 1
+    try:
+        rc = train_multimodal.main([*argv, "--data-parallel", "-1"])
+    finally:
+        launch_mod.run_cli = real
+    if rc != 0 or started:
+        raise AssertionError(f"[mesh cli] --data-parallel -1: exit code {rc}, ranks {started}")
+    say("[mesh cli] --data-parallel -1 on one card trained in this process (no rank started)")
+
+
+def say_phase16(card: str, p16: dict, seconds: float) -> None:
+    for key, r in (("AVMNIST", p16["avmnist"]), ("UttFusion", p16["utt"])):
+        epochs = "; ".join(f"{name} {'float64' if e['float64'] else 'float32'} epoch "
+                           f"validation {e['val_rel']}" for name, e in r["epochs"].items())
+        say_card(card, f"[summary] mesh {key}: two ranks on one card vs one process, steps 1-3 "
+                 f"{r['loss_rel']}; {epochs}; gradient all-reduce {r['reduce_bytes']} bytes "
+                 f"in {r['reduce_ms']:.3f} ms per step; samples/s one process "
+                 f"{r['samples_per_s']['one']:.1f}, two processes sharing one card "
+                 f"{r['samples_per_s']['two']:.1f}; launches per rank {r['launches']}")
+    say(f"[summary] mesh NCCL, one rank: {p16['utt']['nccl_rel']}; phase 16 {seconds:.1f} s")
+
+
+def phase16(dev, card: str, work: Path) -> dict:
+    """(a)'s and (b)'s two-rank jobs share one launch (one start-up), after
+    the single-process runs; (c)'s NCCL rank starts once every timed run has
+    ended, on a thread beside (d), which times nothing."""
+    import torch
+
+    av, utt = _mesh_avmnist_jobs(work), _mesh_utt_jobs(work)
+    (_, (av_one, av_two)), (_, (utt_one, utt_two)) = av[1], utt[1]
+    singles = [_mesh_single(av_one), _mesh_single(utt_one)]
+    av_ranks, utt_ranks = _mesh_run("[mesh avmnist, utt]", [av_two, utt_two],
+                                    [torch.device(MESH_DEVICE)] * MESH_RANKS, "gloo")
+    nccl_wait = _mesh_nccl(work, utt_two["steps"])
+    try:
+        cli = phase_mesh_cli(dev, work)
+    finally:
+        nccl = nccl_wait()
+    return {"avmnist": phase_mesh_avmnist(card, av, singles[0], av_ranks),
+            "utt": phase_mesh_utt(card, utt, singles[1], utt_ranks, nccl),
+            "cli": cli}
+
+
 def kernel_record(name: str, source: str, replaces: str, shape: str, kern: dict, t: dict,
                   pred: dict, srv: dict) -> dict:
     return {
@@ -6415,6 +6940,9 @@ def main(argv=None) -> int:
     parser.add_argument("--stacked-only", action="store_true",
                         help="build the kernels and run phase 2's member-axis kernels and "
                              "phase 15's stacked folds and runs alone (no kernels or ok line)")
+    parser.add_argument("--mesh-only", action="store_true",
+                        help="build the kernels and run phase 16's data-parallel checks alone "
+                             "(no kernels or ok line)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU",
@@ -6553,6 +7081,14 @@ def main(argv=None) -> int:
             shutil.rmtree(work, ignore_errors=True)
         return 0
 
+    if args.mesh_only:
+        try:
+            t0 = time.perf_counter()
+            say_phase16(smi, phase16(dev, smi, work), time.perf_counter() - t0)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        return 0
+
     mlp = phase_kernels_mlp(dev)
     lstm = phase_kernels_lstm(dev)
     members = phase_kernels_members(dev)
@@ -6600,10 +7136,12 @@ def main(argv=None) -> int:
         p14 = phase14(dev, smi)
         t_15 = time.perf_counter()
         p15 = phase15(dev, smi, work)
-        t_train, t_utt, t_reader, t_shipped, t_cmam, t_msa, t_11, t_12, t_13, t_14, t_15 = (
-            t_utt - t_train, t_reader - t_utt, t_shipped - t_reader, t_cmam - t_shipped,
-            t_msa - t_cmam, t_11 - t_msa, t_12 - t_11, t_13 - t_12, t_14 - t_13,
-            t_15 - t_14, time.perf_counter() - t_15)
+        t_16 = time.perf_counter()
+        p16 = phase16(dev, smi, work)
+        (t_train, t_utt, t_reader, t_shipped, t_cmam, t_msa, t_11, t_12, t_13, t_14, t_15,
+         t_16) = (t_utt - t_train, t_reader - t_utt, t_shipped - t_reader, t_cmam - t_shipped,
+                  t_msa - t_cmam, t_11 - t_msa, t_12 - t_11, t_13 - t_12, t_14 - t_13,
+                  t_15 - t_14, t_16 - t_15, time.perf_counter() - t_16)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -6640,7 +7178,11 @@ def main(argv=None) -> int:
     say_phase13(smi, iemocap, chain, recurrent, t_13)
     say_phase14(smi, p14["mult"], p14["gcnet"], p14["ef"], t_14)
     say_phase15(smi, p15["resident"], p15["folds"], p15["runs"], t_15)
+    say_phase16(smi, p16, t_16)
     say(f"[summary] fused_mlp B=1024 {json.dumps(mlp['timings'][1024])}")
+    for batch, t in mlp["mesh"].items():
+        say_card(smi, f"[summary] fused_mlp {HEAD_DIMS} B={batch} (a rank's shard) "
+                 f"{json.dumps(t)}")
     for batch, t in mlp["shipped"].items():
         say(f"[summary] fused_mlp {SHIPPED_HEAD_DIMS} B={batch} {json.dumps(t)}")
     say(f"[summary] fused_mlp {SHIPPED_HEAD_DIMS} max |kernel - plain| "
@@ -6673,7 +7215,9 @@ def main(argv=None) -> int:
              "resident_fine_tune": p15["resident"]["launches"]["on"]["fused_mlp"],
              "streaming_fine_tune": p15["resident"]["launches"]["off"]["fused_mlp"],
              **{f"folds_{k}": r["launches"]["fused_mlp"]
-                for k, r in p15["folds"]["runs"].items()}}},
+                for k, r in p15["folds"]["runs"].items()}},
+         "phase16_launches_per_rank": p16["avmnist"]["launches"]["fused_mlp"],
+         "mesh_shapes": {f"B={b}": t for b, t in mlp["mesh"].items()}},
         {**kernel_record("lstm", "mmtpu_torch/ops/csrc/lstm.cu", "mmtpu/ops/lstm.py:61",
                          f"G={G}, B={B}, T={T}, H={H}, float32; library_ms is {G} nn.LSTM "
                          "calls, projection included (with_projection_ms is ours with it)",
@@ -6695,19 +7239,16 @@ def main(argv=None) -> int:
              "gcnet_per_forward": {base: c["launches"]
                                    for base, c in p14["gcnet"]["checks"].items()},
              "ef_per_forward": p14["ef"]["launches"]},
-         "self_mm_shapes": {"G={}, B={}, T={}, H={}".format(*k): lstm["timings"][k]
-                            for k in SELF_MM_LSTM},
-         "phase13_shapes": {"G={}, B={}, T={}, H={}".format(*k): lstm["timings"][k]
-                            for k in PHASE13_LSTM},
-         "phase14_shapes": {"G={}, B={}, T={}, H={}".format(*k): lstm["timings"][k]
-                            for k in PHASE14_LSTM},
-         "fused_eval_shapes": {"G={}, B={}, T={}, H={}".format(*k): lstm["timings"][k]
-                               for k in FUSED_EVAL_LSTM},
          "member_axis": {"K={}, G={}, B={}, T={}, H={}".format(*k): t
                          for k, t in members["lstm"].items()},
          "phase15_launches": {f"stacked_runs_{k}": r["launches"]["lstm"]
                               for k, r in p15["runs"]["stacked"].items()}
          | {"sequential_member": p15["runs"]["seq_launches"]},
+         "phase16_launches_per_rank": p16["utt"]["launches"]["lstm"],
+         "wide_shapes": {"G={}, B={}, T={}, H={}".format(*k): lstm["timings"][k]
+                         for k in WIDE_LSTM},
+         "mesh_shapes": {"G={}, B={}, T={}, H={}".format(*k): lstm["timings"][k]
+                         for k in MESH_LSTM},
          "with_projection_ms": lstm["timings"][LSTM_MAIN]["with_projection_ms"],
          "grad_max_abs_err": lstm["grad_err"],
          "serial_steps": T},

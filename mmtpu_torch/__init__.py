@@ -11,9 +11,10 @@ paper's pipeline: monomodal pretraining, the encoder handoff, the
 fine-tune; ResNet and LeNet encoders; the real AVMNIST reader and the
 synthetic stand-in; cross-validation and sequential --stacked-runs) and of
 MOSI UttFusion; C-MAM (CMAM and DualCMAM against either as a frozen
-teacher); TensorBoard, the run log and the reports; both of mmtpu's
-TPU kernels as hand-written CUDA kernels (`mmtpu_torch.ops`). ROADMAP.md
-lists what is not.
+teacher); TensorBoard, the run log and the reports; data parallelism over
+several GPUs (`mmtpu_torch.parallel`); both of mmtpu's TPU kernels as
+hand-written CUDA kernels (`mmtpu_torch.ops`). ROADMAP.md lists what is
+not.
 
 Entry points run on `cuda` unless the caller asks for the CPU (`--cpu`,
 `device="cpu"`); without a GPU they raise instead of falling back.

@@ -37,7 +37,7 @@ import logging
 import os
 import zipfile
 from pathlib import Path
-from typing import Any, Dict, Mapping, Optional, Union
+from typing import Any, Dict, List, Mapping, Optional, Union
 
 import numpy as np
 import torch
@@ -236,6 +236,17 @@ def load_encoder_checkpoint(path: Union[str, Path], target: nn.Module,
     return report
 
 
+def rng_state(state: Optional[TrainState] = None) -> Dict[str, Any]:
+    """This process's RNG states: torch's CPU and CUDA generators (dropout)
+    and, given a state with one, the run's generator."""
+    out = {"cpu": torch.get_rng_state()}
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        out["cuda"] = torch.cuda.get_rng_state_all()
+    if state is not None and state.generator is not None:
+        out["generator"] = state.generator.get_state()
+    return out
+
+
 class CheckpointManager:
     def __init__(self, model_dir, save_metric: str = "loss") -> None:
         self.model_dir = Path(model_dir)
@@ -263,14 +274,15 @@ class CheckpointManager:
         return path
 
     def save_rolling(self, state: TrainState, epoch: int,
-                     meta: Optional[Dict[str, Any]] = None) -> Path:
-        """Overwrite last.pth (+ resume.json) — the mid-run resume point."""
+                     meta: Optional[Dict[str, Any]] = None,
+                     rng: Optional[List[Dict[str, Any]]] = None) -> Path:
+        """Overwrite last.pth (+ resume.json) — the mid-run resume point.
+        `rng`: every data-parallel rank's `rng_state`, in rank order (one
+        process: its own RNG states)."""
         payload = json.dumps({"epoch": epoch, **(meta or {})})
         tree = state.state_dict()
         tree["resume_meta"] = payload
-        tree["rng"] = {"cpu": torch.get_rng_state()}
-        if torch.cuda.is_available() and torch.cuda.is_initialized():
-            tree["rng"]["cuda"] = torch.cuda.get_rng_state_all()
+        tree["rng"] = rng_state() if rng is None else {"ranks": rng}
         path = self.model_dir / "last.pth"
         _save_atomic(tree, path)
         _write_text_atomic(self.model_dir / "resume.json", payload)
@@ -282,14 +294,23 @@ class CheckpointManager:
             return None
         return json.loads(_load(rolling)["resume_meta"])
 
-    def load_checkpoint(self, state: TrainState, which: str = "best") -> TrainState:
+    def load_checkpoint(self, state: TrainState, which: str = "best",
+                        rank: Optional[int] = None) -> TrainState:
         """Restore `best`, `last` or `epoch_{N}` into `state` (model,
-        optimizer, step); `last` also restores the RNG states."""
+        optimizer, step); `last` also restores the RNG states, a
+        data-parallel `rank`'s own where the file holds every rank's."""
         tree = _load(self.model_dir / f"{which}.pth")
         state.load_state_dict(tree)
         rng = tree.get("rng")
+        if rng is not None and "ranks" in rng:
+            if rank is None or rank >= len(rng["ranks"]):
+                raise ValueError(f"{which}.pth holds the RNG states of {len(rng['ranks'])} "
+                                 f"data-parallel ranks; resume it on as many (rank {rank})")
+            rng = rng["ranks"][rank]
         if rng is not None:
             torch.set_rng_state(rng["cpu"])
             if "cuda" in rng and torch.cuda.is_available():
                 torch.cuda.set_rng_state_all(rng["cuda"])
+            if "generator" in rng and state.generator is not None:
+                state.generator.set_state(rng["generator"])
         return state

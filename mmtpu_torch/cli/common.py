@@ -1,15 +1,16 @@
 """Shared assembly for the port's entry points (counterpart of
 `mmtpu/cli/common.py`): device choice, precision, config loading, model
 building, checkpoint paths, and for the training CLIs the flag surface
-(every flag of mmtpu's), the profiler session, the data-parallel check, the
---stacked-runs member recipe, pretrained-encoder loading, the optimizer's
-encoder groups, and the state / scheduler / early-stopping / recorder /
-checkpoint builders."""
+(every flag of mmtpu's), the profiler session, the data-parallel mesh and
+its ranks, the --stacked-runs member recipe, pretrained-encoder loading,
+the optimizer's encoder groups, and the state / scheduler / early-stopping
+/ recorder / checkpoint builders."""
 
 from __future__ import annotations
 
 import argparse
 import logging
+import sys
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -23,8 +24,14 @@ logger = logging.getLogger(__name__)
 
 
 def resolve_device(cpu: bool = False) -> torch.device:
-    """`cuda` unless the caller asks for the CPU. Never falls back: without
-    a GPU and without `cpu=True` this raises."""
+    """`cuda` unless the caller asks for the CPU; in a data-parallel rank,
+    the rank's device. Never falls back: without a GPU and without
+    `cpu=True` this raises."""
+    from mmtpu_torch.parallel.mesh import get_default_mesh
+
+    mesh = get_default_mesh()
+    if mesh is not None:
+        return mesh.device
     if cpu:
         return torch.device("cpu")
     if not torch.cuda.is_available():
@@ -61,7 +68,7 @@ def apply_precision(cfg) -> str:
     )
 
 
-ROADMAP_SYSTEMS = "ROADMAP.md item 12, the systems layer"
+ROADMAP_SYSTEMS = "ROADMAP.md §1 item 6, the systems layer"
 
 
 def finalize_config(cfg, args):
@@ -86,11 +93,14 @@ def finalize_config(cfg, args):
         raise NotImplementedError(
             "monitoring.enabled: the HDF5 experiment monitor is not ported to mmtpu_torch "
             f"({ROADMAP_SYSTEMS}); pass --disable_monitoring or set it false")
+    from mmtpu_torch.parallel.mesh import get_default_mesh
     from mmtpu_torch.utils import configure_logger
 
     print(apply_precision(cfg), flush=True)
     cfg.logging.create_directories()
-    configure_logger(cfg.logging.log_path, suffix=f"run_{args.run_id}")
+    mesh = get_default_mesh()  # on a mesh, rank 0 alone writes the run log
+    configure_logger(cfg.logging.log_path if mesh is None or mesh.is_writer else None,
+                     suffix=f"run_{args.run_id}")
     return cfg
 
 
@@ -118,9 +128,10 @@ def standard_arg_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--cpu", action="store_true", help="Run on the CPU instead of CUDA")
     p.add_argument("--data-parallel", "--data_parallel", dest="data_parallel", type=int,
                    default=None, metavar="N",
-                   help="Overrides experiment.data_parallel. 1 and -1 run on one device; "
-                        "more than the visible devices raises; any other N > 1 (DDP) is "
-                        "not ported and raises")
+                   help="Overrides experiment.data_parallel: N > 1 trains on N devices, "
+                        "one process per rank (NCCL; with --cpu, N processes over gloo), "
+                        "every batch split over them, with the single-device run's "
+                        "numbers; -1 takes every visible GPU; 0 and 1 run on one device")
     p.add_argument("--profile", action="store_true",
                    help="Trace the training phase with torch.profiler into "
                         "<log_path>/profile/trace.json (a Chrome trace)")
@@ -181,24 +192,98 @@ class ProfilerSession:
         return False
 
 
-def resolve_mesh(cfg, args, device: torch.device) -> None:
-    """experiment.data_parallel / --data-parallel, checked by mmtpu's rules:
-    unset, 0, 1 and -1 (all devices) run on `device` alone; N < -1 and
-    N greater than the visible devices raise mmtpu's ValueError; any other
-    N > 1 would shard batches over N devices (DDP), which is not ported."""
+def resolve_mesh(cfg, args, device: torch.device):
+    """experiment.data_parallel / --data-parallel → the mesh to launch, or
+    None, by mmtpu's rules: unset, 0 and 1 run on `device` alone; -1 takes
+    every visible GPU (one device on the CPU); N < -1 raises; on the GPU, N
+    greater than the visible cards raises mmtpu's ValueError (on the CPU no
+    card count limits N: each rank is a process); a dataset batch_size not
+    divisible by N raises mmtpu's message. In a data-parallel rank, the
+    rank's (launched) mesh."""
+    from mmtpu_torch.parallel.mesh import MeshConfig, create_mesh, get_default_mesh
+
+    live = get_default_mesh()
+    if live is not None:
+        return live
     dp = getattr(args, "data_parallel", None)
     if dp is None:
         dp = cfg.experiment.data_parallel
-    if not dp or dp in (-1, 1):
+    if not dp:
         return None
     if dp < -1:
         raise ValueError(f"data_parallel={dp}: use -1 (all devices) or N >= 1")
-    n = torch.cuda.device_count() if device.type == "cuda" else 1
-    if dp > n:
-        raise ValueError(f"data_parallel={dp} but only {n} devices visible")
-    raise NotImplementedError(
-        f"data_parallel={dp}: data parallelism over several devices (DDP) is not "
-        f"ported to mmtpu_torch ({ROADMAP_SYSTEMS})")
+    cards = torch.cuda.device_count() if device.type == "cuda" else None
+    if dp == -1:
+        dp = cards or 1
+    if dp == 1:
+        return None
+    if cards is not None and dp > cards:
+        raise ValueError(f"data_parallel={dp} but only {cards} devices visible")
+    for name, ds_cfg in getattr(getattr(cfg, "data", None), "datasets", {}).items():
+        bs = getattr(ds_cfg, "batch_size", None)
+        if bs and bs % dp:
+            raise ValueError(
+                f"dataset {name!r} batch_size={bs} not divisible by "
+                f"data_parallel={dp}"
+            )
+    devices = ([torch.device("cuda", i) for i in range(dp)] if cards is not None
+               else [device] * dp)
+    return create_mesh(MeshConfig(data_parallel=dp), devices=devices)
+
+
+def run_ranks(args, device: torch.device, module: str, argv=None,
+              generic=lambda cfg: True) -> Optional[int]:
+    """A training CLI's data-parallel entry: when the run asks for N > 1
+    devices (`resolve_mesh`), `generic(cfg)` says its driver trains on a
+    mesh, and this process is not already a rank, run `module.main(argv)`
+    in N ranks (`parallel/launch.py`) and return their exit code. None: run
+    the driver in this process (one device, a rank, or a driver that
+    refuses a mesh itself)."""
+    from mmtpu_torch.parallel.mesh import get_default_mesh
+
+    if get_default_mesh() is not None:
+        return None
+    cfg = StandardMultimodalConfig.load(args.config, run_id=args.run_id)
+    mesh = resolve_mesh(cfg, args, device)
+    if mesh is None or not generic(cfg):
+        return None
+    from mmtpu_torch.parallel.launch import run_cli
+
+    print(f"data-parallel mesh: {mesh.world_size} ranks on "
+          f"{', '.join(str(d) for d in mesh.devices)} over {mesh.backend}", flush=True)
+    return run_cli(mesh, module, sys.argv[1:] if argv is None else argv)
+
+
+def rank_mesh(cfg, args, device: torch.device):
+    """The mesh a driver trains on: this rank's, or None on one device. A
+    run that asks for several devices in a process that is not one of the
+    ranks raises: the CLI's `main` starts them."""
+    mesh = resolve_mesh(cfg, args, device)
+    if mesh is not None and not mesh.launched:
+        raise RuntimeError(
+            f"data_parallel={mesh.world_size}: the ranks are started by the CLI's main "
+            "(parallel/launch.py); this process is not one of them")
+    return mesh
+
+
+def refuse_mesh(cfg, args, device: torch.device, what: str) -> None:
+    """For a driver that has no data-parallel path yet: mmtpu's checks,
+    then NotImplementedError for N > 1."""
+    mesh = resolve_mesh(cfg, args, device)
+    if mesh is not None:
+        raise NotImplementedError(
+            f"data_parallel={mesh.world_size}: {what} on several devices is not ported to "
+            f"mmtpu_torch ({ROADMAP_SYSTEMS})")
+
+
+def seed_rank_streams(mesh, seed: int, generator: Optional[torch.Generator] = None) -> None:
+    """A data-parallel rank's random streams (dropout): torch's generator and
+    the run's `generator`, where there is one, seeded with the run's seed
+    plus the rank, so the ranks' rows do not draw one mask pattern. (The
+    weights come from rank 0's, `parallel.mesh.replicate`.)"""
+    torch.manual_seed(int(seed) + mesh.rank)
+    if generator is not None:
+        generator.manual_seed(int(seed) + mesh.rank)
 
 
 def derive_member_args(args, base_run: int, i: int) -> argparse.Namespace:
@@ -346,10 +431,14 @@ def make_early_stopping(cfg):
                          enabled=cfg.training.early_stopping)
 
 
-def make_recorder(cfg):
+def make_recorder(cfg, mesh=None):
+    """The metric recorder; on a data-parallel mesh only rank 0's writes
+    TensorBoard."""
     from mmtpu_torch.train.recorder import MetricRecorder
 
-    return MetricRecorder(cfg.metrics, tensorboard_path=cfg.logging.tensorboard_path,
+    writes = mesh is None or mesh.is_writer
+    return MetricRecorder(cfg.metrics,
+                          tensorboard_path=cfg.logging.tensorboard_path if writes else None,
                           tb_record_only=cfg.logging.tb_record_only)
 
 

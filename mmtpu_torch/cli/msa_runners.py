@@ -94,7 +94,7 @@ def assemble(cfg, args, device: torch.device) -> MSARun:
 def run(cfg, args, device: torch.device) -> int:
     from mmtpu_torch.train.loop import TrainLoop
 
-    common.resolve_mesh(cfg, args, device)
+    common.refuse_mesh(cfg, args, device, "MMIN and RedCore training")
     loaders = common.build_all_loaders(cfg, is_train=not args.skip_train,
                                        is_test=not args.skip_test)
     built = assemble(cfg, args, device)

@@ -12,14 +12,12 @@ from __future__ import annotations
 
 import sys
 
-from mmtpu_torch.cli import common, train_multimodal
+from mmtpu_torch.cli import train_multimodal
 
 
 def main(argv=None) -> int:
-    args = common.standard_arg_parser(__doc__).parse_args(argv)
-    device = common.resolve_device(args.cpu)
-    return train_multimodal.route(common.load_config(args), args, device,
-                                  json_nesting="avmnist")
+    return train_multimodal.main(argv, json_nesting="avmnist",
+                                 module="mmtpu_torch.cli.train_avmnist")
 
 
 if __name__ == "__main__":

@@ -182,7 +182,7 @@ def run(args) -> int:
 
     device = common.resolve_device(args.cpu)
     cfg = common.finalize_config(CMAMConfig.load(args.config, run_id=args.run_id), args)
-    common.resolve_mesh(cfg, args, device)
+    common.refuse_mesh(cfg, args, device, "train_cmam")
     loaders = common.build_all_loaders(cfg, is_train=not args.skip_train,
                                        is_test=not args.skip_test)
     built = assemble(cfg, device)

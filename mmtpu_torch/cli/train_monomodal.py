@@ -10,6 +10,8 @@ the raw (unmasked) modality, and on every best epoch writes the handoff
 `pretrained_encoders` loads. Runs on the GPU unless `--cpu`.
 `--stacked-runs K` runs the members run_id..run_id+K-1 (seed + i) one after
 another, as mmtpu's driver does (it has no stacking engine).
+`--data-parallel N`, N > 1, trains on N devices, one process per rank, as
+`train_multimodal` does; rank 0 alone writes the files.
 """
 
 from __future__ import annotations
@@ -22,6 +24,10 @@ from mmtpu_torch.cli import common
 
 def main(argv=None) -> int:
     args = common.standard_arg_parser(__doc__).parse_args(argv)
+    rc = common.run_ranks(args, common.resolve_device(args.cpu),
+                          "mmtpu_torch.cli.train_monomodal", argv)
+    if rc is not None:
+        return rc
     return common.run_id_sweep(args, run)
 
 
@@ -34,13 +40,16 @@ def run(args) -> int:
 
     device = common.resolve_device(args.cpu)
     cfg = common.load_config(args)
-    common.resolve_mesh(cfg, args, device)
+    mesh = common.rank_mesh(cfg, args, device)
+    writes = mesh is None or mesh.is_writer  # on a mesh, rank 0 alone writes files
     modality = common.infer_monomodal_modality(cfg)
     encoder_spec = _find_encoder_spec(cfg, modality)
     model = build_module("monomodal_encoder", encoder=encoder_spec,
                          output_dim=_infer_output_dim(cfg, encoder_spec),
                          num_classes=common.infer_num_classes(cfg))
     model = common.init_model(model, cfg.experiment.seed, device)
+    if mesh is not None:
+        common.seed_rank_streams(mesh, cfg.experiment.seed)
     loaders = common.build_all_loaders(cfg, is_train=not args.skip_train,
                                        is_test=not args.skip_test)
     state = common.make_state(model, cfg.training)
@@ -56,7 +65,7 @@ def run(args) -> int:
         return metrics
 
     any_loader = next(iter(loaders.values()))
-    recorder = common.make_recorder(cfg)
+    recorder = common.make_recorder(cfg, mesh)
     loop = TrainLoop(
         task=task, state=state, loaders=loaders, recorder=recorder,
         checkpoint_manager=ckpt, device=device, epochs=cfg.training.epochs,
@@ -71,7 +80,7 @@ def run(args) -> int:
         vocab_override=[str(modality)] * len(any_loader.pattern_vocab),
         metrics_postprocess=add_plain_accuracy,
         resume=args.resume,
-        eval_batch_factor=getattr(args, "eval_batch_factor", None),
+        eval_batch_factor=getattr(args, "eval_batch_factor", None), mesh=mesh,
     )
     if cfg.experiment.dry_run:
         recorder.close()
@@ -79,14 +88,16 @@ def run(args) -> int:
         return 0
     results = {}
     if not args.skip_train:
-        with common.ProfilerSession(getattr(args, "profile", False), cfg.logging.log_path):
+        with common.ProfilerSession(getattr(args, "profile", False) and writes,
+                                    cfg.logging.log_path):
             loop.run()
     if not args.skip_test:
         results = loop.test(splits=[s for s in loaders if s not in ("train", "validation")])
-    ExperimentReportGenerator(Path(cfg.logging.metrics_path) / "report",
-                              cfg.experiment.name).generate_report(
-        metrics_history=loop.metrics_history, timing_history=loop.timing_history,
-        model=model, test_metrics=results)
+    if writes:
+        ExperimentReportGenerator(Path(cfg.logging.metrics_path) / "report",
+                                  cfg.experiment.name).generate_report(
+            metrics_history=loop.metrics_history, timing_history=loop.timing_history,
+            model=model, test_metrics=results)
     recorder.close()
     final = Path(cfg.logging.model_output_path) / f"encoder_{modality}_best.pth"
     print(f"encoder artifact: {final}", flush=True)

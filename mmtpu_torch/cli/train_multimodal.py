@@ -36,8 +36,16 @@ folds as ONE vmapped program, and `--stacked-runs K` the K members
 run_id..run_id+K-1 (seed + i), each member with its own outputs in the
 sequential schema (`cli/stacked_cv.py`); MMIN, RedCore and Self-MM, a
 data_parallel other than 1, `--resume`, and `--stacked-runs` on a CV config
-take mmtpu's sequential runs and folds instead. Data parallelism over
-several devices is not ported and raises (ROADMAP item 12). Other model types (MulT's `mult`
+take mmtpu's sequential runs and folds instead.
+
+`--data-parallel N` (or `experiment.data_parallel: N`), N > 1, trains every
+model type above but MMIN, RedCore and Self-MM (which raise) on N devices:
+`main` starts one process per rank (`parallel/launch.py`; N GPUs over NCCL,
+or with `--cpu` N processes over gloo), each runs this driver on its rows
+of every global batch, with mmtpu's numbers (the global masked loss, the
+gradients summed over the ranks, BatchNorm over the global batch, the
+metrics from the gathered outputs), and rank 0 alone writes the files and
+the console lines. Folds and runs go one after another on the mesh. Other model types (MulT's `mult`
 and GCNet's `gcnet` among them, which train only through the registry, as
 in mmtpu) raise mmtpu's `ValueError: Unknown model type` where mmtpu's
 does, after the loaders are built.
@@ -57,10 +65,24 @@ from mmtpu_torch.cli import common
 CUSTOM_STEP_TYPES = ("mmin", "redcore", "self-mm", "self_mm")  # mmtpu stacks none of them
 
 
-def main(argv=None) -> int:
+def main(argv=None, json_nesting: str = "reference",
+         module: str = "mmtpu_torch.cli.train_multimodal") -> int:
     args = common.standard_arg_parser(__doc__).parse_args(argv)
     device = common.resolve_device(args.cpu)
-    return route(common.load_config(args), args, device)
+    rc = common.run_ranks(args, device, module, argv, generic=trains_on_mesh)
+    if rc is not None:
+        return rc
+    return route(common.load_config(args), args, device, json_nesting=json_nesting)
+
+
+def trains_on_mesh(cfg) -> bool:
+    """The model types whose driver trains on a data-parallel mesh: those
+    of the generic step (mmtpu's other types raise in the driver)."""
+    try:
+        common.modalities_for_model(cfg.model.model_type)
+    except ValueError:
+        return False
+    return True
 
 
 def _stacked_fallback_reason(cfg, args, flag: str = "--stacked-folds"):
@@ -69,9 +91,14 @@ def _stacked_fallback_reason(cfg, args, flag: str = "--stacked-folds"):
     mt = cfg.model.model_type.lower()
     if mt in CUSTOM_STEP_TYPES:
         return f"{flag} unsupported for {mt}"
+    from mmtpu_torch.parallel.mesh import get_default_mesh
+
     dp = getattr(args, "data_parallel", None)
     if dp is None:
         dp = cfg.experiment.data_parallel
+    mesh = get_default_mesh()
+    if mesh is not None:
+        dp = mesh.world_size
     if dp and dp != 1:
         return f"stacking is single-device and data_parallel={dp} was requested"
     if getattr(args, "resume", False):
@@ -143,8 +170,10 @@ def run_single(cfg, args, device, cv_no=None, json_nesting: str = "reference",
         from mmtpu_torch.cli import train_self_mm
 
         return train_self_mm.run(cfg, args, device)
-    common.resolve_mesh(cfg, args, device)
-    clean_checkpoints(cfg.logging.model_output_path)
+    mesh = common.rank_mesh(cfg, args, device)
+    writes = mesh is None or mesh.is_writer  # on a mesh, rank 0 alone writes files
+    if writes:
+        clean_checkpoints(cfg.logging.model_output_path)
     loaders = common.build_all_loaders(
         cfg, is_train=cfg.experiment.is_train and not args.skip_train,
         is_test=cfg.experiment.is_test and not args.skip_test)
@@ -156,9 +185,11 @@ def run_single(cfg, args, device, cv_no=None, json_nesting: str = "reference",
     clip = kw.get("clip") or kw.get("grad_clip") or kw.get("clip_grad_norm")
     state = common.make_state(model, cfg.training, clip=clip)
     state.generator = common.use_run_generator(model, cfg.experiment.seed, device)
+    if mesh is not None:
+        common.seed_rank_streams(mesh, cfg.experiment.seed, state.generator)
     task = ClassificationTask(model=model, loss_group=cfg.training.loss_functions,
                               input_keys=[str(m) for m in mods], multilabel=mt == "mmimdb")
-    recorder = common.make_recorder(cfg)
+    recorder = common.make_recorder(cfg, mesh)
     loop = TrainLoop(
         task=task, state=state, loaders=loaders, recorder=recorder,
         checkpoint_manager=common.make_checkpoint_manager(cfg), device=device,
@@ -169,7 +200,7 @@ def run_single(cfg, args, device, cv_no=None, json_nesting: str = "reference",
         group_name=next(iter(cfg.metrics.groups), "classification"),
         print_interval=cfg.experiment.train_print_interval_epochs,
         json_nesting=json_nesting, run_id=args.run_id, resume=args.resume,
-        eval_batch_factor=getattr(args, "eval_batch_factor", None),
+        eval_batch_factor=getattr(args, "eval_batch_factor", None), mesh=mesh,
     )
     if cfg.experiment.dry_run:
         recorder.close()
@@ -177,7 +208,8 @@ def run_single(cfg, args, device, cv_no=None, json_nesting: str = "reference",
         return 0
     results = {}
     if not args.skip_train and cfg.experiment.is_train:
-        with common.ProfilerSession(getattr(args, "profile", False), cfg.logging.log_path):
+        with common.ProfilerSession(getattr(args, "profile", False) and writes,
+                                    cfg.logging.log_path):
             loop.run()
     if not args.skip_test and cfg.experiment.is_test:
         results = loop.test(splits=[s for s in loaders
@@ -185,15 +217,16 @@ def run_single(cfg, args, device, cv_no=None, json_nesting: str = "reference",
         for split, metrics in results.items():
             shown = {k: round(v, 4) for k, v in metrics.items() if isinstance(v, (int, float))}
             print(f"{split} metrics: {shown}", flush=True)
-    embeddings_dir = None
-    if "embeddings" in loaders and hasattr(model, "encode"):
-        embeddings_dir = _export_embeddings(cfg, model, loaders["embeddings"], mods, device)
-    ExperimentReportGenerator(
-        Path(cfg.logging.metrics_path) / "report", cfg.experiment.name,
-        metrics_dir=cfg.logging.metrics_path,
-    ).generate_report(metrics_history=loop.metrics_history,
-                      timing_history=loop.timing_history, model=model, test_metrics=results,
-                      embeddings_dir=embeddings_dir)
+    if writes:
+        embeddings_dir = None
+        if "embeddings" in loaders and hasattr(model, "encode"):
+            embeddings_dir = _export_embeddings(cfg, model, loaders["embeddings"], mods, device)
+        ExperimentReportGenerator(
+            Path(cfg.logging.metrics_path) / "report", cfg.experiment.name,
+            metrics_dir=cfg.logging.metrics_path,
+        ).generate_report(metrics_history=loop.metrics_history,
+                          timing_history=loop.timing_history, model=model,
+                          test_metrics=results, embeddings_dir=embeddings_dir)
     recorder.close()
     if collect is not None:
         collect["train"] = loop.metrics_history["train"]
@@ -243,10 +276,13 @@ def main_cross_validation(cfg, args, device, json_nesting: str = "reference") ->
             fold_val.append(collected["validation"])
         if collected.get("test"):
             fold_test.append(collected["test"])
+    from mmtpu_torch.parallel.mesh import get_default_mesh
+
+    mesh = get_default_mesh()
     for name, folds_metrics in (("train", fold_train), ("validation", fold_val),
                                 ("test", fold_test)):
         agg = aggregate_cv_metrics(folds_metrics)
-        if agg:
+        if agg and (mesh is None or mesh.is_writer):
             (base_metrics_path / f"{name}_metrics_agg.json").write_text(
                 json.dumps(agg, indent=4))
     cfg.logging.metrics_path = str(base_metrics_path)

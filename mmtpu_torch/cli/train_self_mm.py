@@ -59,7 +59,7 @@ def run(cfg, args, device: torch.device) -> int:
     )
     from mmtpu_torch.utils import flatten_leaves
 
-    common.resolve_mesh(cfg, args, device)
+    common.refuse_mesh(cfg, args, device, "Self-MM training")
     loaders = common.build_all_loaders(cfg, is_train=not args.skip_train,
                                        is_test=not args.skip_test)
     _, task, state = assemble(cfg, device)

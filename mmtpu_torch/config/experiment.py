@@ -32,8 +32,9 @@ class ExperimentConfig(BaseConfig):
     dry_run: bool = False
     cross_validation: Optional[int] = None
     precision: Optional[str] = None
-    # None/0/1 and -1 run on one device; N > 1 asks for data parallelism
-    # over N devices (`cli.common.resolve_mesh`). --data-parallel overrides it
+    # None/0/1 run on one device; N > 1 trains on N devices, one process per
+    # rank, and -1 on every visible GPU (`cli.common.resolve_mesh`,
+    # `parallel/`). --data-parallel overrides it
     data_parallel: Optional[int] = None
 
     def __post_init__(self) -> None:

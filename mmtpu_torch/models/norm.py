@@ -16,7 +16,12 @@ the batch's (B,) sample mask for the duration of the forward
 With no mask published, or one whose length is not the input's leading
 dimension, the statistics are taken over every row. The step publishes a
 mask only when the batch has padded rows, so a full batch takes
-`F.batch_norm`'s fused training kernels. The state-dict keys are those of
+`F.batch_norm`'s fused training kernels. Under a data-parallel mesh (the
+step runs `with mesh:`, `parallel/mesh.py`) the train-mode statistics are
+always the written-out ones, over the real rows of the GLOBAL batch, full
+or padded: the counts, sums and centred sums of squares are summed over the
+ranks, so every rank normalises with, and keeps, the single-device run's
+statistics. The state-dict keys are those of
 `nn.BatchNorm*` (`weight`, `bias`, `running_mean`, `running_var`,
 `num_batches_tracked`), so `.pth` files and `from_jax_variables` are
 unchanged.
@@ -31,6 +36,8 @@ from typing import Iterator, Optional
 import torch
 from torch import nn
 from torch.nn import functional as F
+
+from mmtpu_torch.parallel.mesh import active_mesh
 
 EPS = 1e-5
 MOMENTUM = 0.1  # weight of the batch statistic: 1 - flax momentum 0.9
@@ -67,6 +74,34 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
         if x.dim() not in (2, 4):
             raise ValueError(f"BatchNorm expects (B, C) or (B, C, H, W), got {tuple(x.shape)}")
 
+    def _masked(self, x: torch.Tensor, mask: Optional[torch.Tensor], dims,
+                mesh) -> tuple:
+        """The statistics over the real rows (every row without a mask),
+        over the whole global batch under a mesh: the counts and sums, then
+        the centred sums of squares, summed over the ranks by a reduction
+        whose backward sums the ranks' gradients. Written out:
+        F.batch_norm(training=False) with computed statistics would treat
+        them as constants in the backward."""
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        if mask is None:
+            m = torch.ones([x.shape[0]] + [1] * (x.dim() - 1), dtype=x.dtype, device=x.device)
+        else:
+            m = (mask > 0).to(x.dtype).reshape([-1] + [1] * (x.dim() - 1))
+        per_row = x.numel() // max(x.shape[0] * x.shape[1], 1)
+        sums = torch.cat([(x * m).sum(dims), (m.sum() * per_row).reshape(1)])
+        if mesh is not None:
+            sums = mesh.all_reduce(sums)
+        count = torch.clamp(sums[-1], min=1.0)
+        mean = sums[:-1] / count
+        centred = x - mean.reshape(shape)
+        squares = (centred.square() * m).sum(dims)
+        if mesh is not None:
+            squares = mesh.all_reduce(squares)
+        var = squares / count
+        y = centred * torch.rsqrt(var.reshape(shape) + self.eps)
+        y = y * self.weight.reshape(shape) + self.bias.reshape(shape)
+        return y, mean.detach(), var.detach()
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         self._check_input_dim(x)
         if not self.training:
@@ -75,21 +110,14 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
         dims = [0] + list(range(2, x.dim()))
         mask = current_mask()
         if mask is None or mask.dim() != 1 or mask.shape[0] != x.shape[0]:
+            mask = None
+        mesh = active_mesh()
+        if mesh is None and mask is None:
             y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
             with torch.no_grad():
                 var, mean = torch.var_mean(x, dims, correction=0)
         else:
-            # written out: F.batch_norm(training=False) with computed
-            # statistics would treat them as constants in the backward
-            shape = [1, -1] + [1] * (x.dim() - 2)
-            m = (mask > 0).to(x.dtype).reshape([-1] + [1] * (x.dim() - 1))
-            count = torch.clamp(m.sum() * (x[0, 0].numel()), min=1.0)
-            mean = (x * m).sum(dims) / count
-            centred = x - mean.reshape(shape)
-            var = (centred.square() * m).sum(dims) / count
-            y = centred * torch.rsqrt(var.reshape(shape) + self.eps)
-            y = y * self.weight.reshape(shape) + self.bias.reshape(shape)
-            mean, var = mean.detach(), var.detach()
+            y, mean, var = self._masked(x, mask, dims, mesh)
         with torch.no_grad():
             if torch._C._functorch.is_functorch_wrapped_tensor(self.running_mean):
                 # stacked members (vmap): lerp_ has no batching rule, the

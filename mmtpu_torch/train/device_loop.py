@@ -19,6 +19,12 @@ ORIGINAL batch, so the epoch's mean of batch means is the unfused one at any
 factor, tail included. `build_schedule` is mmtpu's, bit for bit: the same
 seeded shuffle `(seed, epoch, 0x5EED)`, `train_schedule(epoch)`, the eval
 product order, and `drop_last` at the base batch before the fused padding.
+
+On a data-parallel mesh (mmtpu's scan-on-mesh) every rank uploads the
+whole split and builds the whole schedule, then keeps its rows of every
+step (`shard_schedule`); the train step sums the gradients over the ranks,
+and the eval's losses are each rank's shares of the global ones, which the
+loop sums once the epoch's outputs are gathered.
 """
 
 from __future__ import annotations
@@ -30,7 +36,7 @@ import numpy as np
 import torch
 
 from mmtpu_torch.modalities import Modality
-from mmtpu_torch.train.step import _outputs, output_logits, train_step_core
+from mmtpu_torch.train.step import _outputs, on_mesh, output_logits, train_step_core
 
 DEFAULT_BUDGET_BYTES = 4 * 2**30  # 4 GiB of device memory for resident data
 
@@ -109,7 +115,7 @@ def padded_steps(schedule: Dict[str, np.ndarray]) -> List[bool]:
     return [not np.all(row > 0) for row in schedule["sample_mask"]]
 
 
-def _stack_outputs(outs: List[Dict[str, torch.Tensor]]) -> Dict[str, np.ndarray]:
+def stack_outputs(outs: List[Dict[str, torch.Tensor]]) -> Dict[str, np.ndarray]:
     """The steps' outputs stacked (steps, ...) and copied to the host, once
     per key, at the epoch's end."""
     return {k: torch.stack([o[k] for o in outs]).cpu().numpy() for k in outs[0]}
@@ -128,38 +134,63 @@ def run_train_epoch(task, state, data: DeviceResidentData,
         batch = gather_batch(data, sched, step)
         loss, logits, sample_mask = train_step_core(task, state, batch, pad)
         outs.append(_outputs(task, batch, loss, logits, sample_mask))
-    return _stack_outputs(outs)
+    return stack_outputs(outs)
+
+
+def shard_schedule(schedule: Dict[str, np.ndarray], mesh) -> Dict[str, np.ndarray]:
+    """This rank's columns of an epoch's (steps, batch) schedule: its
+    contiguous rows of every global batch (mmtpu shards the schedule's
+    batch axis over the mesh)."""
+    return {k: v[:, mesh.rows(v.shape[1])] for k, v in schedule.items()}
+
+
+def _sub_batch_rows(batch: int, sub_batches: int, mesh) -> List[slice]:
+    """Per ORIGINAL batch of a fused eval step, its rows among this rank's
+    (empty where the rank holds none of them); every original batch without
+    a mesh."""
+    base = batch // sub_batches
+    if mesh is None:
+        return [slice(j * base, (j + 1) * base) for j in range(sub_batches)]
+    own = mesh.rows(batch)
+    return [slice(min(max(j * base, own.start), own.stop) - own.start,
+                  min(max((j + 1) * base, own.start), own.stop) - own.start)
+            for j in range(sub_batches)]
 
 
 @torch.inference_mode()
 def run_eval_epoch(task, data: DeviceResidentData, schedule: Dict[str, np.ndarray],
-                   device: torch.device, sub_batches: int = 1) -> Dict[str, np.ndarray]:
+                   device: torch.device, sub_batches: int = 1, mesh=None
+                   ) -> Dict[str, np.ndarray]:
     """The eval forward over the schedule; each step holds `sub_batches`
     original batches, whose losses are reduced one by one, so `loss` is
-    (steps, sub_batches) when fused, (steps,) otherwise."""
+    (steps, sub_batches) when fused, (steps,) otherwise. Under `mesh` the
+    schedule holds this rank's rows and each loss is this rank's share of
+    its original batch's global loss (zero where it holds none of its rows):
+    the shares sum to the single-device loss."""
     padded = padded_steps(schedule)
     sched = put_schedule(schedule, device)
     outs = []
     for step, pad in enumerate(padded):
         batch = gather_batch(data, sched, step)
         sample_mask = batch["sample_mask"]
-        out = task.apply(batch, train=False, bn_mask=sample_mask if pad else None)
-        if sub_batches > 1:
-            if isinstance(out, dict):
-                raise NotImplementedError(
-                    "fused eval: a model with an auxiliary loss (a dict output) has no "
-                    "per-original-batch loss; use --eval-batch-factor 1")
-            base = out.shape[0] // sub_batches
-            loss = torch.stack([
-                task.loss(out[j * base:(j + 1) * base],
-                          {"labels": batch["labels"][j * base:(j + 1) * base]},
-                          sample_mask=sample_mask[j * base:(j + 1) * base])
-                for j in range(sub_batches)
-            ])
-        else:
-            loss = task.loss(out, batch, sample_mask=sample_mask)
+        with on_mesh(mesh):
+            out = task.apply(batch, train=False, bn_mask=sample_mask if pad else None)
+            if sub_batches > 1:
+                if isinstance(out, dict):
+                    raise NotImplementedError(
+                        "fused eval: a model with an auxiliary loss (a dict output) has no "
+                        "per-original-batch loss; use --eval-batch-factor 1")
+                rows = _sub_batch_rows(out.shape[0] * (mesh.world_size if mesh else 1),
+                                       sub_batches, mesh)
+                loss = torch.stack([
+                    task.loss(out[r], {"labels": batch["labels"][r]},
+                              sample_mask=sample_mask[r])
+                    for r in rows
+                ])
+            else:
+                loss = task.loss(out, batch, sample_mask=sample_mask)
         outs.append(_outputs(task, batch, loss, output_logits(out), sample_mask))
-    return _stack_outputs(outs)
+    return stack_outputs(outs)
 
 
 def build_schedule(

@@ -19,6 +19,18 @@ from the device; a split that does not fit streams. Eval on the resident
 path fuses `eval_batch_factor` loader batches per step (None: grow toward
 1024 rows, at most 8, `_auto_eval_factor`), with the same results.
 
+On a data-parallel mesh (`mesh=`, a launched `parallel.mesh.Mesh`, as
+mmtpu's `mesh=`): the model starts from rank 0's weights; every step takes
+this rank's rows of the global batch and sums its gradients over the
+ranks; a split is resident only when the mesh divides its batch, and then
+every rank uploads all of it and keeps its rows of each step (mmtpu's
+scan-on-mesh). At each epoch's end the outputs are gathered into the
+global batches' over the host group and the losses' shares summed, so the
+recorder, early stopping, the scheduler and the best checkpoint see and
+decide what one device does. Rank 0 alone writes (checkpoints, the JSON
+records, `on_best`), with every rank's RNG states in the rolling resume
+point; the others wait at a barrier before they read a checkpoint.
+
 For other training tasks (C-MAM), as in mmtpu: `step_builders` replaces the
 train and eval step factories, `record_fn(recorder, out, vocab)` the
 recording of a step's outputs, and a step that returns `terms` (a dict of
@@ -42,7 +54,9 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from mmtpu_torch.checkpoints.manager import CheckpointManager
+from mmtpu_torch.checkpoints.manager import CheckpointManager, rng_state
+from mmtpu_torch.parallel.mesh import replicate
+from mmtpu_torch.train.device_loop import stack_outputs
 from mmtpu_torch.train.early_stopping import EarlyStopping
 from mmtpu_torch.train.optim import LRController, set_lr_scale
 from mmtpu_torch.train.recorder import MetricRecorder
@@ -165,6 +179,7 @@ class TrainLoop:
         step_builders: Optional[Tuple[Callable, Callable]] = None,
         device_resident: str = "auto",
         eval_batch_factor: Optional[int] = None,
+        mesh=None,
     ) -> None:
         # vocab_override renames the recorder's pattern vocabulary (the
         # monomodal entry point records under the MODALITY name);
@@ -188,10 +203,21 @@ class TrainLoop:
         self.vocab_override = vocab_override
         self.metrics_postprocess = metrics_postprocess
         self.resume = resume
+        # a data-parallel rank: the state starts from rank 0's weights and
+        # its steps sum their gradients over the mesh (mmtpu replicates the
+        # state onto the mesh here)
+        self.mesh = mesh
+        if mesh is not None:
+            replicate(state.model, mesh)
+            state.mesh = mesh
         # step_builders: (make_train(task, state, device), make_eval(task, device))
-        make_train, make_eval = step_builders or (make_train_step, make_eval_step)
-        self.train_step = make_train(task, state, device)
-        self.eval_step = make_eval(task, device)
+        if step_builders is None:
+            self.train_step = make_train_step(task, state, device)
+            self.eval_step = make_eval_step(task, device, mesh)
+        else:
+            make_train, make_eval = step_builders
+            self.train_step = make_train(task, state, device)
+            self.eval_step = make_eval(task, device)
         self._record = record_fn or self._default_record
         self.epoch_metrics: List[Dict[str, Any]] = []
         self.timing_history: Dict[str, List[float]] = {"train": [], "validation": []}
@@ -213,6 +239,7 @@ class TrainLoop:
 
         remaining = dl.DEFAULT_BUDGET_BYTES
         priority = {"train": 0, "validation": 1}
+        dp = self.mesh.world_size if self.mesh is not None else 1
         for split, loader in sorted(self.loaders.items(),
                                     key=lambda kv: priority.get(kv[0], 2)):
             ds = getattr(loader, "dataset", None)
@@ -223,6 +250,8 @@ class TrainLoop:
                 if nbytes > remaining:
                     continue
                 remaining -= nbytes
+            if loader.batch_size % dp:
+                continue  # batch not shardable over the data axis: it streams
             if split == "train":
                 factor = 1
             elif eval_batch_factor is None:
@@ -254,21 +283,39 @@ class TrainLoop:
 
     def _epoch(self, split: str, step: Callable) -> float:
         """Run `step` over the split's batches; the mean of the per-batch
-        losses, read once at the end."""
+        losses, read once at the end. On a mesh the steps' outputs are
+        gathered at the end into the global batches', which the recorder
+        then reads batch by batch, as on one device."""
         loader = self.loaders[split]
         vocab = loader.pattern_vocab
-        losses = []
+        losses, outs = [], []
         t0 = time.time()
         for batch in loader:
             out = step(batch)
             losses.append(out["loss"])
             if "terms" in out:
                 self._phase_terms.append(out["terms"])
-            self._record(self.recorder, out, vocab)
+            if self.mesh is None:
+                self._record(self.recorder, out, vocab)
+            else:
+                outs.append(out)
+        if outs:
+            host = self._gather(stack_outputs(outs))
+            for i in range(len(outs)):
+                self._record(self.recorder, {k: torch.as_tensor(v[i]) for k, v in host.items()},
+                             vocab)
+            losses = list(torch.from_numpy(host["loss"]))
         self._sync()
         if split in self.timing_history:
             self.timing_history[split].append(time.time() - t0)
         return float(torch.stack(losses).float().mean().item()) if losses else 0.0
+
+    def _gather(self, outs: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        """An epoch's (steps, rows, ...) outputs of every rank, in global-batch
+        order; the losses, each rank's share of the global ones, summed."""
+        parts = self.mesh.gather(outs)
+        return {k: (np.sum([p[k] for p in parts], axis=0) if k == "loss"
+                    else np.concatenate([p[k] for p in parts], axis=1)) for k in outs}
 
     def _resident_epoch(self, split: str, epoch: int) -> float:
         """The device-resident path: the epoch's schedule keyed by the
@@ -283,10 +330,15 @@ class TrainLoop:
         schedule = dl.build_schedule(ds, rs.batch_size, max(epoch - 1, 0), loader.shuffle,
                                      loader.seed, ds.split, drop_last=loader.drop_last,
                                      base_batch_size=loader.batch_size)
+        if self.mesh is not None:
+            schedule = dl.shard_schedule(schedule, self.mesh)
         if split == "train":
             outs = dl.run_train_epoch(self.task, self.state, rs.data, schedule, self.device)
         else:
-            outs = dl.run_eval_epoch(self.task, rs.data, schedule, self.device, rs.sub_batches)
+            outs = dl.run_eval_epoch(self.task, rs.data, schedule, self.device, rs.sub_batches,
+                                     self.mesh)
+        if self.mesh is not None:
+            outs = self._gather(outs)
         if split in self.timing_history:
             self.timing_history[split].append(time.time() - t0)
         flat = {k: v.reshape((-1,) + v.shape[2:]) for k, v in outs.items() if k != "loss"}
@@ -330,10 +382,20 @@ class TrainLoop:
 
     # -- mid-run resume -----------------------------------------------------------
 
+    @property
+    def writes(self) -> bool:
+        """This process writes the run's files: always on one device, rank 0
+        alone on a mesh (every rank computes the same metrics and decisions)."""
+        return self.mesh is None or self.mesh.is_writer
+
     def _save_resume_point(self, epoch: int, best_metrics: Optional[Dict[str, Any]]) -> None:
-        """Rolling last.pth + the loop's host-side state, every epoch."""
+        """Rolling last.pth + the loop's host-side state, every epoch; on a
+        mesh rank 0 writes it with every rank's RNG states."""
+        rng = self.mesh.gather(rng_state(self.state)) if self.mesh is not None else None
+        if not self.writes:
+            return
         lr = self.lr
-        self.ckpt.save_rolling(self.state, epoch, meta=_jsonable({
+        self.ckpt.save_rolling(self.state, epoch, rng=rng, meta=_jsonable({
             "early": {"best": self.early.best, "counter": self.early.counter,
                       "should_stop": self.early.should_stop},
             "lr": ({"epoch": lr.epoch, "best": lr._best, "num_bad": lr._num_bad,
@@ -350,10 +412,13 @@ class TrainLoop:
         loaders' epoch counters are fast-forwarded, so the shuffle and the
         pattern draws of epoch N match the uninterrupted run's; the RNG
         states (dropout) restore from the checkpoint."""
+        if self.mesh is not None:
+            self.mesh.barrier()
         meta = self.ckpt.load_resume_meta()
         if meta is None:
             return None
-        self.ckpt.load_checkpoint(self.state, "last")
+        self.ckpt.load_checkpoint(self.state, "last",
+                                  rank=self.mesh.rank if self.mesh is not None else None)
         epoch = int(meta["epoch"])
         for loader in self.loaders.values():
             loader.epoch = epoch
@@ -432,9 +497,10 @@ class TrainLoop:
             target = resolve_save_target(val_metrics, self.save_metric)
             if self.early.step(float(target)):
                 best_metrics = dict(val_metrics)
-                self.ckpt.save_checkpoint(self.state, epoch, float(target))
-                if self.on_best is not None:
-                    self.on_best(self.state, epoch)
+                if self.writes:
+                    self.ckpt.save_checkpoint(self.state, epoch, float(target))
+                    if self.on_best is not None:
+                        self.on_best(self.state, epoch)
             if self.early.should_stop:
                 print(f"early stopping at epoch {epoch}", flush=True)
                 self._save_resume_point(epoch, best_metrics)
@@ -452,6 +518,8 @@ class TrainLoop:
         `<metrics>/<run_id>/epoch_metrics.json` in `avmnist` nesting."""
         from mmtpu_torch.reports import MetricsReport
 
+        if self.mesh is not None:
+            self.mesh.barrier()  # rank 0 wrote the best checkpoint
         try:
             self.ckpt.load_checkpoint(self.state, "best")
         except FileNotFoundError:
@@ -469,7 +537,7 @@ class TrainLoop:
             metrics = self._metrics(raw, loss, terms)
             results[split] = metrics
             self.test_metrics_nested[split] = {**raw, "loss": loss, **terms}
-            if self.metrics_path is None:
+            if self.metrics_path is None or not self.writes:
                 continue
             MetricsReport(self.metrics_path).generate({}, {split: metrics})
             if split != "test":
@@ -491,7 +559,7 @@ class TrainLoop:
         return results
 
     def _write_epoch_metrics(self) -> None:
-        if self.metrics_path is None:
+        if self.metrics_path is None or not self.writes:
             return
         self.metrics_path.mkdir(parents=True, exist_ok=True)
         (self.metrics_path / "epoch_metrics.json").write_text(

@@ -16,6 +16,8 @@ from typing import Any, Callable, Dict
 import torch
 import torch.nn.functional as F
 
+from mmtpu_torch.parallel.mesh import active_mesh
+
 
 def _as_float(x) -> torch.Tensor:
     return torch.as_tensor(x).float()
@@ -23,15 +25,24 @@ def _as_float(x) -> torch.Tensor:
 
 def _masked_reduce(per_sample, sample_mask=None, weights=None):
     """Weighted/masked batch mean: sum(w·m·l) / sum(w·m). Per-sample losses
-    with extra dims are averaged over their non-batch axes first."""
-    if per_sample.dim() > 1:
-        per_sample = per_sample.reshape(per_sample.shape[0], -1).mean(dim=1)
+    with extra dims are averaged over their non-batch axes first. Under a
+    data-parallel mesh (`with mesh:`) the denominator is the GLOBAL batch's,
+    summed over the ranks: each rank returns its share of the global mean,
+    zero for a rank without a real row, and the shares sum to it."""
+    if per_sample.dim() > 1:  # flatten(1) also takes a rank's empty slice
+        per_sample = per_sample.flatten(1).mean(dim=1)
     eff = weights
     if sample_mask is not None:
         eff = sample_mask if eff is None else eff * sample_mask
+    mesh = active_mesh()
+    if mesh is None:
+        if eff is None:
+            return per_sample.mean()
+        return (per_sample * eff).sum() / torch.clamp(eff.sum(), min=1e-8)
     if eff is None:
-        return per_sample.mean()
-    return (per_sample * eff).sum() / torch.clamp(eff.sum(), min=1e-8)
+        eff = torch.ones_like(per_sample)
+    count = mesh.all_reduce_(eff.detach().sum().to(per_sample.dtype))
+    return (per_sample * eff).sum() / torch.clamp(count, min=1e-8)
 
 
 def cross_entropy(logits, targets, weight=None, label_smoothing: float = 0.0,

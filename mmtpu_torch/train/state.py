@@ -2,7 +2,8 @@
 holds its parameters and BatchNorm statistics, its optimizer, the step
 count, the global-norm clip the step applies, and, for a model that draws
 its dropout from an explicit `torch.Generator` (C-MAM), that generator,
-whose state checkpoints carry as mmtpu's carry its PRNG key."""
+whose state checkpoints carry as mmtpu's carry its PRNG key; in a
+data-parallel rank, the mesh its steps sum their gradients over."""
 
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ class TrainState:
     step: int = 0
     clip: Optional[float] = None
     generator: Optional[torch.Generator] = None
+    mesh: Optional[Any] = None  # parallel.mesh.Mesh: the step's gradients are summed over it
 
     def state_dict(self) -> Dict[str, Any]:
         """Model, optimizer and step as CPU tensors and plain containers,

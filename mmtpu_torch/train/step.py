@@ -23,10 +23,17 @@ The AVMNIST head trains on its plain chain, as in mmtpu; its kernel runs in
 the eval forward. UttFusion's two LSTMs run the `lstm` kernel in the train
 forward as well (one launch for both), differentiated through the plain
 scan's recompute (`ops/lstm.py`).
+
+In a data-parallel rank (`state.mesh`, or the eval step's `mesh`) a step
+takes its rows of the global batch and runs under `with mesh:`, so
+BatchNorm takes global-batch statistics and the loss is this rank's share
+of the global masked mean; `apply_gradients` sums the gradients over the
+ranks before the clip (`parallel/mesh.py`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, Dict, Mapping, Optional, Sequence
 
@@ -34,6 +41,7 @@ import numpy as np
 import torch
 
 from mmtpu_torch.models.norm import batch_mask
+from mmtpu_torch.parallel.mesh import shard_batch
 from mmtpu_torch.train.losses import LossFunctionGroup
 from mmtpu_torch.train.state import TrainState
 
@@ -124,21 +132,32 @@ def _outputs(task, batch, loss, logits, sample_mask) -> Dict[str, torch.Tensor]:
     return out
 
 
+def on_mesh(mesh):
+    """`with on_mesh(mesh):` publishes a data-parallel mesh to BatchNorm and
+    the losses (`parallel/mesh.py`); None publishes nothing."""
+    return contextlib.nullcontext() if mesh is None else mesh
+
+
 def train_step_core(task: ClassificationTask, state: TrainState,
                     batch: Mapping[str, torch.Tensor], padded: bool = True):
-    """One gradient step on a batch already on the device. `padded`: the
-    batch has padded rows, so BatchNorm gets the sample mask. Returns
-    (loss, logits, sample_mask); the loss is detached."""
+    """One gradient step on a batch already on the device (this rank's rows
+    of the global batch under `state.mesh`). `padded`: the batch has padded
+    rows, so BatchNorm gets the sample mask. Returns (loss, logits,
+    sample_mask); the loss is detached, and under a mesh it is this rank's
+    share of the global loss."""
     sample_mask = batch.get("sample_mask")
-    logits = task.apply(batch, train=True, bn_mask=sample_mask if padded else None)
-    loss = task.loss(logits, batch, sample_mask=sample_mask)
+    with on_mesh(state.mesh):
+        logits = task.apply(batch, train=True, bn_mask=sample_mask if padded else None)
+        loss = task.loss(logits, batch, sample_mask=sample_mask)
     apply_gradients(state, loss)
     return loss.detach(), output_logits(logits).detach(), sample_mask
 
 
 def apply_gradients(state: TrainState, loss: torch.Tensor) -> None:
-    """Backward from `loss`, the optional global-norm clip, the optimizer's
-    step: what every train step does once its loss is computed."""
+    """Backward from `loss`, the gradients summed over the ranks of
+    `state.mesh` (one all-reduce of a flattened bucket), the optional
+    global-norm clip, the optimizer's step: what every train step does once
+    its loss is computed."""
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
     # a parameter the loss does not reach (RedCore's AEs) has a gradient of
@@ -146,6 +165,10 @@ def apply_gradients(state: TrainState, loss: torch.Tensor) -> None:
     for p in state.model.parameters():
         if p.grad is None and p.requires_grad:
             p.grad = torch.zeros_like(p)
+    if state.mesh is not None:
+        # each rank's gradient is that of its share of the global loss: the
+        # sum is the global gradient, which the clip then sees, as in optax
+        state.mesh.all_reduce_grads(state.model.parameters())
     if state.clip:
         clip_by_global_norm(state.model.parameters(), state.clip)
     state.optimizer.step()
@@ -165,9 +188,13 @@ def clip_by_global_norm(params, max_norm: float) -> None:
 def make_train_step(task: ClassificationTask, state: TrainState,
                     device: torch.device) -> Callable:
     """(numpy batch) → dict of tensors on `device`: loss, preds, labels,
-    and pattern_id / sample_mask when the batch has them."""
+    and pattern_id / sample_mask when the batch has them. Under
+    `state.mesh` the step takes this rank's rows of the global batch, and
+    its outputs are those rows'."""
 
     def step(batch: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        if state.mesh is not None:
+            batch = shard_batch(batch, state.mesh)
         padded = has_padded_rows(batch)
         batch = to_device(batch, device)
         loss, logits, sample_mask = train_step_core(task, state, batch, padded)
@@ -176,17 +203,21 @@ def make_train_step(task: ClassificationTask, state: TrainState,
     return step
 
 
-def make_eval_step(task: ClassificationTask, device: torch.device) -> Callable:
+def make_eval_step(task: ClassificationTask, device: torch.device, mesh=None) -> Callable:
     """(numpy batch) → dict of tensors on `device`: loss, preds, labels,
-    logits, and pattern_id / sample_mask when the batch has them."""
+    logits, and pattern_id / sample_mask when the batch has them; under
+    `mesh`, this rank's rows and its share of the batch's global loss."""
 
     @torch.inference_mode()
     def step(batch: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        if mesh is not None:
+            batch = shard_batch(batch, mesh)
         padded = has_padded_rows(batch)
         batch = to_device(batch, device)
         sample_mask = batch.get("sample_mask")
-        out = task.apply(batch, train=False, bn_mask=sample_mask if padded else None)
-        loss = task.loss(out, batch, sample_mask=sample_mask)
+        with on_mesh(mesh):
+            out = task.apply(batch, train=False, bn_mask=sample_mask if padded else None)
+            loss = task.loss(out, batch, sample_mask=sample_mask)
         logits = output_logits(out)
         return {**_outputs(task, batch, loss, logits, sample_mask), "logits": logits}
 

@@ -5,8 +5,8 @@
 - `derive_member_args` gives mmtpu's member namespaces, and the members'
   seeds (`finalize_config`'s offset) are mmtpu's;
 - `--data-parallel`: 1 and -1 run on one device, N beyond the visible
-  devices raises mmtpu's ValueError, any other N > 1 (DDP) raises
-  NotImplementedError;
+  devices raises mmtpu's ValueError, any other N > 1 resolves to a mesh of
+  N ranks (`tests/test_torch_port_parallel*.py` train on it);
 - `--stacked-folds` on a cross-validation config reaches the stacked engine,
   and falls back to sequential folds with `--resume` or data_parallel;
 - `monitoring.enabled: true` raises unless `--disable_monitoring`;
@@ -96,23 +96,32 @@ def _resolve(dp_flag=None, dp_config=None, devices=1, device="cpu", monkeypatch=
 def test_data_parallel_rules(monkeypatch):
     for dp in (None, 0, 1, -1):
         assert _resolve(dp) is None and _resolve(None, dp) is None
+    assert _resolve(2).world_size == 2  # on the CPU each rank is a process
     with pytest.raises(ValueError, match="data_parallel=2 but only 1 devices visible"):
-        _resolve(2)
+        _resolve(2, devices=1, device="cuda", monkeypatch=monkeypatch)
     with pytest.raises(ValueError, match="use -1"):
         _resolve(-3)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 12"):
-        _resolve(None, 2, devices=4, device="cuda", monkeypatch=monkeypatch)
+    mesh = _resolve(None, 2, devices=4, device="cuda", monkeypatch=monkeypatch)
+    assert mesh.world_size == 2 and not mesh.launched
+    assert mesh.devices == [torch.device("cuda", 0), torch.device("cuda", 1)]
     with pytest.raises(ValueError, match="only 4 devices"):
         _resolve(8, devices=4, device="cuda", monkeypatch=monkeypatch)
 
 
 @pytest.mark.parametrize("module", ["train_multimodal", "train_monomodal"])
-def test_data_parallel_two_raises_through_the_cli(module, tmp_path):
+def test_data_parallel_two_raises_through_the_cli(module, tmp_path, monkeypatch):
+    """On the GPU (one card, the count monkeypatched) N = 2 raises mmtpu's
+    ValueError before a rank starts; on the CPU each rank is a process, so
+    `--cpu --data-parallel 2` trains (tests/test_torch_port_parallel_cli.py)."""
+    import importlib
+
     src = "synthetic_runs.yaml" if module == "train_multimodal" else "synthetic_mono_audio.yaml"
     cfg = _config(tmp_path, src)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    main = importlib.import_module(f"mmtpu_torch.cli.{module}").main
     with pytest.raises(ValueError, match="data_parallel=2 but only 1 devices visible"):
-        run_cli_inproc(f"mmtpu_torch.cli.{module}", cfg, run_id="1",
-                       extra=("--data-parallel", "2"))
+        main(["--config", str(cfg), "--run_id", "1", "--data-parallel", "2"])
 
 
 def test_stacked_folds_raises_and_falls_back_as_mmtpu(tmp_path, monkeypatch):
@@ -140,7 +149,7 @@ def test_monitoring_enabled_raises_unless_disabled(tmp_path):
     cfg = _config(tmp_path, "synthetic_runs.yaml",
                   [("monitoring:\n  enabled: false", "monitoring:\n  enabled: true")])
     for module in ("train_multimodal", "train_avmnist"):
-        with pytest.raises(NotImplementedError, match="monitor.*ROADMAP.md item 12"):
+        with pytest.raises(NotImplementedError, match="monitor.*ROADMAP.md §1 item 6"):
             run_cli_inproc(f"mmtpu_torch.cli.{module}", cfg, run_id="1", extra=("--dry-run",))
         assert run_cli_inproc(f"mmtpu_torch.cli.{module}", cfg, run_id="1",
                               extra=("--dry-run", "--disable_monitoring")) == 0

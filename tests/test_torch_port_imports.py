@@ -76,7 +76,12 @@ RECURRENT_SLICE = ("mmtpu_torch/data/iemocap.py", "mmtpu_torch/models/variationa
                    "mmtpu_torch/models/domain.py")
 
 
-@pytest.mark.parametrize("rel", EXPORT_SLICE + RECURRENT_SLICE)
+# data parallelism: the mesh and the ranks' launcher
+PARALLEL_SLICE = ("mmtpu_torch/parallel/__init__.py", "mmtpu_torch/parallel/mesh.py",
+                  "mmtpu_torch/parallel/launch.py")
+
+
+@pytest.mark.parametrize("rel", EXPORT_SLICE + RECURRENT_SLICE + PARALLEL_SLICE)
 def test_the_export_slice_is_scanned(rel):
     assert REPO / rel in PORT_FILES
 
