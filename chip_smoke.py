@@ -270,13 +270,15 @@ FcClassifier 192→[192, 64, 32]→3; batch 32, aligned T = 50):
 
 16. mesh    — data parallelism (`mmtpu_torch/parallel/`) on the one card. (a)
              phase 15's scratch fine-tune (dropout 0, cuDNN deterministic,
-             TF32 off) through `train_multimodal.main` in one process and as
+             TF32 off; 384 / 128 / 128 samples) through
+             `train_multimodal.main` in one process and as
              two ranks on cuda:0 over gloo (`parallel.launch` with explicit
              devices): step 1's loss within 1e-4, steps 2-3 within 1e-3, from
              the initial weights step 1's and a padded step's (28 real rows,
              none on rank 1) float64 gradients within 1e-6 of each norm, the
-             epoch-2 validation loss within 1e-3, the ranks' state_dict
-             sha256 equal after each epoch, `fused_mlp` 6 per rank as in one
+             epoch-2 validation loss of a float64 run (256 / 64 / 64) within
+             1e-3, the ranks' state_dict
+             sha256 equal after each epoch, `fused_mlp` 3 per rank as in one
              process, every file written by rank 0 alone; the gradient
              all-reduce's bytes and time per step, and samples/s of two
              processes sharing one card. (b) phase 6's UttFusion (dropout 0,
@@ -285,9 +287,29 @@ FcClassifier 192→[192, 64, 32]→3; batch 32, aligned T = 50):
              1's gradients within 1e-4 of each norm, `lstm` 115 per rank. (c)
              (b)'s steps as one rank over NCCL, within 1e-5. (d) the CLI on
              one card: `--data-parallel 2` raises mmtpu's ValueError,
-             `--data-parallel -1` trains in the one process. Phase 2 also
-             holds `fused_mlp` at B = 64 and 512 and `lstm` at (2, 16, 50,
-             64) and (2, 128, 50, 64), the ranks' shards.
+             `--data-parallel -1` trains in the one process. (e)-(g) the
+             drivers with their own steps, at the widths of phases 9-11 on
+             small splits (a train tail of 4 real rows of 32, none on rank
+             1), dropout 0, one process against two ranks in the same
+             launch as (a) and (b): (e) DualCMAM A→(V, T) through
+             `train_cmam.main` with the MMD, moment and MI weights at 0.1,
+             `lstm` 3 per batch per rank; (e') the AVMNIST C-MAM's steps
+             alone, in float64: steps 1-3 and a padded step (28 real rows of
+             128) within 1e-6, step 1's gradients within 1e-6 of each norm;
+             (f) MMIN with its frozen teacher (`lstm` 3 per train batch per
+             rank) and RedCore (its randomness neutralised; β, EMA and η
+             after three float64 steps within 1e-6, and after every step of
+             the run equal on both ranks); (g) Self-MM over a frozen BERT-base
+             for two epochs (`lstm` 2 per batch per rank; the banks after an
+             epoch-2 step within 1e-5 and bit-identical on both ranks). For
+             each run: steps 1 and the padded step within 1e-5 (from the same
+             initial weights), steps 2-3 within 1e-3, step 1's gradients
+             within 1e-4 of each norm, the ranks' state_dict sha256 equal
+             after each epoch, every file written by rank 0 alone, the `lstm`
+             shapes each rank launches, the gradient all-reduce's bytes and
+             time per step. Phase 2 also holds `fused_mlp` at B = 64 and 512
+             and `lstm` at (2, 16, 50, 64), (2, 128, 50, 64), (1, 16, 50,
+             64), (1, 16, 50, 16) and (1, 16, 50, 32), the ranks' shards.
 
     python3 chip_smoke.py --train-only    # build, then phases 5 and 6 alone
     python3 chip_smoke.py --reader-only   # build, the audio pretraining, phase 7
@@ -307,7 +329,7 @@ FcClassifier 192→[192, 64, 32]→3; batch 32, aligned T = 50):
     python3 chip_smoke.py --mult-only --gcnet-only --ef-only  # build, phase 14 (a)-(c)
     python3 chip_smoke.py --resident-only # build, phase 15 (a)
     python3 chip_smoke.py --stacked-only  # build, phase 2's member axis, phase 15 (b), (c)
-    python3 chip_smoke.py --mesh-only     # build, phase 16
+    python3 chip_smoke.py --mesh-only     # build, phase 16 (a)-(g)
 
 Prints a `kernels` JSON line, the card's name and power limit, and as the
 last line `{"ok": true, "device": {...}}`. Any failure exits non-zero
@@ -803,11 +825,18 @@ LSTM_CASES = [
     (2, 1024, 64, 128, False, False, KERNEL_TOL, False),  # IEMOCAP's fused eval step, 8 × 128
     (2, 16, 50, 64, False, False, KERNEL_TOL, True),  # UttFusion's train batch on 2 ranks
     (2, 128, 50, 64, False, False, KERNEL_TOL, True),  # its fused eval step on 2 ranks
+    (1, 16, 50, 64, False, False, KERNEL_TOL, False),  # DualCMAM's and MMIN's G=1 nets, 2 ranks
+    (1, 16, 50, 16, False, False, KERNEL_TOL, False),  # Self-MM's audio AuViSubNet on 2 ranks
+    (1, 16, 50, 32, False, False, KERNEL_TOL, False),  # Self-MM's video AuViSubNet on 2 ranks
 ]
 # the widths where the kernel loses to `nn.LSTM` (ROADMAP §2's perf_opt item)
 WIDE_LSTM = ((1, 128, 64, 256), (2, 128, 64, 342), (2, 128, 64, 1024), (2, 16, 110, 300))
-# phase 16's shards: each of two ranks holds half of a global batch
-MESH_LSTM = ((2, 16, 50, 64), (2, 128, 50, 64))
+# phase 16's shards: each of two ranks holds half of a global batch ((a)-(b):
+# UttFusion's, timed; (e)-(g): the C-MAM, MMIN and Self-MM launches, MMIN's
+# student pair being UttFusion's shape, checked against the plain scan and
+# not timed, to keep the script's time: PERF.md §6 has their times)
+MESH_LSTM = ((2, 16, 50, 64), (2, 128, 50, 64), (1, 16, 50, 64), (1, 16, 50, 16),
+             (1, 16, 50, 32))
 MESH_MLP_BATCHES = (64, 512)  # AVMNIST's streaming eval batch of 128 and fused step of 1024
 # the gradient checks: (G, B, T, H, lengths, non-zero h0/c0)
 LSTM_GRAD_CASES = [(2, 9, 11, 24, True, True), (1, 32, 50, 16, False, False),
@@ -818,7 +847,8 @@ LSTM_INPUT_SIZES = (5, 20)  # MOSI audio and video feature widths, by group
 # video LSTM 20→32; IEMOCAP's comparE 130 and denseface 342; SeqEncoder's
 # streams, whose hidden size is their input width; GCNet's stacks' first
 # layers: the base over 130 + 1024 + 342 features, the fusion over d_h = 300
-LSTM_LIBRARY_INPUT = {(1, 32, 50, 32): (20,), (2, 128, 64, 128): (130, 342),
+LSTM_LIBRARY_INPUT = {(1, 32, 50, 32): (20,), (1, 16, 50, 32): (20,),
+                      (2, 128, 64, 128): (130, 342),
                       (1, 128, 64, 256): (130,), (2, 128, 64, 130): (130,),
                       (2, 128, 64, 342): (342,), (2, 128, 64, 1024): (1024,),
                       (2, 16, 110, 100): (1496,), (2, 16, 110, 300): (300,),
@@ -889,7 +919,7 @@ def phase_kernels_lstm(dev) -> dict:
 
     torch.backends.cudnn.allow_tf32 = False  # nn.LSTM in fp32, as the kernel
     max_err = 0.0
-    timings = {}
+    timings, errors = {}, {}
     for seed, (G, B, T, H, with_len, with_state, tol, timed) in enumerate(LSTM_CASES):
         xw, wh, h0, c0, lengths = _lstm_inputs(dev, G, B, T, H, with_len, with_state, seed)
         if not with_state:  # as the encoders call it: no state tensor at all
@@ -908,6 +938,7 @@ def phase_kernels_lstm(dev) -> dict:
         if max(errs) > tol:
             raise AssertionError(f"lstm {shape}: error {max(errs)} > {tol}")
         max_err = max(max_err, *errs)
+        errors[(G, B, T, H)] = max(errors.get((G, B, T, H), 0.0), *errs)
         if not timed:
             continue
 
@@ -985,7 +1016,7 @@ def phase_kernels_lstm(dev) -> dict:
             f"the plain scan| = {err:.3e} (tolerance {LSTM_GRAD_TOL})")
         if err > LSTM_GRAD_TOL:
             raise AssertionError(f"lstm gradient at {shape} differs by {err}")
-    return {"max_err": max_err, "grad_err": grad_err, "timings": timings}
+    return {"max_err": max_err, "grad_err": grad_err, "timings": timings, "errors": errors}
 
 
 # What the predict and serve phases need to know of each model's path.
@@ -6369,28 +6400,66 @@ MESH_VAL_RTOL = 1e-3  # epoch-2 validation loss, two ranks vs one process, float
 MESH_NCCL_RTOL = 1e-5  # one NCCL rank vs one process: the same arithmetic
 MESH_REAL_ROWS = 28  # the AVMNIST check's padded batch: its real rows, all on rank 0
 # (a)'s float64 runs (the epoch-level check): the fine-tune at full width on
-# fewer samples, 4 train steps an epoch, 2 fused eval steps a pass
-MESH_F64_SAMPLES = {"train": 512, "validation": 128, "test": 128}
+# fewer samples, 2 train steps an epoch, 1 fused eval step a pass
+MESH_F64_SAMPLES = {"train": 256, "validation": 64, "test": 64}
+# (a)'s float32 run: the three train steps an epoch that its check reads, one
+# fused eval step a pass, so that (e)-(g) fit the script's time
+MESH_F32_SAMPLES = {"train": 384, "validation": 128, "test": 128}
 
 
 @contextlib.contextmanager
-def _mesh_probe(rec: dict, out_root: Path, mesh):
+def _mesh_probe(rec: dict, out_root: Path, mesh, steps_per_epoch: Optional[int] = None):
     """Inside the `with` body: per device-resident train epoch its steps'
     losses (a rank's shares of the global ones), per epoch the model's
     state_dict sha256, per step the gradient all-reduce's bytes and time
     (the card synchronised before and after), and every file under
-    `out_root` this process opens for writing or `torch.save`s."""
+    `out_root` this process opens for writing or `torch.save`s. For the
+    drivers with their own steps (C-MAM, MMIN, RedCore, Self-MM), per train
+    step its loss (a rank's share) and, every `steps_per_epoch` steps, the
+    model's sha256; RedCore's schedule after each step; the sha256 of
+    Self-MM's banks after each update; the (G, B, T, H) of every `lstm`
+    launch."""
     import builtins
     import io
 
     import torch
 
+    from mmtpu_torch.ops import lstm as lstm_ops
+    from mmtpu_torch.train import cmam_step, mmin_step, redcore_step, self_mm_step
     from mmtpu_torch.train import device_loop as dl
     from mmtpu_torch.train.loop import TrainLoop
+    from mmtpu_torch.train.managers import ManagerState
 
-    rec.update(losses=[], hashes=[], reduce=[], writes=[])
+    rec.update(losses=[], hashes=[], reduce=[], writes=[], step_losses=[], epoch_hashes=[],
+               sched=[], bank_hashes=[], lstm_shapes=set())
     real = (dl.run_train_epoch, TrainLoop._save_resume_point, builtins.open, io.open,
             torch.save)
+    step_modules = (cmam_step, mmin_step, redcore_step, self_mm_step)
+    real_custom = ([m.apply_gradients for m in step_modules], lstm_ops._launch,
+                   redcore_step.advance_schedule, ManagerState.update_centers)
+
+    def custom_apply(fn):
+        def apply(state, loss):
+            rec["step_losses"].append(float(loss))
+            fn(state, loss)
+            if steps_per_epoch and len(rec["step_losses"]) % steps_per_epoch == 0:
+                rec["epoch_hashes"].append(_state_hash(state.model.state_dict()))
+        return apply
+
+    def launch(xws, whs, *args):
+        rec["lstm_shapes"].add((len(xws), *xws[0].shape[:2], whs[0].shape[0]))
+        return real_custom[1](xws, whs, *args)
+
+    def advance(task, sched, mses):
+        new = real_custom[2](task, sched, mses)
+        rec["sched"].append({k: getattr(new, k).detach().cpu().clone()
+                             for k in ("beta", "loss_ema", "eta")})
+        return new
+
+    def centers(banks, *args, **kwargs):
+        out = real_custom[3](banks, *args, **kwargs)
+        rec["bank_hashes"].append(_state_hash(_bank_tensors(banks)))
+        return out
 
     def epoch(*args, **kwargs):
         outs = real[0](*args, **kwargs)
@@ -6430,11 +6499,19 @@ def _mesh_probe(rec: dict, out_root: Path, mesh):
         mesh.all_reduce_grads = timed
     dl.run_train_epoch, TrainLoop._save_resume_point = epoch, resume_point
     builtins.open, io.open, torch.save = opener(real[2]), opener(real[3]), save
+    for module, fn in zip(step_modules, real_custom[0]):
+        module.apply_gradients = custom_apply(fn)
+    lstm_ops._launch, redcore_step.advance_schedule = launch, advance
+    ManagerState.update_centers = centers
     try:
         yield
     finally:
         dl.run_train_epoch, TrainLoop._save_resume_point = real[0], real[1]
         builtins.open, io.open, torch.save = real[2], real[3], real[4]
+        for module, fn in zip(step_modules, real_custom[0]):
+            module.apply_gradients = fn
+        lstm_ops._launch, redcore_step.advance_schedule = real_custom[1], real_custom[2]
+        ManagerState.update_centers = real_custom[3]
         if mesh is not None:
             mesh.all_reduce_grads = reduce_grads
 
@@ -6509,13 +6586,17 @@ def _mesh_steps(dev, mesh, cfg: str, float64: bool, pad_rows: Optional[int]) -> 
 def _mesh_job(job: dict) -> int:
     """Phase 16's work in one process: in a rank of a launched mesh (the
     ranks run it through `mmtpu_torch.parallel.launch`), or in the parent
-    as the single-process run. `job["runs"]`: `train_multimodal.main`'s
-    argv, each run under `_mesh_probe` (and `_float64_run` where asked) with
-    the kernels' launches counted; `job["steps"]`: `_mesh_steps`'
-    arguments. What it saw goes to `<out>/<rank or single>.pt`."""
+    as the single-process run. `job["runs"]`: a CLI's `main` (`module`,
+    `train_multimodal` by default) with its argv, each run under
+    `_mesh_probe` (and `_float64_run` where asked) with the kernels'
+    launches counted; `job["steps"]`: `_mesh_steps`' arguments, or
+    `job["driver_steps"]`: `_mesh_driver_steps`'; `job["neutral"]`: all of
+    it under `_msa_neutralised`. What it saw goes to
+    `<out>/<rank or single>.pt`."""
+    import importlib
+
     import torch
 
-    from mmtpu_torch.cli import train_multimodal
     from mmtpu_torch.parallel.mesh import get_default_mesh
 
     mesh = get_default_mesh()
@@ -6524,17 +6605,22 @@ def _mesh_job(job: dict) -> int:
     rec = {"backend": mesh.backend if mesh is not None else None, "runs": []}
     for run in job.get("runs", ()):
         seen = {}
+        module = importlib.import_module(run.get("module", "mmtpu_torch.cli.train_multimodal"))
         reset_counts()
         t0 = time.perf_counter()
-        with _mesh_probe(seen, Path(job["out_root"]), mesh), \
-                _float64_run() if run["float64"] else contextlib.nullcontext():
-            rc = train_multimodal.main(list(run["argv"]))
+        with _mesh_probe(seen, Path(job["out_root"]), mesh, run.get("steps_per_epoch")), \
+                _float64_run() if run["float64"] else contextlib.nullcontext(), \
+                _msa_neutralised() if job.get("neutral") else contextlib.nullcontext():
+            rc = module.main(list(run["argv"]))
         if rc != 0:
             return rc
         seen["seconds"], seen["launches"] = time.perf_counter() - t0, read_counts()
         rec["runs"].append(seen)
     if job.get("steps"):
         rec["steps"] = _mesh_steps(dev, mesh, **job["steps"])
+    if job.get("driver_steps"):
+        with _msa_neutralised() if job.get("neutral") else contextlib.nullcontext():
+            rec["steps"] = _mesh_driver_steps(dev, mesh, **job["driver_steps"])
     torch.save(rec, Path(job["out"]) / (f"rank{mesh.rank}.pt" if mesh else "single.pt"))
     return 0
 
@@ -6694,16 +6780,16 @@ def _mesh_compare(tag: str, card: str, out_root: Path, names: list, single: dict
 
 
 def _mesh_avmnist_jobs(work: Path) -> tuple:
-    """Phase 16 (a)'s jobs: phase 15's scratch fine-tune (dropout 0) and
-    the same in float64 on 512/128/128 samples; the steps in float64 with
-    a padded batch of 28 real rows, none on rank 1."""
+    """Phase 16 (a)'s jobs: phase 15's scratch fine-tune (dropout 0) on
+    384/128/128 samples and the same in float64 on 256/64/64; the steps in
+    float64 with a padded batch of 28 real rows, none on rank 1."""
     import copy
 
     cfg = train_configs(str(work / "mesh_avmnist"))["scratch"]
     cfg["model"]["dropout"] = 0.0
     cfg64 = copy.deepcopy(cfg)
-    for split, n in MESH_F64_SAMPLES.items():
-        cfg64["data"]["datasets"][split]["kwargs"]["num_samples"] = n
+    _resize(cfg, MESH_F32_SAMPLES)
+    _resize(cfg64, MESH_F64_SAMPLES)
     names = [(f"{SCRATCH_NAME}_Mesh", False), (f"{SCRATCH_NAME}_Mesh_Float64", True)]
     return names, _mesh_jobs(
         work, "mesh_avmnist", [(names[0][0], cfg, False), (names[1][0], cfg64, True)],
@@ -6715,14 +6801,14 @@ def phase_mesh_avmnist(card: str, prepared: tuple, single: dict, ranks: list) ->
     cuda:0 over gloo: step 1's loss within 1e-4, steps 2-3 within 1e-3, step
     1's and the padded step's float64 gradients within 1e-6 of each
     parameter's norm, the ranks' states equal after each epoch, `fused_mlp`
-    6 per rank, rank 0 alone writing; the float64 run's epoch-2 validation
+    3 per rank, rank 0 alone writing; the float64 run's epoch-2 validation
     loss within 1e-3 (in float32 the runs' own rounding, amplified by Adam
     near g = 0, moves it by more: printed)."""
     names, (out_root, _) = prepared
-    fused = _eval_batches(TRAIN_SAMPLES, TRAIN_BATCH)
+    fused = _eval_batches(MESH_F32_SAMPLES, TRAIN_BATCH)
     want = {"fused_mlp": TRAIN_EPOCHS * fused["validation"] + fused["test"], "lstm": 0}
     return _mesh_compare("[mesh avmnist]", card, out_root, names, single, ranks, want,
-                         TRAIN_SAMPLES["train"], (TRAIN_LOSS_RTOL, TRAIN_LATER_RTOL),
+                         MESH_F32_SAMPLES["train"], (TRAIN_LOSS_RTOL, TRAIN_LATER_RTOL),
                          TRAIN_GRAD64_TOL, TRAIN_LOSS_RTOL)
 
 
@@ -6823,6 +6909,336 @@ def phase_mesh_cli(dev, work: Path) -> None:
     say("[mesh cli] --data-parallel -1 on one card trained in this process (no rank started)")
 
 
+# Phase 16 (e)-(g): the drivers with their own steps on the mesh, at the widths
+# of phases 9-11 on small splits: DualCMAM A→(V, T) with every pair term on,
+# the AVMNIST C-MAM's steps in float64, MMIN with its frozen teacher, RedCore,
+# and Self-MM over a frozen BERT-base for two epochs.
+MESH_DRIVER_SAMPLES = {"train": 100, "validation": 32, "test": 32}  # a tail of 4 real rows
+MESH_SELF_MM_SAMPLES = {"train": 68, "validation": 32, "test": 32}  # 3 train steps an epoch
+MESH_CMAM64_SAMPLES = {"train": 384, "validation": 128, "test": 128}  # 3 steps of 128
+MESH_CMAM64_REAL_ROWS = 28  # its padded step: 28 real rows of 128, all on rank 0
+MESH_PAIR_TERMS = {"mmd_weight": 0.1, "moment_weight": 0.1, "mi_weight": 0.1}
+MESH_DRIVER_TOL = {"loss": (1e-5, 1e-3), "grad": 1e-4, "pad": 1e-5}
+MESH_CMAM64_TOL = 1e-6  # float64 losses of steps 1-3 and step-1 gradients
+MESH_SCHED_TOL = 1e-6  # RedCore's β, EMA and η after three float64 steps
+MESH_BANK_TOL = 1e-5  # Self-MM's banks after an epoch-2 step
+
+
+def _mesh_bases(work: Path) -> dict:
+    """Seeded teachers: the AVMNIST fine-tune's and UttFusion's (DualCMAM's
+    base and MMIN's teacher), as `best.pth` under run ids 1 and 2 (the
+    configs name them by `{run_id}`)."""
+    bases = cmam_bases(work / "mesh_bases")
+    for path in bases.values():
+        twin = path.parent.parent / "2" / path.name
+        twin.parent.mkdir(parents=True, exist_ok=True)
+        shutil.copy(path, twin)
+    return bases
+
+
+def _resize(cfg: dict, samples: dict) -> dict:
+    for split, n in samples.items():
+        cfg["data"]["datasets"][split]["kwargs"]["num_samples"] = n
+    return cfg
+
+
+def _mesh_driver_configs(work: Path) -> dict:
+    """kind → (config, CLI module, samples): phase 9's DualCMAM (dropout 0,
+    the pair terms on), phase 10's MMIN and RedCore (dropout 0), phase 11's
+    frozen Self-MM (dropout 0) and phase 9's AVMNIST C-MAM (dropout 0, its
+    steps only), each on small splits."""
+    out_root = str(work / "mesh_drivers")
+    bases = _mesh_bases(work)
+    csvs = write_avmnist_files(work / "mesh_avmnist_data", MESH_CMAM64_SAMPLES)["csvs"]
+    cmam = cmam_configs(out_root, csvs, bases, dropout=False)
+    dual = cmam["dual"]
+    dual["training"]["loss_functions"]["cmam"]["loss_kwargs"].update(MESH_PAIR_TERMS)
+    msa = msa_configs(out_root, bases["dual"], check=True)
+    cmam_module, multi = "mmtpu_torch.cli.train_cmam", "mmtpu_torch.cli.train_multimodal"
+    return {
+        "dual": (_resize(dual, MESH_DRIVER_SAMPLES), cmam_module, MESH_DRIVER_SAMPLES),
+        "mmin": (_resize(msa["mmin"], MESH_DRIVER_SAMPLES), multi, MESH_DRIVER_SAMPLES),
+        "redcore": (_resize(msa["redcore"], MESH_DRIVER_SAMPLES), multi, MESH_DRIVER_SAMPLES),
+        "self_mm": (_resize(self_mm_config(out_root, "frozen", check=True),
+                            MESH_SELF_MM_SAMPLES), multi, MESH_SELF_MM_SAMPLES),
+        "cmam64": (cmam["cmam"], cmam_module, MESH_CMAM64_SAMPLES),
+    }
+
+
+def _driver_setup(kind: str, cfg_path: Path, dev, mesh):
+    """The config and what the driver's CLI assembles from it on `dev` (the
+    model replicated from rank 0 on a mesh): model, state, task, the train
+    step's builder and the models to cast for a float64 run."""
+    from mmtpu_torch.cli import common, msa_runners, train_cmam, train_self_mm
+    from mmtpu_torch.config.cmam import CMAMConfig
+    from mmtpu_torch.parallel.mesh import replicate
+    from mmtpu_torch.train.self_mm_step import make_self_mm_train_step
+
+    args = argparse.Namespace(config=str(cfg_path), run_id=1, seed=None)
+    if kind in ("dual", "cmam64"):
+        cfg = common.finalize_config(CMAMConfig.load(cfg_path, run_id=1), args, mesh)
+        built = train_cmam.assemble(cfg, dev)
+        model, state, task, make = built.cmam, built.state, built.task, built.step_builders[0]
+        models = (built.base, built.cmam)
+    elif kind in ("mmin", "redcore"):
+        cfg = common.load_config(args, mesh)
+        built = msa_runners.assemble(cfg, args, dev)
+        model, state, task, make = built.model, built.state, built.task, built.step_builders[0]
+        models = (built.model,)
+    else:
+        cfg = common.load_config(args, mesh)
+        model, task, state = train_self_mm.assemble(cfg, dev)
+        make, models = make_self_mm_train_step, (model,)
+    if mesh is not None:
+        replicate(model, mesh)
+        state.mesh = mesh
+    return cfg, model, state, task, make, models
+
+
+def _mesh_driver_steps(dev, mesh, kind: str, cfg: str) -> dict:
+    """From the initial weights (rank 0's on a mesh): step 1 on the first
+    train batch, then (Self-MM) one epoch-2 step and the banks after it, or
+    (RedCore, the AVMNIST C-MAM: in float64) steps 2 and 3; then, from the
+    initial weights again, the padded step (the split's tail of 4 real rows
+    of 32, or the third batch with 28 real rows of 128: none on rank 1).
+    Per step the global loss (the ranks' shares summed); step 1's gradients
+    as the optimizer sees them (summed over the ranks), the exact zeros (a
+    frozen BERT) by name; RedCore's schedule after three steps."""
+    import copy
+
+    import torch
+
+    from mmtpu_torch.cli import train_self_mm
+    from mmtpu_torch.train.managers import ManagerState
+    from mmtpu_torch.train.self_mm_step import init_manager_labels
+
+    float64 = kind in ("redcore", "cmam64")
+    config, model, state, task, make, models = _driver_setup(kind, Path(cfg), dev, mesh)
+    if float64:
+        for m in models:
+            m.double()
+    batches = list(config.data.build_loader("train", seed=config.experiment.seed))
+    if kind == "cmam64":
+        padded = {k: v.copy() for k, v in batches[2].items()}
+        for k in ("audio", "image", "labels", "audio_mask", "image_mask", "sample_mask"):
+            padded[k][MESH_CMAM64_REAL_ROWS:] = 0
+    else:
+        padded = batches[-1]
+    initial = ({k: v.clone() for k, v in model.state_dict().items()},
+               copy.deepcopy(state.optimizer.state_dict()))
+
+    def fresh():
+        model.load_state_dict(initial[0])
+        state.optimizer.load_state_dict(copy.deepcopy(initial[1]))
+        state.step = 0
+        step = fresh.step = make(task, state, dev)
+        if kind != "self_mm":
+            return lambda batch, epoch=1: step(batch)
+        banks = ManagerState.create(config.data.datasets["train"].kwargs["num_samples"],
+                                    train_self_mm.bank_dims(config), device=dev)
+        init_manager_labels(banks, config.data.build_loader("train",
+                                                            seed=config.experiment.seed))
+        fresh.banks = banks
+        return lambda batch, epoch=1: step(banks, batch, epoch)
+
+    def run(step, batch, epoch=1):
+        with _float64_losses() if float64 else contextlib.nullcontext():
+            loss = float(step(_as_float64(batch) if float64 else batch, epoch)["loss"])
+        return float(sum(mesh.gather(loss))) if mesh is not None else loss
+
+    out = {"real_rows": int(padded["sample_mask"].sum())}
+    step = fresh()
+    out["losses"] = [run(step, batches[0])]
+    grads = {n: p.grad.detach().cpu().clone() for n, p in model.named_parameters()}
+    out["zero"] = sorted(n for n, g in grads.items() if not g.any())
+    out["grads"] = {n: g for n, g in grads.items() if n not in out["zero"]}
+    if kind == "self_mm":
+        run(step, batches[1], epoch=2)
+        out["banks"] = {k: v.detach().cpu().clone() for k, v in _bank_tensors(fresh.banks).items()}
+    elif float64:
+        out["losses"] += [run(step, b) for b in batches[1:3]]
+        if kind == "redcore":
+            out["sched"] = {k: getattr(fresh.step.sched, k).detach().cpu().clone()
+                            for k in ("beta", "loss_ema", "eta")}
+    out["padded"] = run(fresh(), padded)
+    return out
+
+
+def _mesh_driver_jobs(work: Path) -> dict:
+    """kind → (the single process's job, the ranks'): the driver's CLI as
+    run ids 1 (one process) and 2 (the ranks), and `_mesh_driver_steps`
+    (the AVMNIST C-MAM: its steps alone)."""
+    out_root = work / "mesh_drivers"
+    jobs = {}
+    for kind, (cfg, module, samples) in _mesh_driver_configs(work).items():
+        path = work / f"mesh_{kind}.json"
+        path.write_text(json.dumps(cfg))
+        batch = cfg["data"]["datasets"]["train"]["batch_size"]
+        pair = []
+        for run_id in ("1", "2"):
+            out = work / f"mesh_{kind}_{run_id}"
+            out.mkdir(parents=True)
+            runs = [] if kind == "cmam64" else [{
+                "module": module, "argv": ["--config", str(path), "--run_id", run_id],
+                "float64": False, "steps_per_epoch": -(-samples["train"] // batch)}]
+            pair.append({"runs": runs, "out_root": str(out_root), "out": str(out),
+                         "neutral": kind == "redcore",
+                         "driver_steps": {"kind": kind, "cfg": str(path)}})
+        jobs[kind] = tuple(pair)
+    return jobs
+
+
+def _mesh_driver_launches(kind: str) -> dict:
+    """`lstm` launches of a run in each process (one, or each rank): per
+    batch 3 for DualCMAM, 3 per MMIN train batch and 1 per evaluation
+    batch, 2 for Self-MM; none for RedCore; `fused_mlp` none."""
+    samples = MESH_SELF_MM_SAMPLES if kind == "self_mm" else MESH_DRIVER_SAMPLES
+    n = {s: -(-k * (len(MSA_EVAL_PATTERNS) if kind == "mmin" and s != "train" else 1)
+              // UTT_BATCH) for s, k in samples.items()}
+    per = {"dual": (3, 3), "mmin": (3, 1), "redcore": (0, 0), "self_mm": (2, 2)}[kind]
+    return {"fused_mlp": 0, "lstm": TRAIN_EPOCHS * (per[0] * n["train"]
+                                                    + per[1] * n["validation"])
+            + per[1] * n["test"]}
+
+
+def _mesh_driver_shapes(kind: str) -> set:
+    """The (G, B, T, H) of the `lstm` launches of each rank: UttFusion's
+    nets at 64 (MMIN's student pair stacked), Self-MM's AuViSubNets."""
+    return {"dual": {(1, 16, 50, 64)}, "mmin": {(2, 16, 50, 64), (1, 16, 50, 64)},
+            "redcore": set(), "self_mm": {(1, 16, 50, 16), (1, 16, 50, 32)}}[kind]
+
+
+def _rel(got: float, want: float) -> float:
+    return abs(got - want) / max(abs(want), 1e-30)
+
+
+def _check_mesh_run(tag: str, card: str, kind: str, single: dict, ranks: list) -> dict:
+    """The CLI's run on two ranks against one process: steps 1-3's losses,
+    the launches and `lstm` shapes per rank, the ranks' states after each
+    epoch, RedCore's schedules and Self-MM's banks equal on the ranks, rank
+    1 writing nothing, the gradient all-reduce."""
+    one, two = single["runs"][0], [r["runs"][0] for r in ranks]
+    got = [sum(v) for v in zip(*(r["step_losses"] for r in two))]
+    rel = [_rel(a, b) for a, b in zip(got[:3], one["step_losses"][:3])]
+    want, shapes = _mesh_driver_launches(kind), _mesh_driver_shapes(kind)
+    launches = [r["launches"] for r in two] + [one["launches"]]
+    hashes = [r["epoch_hashes"] for r in two]
+    same_sched = all(torch_equal(a, b) for a, b in zip(*(r["sched"] for r in two)))
+    same_banks = two[0]["bank_hashes"] == two[1]["bank_hashes"]
+    reduce_ms = [t * 1e3 for _, t in two[0]["reduce"]]
+    nbytes = sorted({n for n, _ in two[0]["reduce"]})
+    say(f"{tag} train losses of steps 1-3, one process {one['step_losses'][:3]}, two ranks "
+        f"{got[:3]}: relative {rel} (tolerances {MESH_DRIVER_TOL['loss']}); launches per "
+        f"rank {launches[:-1]}, one process {launches[-1]} (expected {want}); lstm shapes "
+        f"per rank {sorted(two[0]['lstm_shapes'])}; state sha256 after each epoch "
+        f"{[h[:12] for h in hashes[0]]}, equal on both ranks: {hashes[0] == hashes[1]}; "
+        f"files written by rank 0 {len(two[0]['writes'])}, by rank 1 {len(two[1]['writes'])}"
+        + (f"; schedule after each step equal on both ranks: {same_sched}, after step 3 "
+           f"{ {k: v.tolist() for k, v in two[0]['sched'][2].items()} }"
+           if kind == "redcore" else "")
+        + (f"; banks' sha256 after each of {len(two[0]['bank_hashes'])} updates equal on both "
+           f"ranks: {same_banks}" if kind == "self_mm" else ""))
+    say_card(card, f"{tag} gradient all-reduce per step (gloo, two ranks on one card): "
+             f"{nbytes} bytes, {statistics.median(reduce_ms):.3f} ms median over "
+             f"{len(reduce_ms)} steps (min {min(reduce_ms):.3f}, max {max(reduce_ms):.3f}); "
+             f"main's wall time one process {one['seconds']:.1f} s (beside the NCCL rank), "
+             f"two ranks {two[0]['seconds']:.1f} s")
+    if rel[0] > MESH_DRIVER_TOL["loss"][0] or max(rel[1:]) > MESH_DRIVER_TOL["loss"][1]:
+        raise AssertionError(f"{tag}: train losses differ from one process: {rel}")
+    if any(n != want for n in launches) or any(r["lstm_shapes"] != shapes for r in two):
+        raise AssertionError(f"{tag}: launches {launches}, expected {want}; shapes "
+                             f"{[sorted(r['lstm_shapes']) for r in two]}, expected {shapes}")
+    if len(hashes[0]) != TRAIN_EPOCHS or hashes[0] != hashes[1]:
+        raise AssertionError(f"{tag}: the ranks' states differ after an epoch: {hashes}")
+    if two[1]["writes"] or not two[0]["writes"]:
+        raise AssertionError(f"{tag}: rank 1 wrote {two[1]['writes'][:5]}")
+    if not (same_sched and same_banks):
+        raise AssertionError(f"{tag}: the ranks' schedules or banks differ")
+    return {"loss_rel": rel, "launches": launches[0], "reduce_bytes": nbytes,
+            "reduce_ms": statistics.median(reduce_ms), "seconds": two[0]["seconds"],
+            "single_seconds": one["seconds"], "shapes": sorted(two[0]["lstm_shapes"])}
+
+
+def torch_equal(a: dict, b: dict) -> bool:
+    import torch
+
+    return set(a) == set(b) and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def _check_mesh_steps(tag: str, kind: str, single: dict, ranks: list) -> dict:
+    """`_mesh_driver_steps` on two ranks against one process: step 1's (and
+    the float64 runs' steps 2-3) losses, the padded step's, step 1's
+    gradients of each parameter against its norm (the ranks' bit-identical,
+    the exact zeros the same), RedCore's schedule, Self-MM's banks."""
+    one, two = single["steps"], ranks[0]["steps"]
+    float64 = kind in ("redcore", "cmam64")
+    tol = MESH_CMAM64_TOL if float64 else MESH_DRIVER_TOL["grad"]
+    loss_tol = MESH_CMAM64_TOL if float64 else MESH_DRIVER_TOL["loss"][0]
+    rel = [_rel(a, b) for a, b in zip(two["losses"], one["losses"])]
+    pad_rel = _rel(two["padded"], one["padded"])
+    # a gradient that is 0 but for rounding (the attention key biases; a
+    # softmax does not see them) is judged against the whole gradient's norm
+    norm_all = float(np.sqrt(sum(float(g.double().square().sum())
+                                 for g in one["grads"].values())))
+    tiny = {n for n, g in one["grads"].items()
+            if n.endswith("key.bias") or g.double().norm().item() <= 1e-9 * norm_all}
+    err = _grad_errors({n: g for n, g in two["grads"].items() if n not in tiny},
+                       {n: g for n, g in one["grads"].items() if n not in tiny})
+    err.update({n: (two["grads"][n].double() - one["grads"][n].double()).abs().max().item()
+                / norm_all for n in tiny})
+    ranks_equal = torch_equal(ranks[1]["steps"]["grads"], two["grads"])
+    extra = {}
+    if kind == "redcore":
+        extra["sched"] = max(_rel_tensor(two["sched"][k], one["sched"][k]) for k in one["sched"])
+        ranks_equal &= torch_equal(ranks[1]["steps"]["sched"], two["sched"])
+    if kind == "self_mm":
+        extra["banks"] = max(
+            (t - one["banks"][k]).abs().max().item() / max(1.0, one["banks"][k].abs().max().item())
+            for k, t in two["banks"].items())
+        ranks_equal &= torch_equal(ranks[1]["steps"]["banks"], two["banks"])
+    say(f"{tag} from the same initial weights, {'float64' if float64 else 'float32'}: losses "
+        f"of step{'s 1-3' if len(rel) > 1 else ' 1'} one process {one['losses']}, two ranks "
+        f"{two['losses']}: relative {rel} (tolerance {loss_tol}); padded step "
+        f"({one['real_rows']} real rows, none on rank 1) relative {pad_rel:.3e} (tolerance "
+        f"{loss_tol}); step-1 gradients, {len(err)} parameters: worst "
+        f"{max(err.values()):.3e} of its norm (of the whole gradient's for {len(tiny)} "
+        f"near 0; tolerance {tol}), worst {_worst(err)}; "
+        f"{len(one['zero'])} with an exact gradient of 0 on both paths: "
+        f"{one['zero'] == two['zero']}"
+        + (f"; β, EMA, η after three steps relative {extra['sched']:.3e} (tolerance "
+           f"{MESH_SCHED_TOL}) {[(k, v.tolist()) for k, v in two['sched'].items()]}"
+           if "sched" in extra else "")
+        + (f"; banks after an epoch-2 step worst {extra['banks']:.3e} (tolerance "
+           f"{MESH_BANK_TOL})" if "banks" in extra else "")
+        + f"; the ranks' bit-identical: {ranks_equal}")
+    if max(rel) > loss_tol or pad_rel > loss_tol or max(err.values()) > tol:
+        raise AssertionError(f"{tag}: losses {rel}, padded {pad_rel}, gradients "
+                             f"{_worst(err)}")
+    if not ranks_equal or one["zero"] != two["zero"]:
+        raise AssertionError(f"{tag}: the ranks' steps differ, or the exact zeros")
+    if extra.get("sched", 0.0) > MESH_SCHED_TOL or extra.get("banks", 0.0) > MESH_BANK_TOL:
+        raise AssertionError(f"{tag}: {extra}")
+    return {"loss_rel": rel, "pad_rel": pad_rel, "grad_err": max(err.values()), **extra}
+
+
+def _rel_tensor(got, want) -> float:
+    return ((got.double() - want.double()).abs().max()
+            / want.double().abs().max().clamp(min=1e-30)).item()
+
+
+def phase_mesh_drivers(card: str, jobs: dict, singles: dict, ranks: dict) -> dict:
+    """Phase 16 (e)-(g): per driver its CLI's run (`_check_mesh_run`; the
+    AVMNIST C-MAM has none) and its steps (`_check_mesh_steps`)."""
+    out = {}
+    for kind in jobs:
+        tag = f"[mesh {kind}]"
+        res = {"steps": _check_mesh_steps(tag, kind, singles[kind], ranks[kind])}
+        if singles[kind]["runs"]:
+            res.update(_check_mesh_run(tag, card, kind, singles[kind], ranks[kind]))
+        out[kind] = res
+    return out
+
+
 def say_phase16(card: str, p16: dict, seconds: float) -> None:
     for key, r in (("AVMNIST", p16["avmnist"]), ("UttFusion", p16["utt"])):
         epochs = "; ".join(f"{name} {'float64' if e['float64'] else 'float32'} epoch "
@@ -6832,27 +7248,44 @@ def say_phase16(card: str, p16: dict, seconds: float) -> None:
                  f"in {r['reduce_ms']:.3f} ms per step; samples/s one process "
                  f"{r['samples_per_s']['one']:.1f}, two processes sharing one card "
                  f"{r['samples_per_s']['two']:.1f}; launches per rank {r['launches']}")
+    for kind, r in p16["drivers"].items():
+        run = (f"; CLI steps 1-3 {r['loss_rel']}, gradient all-reduce {r['reduce_bytes']} "
+               f"bytes in {r['reduce_ms']:.3f} ms per step, main's wall time two ranks "
+               f"{r['seconds']:.1f} s, one process {r['single_seconds']:.1f} s, launches per "
+               f"rank {r['launches']}" if "launches" in r else "")
+        say_card(card, f"[summary] mesh {kind}: two ranks on one card vs one process, steps "
+                 f"{r['steps']}" + run)
     say(f"[summary] mesh NCCL, one rank: {p16['utt']['nccl_rel']}; phase 16 {seconds:.1f} s")
 
 
 def phase16(dev, card: str, work: Path) -> dict:
-    """(a)'s and (b)'s two-rank jobs share one launch (one start-up), after
-    the single-process runs; (c)'s NCCL rank starts once every timed run has
-    ended, on a thread beside (d), which times nothing."""
+    """(a)'s, (b)'s and (e)-(g)'s two-rank jobs share one launch (one
+    start-up), after (a)'s and (b)'s single-process runs, whose samples/s
+    are compared with the ranks'; (c)'s NCCL rank starts once those timed
+    runs have ended, on a thread beside (d) and (e)-(g)'s single-process
+    runs (their wall times are printed, not compared)."""
     import torch
 
-    av, utt = _mesh_avmnist_jobs(work), _mesh_utt_jobs(work)
+    av, utt, drivers = _mesh_avmnist_jobs(work), _mesh_utt_jobs(work), _mesh_driver_jobs(work)
     (_, (av_one, av_two)), (_, (utt_one, utt_two)) = av[1], utt[1]
     singles = [_mesh_single(av_one), _mesh_single(utt_one)]
-    av_ranks, utt_ranks = _mesh_run("[mesh avmnist, utt]", [av_two, utt_two],
-                                    [torch.device(MESH_DEVICE)] * MESH_RANKS, "gloo")
+    av_ranks, utt_ranks, *driver_ranks = _mesh_run(
+        "[mesh avmnist, utt, " + ", ".join(drivers) + "]",
+        [av_two, utt_two, *(two for _, two in drivers.values())],
+        [torch.device(MESH_DEVICE)] * MESH_RANKS, "gloo")
     nccl_wait = _mesh_nccl(work, utt_two["steps"])
     try:
         cli = phase_mesh_cli(dev, work)
+        t0 = time.perf_counter()
+        driver_singles = {kind: _mesh_single(one) for kind, (one, _) in drivers.items()}
+        say(f"[mesh {', '.join(drivers)}] one process: {time.perf_counter() - t0:.1f} s, "
+            "beside the NCCL rank")
     finally:
         nccl = nccl_wait()
     return {"avmnist": phase_mesh_avmnist(card, av, singles[0], av_ranks),
             "utt": phase_mesh_utt(card, utt, singles[1], utt_ranks, nccl),
+            "drivers": phase_mesh_drivers(card, drivers, driver_singles,
+                                          dict(zip(drivers, driver_ranks))),
             "cli": cli}
 
 
@@ -6941,8 +7374,8 @@ def main(argv=None) -> int:
                         help="build the kernels and run phase 2's member-axis kernels and "
                              "phase 15's stacked folds and runs alone (no kernels or ok line)")
     parser.add_argument("--mesh-only", action="store_true",
-                        help="build the kernels and run phase 16's data-parallel checks alone "
-                             "(no kernels or ok line)")
+                        help="build the kernels and run phase 16's data-parallel checks, "
+                             "(a)-(g), alone (no kernels or ok line)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU",
@@ -7245,9 +7678,13 @@ def main(argv=None) -> int:
                               for k, r in p15["runs"]["stacked"].items()}
          | {"sequential_member": p15["runs"]["seq_launches"]},
          "phase16_launches_per_rank": p16["utt"]["launches"]["lstm"],
+         "phase16_driver_launches_per_rank": {
+             kind: r["launches"]["lstm"] for kind, r in p16["drivers"].items()
+             if "launches" in r},
          "wide_shapes": {"G={}, B={}, T={}, H={}".format(*k): lstm["timings"][k]
                          for k in WIDE_LSTM},
-         "mesh_shapes": {"G={}, B={}, T={}, H={}".format(*k): lstm["timings"][k]
+         "mesh_shapes": {"G={}, B={}, T={}, H={}".format(*k):
+                         {**lstm["timings"].get(k, {}), "max_abs_err": lstm["errors"][k]}
                          for k in MESH_LSTM},
          "with_projection_ms": lstm["timings"][LSTM_MAIN]["with_projection_ms"],
          "grad_max_abs_err": lstm["grad_err"],

@@ -23,13 +23,10 @@ from mmtpu_torch.modalities import Modality
 logger = logging.getLogger(__name__)
 
 
-def resolve_device(cpu: bool = False) -> torch.device:
-    """`cuda` unless the caller asks for the CPU; in a data-parallel rank,
-    the rank's device. Never falls back: without a GPU and without
-    `cpu=True` this raises."""
-    from mmtpu_torch.parallel.mesh import get_default_mesh
-
-    mesh = get_default_mesh()
+def resolve_device(cpu: bool = False, mesh=None) -> torch.device:
+    """`cuda` unless the caller asks for the CPU; in a data-parallel rank
+    (`mesh`, from `rank_mesh`), the rank's device. Never falls back: without
+    a GPU and without `cpu=True` this raises."""
     if mesh is not None:
         return mesh.device
     if cpu:
@@ -71,12 +68,13 @@ def apply_precision(cfg) -> str:
 ROADMAP_SYSTEMS = "ROADMAP.md §1 item 6, the systems layer"
 
 
-def finalize_config(cfg, args):
+def finalize_config(cfg, args, mesh=None):
     """The post-load wiring every training entry point shares (mmtpu's
     `finalize_config`): --seed, a sweep member's seed offset, --dry-run,
     --epochs, --disable_monitoring, the precision, the output dirs and the
-    run log `<log_path>/run_<run_id>.log`. A config that asks for the HDF5
-    monitor raises: it is not ported."""
+    run log `<log_path>/run_<run_id>.log`, which on a data-parallel `mesh`
+    rank 0 alone writes. A config that asks for the HDF5 monitor raises: it
+    is not ported."""
     if getattr(args, "seed", None) is not None:
         cfg.experiment.seed = args.seed
     # --stacked-runs member i trains with seed base + i (derive_member_args)
@@ -93,20 +91,19 @@ def finalize_config(cfg, args):
         raise NotImplementedError(
             "monitoring.enabled: the HDF5 experiment monitor is not ported to mmtpu_torch "
             f"({ROADMAP_SYSTEMS}); pass --disable_monitoring or set it false")
-    from mmtpu_torch.parallel.mesh import get_default_mesh
     from mmtpu_torch.utils import configure_logger
 
     print(apply_precision(cfg), flush=True)
     cfg.logging.create_directories()
-    mesh = get_default_mesh()  # on a mesh, rank 0 alone writes the run log
     configure_logger(cfg.logging.log_path if mesh is None or mesh.is_writer else None,
                      suffix=f"run_{args.run_id}")
     return cfg
 
 
-def load_config(args) -> StandardMultimodalConfig:
+def load_config(args, mesh=None) -> StandardMultimodalConfig:
     """Load --config (run_id templated into the paths) and finalize it."""
-    return finalize_config(StandardMultimodalConfig.load(args.config, run_id=args.run_id), args)
+    return finalize_config(StandardMultimodalConfig.load(args.config, run_id=args.run_id), args,
+                           mesh)
 
 
 def standard_arg_parser(description: str) -> argparse.ArgumentParser:
@@ -198,13 +195,9 @@ def resolve_mesh(cfg, args, device: torch.device):
     every visible GPU (one device on the CPU); N < -1 raises; on the GPU, N
     greater than the visible cards raises mmtpu's ValueError (on the CPU no
     card count limits N: each rank is a process); a dataset batch_size not
-    divisible by N raises mmtpu's message. In a data-parallel rank, the
-    rank's (launched) mesh."""
-    from mmtpu_torch.parallel.mesh import MeshConfig, create_mesh, get_default_mesh
+    divisible by N raises mmtpu's message."""
+    from mmtpu_torch.parallel.mesh import MeshConfig, create_mesh
 
-    live = get_default_mesh()
-    if live is not None:
-        return live
     dp = getattr(args, "data_parallel", None)
     if dp is None:
         dp = cfg.experiment.data_parallel
@@ -231,21 +224,28 @@ def resolve_mesh(cfg, args, device: torch.device):
     return create_mesh(MeshConfig(data_parallel=dp), devices=devices)
 
 
-def run_ranks(args, device: torch.device, module: str, argv=None,
-              generic=lambda cfg: True) -> Optional[int]:
-    """A training CLI's data-parallel entry: when the run asks for N > 1
-    devices (`resolve_mesh`), `generic(cfg)` says its driver trains on a
-    mesh, and this process is not already a rank, run `module.main(argv)`
-    in N ranks (`parallel/launch.py`) and return their exit code. None: run
-    the driver in this process (one device, a rank, or a driver that
-    refuses a mesh itself)."""
+def rank_mesh():
+    """This process's data-parallel mesh: a launched rank's (set by
+    `parallel/launch.py`), or None. The one place the CLIs read it: their
+    entry hands it on to `resolve_device`, `finalize_config`, the drivers
+    and `TrainLoop`, whose steps publish it with `with mesh:`."""
     from mmtpu_torch.parallel.mesh import get_default_mesh
 
-    if get_default_mesh() is not None:
+    return get_default_mesh()
+
+
+def run_ranks(args, device: torch.device, module: str, argv=None,
+              mesh=None) -> Optional[int]:
+    """A training CLI's data-parallel entry: when the run asks for N > 1
+    devices (`resolve_mesh`) and this process is not already a rank (its
+    `mesh`), run `module.main(argv)` in N ranks (`parallel/launch.py`) and
+    return their exit code; None when it trains in this process (a rank, or
+    one device)."""
+    if mesh is not None:
         return None
     cfg = StandardMultimodalConfig.load(args.config, run_id=args.run_id)
     mesh = resolve_mesh(cfg, args, device)
-    if mesh is None or not generic(cfg):
+    if mesh is None:
         return None
     from mmtpu_torch.parallel.launch import run_cli
 
@@ -254,26 +254,14 @@ def run_ranks(args, device: torch.device, module: str, argv=None,
     return run_cli(mesh, module, sys.argv[1:] if argv is None else argv)
 
 
-def rank_mesh(cfg, args, device: torch.device):
-    """The mesh a driver trains on: this rank's, or None on one device. A
-    run that asks for several devices in a process that is not one of the
-    ranks raises: the CLI's `main` starts them."""
-    mesh = resolve_mesh(cfg, args, device)
-    if mesh is not None and not mesh.launched:
+def check_rank(cfg, args, device: torch.device, mesh) -> None:
+    """A driver's guard: a run that asks for several devices trains only
+    in the ranks its CLI's `main` starts, each with its `mesh`."""
+    want = resolve_mesh(cfg, args, device) if mesh is None else None
+    if want is not None:
         raise RuntimeError(
-            f"data_parallel={mesh.world_size}: the ranks are started by the CLI's main "
+            f"data_parallel={want.world_size}: the ranks are started by the CLI's main "
             "(parallel/launch.py); this process is not one of them")
-    return mesh
-
-
-def refuse_mesh(cfg, args, device: torch.device, what: str) -> None:
-    """For a driver that has no data-parallel path yet: mmtpu's checks,
-    then NotImplementedError for N > 1."""
-    mesh = resolve_mesh(cfg, args, device)
-    if mesh is not None:
-        raise NotImplementedError(
-            f"data_parallel={mesh.world_size}: {what} on several devices is not ported to "
-            f"mmtpu_torch ({ROADMAP_SYSTEMS})")
 
 
 def seed_rank_streams(mesh, seed: int, generator: Optional[torch.Generator] = None) -> None:

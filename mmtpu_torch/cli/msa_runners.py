@@ -14,6 +14,12 @@ checkpointed. Then the `TrainLoop` with the family's step builders, the
 recorder, checkpoints, early stopping and scheduler; `--dry-run`,
 `--skip-train` and `--skip-test` as mmtpu's. As in mmtpu, this driver
 writes no report and takes no `--resume` or `--profile`.
+
+In a data-parallel rank (`mesh`) every rank restores the teacher from its
+file and trains on its rows of every global batch (`train/mmin_step.py`,
+`train/redcore_step.py`: the global masked means, RedCore's schedule from
+the global MSEs); rank 0 alone writes the files. Cross-validation runs its
+folds one after another on the mesh.
 """
 
 from __future__ import annotations
@@ -91,14 +97,17 @@ def assemble(cfg, args, device: torch.device) -> MSARun:
     return MSARun(model, task, state, (make_train, redcore_step.make_redcore_eval_step))
 
 
-def run(cfg, args, device: torch.device) -> int:
+def run(cfg, args, device: torch.device, mesh=None) -> int:
+    """One MMIN or RedCore run, in this rank of `mesh` where there is one."""
     from mmtpu_torch.train.loop import TrainLoop
 
-    common.refuse_mesh(cfg, args, device, "MMIN and RedCore training")
+    common.check_rank(cfg, args, device, mesh)
     loaders = common.build_all_loaders(cfg, is_train=not args.skip_train,
                                        is_test=not args.skip_test)
     built = assemble(cfg, args, device)
-    recorder = common.make_recorder(cfg)
+    if mesh is not None:
+        common.seed_rank_streams(mesh, cfg.experiment.seed, built.state.generator)
+    recorder = common.make_recorder(cfg, mesh)
     loop = TrainLoop(
         task=built.task, state=built.state, loaders=loaders, recorder=recorder,
         checkpoint_manager=common.make_checkpoint_manager(cfg), device=device,
@@ -108,7 +117,7 @@ def run(cfg, args, device: torch.device) -> int:
         metrics_path=Path(cfg.logging.metrics_path),
         group_name=next(iter(cfg.metrics.groups), "classification"),
         step_builders=built.step_builders,
-        print_interval=cfg.experiment.train_print_interval_epochs,
+        print_interval=cfg.experiment.train_print_interval_epochs, mesh=mesh,
     )
     if cfg.experiment.dry_run:
         recorder.close()

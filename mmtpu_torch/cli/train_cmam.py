@@ -24,6 +24,13 @@ C-MAM with the frozen base as one missing-modality serving artifact
 (`serving.export_cmam`: the available modalities in, the imputed
 embedding(s) and the base model's scores out); with no best checkpoint it
 warns and exports the current weights.
+
+`--data-parallel N` (or `experiment.data_parallel: N`), N > 1, trains on N
+devices as `train_multimodal` does: `main` starts one process per rank,
+each restores the frozen base from its file and trains the C-MAM on its
+rows of every global batch, with the loss terms of the global batch
+(`train/cmam_loss.py`); rank 0 alone writes the files, the report and the
+artifact.
 """
 
 from __future__ import annotations
@@ -51,7 +58,12 @@ def main(argv=None) -> int:
                         help="Export the trained C-MAM + frozen base model as a "
                              "missing-modality serving artifact to PATH")
     args = parser.parse_args(argv)
-    return common.run_id_sweep(args, run)
+    mesh = common.rank_mesh()
+    rc = common.run_ranks(args, common.resolve_device(args.cpu, mesh),
+                          "mmtpu_torch.cli.train_cmam", argv, mesh)
+    if rc is not None:
+        return rc
+    return common.run_id_sweep(args, lambda sub: run(sub, mesh))
 
 
 def copy_encoder_parameters(base: torch.nn.Module, cmam: torch.nn.Module, mods,
@@ -174,19 +186,22 @@ def export_serving(loop, task, loaders, args) -> None:
     print(f"missing-modality serving artifact → {out}", flush=True)
 
 
-def run(args) -> int:
-    """One C-MAM run."""
+def run(args, mesh=None) -> int:
+    """One C-MAM run, in this rank of `mesh` where there is one."""
     from mmtpu_torch.config.cmam import CMAMConfig
     from mmtpu_torch.reports import ExperimentReportGenerator
     from mmtpu_torch.train.loop import TrainLoop
 
-    device = common.resolve_device(args.cpu)
-    cfg = common.finalize_config(CMAMConfig.load(args.config, run_id=args.run_id), args)
-    common.refuse_mesh(cfg, args, device, "train_cmam")
+    device = common.resolve_device(args.cpu, mesh)
+    cfg = common.finalize_config(CMAMConfig.load(args.config, run_id=args.run_id), args, mesh)
+    common.check_rank(cfg, args, device, mesh)
+    writes = mesh is None or mesh.is_writer  # on a mesh, rank 0 alone writes files
     loaders = common.build_all_loaders(cfg, is_train=not args.skip_train,
                                        is_test=not args.skip_test)
     built = assemble(cfg, device)
-    recorder = common.make_recorder(cfg)
+    if mesh is not None:
+        common.seed_rank_streams(mesh, cfg.experiment.seed, built.state.generator)
+    recorder = common.make_recorder(cfg, mesh)
     loop = TrainLoop(
         task=built.task, state=built.state, loaders=loaders, recorder=recorder,
         checkpoint_manager=common.make_checkpoint_manager(cfg), device=device,
@@ -196,27 +211,31 @@ def run(args) -> int:
         metrics_path=Path(cfg.logging.metrics_path),
         group_name=next(iter(cfg.metrics.groups), "classification"),
         print_interval=cfg.experiment.train_print_interval_epochs,
-        resume=args.resume, record_fn=record, step_builders=built.step_builders,
+        resume=args.resume, record_fn=record, step_builders=built.step_builders, mesh=mesh,
     )
     if cfg.experiment.dry_run:
         recorder.close()
         print("dry run complete", flush=True)
         return 0
     if not args.skip_train:
-        with common.ProfilerSession(getattr(args, "profile", False), cfg.logging.log_path):
+        with common.ProfilerSession(getattr(args, "profile", False) and writes,
+                                    cfg.logging.log_path):
             loop.run()
     if not args.skip_test:
         loop.test(splits=[s for s in loaders if s not in ("train", "validation")])
-    if args.export_serving:
+    if mesh is not None:
+        mesh.barrier()  # as before the test pass: the ranks meet before best.pth is read
+    if args.export_serving and writes:
         export_serving(loop, built.task, loaders, args)
-    # {train,validation,test}_metrics.json as the reference's records: the
-    # nested group dicts, loss, and the term columns
-    ExperimentReportGenerator(
-        Path(cfg.logging.metrics_path) / "report", cfg.experiment.name,
-        metrics_dir=cfg.logging.metrics_path,
-    ).generate_report(metrics_history=loop.metrics_history_nested,
-                      timing_history=loop.timing_history, model=built.cmam,
-                      test_metrics=loop.test_metrics_nested)
+    if writes:
+        # {train,validation,test}_metrics.json as the reference's records:
+        # the nested group dicts, loss, and the term columns
+        ExperimentReportGenerator(
+            Path(cfg.logging.metrics_path) / "report", cfg.experiment.name,
+            metrics_dir=cfg.logging.metrics_path,
+        ).generate_report(metrics_history=loop.metrics_history_nested,
+                          timing_history=loop.timing_history, model=built.cmam,
+                          test_metrics=loop.test_metrics_nested)
     recorder.close()
     return 0
 

@@ -24,23 +24,24 @@ from mmtpu_torch.cli import common
 
 def main(argv=None) -> int:
     args = common.standard_arg_parser(__doc__).parse_args(argv)
-    rc = common.run_ranks(args, common.resolve_device(args.cpu),
-                          "mmtpu_torch.cli.train_monomodal", argv)
+    mesh = common.rank_mesh()
+    rc = common.run_ranks(args, common.resolve_device(args.cpu, mesh),
+                          "mmtpu_torch.cli.train_monomodal", argv, mesh)
     if rc is not None:
         return rc
-    return common.run_id_sweep(args, run)
+    return common.run_id_sweep(args, lambda sub: run(sub, mesh))
 
 
-def run(args) -> int:
-    """One monomodal run."""
+def run(args, mesh=None) -> int:
+    """One monomodal run, in this rank of `mesh` where there is one."""
     from mmtpu_torch.models.registry import build_module
     from mmtpu_torch.reports import ExperimentReportGenerator
     from mmtpu_torch.train.loop import TrainLoop
     from mmtpu_torch.train.step import MonomodalTask
 
-    device = common.resolve_device(args.cpu)
-    cfg = common.load_config(args)
-    mesh = common.rank_mesh(cfg, args, device)
+    device = common.resolve_device(args.cpu, mesh)
+    cfg = common.load_config(args, mesh)
+    common.check_rank(cfg, args, device, mesh)
     writes = mesh is None or mesh.is_writer  # on a mesh, rank 0 alone writes files
     modality = common.infer_monomodal_modality(cfg)
     encoder_spec = _find_encoder_spec(cfg, modality)

@@ -39,16 +39,17 @@ data_parallel other than 1, `--resume`, and `--stacked-runs` on a CV config
 take mmtpu's sequential runs and folds instead.
 
 `--data-parallel N` (or `experiment.data_parallel: N`), N > 1, trains every
-model type above but MMIN, RedCore and Self-MM (which raise) on N devices:
-`main` starts one process per rank (`parallel/launch.py`; N GPUs over NCCL,
-or with `--cpu` N processes over gloo), each runs this driver on its rows
-of every global batch, with mmtpu's numbers (the global masked loss, the
-gradients summed over the ranks, BatchNorm over the global batch, the
+model type above, MMIN, RedCore and Self-MM included, on N devices: `main`
+starts one process per rank (`parallel/launch.py`; N GPUs over NCCL, or
+with `--cpu` N processes over gloo), each runs this driver on its rows of
+every global batch, with mmtpu's numbers (the global masked loss, the
+gradients summed over the ranks, BatchNorm over the global batch, RedCore's
+schedule from the global MSEs, Self-MM's banks from the global batch, the
 metrics from the gathered outputs), and rank 0 alone writes the files and
-the console lines. Folds and runs go one after another on the mesh. Other model types (MulT's `mult`
-and GCNet's `gcnet` among them, which train only through the registry, as
-in mmtpu) raise mmtpu's `ValueError: Unknown model type` where mmtpu's
-does, after the loaders are built.
+the console lines. Folds and runs go one after another on the mesh. Other
+model types (MulT's `mult` and GCNet's `gcnet` among them, which train only
+through the registry, as in mmtpu) raise mmtpu's `ValueError: Unknown model
+type` where mmtpu's does, after the loaders are built.
 """
 
 from __future__ import annotations
@@ -62,41 +63,31 @@ import torch
 
 from mmtpu_torch.cli import common
 
-CUSTOM_STEP_TYPES = ("mmin", "redcore", "self-mm", "self_mm")  # mmtpu stacks none of them
+# mmtpu stacks none of them: they run their folds and runs one after another
+CUSTOM_STEP_TYPES = ("mmin", "redcore", "self-mm", "self_mm")
 
 
 def main(argv=None, json_nesting: str = "reference",
          module: str = "mmtpu_torch.cli.train_multimodal") -> int:
     args = common.standard_arg_parser(__doc__).parse_args(argv)
-    device = common.resolve_device(args.cpu)
-    rc = common.run_ranks(args, device, module, argv, generic=trains_on_mesh)
+    mesh = common.rank_mesh()
+    device = common.resolve_device(args.cpu, mesh)
+    rc = common.run_ranks(args, device, module, argv, mesh)
     if rc is not None:
         return rc
-    return route(common.load_config(args), args, device, json_nesting=json_nesting)
+    return route(common.load_config(args, mesh), args, device, json_nesting=json_nesting,
+                 mesh=mesh)
 
 
-def trains_on_mesh(cfg) -> bool:
-    """The model types whose driver trains on a data-parallel mesh: those
-    of the generic step (mmtpu's other types raise in the driver)."""
-    try:
-        common.modalities_for_model(cfg.model.model_type)
-    except ValueError:
-        return False
-    return True
-
-
-def _stacked_fallback_reason(cfg, args, flag: str = "--stacked-folds"):
+def _stacked_fallback_reason(cfg, args, flag: str = "--stacked-folds", mesh=None):
     """Why mmtpu's stacked engines would not apply and it would run
-    sequentially instead (None when they would)."""
+    sequentially instead (None when they would); `mesh`, this rank's."""
     mt = cfg.model.model_type.lower()
     if mt in CUSTOM_STEP_TYPES:
         return f"{flag} unsupported for {mt}"
-    from mmtpu_torch.parallel.mesh import get_default_mesh
-
     dp = getattr(args, "data_parallel", None)
     if dp is None:
         dp = cfg.experiment.data_parallel
-    mesh = get_default_mesh()
     if mesh is not None:
         dp = mesh.world_size
     if dp and dp != 1:
@@ -106,10 +97,11 @@ def _stacked_fallback_reason(cfg, args, flag: str = "--stacked-folds"):
     return None
 
 
-def route(cfg, args, device, json_nesting: str = "reference") -> int:
-    """Single run, cross-validation or a --stacked-runs sweep. Shared by
-    train_multimodal and train_avmnist (which differs only in the nesting
-    of epoch_metrics.json)."""
+def route(cfg, args, device, json_nesting: str = "reference", mesh=None) -> int:
+    """Single run, cross-validation or a --stacked-runs sweep, in this rank
+    of `mesh` where there is one. Shared by train_multimodal and
+    train_avmnist (which differs only in the nesting of
+    epoch_metrics.json)."""
     runs = int(getattr(args, "stacked_runs", 0) or 0)
     if runs > 1:
         if cfg.experiment.cross_validation:
@@ -118,41 +110,43 @@ def route(cfg, args, device, json_nesting: str = "reference") -> int:
             print(f"--stacked-runs with a cross-validation config runs the {runs} repeats "
                   "sequentially (use --stacked-folds to stack folds within each run)",
                   flush=True)
-            return sequential_runs(args, device, json_nesting=json_nesting)
-        reason = _stacked_fallback_reason(cfg, args, "--stacked-runs")
+            return sequential_runs(args, device, json_nesting=json_nesting, mesh=mesh)
+        reason = _stacked_fallback_reason(cfg, args, "--stacked-runs", mesh)
         if reason is None:
             from mmtpu_torch.cli import stacked_cv
 
             return stacked_cv.run_repeat(args, device, json_nesting=json_nesting)
         print(f"{reason}; falling back to sequential runs", flush=True)
-        return sequential_runs(args, device, json_nesting=json_nesting)
+        return sequential_runs(args, device, json_nesting=json_nesting, mesh=mesh)
     if cfg.experiment.cross_validation:
         if getattr(args, "stacked_folds", False):
-            reason = _stacked_fallback_reason(cfg, args)
+            reason = _stacked_fallback_reason(cfg, args, mesh=mesh)
             if reason is None:
                 from mmtpu_torch.cli import stacked_cv
 
                 return stacked_cv.run(cfg, args, device, json_nesting=json_nesting)
             print(f"{reason}; falling back to sequential CV", flush=True)
-        return main_cross_validation(cfg, args, device, json_nesting=json_nesting)
-    return run_single(cfg, args, device, json_nesting=json_nesting)
+        return main_cross_validation(cfg, args, device, json_nesting=json_nesting, mesh=mesh)
+    return run_single(cfg, args, device, json_nesting=json_nesting, mesh=mesh)
 
 
-def sequential_runs(args, device, json_nesting: str = "reference") -> int:
+def sequential_runs(args, device, json_nesting: str = "reference", mesh=None) -> int:
     """--stacked-runs K one member after another (mmtpu's `sequential_runs`,
     the reference's run_n.sh loop): each member, from `derive_member_args`,
     loads its config anew; the sweep stops at the first failure."""
     def run_one(sub) -> int:
-        return route(common.load_config(sub), sub, device, json_nesting=json_nesting)
+        return route(common.load_config(sub, mesh), sub, device, json_nesting=json_nesting,
+                     mesh=mesh)
 
     return common.run_id_sweep(args, run_one)
 
 
 def run_single(cfg, args, device, cv_no=None, json_nesting: str = "reference",
-               collect=None) -> int:
-    """Train and test one run. `cv_no` is the fold a cross-validation run
-    injects into every dataset's kwargs; `collect`, when a dict, receives
-    the train and validation metric histories and the test metrics."""
+               collect=None, mesh=None) -> int:
+    """Train and test one run, in this rank of `mesh` where there is one.
+    `cv_no` is the fold a cross-validation run injects into every dataset's
+    kwargs; `collect`, when a dict, receives the train and validation
+    metric histories and the test metrics."""
     from mmtpu_torch.reports import ExperimentReportGenerator
     from mmtpu_torch.train.loop import TrainLoop
     from mmtpu_torch.train.step import ClassificationTask
@@ -165,12 +159,12 @@ def run_single(cfg, args, device, cv_no=None, json_nesting: str = "reference",
     if mt in ("mmin", "redcore"):
         from mmtpu_torch.cli import msa_runners
 
-        return msa_runners.run(cfg, args, device)
+        return msa_runners.run(cfg, args, device, mesh=mesh)
     if mt in ("self-mm", "self_mm"):
         from mmtpu_torch.cli import train_self_mm
 
-        return train_self_mm.run(cfg, args, device)
-    mesh = common.rank_mesh(cfg, args, device)
+        return train_self_mm.run(cfg, args, device, mesh=mesh)
+    common.check_rank(cfg, args, device, mesh)
     writes = mesh is None or mesh.is_writer  # on a mesh, rank 0 alone writes files
     if writes:
         clean_checkpoints(cfg.logging.model_output_path)
@@ -255,7 +249,8 @@ def aggregate_cv_metrics(fold_metrics):
     return aggregated
 
 
-def main_cross_validation(cfg, args, device, json_nesting: str = "reference") -> int:
+def main_cross_validation(cfg, args, device, json_nesting: str = "reference",
+                          mesh=None) -> int:
     """K-fold driver (mmtpu's `main_cross_validation`): each fold runs with
     its metrics and models under `fold_<k>/`, then the per-epoch means over
     the folds go to `{train,validation,test}_metrics_agg.json`."""
@@ -270,15 +265,12 @@ def main_cross_validation(cfg, args, device, json_nesting: str = "reference") ->
         cfg.logging.create_directories()
         collected = {}
         run_single(cfg, args, device, cv_no=fold, json_nesting=json_nesting,
-                   collect=collected)
+                   collect=collected, mesh=mesh)
         if collected.get("train"):
             fold_train.append(collected["train"])
             fold_val.append(collected["validation"])
         if collected.get("test"):
             fold_test.append(collected["test"])
-    from mmtpu_torch.parallel.mesh import get_default_mesh
-
-    mesh = get_default_mesh()
     for name, folds_metrics in (("train", fold_train), ("validation", fold_val),
                                 ("test", fold_test)):
         agg = aggregate_cv_metrics(folds_metrics)

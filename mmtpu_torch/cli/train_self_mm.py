@@ -12,6 +12,14 @@ the plateau LR. Then the best checkpoint restored and tested:
 `test_metrics.json` through `MetricsReport` and a final `{"test": ...}`
 entry with its `metrics` bucket popped. The banks are not checkpointed, as
 in mmtpu; `--resume` and `--profile` are not read, as in mmtpu.
+
+In a data-parallel rank (`mesh`) the model starts from rank 0's weights,
+every step takes this rank's rows of the global batch and updates the
+banks from the whole global batch (`train/self_mm_step.py`), and at each
+pass's end the outputs are gathered in global-batch order and the losses'
+shares summed (`train/loop.py`'s `gathered_steps`), so every rank records
+and decides what one process does; rank 0 alone writes the records and
+the checkpoints, and the ranks meet before the best one is restored.
 """
 
 from __future__ import annotations
@@ -47,9 +55,11 @@ def bank_dims(cfg) -> dict:
             for m in ("multimodal", "audio", "video", "text")}
 
 
-def run(cfg, args, device: torch.device) -> int:
+def run(cfg, args, device: torch.device, mesh=None) -> int:
+    """One Self-MM run, in this rank of `mesh` where there is one."""
+    from mmtpu_torch.parallel.mesh import replicate
     from mmtpu_torch.reports import MetricsReport
-    from mmtpu_torch.train.loop import resolve_save_target, split_epoch_entry
+    from mmtpu_torch.train.loop import gathered_steps, resolve_save_target, split_epoch_entry
     from mmtpu_torch.train.managers import ManagerState
     from mmtpu_torch.train.optim import set_lr_scale
     from mmtpu_torch.train.self_mm_step import (
@@ -59,12 +69,17 @@ def run(cfg, args, device: torch.device) -> int:
     )
     from mmtpu_torch.utils import flatten_leaves
 
-    common.refuse_mesh(cfg, args, device, "Self-MM training")
+    common.check_rank(cfg, args, device, mesh)
+    writes = mesh is None or mesh.is_writer  # on a mesh, rank 0 alone writes files
     loaders = common.build_all_loaders(cfg, is_train=not args.skip_train,
                                        is_test=not args.skip_test)
-    _, task, state = assemble(cfg, device)
-    eval_step = make_self_mm_eval_step(task, device)
-    recorder = common.make_recorder(cfg)
+    model, task, state = assemble(cfg, device)
+    if mesh is not None:
+        replicate(model, mesh)
+        state.mesh = mesh
+        common.seed_rank_streams(mesh, cfg.experiment.seed, state.generator)
+    eval_step = make_self_mm_eval_step(task, device, mesh)
+    recorder = common.make_recorder(cfg, mesh)
     ckpt = common.make_checkpoint_manager(cfg)
     early = common.make_early_stopping(cfg)
     lr = common.make_lr_controller(cfg.training)
@@ -79,26 +94,27 @@ def run(cfg, args, device: torch.device) -> int:
     epoch_metrics = []
     metrics_history = {"train": [], "validation": []}
 
-    def record(out, loader) -> None:
-        recorder.update_group_ids(group, out["preds"], out["labels"], out["pattern_id"],
-                                  loader.pattern_vocab, out.get("sample_mask"))
-
-    def mean_loss(losses) -> float:
+    def record(outs, loader) -> float:
+        """Record a pass's step outputs (gathered in global order on a
+        mesh); the mean of its losses."""
+        if mesh is not None and outs:
+            outs = gathered_steps(mesh, outs)
+        for out in outs:
+            recorder.update_group_ids(group, out["preds"], out["labels"], out["pattern_id"],
+                                      loader.pattern_vocab, out.get("sample_mask"))
+        losses = [out["loss"] for out in outs]
         return float(torch.stack(losses).float().mean().item()) if losses else 0.0
 
     def eval_split(split):
         recorder.reset()
-        losses = []
-        for batch in loaders[split]:
-            out = eval_step(batch)
-            losses.append(out["loss"])
-            record(out, loaders[split])
-        loss = mean_loss(losses)
+        loss = record([eval_step(batch) for batch in loaders[split]], loaders[split])
         metrics = flatten_leaves(recorder.calculate_all_groups(skip_tensorboard=split == "test"))
         metrics["loss"] = loss
         return loss, metrics
 
     def write_records() -> None:
+        if not writes:
+            return
         metrics_path.mkdir(parents=True, exist_ok=True)
         (metrics_path / "epoch_metrics.json").write_text(
             json.dumps(epoch_metrics, indent=4, default=float))
@@ -111,12 +127,8 @@ def run(cfg, args, device: torch.device) -> int:
         for epoch in range(1, cfg.training.epochs + 1):
             recorder.reset()
             t0 = time.time()
-            losses = []
-            for batch in loaders["train"]:
-                out = train_step(managers, batch, epoch)
-                losses.append(out["loss"])
-                record(out, loaders["train"])
-            train_loss = mean_loss(losses)
+            train_loss = record([train_step(managers, batch, epoch)
+                                 for batch in loaders["train"]], loaders["train"])
             train_time = time.time() - t0
             train_metrics = flatten_leaves(recorder.calculate_all_groups(epoch=epoch))
             val_loss, val_metrics = eval_split("validation")
@@ -132,7 +144,7 @@ def run(cfg, args, device: torch.device) -> int:
             })
             write_records()
             target = resolve_save_target(val_metrics, cfg.logging.save_metric)
-            if early.step(float(target)):
+            if early.step(float(target)) and writes:
                 ckpt.save_checkpoint(state, epoch, float(target))
             if early.should_stop:
                 break
@@ -141,6 +153,8 @@ def run(cfg, args, device: torch.device) -> int:
                              lr.step(val_loss if lr.kind == "plateau" else None))
 
     if not args.skip_test and "test" in loaders:
+        if mesh is not None:
+            mesh.barrier()  # rank 0 wrote the best checkpoint
         try:
             ckpt.load_checkpoint(state, "best")
         except FileNotFoundError:
@@ -150,7 +164,8 @@ def run(cfg, args, device: torch.device) -> int:
         elapsed = time.time() - t0
         shown = {k: round(v, 4) for k, v in test_metrics.items() if isinstance(v, (int, float))}
         print(f"test metrics: {shown}", flush=True)
-        MetricsReport(metrics_path).generate(metrics_history, {"test": test_metrics})
+        if writes:
+            MetricsReport(metrics_path).generate(metrics_history, {"test": test_metrics})
         entry = {"test": split_epoch_entry(test_loss, test_metrics, elapsed,
                                            len(loaders["test"]), "reference")}
         entry["test"].pop("metrics", None)  # the reference's test entry shape

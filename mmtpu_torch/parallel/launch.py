@@ -132,6 +132,6 @@ def _run_main(module: str, argv: Sequence[str]) -> int:
 def run_cli(mesh: Mesh, module: str, argv: Sequence[str],
             timeout: float = TIMEOUT_S) -> int:
     """A CLI's `main(argv)` in every rank of `mesh`: each rank parses the
-    same command line, finds its mesh through `resolve_mesh` and runs the
-    driver on its rows."""
+    same command line, finds its mesh through `cli.common.rank_mesh` and
+    runs the driver on its rows."""
     return launch(mesh, _run_main, (module, list(argv)), timeout=timeout)

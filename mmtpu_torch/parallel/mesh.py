@@ -17,6 +17,11 @@ run's:
 - BatchNorm in training takes its statistics over the global batch's real
   rows (`models/norm.py`, through `Mesh.all_reduce`, which carries
   gradients back);
+- a term that is not a sum over rows (C-MAM's MMD, moments and MI
+  negatives) is computed by every rank alike on the global batch's rows
+  (`Mesh.all_gather`, differentiable) and counted as 1/N of it on each
+  (`train/losses.py`'s `replicated_share`); a host-drawn tensor (C-MAM's
+  permutation) is rank 0's (`Mesh.broadcast_`);
 - the outputs the recorder reads are gathered in global-batch order over a
   second, gloo group for host objects (`Mesh.gather`), so every rank
   computes the same metrics and takes the same decisions.
@@ -25,7 +30,8 @@ A step publishes its mesh to BatchNorm and the losses for the duration of
 the step with `with mesh:` (as mmtpu's steps run under `with mesh:`).
 
 Outside a rank there is no default mesh: `get_default_mesh()` is None
-(mmtpu's builds one over every device). `model_parallel > 1` (mmtpu's
+(mmtpu's builds one over every device). The CLIs read it once, at their
+entry (`cli/common.py`'s `rank_mesh`), and hand it on. `model_parallel > 1` (mmtpu's
 `model` axis, which only its tests and the graft entry reach) is not
 ported and raises.
 """
@@ -133,6 +139,21 @@ class Mesh:
                 offset += g.numel()
         return nbytes
 
+    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's (b, ...) rows as the (N·b, ...) global tensor, in
+        rank order, on every rank: this rank's rows written into its slot
+        of a zero buffer, then the buffer summed over the ranks (gloo's
+        `all_gather` takes CPU tensors only; a sum runs on every backend).
+        Differentiable when `t` needs a gradient: each rank's rows get the
+        sum over the ranks of their gradients."""
+        b = t.shape[0]
+        rest = tuple(t.shape[1:])
+        buf = torch.cat([t.new_zeros((self.rank * b,) + rest), t,
+                         t.new_zeros(((self.world_size - self.rank - 1) * b,) + rest)])
+        if torch.is_grad_enabled() and t.requires_grad:
+            return self.all_reduce(buf)
+        return self.all_reduce_(buf)
+
     def broadcast_(self, tensors: Iterable[torch.Tensor]) -> None:
         """Overwrite `tensors` with rank 0's, in place."""
         import torch.distributed as dist
@@ -211,11 +232,17 @@ def get_default_mesh() -> Optional[Mesh]:
     return _default_mesh
 
 
-def shard_batch(batch: Dict[str, Any], mesh: Optional[Mesh] = None) -> Dict[str, Any]:
+def global_rows(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """Under the active mesh, `t`'s rows of every rank, the global batch's
+    (`Mesh.all_gather`); `t` itself (None too) otherwise."""
+    mesh = active_mesh()
+    return t if mesh is None or t is None else mesh.all_gather(t)
+
+
+def shard_batch(batch: Dict[str, Any], mesh: Mesh) -> Dict[str, Any]:
     """This rank's rows of a host batch: every array's leading dim must be
     divisible by the data-axis size (mmtpu's error otherwise); scalars are
     kept whole."""
-    mesh = mesh or get_default_mesh()
     out = {}
     for k, v in batch.items():
         v = np.asarray(v)
@@ -223,10 +250,9 @@ def shard_batch(batch: Dict[str, Any], mesh: Optional[Mesh] = None) -> Dict[str,
     return out
 
 
-def replicate(module: torch.nn.Module, mesh: Optional[Mesh] = None) -> torch.nn.Module:
+def replicate(module: torch.nn.Module, mesh: Mesh) -> torch.nn.Module:
     """Every parameter and buffer of `module` set to rank 0's (mmtpu's
     replicated sharding)."""
-    mesh = mesh or get_default_mesh()
     with torch.no_grad():
         mesh.broadcast_(list(module.parameters()) + list(module.buffers()))
     return module

@@ -13,6 +13,16 @@ mmtpu draws the MI term's negative permutation from a JAX PRNG key; here it
 comes from an explicit `torch.Generator` (or is handed in as `perm`), never
 from torch's global generator. `rec_weight` and `maximize_cosine` are
 accepted and unused, as in mmtpu and the reference.
+
+Under a data-parallel mesh (`with mesh:`, `parallel/mesh.py`) every term
+is this rank's share of the global batch's value, and the shares sum to
+it: the row means through `_masked_reduce`'s global denominators; the MMD
+and the moments computed by every rank alike on the gathered rows
+(`global_rows`) and counted 1/N on each (`replicated_share`), as is the
+cosine's constant 1; the MI term's negatives pair this rank's originals
+with the gathered predictions under a permutation of the GLOBAL batch,
+drawn on rank 0 from its generator and broadcast, their log-mean taken of
+the global sum and count. mmtpu computes all of them on its global arrays.
 """
 
 from __future__ import annotations
@@ -21,6 +31,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 
 import torch
 
+from mmtpu_torch.parallel.mesh import active_mesh, global_rows
 from mmtpu_torch.train import losses as L
 
 
@@ -45,9 +56,11 @@ def _pair_mean(k: torch.Tensor, w: Optional[torch.Tensor]) -> torch.Tensor:
 
 def mmd_loss(x: torch.Tensor, y: torch.Tensor, sigma: float = 1.0,
              sample_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    return (_pair_mean(gaussian_kernel(x, x, sigma), sample_mask)
-            + _pair_mean(gaussian_kernel(y, y, sigma), sample_mask)
-            - 2.0 * _pair_mean(gaussian_kernel(x, y, sigma), sample_mask))
+    """The Gaussian-kernel MMD over the (global) batch's real-row pairs."""
+    x, y, sample_mask = global_rows(x), global_rows(y), global_rows(sample_mask)
+    return L.replicated_share(_pair_mean(gaussian_kernel(x, x, sigma), sample_mask)
+                              + _pair_mean(gaussian_kernel(y, y, sigma), sample_mask)
+                              - 2.0 * _pair_mean(gaussian_kernel(x, y, sigma), sample_mask))
 
 
 def _masked_mean0(x: torch.Tensor, w: Optional[torch.Tensor]) -> torch.Tensor:
@@ -59,12 +72,30 @@ def _masked_mean0(x: torch.Tensor, w: Optional[torch.Tensor]) -> torch.Tensor:
 
 def moment_matching_loss(x: torch.Tensor, y: torch.Tensor, num_moments: int = 2,
                          sample_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The squared differences of the (global) batch's first moments."""
+    x, y, sample_mask = global_rows(x), global_rows(y), global_rows(sample_mask)
     loss = 0.0
     for i in range(1, num_moments + 1):
         xm = _masked_mean0(x ** i, sample_mask)
         ym = _masked_mean0(y ** i, sample_mask)
         loss = loss + ((xm - ym) ** 2).mean()
-    return loss
+    return L.replicated_share(loss)
+
+
+def global_permutation(n: int, generator: Optional[torch.Generator],
+                       device: torch.device) -> torch.Tensor:
+    """A permutation of the (global) batch's `n` rows from `generator`;
+    under a mesh, rank 0's draw, broadcast (the other ranks draw nothing)."""
+    mesh = active_mesh()
+    if mesh is not None and mesh.rank != 0:
+        perm = torch.empty(n, dtype=torch.long, device=device)
+    else:
+        if generator is None:
+            raise ValueError("MI term requires an explicit torch.Generator")
+        perm = torch.randperm(n, generator=generator, device=generator.device).to(device)
+    if mesh is not None:
+        mesh.broadcast_([perm])
+    return perm
 
 
 _CLS_LOSSES = {"ce": L.cross_entropy, "bce": L.bce_with_logits, "mse": L.mse}
@@ -134,7 +165,7 @@ class CMAMLoss:
 
         sim = (p * t).sum(1) / (torch.linalg.vector_norm(p, dim=1)
                                 * torch.linalg.vector_norm(t, dim=1) + self.epsilon)
-        cosine = (1.0 - L._masked_reduce(sim, sm)) * self.cosine_weight
+        cosine = (L.replicated_share(1.0) - L._masked_reduce(sim, sm)) * self.cosine_weight
         mae = L.l1(p, t, sample_mask=sm) * self.mae_weight
         mse = L.mse(p, t, sample_mask=sm) * self.mse_weight
         total = cosine + mae + mse
@@ -157,23 +188,7 @@ class CMAMLoss:
             out["cyclic_loss"] = cyc
 
         if self.mi_weight > 0 and originals is not None and mi_critic is not None:
-            if perm is None:
-                if generator is None:
-                    raise ValueError("MI term requires an explicit torch.Generator")
-                perm = torch.randperm(p.shape[0], generator=generator, device=generator.device)
-            perm = perm.to(p.device)
-            pos = mi_critic(originals, p)
-            neg = mi_critic(originals, p[perm])
-            if sm is None:
-                mi = -pos.mean() + torch.log(torch.exp(neg).mean() + self.epsilon)
-            else:
-                w = sm.reshape(-1)
-                # negatives pair originals[i] with p[perm[i]]: both rows
-                # must be real for the pair to count
-                wn = w * w[perm]
-                mi = -L._masked_reduce(pos.reshape(-1), w) + torch.log(
-                    (torch.exp(neg.reshape(-1)) * wn).sum() / torch.clamp(wn.sum(), min=1e-8)
-                    + self.epsilon)
+            mi = self._mi(p, originals, mi_critic, generator, sm, perm)
             total = total + self.mi_weight * mi
             out["mi_loss"] = mi
 
@@ -184,3 +199,26 @@ class CMAMLoss:
 
         out["total_loss"] = total
         return out
+
+    def _mi(self, p, originals, mi_critic, generator, sm, perm) -> torch.Tensor:
+        """The MI term: the positives' masked mean, and the negatives
+        (originals[i] against the predictions' row perm[i] of the global
+        batch, both rows real for the pair to count) log-averaged over the
+        global sum and count; on a mesh, this rank's share of it."""
+        mesh = active_mesh()
+        gathered = global_rows(p)
+        if perm is None:
+            perm = global_permutation(gathered.shape[0], generator, p.device)
+        perm = perm.to(p.device)
+        if mesh is not None:
+            perm = perm[mesh.rows(gathered.shape[0])]
+        w = torch.ones(p.shape[0], dtype=p.dtype, device=p.device) if sm is None \
+            else sm.reshape(-1)
+        wn = w * global_rows(w)[perm]
+        pos = mi_critic(originals, p)
+        neg = mi_critic(originals, gathered[perm])
+        neg_sum = (torch.exp(neg.reshape(-1)) * wn).sum()
+        if mesh is not None:
+            neg_sum = mesh.all_reduce(neg_sum)
+        log_mean = torch.log(neg_sum / torch.clamp(L.global_count(wn), min=1e-8) + self.epsilon)
+        return -L._masked_reduce(pos.reshape(-1), w) + L.replicated_share(log_mean)

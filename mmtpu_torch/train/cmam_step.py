@@ -23,7 +23,11 @@ CMAMLoss dicts summed. As in mmtpu and the reference, both calls receive
 the same classification logits, so that term counts twice.
 
 The steps take numpy batches and return device tensors, as
-`train/step.py`'s do.
+`train/step.py`'s do. In a data-parallel rank (`state.mesh`, or the eval
+step's `mesh`) a step takes its rows of the global batch (the teacher
+encodes those rows) and runs under `with mesh:`: the loss is this rank's
+share of the global batch's (`train/cmam_loss.py`), and the `terms` it
+returns are the global batch's, the shares summed over the ranks.
 """
 
 from __future__ import annotations
@@ -38,7 +42,7 @@ from torch import nn
 from mmtpu_torch.models.norm import batch_mask
 from mmtpu_torch.train.cmam_loss import CMAMLoss
 from mmtpu_torch.train.state import TrainState
-from mmtpu_torch.train.step import apply_gradients, apply_missing_mask, has_padded_rows, to_device
+from mmtpu_torch.train.step import apply_gradients, apply_missing_mask, on_mesh, rows_on_device
 
 # base model_type → modality → its forward argument. The keys are every
 # spelling the configs use for a C-MAM base: resolver names and class names.
@@ -122,8 +126,14 @@ def _outputs(task: CMAMTask, batch, loss, cls_logits, **extra) -> Dict[str, torc
     return out
 
 
-def _detached(terms: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    return {k: v.detach() for k, v in terms.items()}
+def _global_terms(terms: Dict[str, torch.Tensor], mesh) -> Dict[str, torch.Tensor]:
+    """The terms detached; under `mesh`, the ranks' shares summed (one
+    all-reduce), the global batch's values."""
+    terms = {k: v.detach() for k, v in terms.items()}
+    if mesh is None or not terms:
+        return terms
+    summed = mesh.all_reduce_(torch.stack(list(terms.values())))
+    return dict(zip(terms, summed.unbind()))
 
 
 def _cmam_forward(task: CMAMTask, batch, model: nn.Module, train: bool, padded: bool):
@@ -147,24 +157,27 @@ def make_cmam_train_step(task: CMAMTask, state: TrainState,
     target_embd, labels, preds, and pattern_id / sample_mask."""
 
     def step(batch: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        padded = has_padded_rows(batch)
-        batch = to_device(batch, device)
-        target, rec, cls_logits, terms = _cmam_forward(task, batch, state.model, True, padded)
+        batch, padded = rows_on_device(batch, state.mesh, device)
+        with on_mesh(state.mesh):
+            target, rec, cls_logits, terms = _cmam_forward(task, batch, state.model, True,
+                                                           padded)
         apply_gradients(state, terms["total_loss"])
         return _outputs(task, batch, terms["total_loss"].detach(), cls_logits,
-                        terms=_detached(terms), rec_embd=rec.detach(), target_embd=target)
+                        terms=_global_terms(terms, state.mesh), rec_embd=rec.detach(),
+                        target_embd=target)
 
     return step
 
 
-def make_cmam_eval_step(task: CMAMTask, device: torch.device) -> Callable:
+def make_cmam_eval_step(task: CMAMTask, device: torch.device, mesh=None) -> Callable:
     @torch.inference_mode()
     def step(batch: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        batch = to_device(batch, device)
-        target, rec, cls_logits, terms = _cmam_forward(task, batch, task.cmam_model, False,
-                                                       False)
-        return _outputs(task, batch, terms["total_loss"], cls_logits, terms=terms,
-                        rec_embd=rec, target_embd=target)
+        batch, _ = rows_on_device(batch, mesh, device)
+        with on_mesh(mesh):
+            target, rec, cls_logits, terms = _cmam_forward(task, batch, task.cmam_model,
+                                                           False, False)
+        return _outputs(task, batch, terms["total_loss"], cls_logits,
+                        terms=_global_terms(terms, mesh), rec_embd=rec, target_embd=target)
 
     return step
 
@@ -200,23 +213,26 @@ def make_dual_cmam_train_step(task: DualCMAMTask, state: TrainState,
     """As `make_cmam_train_step`, with rec_embd_two and target_embd_two."""
 
     def step(batch: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        padded = has_padded_rows(batch)
-        batch = to_device(batch, device)
-        res, cls_logits = _dual_forward(task, batch, state.model, True, padded)
+        batch, padded = rows_on_device(batch, state.mesh, device)
+        with on_mesh(state.mesh):
+            res, cls_logits = _dual_forward(task, batch, state.model, True, padded)
         apply_gradients(state, res["loss"])
-        res = {k: _detached(v) if k == "terms" else v.detach() for k, v in res.items()}
+        res = {k: _global_terms(v, state.mesh) if k == "terms" else v.detach()
+               for k, v in res.items()}
         return _outputs(task, batch, res.pop("loss"), cls_logits, **res)
 
     return step
 
 
-def make_dual_cmam_eval_step(task: DualCMAMTask, device: torch.device) -> Callable:
+def make_dual_cmam_eval_step(task: DualCMAMTask, device: torch.device,
+                             mesh=None) -> Callable:
     """As mmtpu's, its outputs carry no loss terms."""
 
     @torch.inference_mode()
     def step(batch: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        batch = to_device(batch, device)
-        res, cls_logits = _dual_forward(task, batch, task.cmam_model, False, False)
+        batch, _ = rows_on_device(batch, mesh, device)
+        with on_mesh(mesh):
+            res, cls_logits = _dual_forward(task, batch, task.cmam_model, False, False)
         res.pop("terms")
         return _outputs(task, batch, res.pop("loss"), cls_logits, **res)
 

@@ -152,6 +152,24 @@ def _jsonable(obj: Any) -> Any:
     return obj
 
 
+def gather_epoch(mesh, outs: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """An epoch's (steps, rows, ...) outputs of every rank of `mesh`, in
+    global-batch order, on every rank (one gather over the host group); the
+    losses, each rank's share of the global ones, summed."""
+    parts = mesh.gather(outs)
+    return {k: (np.sum([p[k] for p in parts], axis=0) if k == "loss"
+                else np.concatenate([p[k] for p in parts], axis=1)) for k in outs}
+
+
+def gathered_steps(mesh, outs: List[Dict[str, Any]]) -> List[Dict[str, torch.Tensor]]:
+    """The outputs of an epoch's streaming steps on every rank of `mesh`,
+    step by step in global-batch order (`gather_epoch`); what is not a
+    tensor (a step's loss-term dict) is left out."""
+    host = gather_epoch(mesh, stack_outputs(
+        [{k: v for k, v in out.items() if isinstance(v, torch.Tensor)} for out in outs]))
+    return [{k: torch.as_tensor(v[i]) for k, v in host.items()} for i in range(len(outs))]
+
+
 class TrainLoop:
     def __init__(
         self,
@@ -210,14 +228,10 @@ class TrainLoop:
         if mesh is not None:
             replicate(state.model, mesh)
             state.mesh = mesh
-        # step_builders: (make_train(task, state, device), make_eval(task, device))
-        if step_builders is None:
-            self.train_step = make_train_step(task, state, device)
-            self.eval_step = make_eval_step(task, device, mesh)
-        else:
-            make_train, make_eval = step_builders
-            self.train_step = make_train(task, state, device)
-            self.eval_step = make_eval(task, device)
+        # step_builders: (make_train(task, state, device), make_eval(task, device, mesh))
+        make_train, make_eval = step_builders or (make_train_step, make_eval_step)
+        self.train_step = make_train(task, state, device)
+        self.eval_step = make_eval(task, device, mesh)
         self._record = record_fn or self._default_record
         self.epoch_metrics: List[Dict[str, Any]] = []
         self.timing_history: Dict[str, List[float]] = {"train": [], "validation": []}
@@ -300,22 +314,14 @@ class TrainLoop:
             else:
                 outs.append(out)
         if outs:
-            host = self._gather(stack_outputs(outs))
-            for i in range(len(outs)):
-                self._record(self.recorder, {k: torch.as_tensor(v[i]) for k, v in host.items()},
-                             vocab)
-            losses = list(torch.from_numpy(host["loss"]))
+            outs = gathered_steps(self.mesh, outs)
+            for out in outs:
+                self._record(self.recorder, out, vocab)
+            losses = [out["loss"] for out in outs]
         self._sync()
         if split in self.timing_history:
             self.timing_history[split].append(time.time() - t0)
         return float(torch.stack(losses).float().mean().item()) if losses else 0.0
-
-    def _gather(self, outs: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
-        """An epoch's (steps, rows, ...) outputs of every rank, in global-batch
-        order; the losses, each rank's share of the global ones, summed."""
-        parts = self.mesh.gather(outs)
-        return {k: (np.sum([p[k] for p in parts], axis=0) if k == "loss"
-                    else np.concatenate([p[k] for p in parts], axis=1)) for k in outs}
 
     def _resident_epoch(self, split: str, epoch: int) -> float:
         """The device-resident path: the epoch's schedule keyed by the
@@ -338,7 +344,7 @@ class TrainLoop:
             outs = dl.run_eval_epoch(self.task, rs.data, schedule, self.device, rs.sub_batches,
                                      self.mesh)
         if self.mesh is not None:
-            outs = self._gather(outs)
+            outs = gather_epoch(self.mesh, outs)
         if split in self.timing_history:
             self.timing_history[split].append(time.time() - t0)
         flat = {k: v.reshape((-1,) + v.shape[2:]) for k, v in outs.items() if k != "loss"}

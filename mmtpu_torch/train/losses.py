@@ -34,15 +34,32 @@ def _masked_reduce(per_sample, sample_mask=None, weights=None):
     eff = weights
     if sample_mask is not None:
         eff = sample_mask if eff is None else eff * sample_mask
-    mesh = active_mesh()
-    if mesh is None:
+    if active_mesh() is None:
         if eff is None:
             return per_sample.mean()
         return (per_sample * eff).sum() / torch.clamp(eff.sum(), min=1e-8)
     if eff is None:
         eff = torch.ones_like(per_sample)
-    count = mesh.all_reduce_(eff.detach().sum().to(per_sample.dtype))
+    count = global_count(eff).to(per_sample.dtype)
     return (per_sample * eff).sum() / torch.clamp(count, min=1e-8)
+
+
+def global_count(weights: torch.Tensor) -> torch.Tensor:
+    """The sum of `weights` (a count of rows), detached: over the global
+    batch under a data-parallel mesh (summed over the ranks), over the
+    rows given otherwise. A share's denominator."""
+    count = weights.detach().sum()
+    mesh = active_mesh()
+    return count if mesh is None else mesh.all_reduce_(count)
+
+
+def replicated_share(value):
+    """This rank's share of a value that every rank computes alike from the
+    global batch (a term over the gathered rows, `parallel.mesh.global_rows`,
+    or a constant): 1/N of it under a mesh, so that the ranks' shares sum
+    to it as `_masked_reduce`'s do; the value itself otherwise."""
+    mesh = active_mesh()
+    return value if mesh is None else value / mesh.world_size
 
 
 def cross_entropy(logits, targets, weight=None, label_smoothing: float = 0.0,

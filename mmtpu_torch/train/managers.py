@@ -9,6 +9,10 @@ the run's device, updated in place by the train step:
   DELTA adds (`index_add_`), never as stored values: padded tail rows
   alias sample 0, and the order in which duplicate indices are written is
   unspecified, so a padded row adds a delta of exactly 0;
+- on a data-parallel mesh the train step hands them the GLOBAL batch's
+  rows, gathered from every rank in global order (mmtpu scatters its
+  global batch): every rank applies the same adds in the same order, so
+  the banks and centers are the same on every rank, and one process's;
 - `update_centers` takes masked means over the whole feature bank with the
   reference's quirk: every modality's centers are keyed by the TEXT labels
   (the reference's loop over [multimodal, audio, video, text] overwrites

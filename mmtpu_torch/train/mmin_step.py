@@ -16,7 +16,11 @@ eval batch. Padded rows stay out of BatchNorm (the sample mask is published
 when the host batch has them).
 
 The steps take numpy batches and return device tensors, as
-`train/step.py`'s do; the train step's `losses` are {ce, mse, cycle}.
+`train/step.py`'s do; the train step's `losses` are {ce, mse, cycle}. In
+a data-parallel rank (`state.mesh`, or the eval step's `mesh`) a step
+takes its rows of the global batch, the teacher encodes those rows, and
+every term, a masked row mean, is this rank's share of the global one
+(`_masked_reduce` under `with mesh:`).
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ from torch import nn
 from mmtpu_torch.models.norm import batch_mask
 from mmtpu_torch.train.losses import LossFunctionGroup, _masked_reduce
 from mmtpu_torch.train.state import TrainState
-from mmtpu_torch.train.step import apply_gradients, apply_missing_mask, has_padded_rows, to_device
+from mmtpu_torch.train.step import apply_gradients, apply_missing_mask, on_mesh, rows_on_device
 
 MODS = ("audio", "video", "text")
 
@@ -108,13 +112,14 @@ def mmin_train_step_core(task: MMINTask, state: TrainState, batch, padded: bool 
     """One gradient step on a batch already on the device. Returns the
     detached loss, the {ce, mse, cycle} terms and the logits."""
     sm = batch.get("sample_mask")
-    res = task.apply(batch, train=True, bn_mask=sm if padded else None)
-    loss_ce, loss_mse, loss_cycle = mmin_losses(task, res, batch)
-    total = loss_ce + loss_mse + loss_cycle
-    teacher = task.teacher_embeddings(batch)
-    if teacher is not None:
-        total = total + loss_weight(task.loss_group, "mse") * _feature_mse(
-            res["recon_fusion"], teacher, sm)
+    with on_mesh(state.mesh):
+        res = task.apply(batch, train=True, bn_mask=sm if padded else None)
+        loss_ce, loss_mse, loss_cycle = mmin_losses(task, res, batch)
+        total = loss_ce + loss_mse + loss_cycle
+        teacher = task.teacher_embeddings(batch)
+        if teacher is not None:
+            total = total + loss_weight(task.loss_group, "mse") * _feature_mse(
+                res["recon_fusion"], teacher, sm)
     apply_gradients(state, total)
     terms = {"ce": loss_ce.detach(), "mse": loss_mse.detach(), "cycle": loss_cycle.detach()}
     return total.detach(), terms, res["logits"].detach()
@@ -125,20 +130,22 @@ def make_mmin_train_step(task: MMINTask, state: TrainState, device: torch.device
     labels, and pattern_id / sample_mask when the batch has them."""
 
     def step(batch: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        padded = has_padded_rows(batch)
-        batch = to_device(batch, device)
+        batch, padded = rows_on_device(batch, state.mesh, device)
         loss, terms, logits = mmin_train_step_core(task, state, batch, padded)
         return _outputs(task, batch, loss, logits, losses=terms)
 
     return step
 
 
-def make_mmin_eval_step(task: MMINTask, device: torch.device) -> Callable:
+def make_mmin_eval_step(task: MMINTask, device: torch.device, mesh=None) -> Callable:
     @torch.inference_mode()
     def step(batch: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        batch = to_device(batch, device)
-        res = task.apply(batch, train=False)
-        loss_ce, loss_mse, loss_cycle = mmin_losses(task, res, batch, stop_grad_fusion=False)
+        batch, _ = rows_on_device(batch, mesh, device)
+        with on_mesh(mesh):
+            res = task.apply(batch, train=False)
+            loss_ce, loss_mse, loss_cycle = mmin_losses(task, res, batch,
+                                                        stop_grad_fusion=False)
         return _outputs(task, batch, loss_ce + loss_mse + loss_cycle, res["logits"])
 
     return step
+

@@ -21,6 +21,12 @@ The eval step's loss is the fused CE alone.
 The train step keeps the schedule in its closure (`RedCoreTrainStep.sched`);
 it is not checkpointed, as in mmtpu. The VAE samples and the transformer
 dropouts draw from the run's generator (`models/rng.py`).
+
+In a data-parallel rank (`state.mesh`, or the eval step's `mesh`) a step
+takes its rows of the global batch and runs under `with mesh:`: B and each
+Σ index_m are the global batch's counts, so every term is this rank's
+share of the global one, and the MSEs that drive the schedule are the
+shares summed over the ranks: every rank advances the same β, EMA and η.
 """
 
 from __future__ import annotations
@@ -33,10 +39,11 @@ import torch
 from torch import nn
 
 from mmtpu_torch.models.norm import batch_mask
-from mmtpu_torch.train.losses import LossFunctionGroup
+from mmtpu_torch.parallel.mesh import active_mesh
+from mmtpu_torch.train.losses import LossFunctionGroup, global_count
 from mmtpu_torch.train.mmin_step import MODS, loss_weight, masked, masked_ce
 from mmtpu_torch.train.state import TrainState
-from mmtpu_torch.train.step import apply_gradients, has_padded_rows, to_device
+from mmtpu_torch.train.step import apply_gradients, on_mesh, rows_on_device
 
 
 @dataclasses.dataclass
@@ -77,11 +84,16 @@ class RedCoreTask:
 
 
 def redcore_loss(task: RedCoreTask, res, batch, beta: torch.Tensor):
-    """The total loss and the (3,) per-modality MSEs."""
+    """The total loss and the (3,) per-modality MSEs (detached; the global
+    batch's under a mesh)."""
     iA, iV, iT = task.indices(batch)
     labels = batch[task.label_key]
     sm = batch.get("sample_mask")
-    B = iA.shape[0] if sm is None else torch.clamp(sm.sum(), min=1.0)
+    mesh = active_mesh()
+    if sm is None:
+        B = iA.shape[0] * (1 if mesh is None else mesh.world_size)
+    else:
+        B = torch.clamp(global_count(sm), min=1.0)
     ce_w = loss_weight(task.loss_group, "cross_entropy")
     ce, ce_A, ce_V, ce_T = (ce_w * masked_ce(res[k], labels, sm)
                             for k in ("logits", "logits_A", "logits_V", "logits_T"))
@@ -92,7 +104,8 @@ def redcore_loss(task: RedCoreTask, res, batch, beta: torch.Tensor):
 
     def masked_mse(gen, feat, idx):
         diff = (gen - feat) * idx[:, None]
-        return torch.sum(diff ** 2) / (B * gen.shape[-1]) / torch.clamp(idx.sum(), min=1.0)
+        return torch.sum(diff ** 2) / (B * gen.shape[-1]) / torch.clamp(global_count(idx),
+                                                                       min=1.0)
 
     index = dict(zip("AVT", (iA, iV, iT)))
     klds = [kld(res[f"fmu_{m}"], res[f"flog_var_{m}"], index[m]) for m in "AVT"]
@@ -100,7 +113,8 @@ def redcore_loss(task: RedCoreTask, res, batch, beta: torch.Tensor):
     loss_mse = loss_weight(task.loss_group, "mse") * (
         beta[0] * mses[0] + beta[1] * mses[1] + beta[2] * mses[2])
     total = ce + (klds[0] + klds[1] + klds[2]) + ce_A + ce_V + ce_T + loss_mse
-    return total, torch.stack(mses).detach()
+    mses = torch.stack(mses).detach()
+    return total, mses if mesh is None else mesh.all_reduce_(mses)
 
 
 def advance_schedule(task: RedCoreTask, sched: RedCoreSchedState,
@@ -140,25 +154,26 @@ class RedCoreTrainStep:
     def core(self, batch, padded: bool = True):
         """One step on a batch on the device; returns (loss, logits), detached."""
         sm = batch.get("sample_mask")
-        res = self.task.apply(batch, train=True, bn_mask=sm if padded else None)
-        loss, mses = redcore_loss(self.task, res, batch, self.sched.beta)
+        with on_mesh(self.state.mesh):
+            res = self.task.apply(batch, train=True, bn_mask=sm if padded else None)
+            loss, mses = redcore_loss(self.task, res, batch, self.sched.beta)
         apply_gradients(self.state, loss)
         self.sched = advance_schedule(self.task, self.sched, mses)
         return loss.detach(), res["logits"].detach()
 
     def __call__(self, batch: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        padded = has_padded_rows(batch)
-        batch = to_device(batch, self.device)
+        batch, padded = rows_on_device(batch, self.state.mesh, self.device)
         loss, logits = self.core(batch, padded)
         return _outputs(self.task, batch, loss, logits)
 
 
-def make_redcore_eval_step(task: RedCoreTask, device: torch.device):
+def make_redcore_eval_step(task: RedCoreTask, device: torch.device, mesh=None):
     @torch.inference_mode()
     def step(batch: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        batch = to_device(batch, device)
-        res = task.apply(batch, train=False)
-        loss = masked_ce(res["logits"], batch[task.label_key], batch.get("sample_mask"))
+        batch, _ = rows_on_device(batch, mesh, device)
+        with on_mesh(mesh):
+            res = task.apply(batch, train=False)
+            loss = masked_ce(res["logits"], batch[task.label_key], batch.get("sample_mask"))
         return _outputs(task, batch, loss, res["logits"])
 
     return step

@@ -21,6 +21,14 @@ mean over the batch's real rows. Then, in this order:
 pattern evaluates like `atv`. The eval loss is the masked L1 of the fusion
 prediction to the label. On the GPU the two AuViSubNets launch the `lstm`
 kernel once each per forward.
+
+In a data-parallel rank (`state.mesh`, or the eval step's `mesh`) a step
+takes its rows of the global batch and runs under `with mesh:`, so each
+L1 is this rank's share of the global batch's (the global real-row count
+as its denominator); then the features, indices and sample mask are
+gathered from every rank in global-batch order (`Mesh.all_gather`), and
+every rank refines, writes and re-centers from the global batch, as one
+process does: the banks stay equal on every rank.
 """
 
 from __future__ import annotations
@@ -31,10 +39,11 @@ from typing import Any, Callable, Dict, Mapping
 import numpy as np
 import torch
 
-from mmtpu_torch.train.losses import _masked_reduce
+from mmtpu_torch.parallel.mesh import active_mesh
+from mmtpu_torch.train.losses import _masked_reduce, global_count
 from mmtpu_torch.train.managers import ManagerState
 from mmtpu_torch.train.state import TrainState
-from mmtpu_torch.train.step import apply_gradients, to_device
+from mmtpu_torch.train.step import apply_gradients, on_mesh, rows_on_device
 
 MODALITIES = ("multimodal", "audio", "video", "text")
 REFINE_EPS = 1e-8
@@ -55,12 +64,17 @@ class SelfMMTask:
 
 
 def weighted_l1(pred, target, weight=None, sample_mask=None) -> torch.Tensor:
+    """Σ w·|pred − target| over the real rows / their count (at least 1);
+    under a mesh, this rank's share: the count is the global batch's."""
     pred, target = pred.reshape(-1), target.reshape(-1)
     w = torch.ones_like(pred) if weight is None else weight
     if sample_mask is not None:
         w = w * sample_mask
-        return (w * (pred - target).abs()).sum() / torch.clamp(sample_mask.sum(), min=1.0)
-    return (w * (pred - target).abs()).mean()
+        return (w * (pred - target).abs()).sum() / torch.clamp(global_count(sample_mask),
+                                                               min=1.0)
+    if active_mesh() is None:
+        return (w * (pred - target).abs()).mean()
+    return (w * (pred - target).abs()).sum() / global_count(torch.ones_like(pred))
 
 
 def self_mm_loss(outputs, managers: ManagerState, idx, sample_mask) -> torch.Tensor:
@@ -109,16 +123,31 @@ def self_mm_train_step_core(task: SelfMMTask, state: TrainState, managers: Manag
     """One step on a batch already on the device; the banks updated in
     place. Returns the step's outputs (loss detached)."""
     idx, sm = batch["sample_idx"], batch.get("sample_mask")
-    outputs = task.apply(batch, train=True)
-    loss = self_mm_loss(outputs, managers, idx, sm)
+    with on_mesh(state.mesh):
+        outputs = task.apply(batch, train=True)
+        loss = self_mm_loss(outputs, managers, idx, sm)
     apply_gradients(state, loss)
     features = {m: outputs["features"][m].detach() for m in MODALITIES}
+    bank_idx, bank_sm = idx, sm  # the rows the banks take: every rank's under a mesh
+    if state.mesh is not None:
+        bank_idx, bank_sm = global_batch(state.mesh, features, idx, sm)
     if epoch > 1:
-        refine_labels(managers, features, idx, epoch, task.H, sample_mask=sm)
-    managers.update_features(features, idx, sample_mask=sm)
+        refine_labels(managers, features, bank_idx, epoch, task.H, sample_mask=bank_sm)
+    managers.update_features(features, bank_idx, sample_mask=bank_sm)
     managers.update_centers(exclude_zero=task.exclude_zero)
     preds = outputs["predictions"]["multimodal"].detach().reshape(-1)
     return _outputs(batch, loss.detach(), preds, sm)
+
+
+def global_batch(mesh, features: Dict[str, torch.Tensor], idx, sample_mask):
+    """The global batch's features (in place of `features`' rank rows),
+    indices and sample mask, gathered from every rank in global order (two
+    or three gathers: the features side by side, the indices, the mask)."""
+    widths = [features[m].shape[-1] for m in MODALITIES]
+    gathered = mesh.all_gather(torch.cat([features[m] for m in MODALITIES], dim=-1))
+    features.update(zip(MODALITIES, gathered.split(widths, dim=-1)))
+    return (mesh.all_gather(idx),
+            None if sample_mask is None else mesh.all_gather(sample_mask))
 
 
 def make_self_mm_train_step(task: SelfMMTask, state: TrainState,
@@ -126,23 +155,26 @@ def make_self_mm_train_step(task: SelfMMTask, state: TrainState,
     """(managers, numpy batch, epoch) → dict of tensors on `device`."""
 
     def step(managers: ManagerState, batch: Mapping[str, np.ndarray], epoch: int):
-        return self_mm_train_step_core(task, state, managers, to_device(batch, device), epoch)
+        batch, _ = rows_on_device(batch, state.mesh, device)
+        return self_mm_train_step_core(task, state, managers, batch, epoch)
 
     return step
 
 
-def make_self_mm_eval_step(task: SelfMMTask, device: torch.device) -> Callable:
+def make_self_mm_eval_step(task: SelfMMTask, device: torch.device, mesh=None) -> Callable:
     """(numpy batch) → dict of tensors on `device`: the masked L1 of the
     fusion prediction, preds, labels, pattern_id, sample_mask."""
 
     @torch.inference_mode()
     def step(batch: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        batch = to_device(batch, device)
+        batch, _ = rows_on_device(batch, mesh, device)
         outputs = task.apply(batch, train=False)
         preds = outputs["predictions"]["multimodal"].reshape(-1)
         labels = batch["labels"].to(torch.float32).reshape(-1)
         sm = batch.get("sample_mask")
-        return _outputs(batch, _masked_reduce((preds - labels).abs(), sm), preds, sm)
+        with on_mesh(mesh):
+            loss = _masked_reduce((preds - labels).abs(), sm)
+        return _outputs(batch, loss, preds, sm)
 
     return step
 

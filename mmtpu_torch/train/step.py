@@ -71,6 +71,14 @@ def has_padded_rows(batch: Mapping[str, np.ndarray]) -> bool:
     return mask is not None and not np.all(mask > 0)
 
 
+def rows_on_device(batch: Mapping[str, np.ndarray], mesh, device: torch.device):
+    """This rank's rows of the host batch under `mesh` (all of them
+    without one) on `device`, and whether those rows have padded ones."""
+    if mesh is not None:
+        batch = shard_batch(batch, mesh)
+    return to_device(batch, device), has_padded_rows(batch)
+
+
 @dataclasses.dataclass
 class ClassificationTask:
     """Multi-input classifier: inputs → logits → loss, predictions.
@@ -193,10 +201,7 @@ def make_train_step(task: ClassificationTask, state: TrainState,
     its outputs are those rows'."""
 
     def step(batch: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        if state.mesh is not None:
-            batch = shard_batch(batch, state.mesh)
-        padded = has_padded_rows(batch)
-        batch = to_device(batch, device)
+        batch, padded = rows_on_device(batch, state.mesh, device)
         loss, logits, sample_mask = train_step_core(task, state, batch, padded)
         return _outputs(task, batch, loss, logits, sample_mask)
 
@@ -210,10 +215,7 @@ def make_eval_step(task: ClassificationTask, device: torch.device, mesh=None) ->
 
     @torch.inference_mode()
     def step(batch: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        if mesh is not None:
-            batch = shard_batch(batch, mesh)
-        padded = has_padded_rows(batch)
-        batch = to_device(batch, device)
+        batch, padded = rows_on_device(batch, mesh, device)
         sample_mask = batch.get("sample_mask")
         with on_mesh(mesh):
             out = task.apply(batch, train=False, bn_mask=sample_mask if padded else None)

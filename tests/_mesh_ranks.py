@@ -10,6 +10,7 @@ ranks write what they computed beside them, one file per rank.
 from __future__ import annotations
 
 import builtins
+import contextlib
 import importlib
 import io
 import json
@@ -156,7 +157,71 @@ def loop_case(work: Path, mesh) -> dict:
     return out
 
 
-CASES = {"bn": bn_case, "steps": steps_case, "loop": loop_case}
+LOSS_UNITS = ("mmd", "moments", "mi", "cmam")
+
+
+@contextlib.contextmanager
+def _float64_criteria():
+    """The criteria keep float64 (they cast their inputs to float32, as
+    mmtpu's do)."""
+    from mmtpu_torch.train import losses
+
+    cast = losses._as_float
+    losses._as_float = lambda x: torch.as_tensor(x).double()
+    try:
+        yield
+    finally:
+        losses._as_float = cast
+
+
+def loss_unit(data: dict, unit: str, variant: str, rows: slice, mesh=None):
+    """One of C-MAM's loss units in float64 on `rows` of `data` (the global
+    batch of `loss.pt`), under `mesh` where given: (value, gradient of the
+    predictions' rows). `variant` "padded" masks all but the first 5 of 16
+    rows (at N = 2 rank 1 holds none). The MI term takes `data["perm"]`; the
+    full loss, every weight on, draws its permutation from a generator
+    seeded 11 (rank 0's on a mesh)."""
+    from mmtpu_torch.train import cmam_loss as C
+
+    p = data["p"][rows].clone().requires_grad_()
+    t, orig = data["t"][rows], data["orig"][rows]
+    sm = data["mask"][rows] if variant == "padded" else None
+
+    def critic(o, z):
+        return ((o @ data["A"]) * z).sum(-1)
+
+    with _float64_criteria(), mesh if mesh is not None else contextlib.nullcontext():
+        if unit == "mmd":
+            value = C.mmd_loss(p, t, 1.5, sample_mask=sm)
+        elif unit == "moments":
+            value = C.moment_matching_loss(p, t, 3, sample_mask=sm)
+        elif unit == "mi":
+            value = C.CMAMLoss(cosine_weight=0.0, mae_weight=0.0, mse_weight=0.0,
+                               cls_weight=0.0, mi_weight=1.0)(
+                p, t, originals=orig, mi_critic=critic, sample_mask=sm,
+                perm=data["perm"])["mi_loss"]
+        else:
+            loss = C.CMAMLoss(cls_weight=0.5, mmd_weight=0.7, moment_weight=0.3,
+                              cyclic_weight=0.2, mi_weight=0.4, mmd_sigma=2.0)
+            value = loss(p, t, originals=orig, reconstructed=p,
+                         forward_func=lambda r: r @ data["Bc"], cls_logits=p @ data["C"],
+                         cls_labels=data["labels"][rows], mi_critic=critic,
+                         generator=torch.Generator().manual_seed(11),
+                         sample_mask=sm)["total_loss"]
+    value.backward()
+    return value.detach(), p.grad
+
+
+def loss_case(work: Path, mesh) -> dict:
+    """Every loss unit and variant on this rank's rows of `loss.pt`: this
+    rank's share of the value and its rows' gradient."""
+    data = torch.load(work / "loss.pt", weights_only=True)
+    rows = mesh.rows(data["p"].shape[0])
+    return {(unit, variant): loss_unit(data, unit, variant, rows, mesh)
+            for unit in LOSS_UNITS for variant in ("full", "padded")}
+
+
+CASES = {"bn": bn_case, "steps": steps_case, "loop": loop_case, "loss": loss_case}
 
 
 def run_cases(work: str, names) -> int:
@@ -223,3 +288,82 @@ def fail_on_rank(bad: int, module: str, argv) -> int:
     if get_default_mesh().rank == bad:
         raise RuntimeError(f"rank {bad} fails on purpose")
     return importlib.import_module(module).main(list(argv))
+
+
+@contextlib.contextmanager
+def probes(out: Path, tag: str, weights=None):
+    """Inside the `with` body a training CLI runs with no dropout and ε = 0
+    (each rank would draw its own), its models from `weights` (mmtpu's
+    initial variables, in the order the driver builds its models) when
+    given, and what it does recorded to `<out>/<tag>.pt`: every file opened
+    for writing (or `torch.save`d), RedCore's schedule after each step and
+    Self-MM's banks after the last step."""
+    from mmtpu_torch.checkpoints import from_jax_variables
+    from mmtpu_torch.cli import common
+    from mmtpu_torch.models import rng
+    from mmtpu_torch.train import redcore_step
+    from mmtpu_torch.train.managers import ManagerState
+
+    seen = {"writes": [], "sched": [], "banks": None}
+    queue = list(weights or ())
+    real = (builtins.open, io.open, torch.save, common.init_model, redcore_step.advance_schedule,
+            ManagerState.update_centers, rng.GeneratorDropout.forward, rng.GeneratorNormal.forward)
+
+    def spy(opener):
+        def opened(file, mode="r", *args, **kwargs):
+            if any(c in str(mode) for c in "wax+"):
+                seen["writes"].append(str(file))
+            return opener(file, mode, *args, **kwargs)
+        return opened
+
+    def save(obj, f, *args, **kwargs):  # opens its path in C++
+        if isinstance(f, (str, os.PathLike)):
+            seen["writes"].append(str(f))
+        return real[2](obj, f, *args, **kwargs)
+
+    def init_model(model, seed, device):
+        if not queue:
+            return real[3](model, seed, device)
+        v = queue.pop(0)
+        model.load_state_dict(from_jax_variables(v["params"], v.get("batch_stats") or None,
+                                                 target=model), strict=True)
+        torch.manual_seed(int(seed))
+        return model.to(device)
+
+    def advance(task, sched, mses):
+        new = real[4](task, sched, mses)
+        seen["sched"].append({k: getattr(new, k).clone()
+                              for k in ("beta", "loss_ema", "eta", "iter_count")})
+        return new
+
+    def centers(self, *args, **kwargs):
+        out = real[5](self, *args, **kwargs)
+        seen["banks"] = {f"{kind}/{m}": v.clone() for kind in
+                         ("features", "labels", "centers_pos", "centers_neg")
+                         for m, v in getattr(self, kind).items()}
+        return out
+
+    builtins.open, io.open, torch.save = spy(real[0]), spy(real[1]), save
+    common.init_model, redcore_step.advance_schedule = init_model, advance
+    ManagerState.update_centers = centers
+    rng.GeneratorDropout.forward = lambda self, x: x
+    rng.GeneratorNormal.forward = lambda self, like: torch.zeros_like(like)
+    try:
+        yield
+    finally:
+        (builtins.open, io.open, torch.save, common.init_model, redcore_step.advance_schedule,
+         ManagerState.update_centers, rng.GeneratorDropout.forward,
+         rng.GeneratorNormal.forward) = real
+        torch.save(seen, Path(out) / f"{tag}.pt")
+
+
+def probed_main(module: str, argv, out: str, weights_file=None) -> int:
+    """`module.main(argv)` under `probes`, in a rank (`rank{r}.pt`) or in
+    one process (`single.pt`); `weights_file` holds the list of mmtpu's
+    initial variables."""
+    mesh = get_default_mesh()
+    if mesh is not None:  # tiny models: two threads a rank leave the suite's other workers room
+        torch.set_num_threads(2)
+    weights = torch.load(weights_file, weights_only=False) if weights_file else None
+    with probes(Path(out), "single" if mesh is None else f"rank{mesh.rank}", weights):
+        return importlib.import_module(module).main(list(argv))

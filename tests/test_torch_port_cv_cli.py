@@ -162,7 +162,7 @@ def test_stacked_runs_on_a_cv_config_run_the_repeats_sequentially(tmp_path, monk
 
     calls = []
 
-    def spy(cfg, args, device, json_nesting="reference"):
+    def spy(cfg, args, device, json_nesting="reference", mesh=None):
         calls.append((args.run_id, cfg.experiment.seed))
         return 0
 

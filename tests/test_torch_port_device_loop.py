@@ -130,7 +130,8 @@ def test_qualifying_loop_is_resident_by_default_and_custom_steps_stream():
     assert not port_loop("off")._resident
     assert not port_loop("auto", record_fn=lambda *a: None)._resident
     loop = port_loop("off")
-    builders = (lambda task, state, device: loop.train_step, lambda task, device: loop.eval_step)
+    builders = (lambda task, state, device: loop.train_step,
+                lambda task, device, mesh: loop.eval_step)
     assert not port_loop("auto", step_builders=builders)._resident
 
 

@@ -373,9 +373,9 @@ def test_cross_validation_hands_each_fold_its_cv_no(tmp_path, monkeypatch, capfd
     seen = []
     real = msa_runners.run
 
-    def spy(cfg_, args, device):
+    def spy(cfg_, args, device, mesh=None):
         seen.append(sorted({d.kwargs.get("cv_no") for d in cfg_.data.datasets.values()}))
-        return real(cfg_, args, device)
+        return real(cfg_, args, device, mesh)
 
     monkeypatch.setattr(msa_runners, "run", spy)
     assert run_cli_inproc("mmtpu_torch.cli.train_multimodal", cfg, run_id="1",

@@ -16,7 +16,13 @@ and against mmtpu's mesh on the CPU, with 2 and 4 gloo ranks
 - the `TrainLoop`, resident and streaming, at N = 2 against one process and
   against mmtpu's scan-on-mesh (`tests/test_device_loop.py`'s recipe):
   epoch losses at 1e-5, metrics identical; a train batch that does not
-  divide over the ranks streams.
+  divide over the ranks streams;
+- C-MAM's loss units at N = 2 in float64 against one process on the
+  global batch: `mmd_loss`, `moment_matching_loss`, the MI term (handed
+  one global permutation) and the full `CMAMLoss` with every weight on
+  (its permutation drawn by rank 0): the ranks' shares summed within 1e-6,
+  the predictions' gradients within 1e-6 of their norm, a full batch and a
+  padded one whose rank 1 holds no real row.
 """
 
 import argparse
@@ -54,6 +60,7 @@ from mmtpu_torch.parallel.launch import launch  # noqa: E402
 
 CPU = torch.device("cpu")
 BN_TOL = 1e-6
+LOSS_TOL = 1e-6
 STEP_RTOL, STEP_ATOL = 1e-5, 1e-6  # mmtpu's tests/test_parallel.py
 LOOP_TOL = 1e-5
 ENC_ARGS = dict(
@@ -137,12 +144,30 @@ def _jax_steps(work: Path) -> dict:
     return want
 
 
+def _loss_inputs(work: Path) -> dict:
+    g = torch.Generator().manual_seed(5)
+    data = {"p": torch.randn(16, 6, generator=g, dtype=torch.float64),
+            "t": torch.randn(16, 6, generator=g, dtype=torch.float64),
+            "orig": torch.randn(16, 5, generator=g, dtype=torch.float64),
+            "A": 0.3 * torch.randn(5, 6, generator=g, dtype=torch.float64),
+            "Bc": 0.3 * torch.randn(6, 5, generator=g, dtype=torch.float64),
+            "C": torch.randn(6, 3, generator=g, dtype=torch.float64),
+            "labels": torch.randint(0, 3, (16,), generator=g),
+            "perm": torch.randperm(16, generator=g),
+            # 5 real rows: at N = 2 rank 1 holds none
+            "mask": (torch.arange(16) < 5).to(torch.float64)}
+    torch.save(data, work / "loss.pt")
+    return data
+
+
 @pytest.fixture(scope="module")
 def two(tmp_path_factory):
-    """Two ranks: the BatchNorm, the train steps and the loop; mmtpu's steps
-    and scan-on-mesh loop; the port's loop in one process."""
+    """Two ranks: the BatchNorm, the train steps, the loop and C-MAM's loss
+    units; mmtpu's steps and scan-on-mesh loop; the port's loop in one
+    process."""
     work = tmp_path_factory.mktemp("mesh2")
     bn = _bn_inputs(work)
+    loss = _loss_inputs(work)
     steps = _jax_steps(work)
     jloop = jax_build_loop("on", mesh=_mesh2())
     assert jloop._scan
@@ -151,11 +176,12 @@ def two(tmp_path_factory):
                      hidden_dim=16, dropout=0.0)
     sd = from_jax_variables(params, target=target)
     torch.save(sd, work / "loop.pt")
-    ranks = _run_ranks(work, 2, ["bn", "steps", "loop"])
+    ranks = _run_ranks(work, 2, ["bn", "steps", "loop", "loss"])
     jloop.run()
     single = _mesh_ranks.loop("on", sd)
     single.run()
-    return {"bn": bn, "steps": steps, "jloop": jloop, "single": single, "ranks": ranks}
+    return {"bn": bn, "steps": steps, "jloop": jloop, "single": single, "ranks": ranks,
+            "loss": loss}
 
 
 @pytest.fixture(scope="module")
@@ -324,3 +350,17 @@ def test_indivisible_train_batch_streams_on_mesh(two):
     """mmtpu's `test_scan_on_mesh_skips_indivisible_batch`: a train batch of
     31 does not divide over 2 ranks, so train streams; validation stays."""
     assert two["ranks"][0]["loop"]["indivisible_resident"] == ["validation"]
+
+
+@pytest.mark.parametrize("variant", ["full", "padded"])
+@pytest.mark.parametrize("unit", _mesh_ranks.LOSS_UNITS)
+def test_cmam_loss_units_match_one_process_on_the_global_batch(two, unit, variant):
+    want, want_grad = _mesh_ranks.loss_unit(two["loss"], unit, variant, slice(None))
+    shares = [r["loss"][(unit, variant)] for r in two["ranks"]]
+    got = sum(v for v, _ in shares)
+    got_grad = torch.cat([g for _, g in shares])
+    assert abs(float(got - want)) <= LOSS_TOL * max(abs(float(want)), 1.0), (got, want)
+    err = float(torch.linalg.vector_norm(got_grad - want_grad))
+    assert err <= LOSS_TOL * float(torch.linalg.vector_norm(want_grad)), err
+    if variant == "padded" and unit != "cmam":  # rank 1's rows are padding
+        assert float(torch.linalg.vector_norm(shares[1][1])) == 0.0

@@ -17,9 +17,11 @@ process each, `mmtpu_torch/parallel/launch.py`) against `--data-parallel 1`:
   ResNet18's place): the records within 1e-4 and the encoder handoff;
 - `--resume` on the mesh, dropout on: an interrupted and resumed run equals
   an uninterrupted one (the ranks' own RNG states restore);
-- a rank that raises ends the run non-zero within the timeout;
-- MMIN, Self-MM and `train_cmam` raise NotImplementedError for N > 1,
-  pointing at the ROADMAP item that queues them.
+- a rank that raises ends the run non-zero within the timeout.
+
+MMIN, RedCore, Self-MM and `train_cmam` on the mesh:
+`tests/test_torch_port_parallel_drivers.py` and
+`tests/test_torch_port_parallel_drivers_mmtpu.py`.
 """
 
 import json
@@ -199,13 +201,3 @@ def test_a_failing_rank_fails_the_run_within_the_timeout(tmp_path, capfd):
     rc = launch(_mesh2(), _mesh_ranks.fail_on_rank, (1, MULTI, _argv(cfg, 1)), timeout=60)
     assert rc != 0 and time.monotonic() - t0 < 60
     assert "rank 1 fails on purpose" in capfd.readouterr().err
-
-
-@pytest.mark.parametrize("module,src", [
-    (MULTI, "mosi/synthetic_mmin.yaml"), (MULTI, "mosi/synthetic_self_mm.yaml"),
-    ("mmtpu_torch.cli.train_cmam", "mosi/synthetic_dual_cmam.yaml")])
-def test_drivers_without_a_mesh_raise(tmp_path, module, src):
-    cfg = _config(tmp_path, src)
-    with pytest.raises(NotImplementedError, match=r"data_parallel=2: .* on several devices "
-                                                  r"is not ported .*ROADMAP.md §1 item 6"):
-        run_cli_inproc(module, cfg, run_id="1", extra=("--data-parallel", "2"))

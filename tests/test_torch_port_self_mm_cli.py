@@ -120,9 +120,9 @@ def test_dry_run_trains_nothing(tmp_path, capfd, monkeypatch):
     seen = []
     real = train_self_mm.run
 
-    def spy(cfg, args, device):
+    def spy(cfg, args, device, mesh=None):
         seen.append(cfg.model.model_type)
-        return real(cfg, args, device)
+        return real(cfg, args, device, mesh)
 
     monkeypatch.setattr(train_self_mm, "run", spy)
     assert run_cli_inproc("mmtpu_torch.cli.train_multimodal", CFG, run_id="1",
@@ -139,9 +139,9 @@ def test_cross_validation_hands_each_fold_its_cv_no(tmp_path, monkeypatch, capfd
     seen = []
     real = train_self_mm.run
 
-    def spy(cfg_, args, device):
+    def spy(cfg_, args, device, mesh=None):
         seen.append(sorted({d.kwargs.get("cv_no") for d in cfg_.data.datasets.values()}))
-        return real(cfg_, args, device)
+        return real(cfg_, args, device, mesh)
 
     monkeypatch.setattr(train_self_mm, "run", spy)
     assert run_cli_inproc("mmtpu_torch.cli.train_multimodal", cfg, run_id="1",

@@ -344,7 +344,8 @@ def test_route_stacked_folds(monkeypatch, case):
     cfg = _route_cfg(model_type="mmin" if case == "custom_step" else "avmnist")
     assert train_multimodal.route(cfg, args, CPU, json_nesting="avmnist") == 0
     want = "stacked" if case == "engine" else "sequential"
-    assert rec.calls == [(want, {"json_nesting": "avmnist"})]
+    kw = {"json_nesting": "avmnist", **({} if want == "stacked" else {"mesh": None})}
+    assert rec.calls == [(want, kw)]
 
 
 @pytest.mark.parametrize("case", ["engine", "dp", "cv", "resume"])
@@ -354,7 +355,7 @@ def test_route_stacked_runs(monkeypatch, case):
                         lambda args, device, json_nesting: calls.append(("stacked", json_nesting))
                         or 0)
     monkeypatch.setattr(train_multimodal, "sequential_runs",
-                        lambda args, device, json_nesting="reference":
+                        lambda args, device, json_nesting="reference", mesh=None:
                         calls.append(("sequential", args.stacked_runs)) or 0)
     args = SimpleNamespace(stacked_runs=3, stacked_folds=False,
                            data_parallel=2 if case == "dp" else None, resume=case == "resume")
@@ -367,12 +368,13 @@ def test_sequential_runs_derive_members_like_the_stacked_engine(monkeypatch):
     base = SimpleNamespace(run_id=3, stacked_runs=2, config="x.yaml")
     seen = []
 
-    def fake_load(sub):
+    def fake_load(sub, mesh=None):
         seen.append((sub.run_id, sub.seed_offset, sub.stacked_runs))
         return _route_cfg(cv=0)
 
     monkeypatch.setattr(common, "load_config", fake_load)
-    monkeypatch.setattr(train_multimodal, "route", lambda cfg, sub, device, json_nesting: 0)
+    monkeypatch.setattr(train_multimodal, "route",
+                        lambda cfg, sub, device, json_nesting, mesh=None: 0)
     assert train_multimodal.sequential_runs(base, CPU) == 0
     assert seen == [(3, 0, 0), (4, 1, 0)]
 
