@@ -208,8 +208,9 @@ FcClassifier 192→[192, 64, 32]→3; batch 32, aligned T = 50):
              registry at the Multimodal-Transformer repository's CMU-MOSI
              defaults (attention 30, 5 heads, 5 layers, the class's dropouts,
              clip 0.8, Adam 1e-3, batch 24) on seeded inputs at the MOSI
-             twin's widths (audio 5, video 20, text 768, T = 50, 1284
-             samples: 54 batches, a tail of 12 real rows), through the port's
+             twin's widths (audio 5, video 20, text 768, T = 50, 636
+             samples, half CMU-MOSI's 1284: 27 batches, a tail of
+             12 real rows as at 1284), through the port's
              generic `ClassificationTask` train step, without and with the
              discriminator (λ_d 0.1): two passes (samples/s of the second),
              a profiled window of 8 steps, neither kernel launched; steps
@@ -311,6 +312,25 @@ FcClassifier 192→[192, 64, 32]→3; batch 32, aligned T = 50):
              and `lstm` at (2, 16, 50, 64), (2, 128, 50, 64), (1, 16, 50,
              64), (1, 16, 50, 16) and (1, 16, 50, 32), the ranks' shards.
 
+17. monitor — the HDF5 experiment monitor (`mmtpu_torch/monitor/`), its
+             storage an in-memory sink (the card's machine has no h5py), TF32
+             off, dropout 0: (a) phase 5's scratch fine-tune (ResNet18/34,
+             batch 128) and (b) phase 6's UttFusion (batch 32, T = 50). For
+             each: three monitored steps at intervals 1 / 1 on the card and
+             on the CPU, each from the same state, then the weights: the same
+             record names, every record within 1e-3 (value columns of the
+             leaf's max |x|, l1 and l2 relative; fractions; skewness and
+             kurtosis relative; the ResNets' in a float64 step and its
+             weights, their float32 records printed), and every reduction
+             the card made against the CPU's of the same tensor;
+             `fused_mlp` once per capture forward, `lstm` once per train
+             step and per capture forward. Then one streaming train epoch
+             each unmonitored, at 100 / 100 and at 1 / 1 (samples/s,
+             records per step, the launches with a streamed validation
+             epoch), and one profiled capture of each kind (its host share). `train_multimodal.main` with the monitor
+             enabled must stop before its first step with the error that
+             names h5py.
+
     python3 chip_smoke.py --train-only    # build, then phases 5 and 6 alone
     python3 chip_smoke.py --reader-only   # build, the audio pretraining, phase 7
     python3 chip_smoke.py --shipped-only  # build, phase 7's .pt files, phase 8
@@ -330,6 +350,7 @@ FcClassifier 192→[192, 64, 32]→3; batch 32, aligned T = 50):
     python3 chip_smoke.py --resident-only # build, phase 15 (a)
     python3 chip_smoke.py --stacked-only  # build, phase 2's member axis, phase 15 (b), (c)
     python3 chip_smoke.py --mesh-only     # build, phase 16 (a)-(g)
+    python3 chip_smoke.py --monitor-only  # build, phase 17 (a), (b)
 
 Prints a `kernels` JSON line, the card's name and power limit, and as the
 last line `{"ok": true, "device": {...}}`. Any failure exits non-zero
@@ -341,6 +362,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import itertools
 import json
 import shutil
 import statistics
@@ -5019,7 +5041,7 @@ CROSS_ENTROPY = {"cross_entropy": {"loss_name": "cross_entropy", "weight": 1.0}}
 # dropouts, batch 24, clip 0.8, Adam 1e-3; inputs at the repo's MOSI twin widths
 MULT_DIMS = {"audio": 5, "video": 20, "text": 768}
 MULT_T = 50
-MULT_SAMPLES = 1284  # CMU-MOSI's train split: 53 batches of 24 and a tail of 12
+MULT_SAMPLES = 636  # half CMU-MOSI's train split of 1284: 26 batches of 24 and its tail of 12
 MULT_BATCH = 24
 MULT_MODEL = dict(attention_dim=30, num_heads=5, num_layers=5, output_dim=3)
 MULT_CLIP = 0.8
@@ -5215,7 +5237,7 @@ def phase_mult_check(dev, discriminator: bool, batches: list) -> dict:
 
 
 def phase_mult(dev, card: str, discriminator: bool, batches: list) -> dict:
-    """Phase 14 (a): two passes of the generic train step over MulT's 54
+    """Phase 14 (a): two passes of the generic train step over MulT's 27
     batches on the card (the second timed), no launch of either kernel; a
     profiled window of 8 steps; the GPU-vs-CPU check."""
     import torch
@@ -7289,6 +7311,362 @@ def phase16(dev, card: str, work: Path) -> dict:
             "cli": cli}
 
 
+# -- phase 17: the HDF5 experiment monitor ------------------------------------------
+
+MONITOR_SAMPLES = {"avmnist": {"train": 1024, "validation": 128, "test": 128},
+                   "utt": {"train": 640, "validation": 64, "test": 64}}
+MONITOR_STEPS = 3  # monitored float32 steps held against the CPU (the ResNets' float64: 1)
+MONITOR_TOL = CPU_TOL  # GPU vs CPU records from the same state (`_stat_errors`)
+MONITOR_SAME_TOL = (1e-5, 1e-4)  # the card's reductions vs the CPU's of the same tensor:
+# value columns and moments (`_stat_errors`); fractions exactly
+MONITOR_INTERVALS = {"unmonitored": None, "100/100": 100, "1/1": 1}  # mmtpu's defaults, every step
+
+
+def monitor_configs(out_root: str) -> dict:
+    """Phase 5's scratch fine-tune (ResNet18/34, batch 128) and phase 6's
+    UttFusion (batch 32, T = 50), dropout 0, with MONITOR_SAMPLES, a
+    `monitor_path` and `monitoring.enabled` at intervals 1 / 1."""
+    cfgs = {"avmnist": train_configs(out_root)["scratch"],
+            "utt": utt_train_config(out_root, dropout=False)}
+    cfgs["avmnist"]["model"]["dropout"] = 0.0
+    for kind, cfg in cfgs.items():
+        cfg["experiment"]["name"] = cfg["model"]["name"] = f"{cfg['experiment']['name']}_Monitored"
+        for split, n in MONITOR_SAMPLES[kind].items():
+            cfg["data"]["datasets"][split]["kwargs"]["num_samples"] = n
+        cfg["logging"]["monitor_path"] = f"{out_root}/{{experiment_name}}/monitor/{{run_id}}"
+        cfg["monitoring"] = {"enabled": True, "gradient_interval": 1, "activation_interval": 1}
+    return cfgs
+
+
+def _monitor_loop(cfg, dev):
+    """A streaming `TrainLoop` as `train_multimodal` builds it, from the
+    seeded weights (drawn on the CPU: every device gets the same), its
+    monitor set per epoch by the caller."""
+    from mmtpu_torch.cli import common
+    from mmtpu_torch.train.loop import TrainLoop
+    from mmtpu_torch.train.step import ClassificationTask
+
+    model = common.init_model(common.build_model_from_config(cfg.model), SEED, dev)
+    state = common.make_state(model, cfg.training, clip=cfg.model.kwargs.get("clip"))
+    state.generator = common.use_run_generator(model, SEED, dev)
+    task = ClassificationTask(
+        model=model, loss_group=cfg.training.loss_functions,
+        input_keys=[str(m) for m in common.modalities_for_model(cfg.model.model_type)])
+    return TrainLoop(task=task, state=state, loaders=common.build_all_loaders(cfg),
+                     recorder=common.make_recorder(cfg),
+                     checkpoint_manager=common.make_checkpoint_manager(cfg), device=dev,
+                     epochs=1, device_resident="off")
+
+
+def _memory_monitor(cfg, interval: int):
+    """mmtpu's monitor at `interval` / `interval` over an in-memory sink (the
+    card's machine has no h5py)."""
+    import dataclasses
+
+    from mmtpu_torch.monitor import ExperimentMonitor, MemoryStorage
+
+    mc = dataclasses.replace(cfg.monitoring, gradient_interval=interval,
+                             activation_interval=interval)
+    return ExperimentMonitor(mc, "", storage=MemoryStorage())
+
+
+def _stat_errors(got, want) -> tuple:
+    """(values, fractions, moments) errors of a STAT_COLUMNS row against
+    another: the value columns of the leaf's max |x| (l1 and l2, which grow
+    with the element count, relative), the fractions absolute, skewness and
+    kurtosis of max(1, |value|)."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    d = np.abs(got - want)
+    scale = max(abs(want[3]), abs(want[4]), 1e-30)
+    values = max(d[0] / max(abs(want[0]), 1e-30), d[5] / max(abs(want[5]), 1e-30),
+                 float(np.max(d[[1, 2, 3, 4, 6, 7, 8, 9, 10]])) / scale)
+    return (values, float(np.max(d[[11, 12, 13, 16]])),
+            float(np.max(d[14:16] / np.maximum(1.0, np.abs(want[14:16])))))
+
+
+@contextlib.contextmanager
+def _same_tensor_check(worst: dict):
+    """While it is open, every `leaf_stats` of a CUDA tensor is also taken of
+    the same tensor copied to the CPU, and `worst` keeps the largest
+    `_stat_errors` of the card's row against the CPU's and counts the rows."""
+    from mmtpu_torch.monitor import monitor as mon_mod
+
+    real = mon_mod.leaf_stats
+
+    def checked(t):
+        out = real(t)
+        if t.is_cuda:
+            errs = _stat_errors(out.cpu().numpy(), real(t.detach().cpu()).numpy())
+            for key, e in zip(("values", "fractions", "moments"), errs):
+                worst[key] = max(worst[key], e)
+            worst["rows"] += 1
+        return out
+
+    mon_mod.leaf_stats = checked
+    try:
+        yield
+    finally:
+        mon_mod.leaf_stats = real
+
+
+def _monitored_pair(dev, cfg, float64: bool = False) -> tuple:
+    """Monitored steps at intervals 1 / 1 on the card and on the CPU, each
+    from the same state (the CPU's weights and Adam moments loaded on the
+    card before it), then `record_weights` of the CPU's final weights on
+    both: MONITOR_STEPS in float32, or one in float64. The two runs'
+    records, the launches of the card's steps, and `_same_tensor_check`'s
+    worst errors over the float32 run's first step and its weights (a CPU
+    copy of every tensor there costs what the CPU's own capture does)."""
+    import copy
+
+    import torch
+
+    cpu = torch.device("cpu")
+    loops = {label: _monitor_loop(cfg, device) for label, device in (("gpu", dev), ("cpu", cpu))}
+    for loop in loops.values():
+        loop.monitor = _memory_monitor(cfg, 1)
+        loop.monitor.start_epoch(1)
+        if float64:
+            loop.state.model.double()
+    batches = list(itertools.islice(iter(loops["cpu"].loaders["train"]),
+                                    1 if float64 else MONITOR_STEPS))
+    gpu, host = loops["gpu"].state, loops["cpu"].state
+    same = {"values": 0.0, "fractions": 0.0, "moments": 0.0, "rows": 0}
+    reset_counts()
+    with _float64_losses() if float64 else contextlib.nullcontext():
+        for k, batch in enumerate(batches):
+            batch = _as_float64(batch) if float64 else batch
+            if k:
+                gpu.model.load_state_dict(host.model.state_dict())
+                gpu.optimizer.load_state_dict(copy.deepcopy(host.optimizer.state_dict()))
+            with _same_tensor_check(same) if k == 0 and not float64 else (
+                    contextlib.nullcontext()):
+                loops["gpu"]._monitored_step(batch)
+            loops["cpu"]._monitored_step(batch)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    gpu.model.load_state_dict(host.model.state_dict())
+    with _same_tensor_check(same) if not float64 else contextlib.nullcontext():
+        loops["gpu"].monitor.record_weights(gpu.model)
+    loops["cpu"].monitor.record_weights(host.model)
+    return ({label: loop.monitor.storage.records for label, loop in loops.items()}, launches,
+            same)
+
+
+@contextlib.contextmanager
+def _plain_head():
+    """AVMNIST's eval head on its plain chain (the kernel takes float32
+    only), for a float64 pass that no launch count reads."""
+    from mmtpu_torch.models import avmnist
+    from mmtpu_torch.ops.fused_mlp import fused_mlp_reference
+
+    real = avmnist.fused_mlp
+    avmnist.fused_mlp = fused_mlp_reference
+    try:
+        yield
+    finally:
+        avmnist.fused_mlp = real
+
+
+def _records_worst(kind: str, recs: dict, groups) -> dict:
+    """The worst `_stat_errors` over the records of `groups`, card vs CPU,
+    with the record that has each; raises where the names, attributes or
+    shapes differ."""
+    worst = {key: (0.0, "-") for key in ("values", "fractions", "moments")}
+    for group in groups:
+        if sorted(recs["gpu"][group]) != sorted(recs["cpu"][group]):
+            raise AssertionError(f"[monitor {kind}] {group} record names differ: "
+                                 f"{sorted(set(recs['gpu'][group]) ^ set(recs['cpu'][group]))}")
+        for name, (want, attrs) in recs["cpu"][group].items():
+            got, got_attrs = recs["gpu"][group][name]
+            if got_attrs != attrs or got.shape != want.shape:
+                raise AssertionError(f"[monitor {kind}] {group}/{name}: {got_attrs} {got.shape} "
+                                     f"vs {attrs} {want.shape}")
+            errs = (_stat_errors(got, want) if want.shape == (17,) else
+                    (float(np.max(np.abs(got - want) / np.maximum(np.abs(want), 1e-30))), 0, 0))
+            for key, e in zip(("values", "fractions", "moments"), errs):
+                if e > worst[key][0]:
+                    worst[key] = (e, f"{group}/{name}")
+    return worst
+
+
+def _say_worst(worst: dict) -> str:
+    return ", ".join(f"{key} {e:.3e} at {where}" for key, (e, where) in worst.items())
+
+
+def phase_monitor_check(dev, kind: str, cfg) -> dict:
+    """`_monitored_pair` in float32: the same record names; every reduction
+    the card made within MONITOR_SAME_TOL of the CPU's on the same tensor;
+    `fused_mlp` once per capture forward (AVMNIST's eval head), `lstm` once
+    per train step and per capture forward (UttFusion); every record within
+    MONITOR_TOL of the CPU's (`_stat_errors`). For the ResNets the float32
+    records are printed and the records of a float64 `_monitored_pair`
+    judged: their float32 BatchNorm backward leaves either device a few
+    1e-3 from the exact gradient (PERF.md §6), and their float32 forwards
+    differ by up to ~8e-4 of an activation's max |x|, which the fourth
+    moment amplifies past 1e-3."""
+    groups = ["gradients", "activations", "weights", "convergence"]
+    recs, launches, same = _monitored_pair(dev, cfg)
+    f32 = _records_worst(kind, recs, groups)
+    f64 = None
+    if kind == "avmnist":
+        with _plain_head():
+            f64 = _records_worst(kind, _monitored_pair(dev, cfg, float64=True)[0], groups)
+    counts = {g: len(r) for g, r in recs["cpu"].items()}
+    want_launches = ({"fused_mlp": MONITOR_STEPS, "lstm": 0} if kind == "avmnist"
+                     else {"fused_mlp": 0, "lstm": 2 * MONITOR_STEPS})
+    say(f"[monitor {kind}] {MONITOR_STEPS} monitored steps (intervals 1 / 1) and the weights, "
+        f"card vs CPU from the same state: records {counts}, names equal; worst in float32 "
+        f"{_say_worst(f32)}" + (f"; in float64 (one step and the weights) {_say_worst(f64)}"
+                                if f64 else "")
+        + f" (tolerance {MONITOR_TOL}: value columns of the leaf's max |x|, l1 and l2 relative; "
+        f"fractions; moments relative); the card's reductions vs the CPU's of the same "
+        f"{same['rows']} tensors (step 1's and the weights): values {same['values']:.3e}, fractions "
+        f"{same['fractions']:.3e}, moments {same['moments']:.3e} (tolerances "
+        f"{MONITOR_SAME_TOL}, fractions exact); launches {launches} (expected {want_launches})")
+    if max(e for e, _ in (f64 or f32).values()) > MONITOR_TOL:
+        raise AssertionError(f"[monitor {kind}] card vs CPU records: {f64 or f32}")
+    if (same["values"] > MONITOR_SAME_TOL[0] or same["moments"] > MONITOR_SAME_TOL[1]
+            or same["fractions"] > 0):
+        raise AssertionError(f"[monitor {kind}] the card's reductions: {same}")
+    if launches != want_launches:
+        raise AssertionError(f"[monitor {kind}] launches {launches}, expected {want_launches}")
+    return {"records": counts, "float32": {k: v[0] for k, v in f32.items()},
+            "float64": f64 and {k: v[0] for k, v in f64.items()}, "same": same,
+            "launches": launches}
+
+
+def phase_monitor_cost(dev, card: str, kind: str, cfg) -> dict:
+    """One streaming train epoch each unmonitored, at mmtpu's default
+    intervals (100 / 100) and at 1 / 1, after an unmonitored warm-up epoch,
+    all on one model: samples/s, records per step, the launches of the 1 / 1
+    epoch and a streamed validation epoch (`fused_mlp` once per eval step
+    and per capture; `lstm` once per train and eval step and per capture),
+    and one profiled capture of each kind (its host share)."""
+    import torch
+
+    loop = _monitor_loop(cfg, dev)
+    train, val = loop.loaders["train"], loop.loaders["validation"]
+    steps, eval_steps = len(train), len(val)
+    loop.train_epoch(1)  # warm-up: cuDNN plans, the allocator
+    out = {"samples_per_s": {}}
+    for epoch, (label, interval) in enumerate(MONITOR_INTERVALS.items(), start=2):
+        loop.monitor = None if interval is None else _memory_monitor(cfg, interval)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        loop.train_epoch(epoch)
+        torch.cuda.synchronize()
+        out["samples_per_s"][label] = MONITOR_SAMPLES[kind]["train"] / (time.perf_counter() - t0)
+        loop.eval_epoch("validation")
+        torch.cuda.synchronize()
+        launches = read_counts()
+        loop.recorder.reset()
+        captures = 0 if interval is None else -(-steps // interval)
+        want = ({"fused_mlp": eval_steps + captures, "lstm": 0} if kind == "avmnist" else
+                {"fused_mlp": 0, "lstm": steps + eval_steps + captures})
+        if launches != want:
+            raise AssertionError(f"[monitor {kind} {label}] launches {launches}, expected {want}")
+        out.setdefault("launches", {})[label] = launches
+    mon = loop.monitor  # 1 / 1
+    recs = mon.storage.records
+    per = {g: len(recs[g]) / steps for g in ("gradients", "activations")}
+    out["records_per_step"] = sum(per.values())
+    out["weight_records"] = len(recs["weights"])
+    batch = next(iter(train))
+    loop.train_step(batch)
+    model = loop.state.model
+    inputs = [torch.from_numpy(batch[k]).to(dev) for k in loop.task.input_keys]
+    shares = {}
+    for what, fn in (("gradients", lambda: mon.record_gradients(model)),
+                     ("activations", lambda: mon.record_activations(model, inputs))):
+        brk = device_breakdown(fn)
+        shares[what] = {"wall_ms": brk["profiled_wall_ms"], "device_ms": brk["device_ms"],
+                        "host_share": 1.0 - brk["device_ms"] / brk["profiled_wall_ms"],
+                        "kernels": brk["kernel_events"]}
+    out["capture"] = shares
+    sps = out["samples_per_s"]
+    say_card(card, f"[monitor {kind}] streaming train epoch of {steps} steps: "
+             + ", ".join(f"{k} {v:.1f}" for k, v in sps.items()) + " samples/s; "
+             f"{out['records_per_step']:.1f} records per step at 1 / 1 "
+             f"({per['gradients']:.0f} gradients, {per['activations']:.0f} activations) and {out['weight_records']} weight records an epoch; launches "
+             f"{out['launches']} (with a streamed validation epoch of {eval_steps} steps); one "
+             "capture: " + "; ".join(
+                 f"{w} {s['wall_ms']:.2f} ms wall, {s['device_ms']:.2f} ms device in "
+                 f"{s['kernels']} kernels, host share {s['host_share']:.3f}"
+                 for w, s in shares.items()))
+    return out
+
+
+def phase_monitor_h5py(card: str, work: Path, cfg_path: Path) -> dict:
+    """`train_multimodal.main` with `monitoring.enabled: true`: without h5py
+    it must stop before its first step (no launch, no epoch record) with
+    the error that names h5py; with h5py it writes the file."""
+    import importlib.util
+
+    from mmtpu_torch.cli import train_multimodal
+
+    if importlib.util.find_spec("h5py") is None:
+        reset_counts()
+        try:
+            train_multimodal.main(["--config", str(cfg_path), "--run_id", "1"])
+        except ImportError as e:
+            if "h5py" not in str(e):
+                raise
+            message = str(e)
+        else:
+            raise AssertionError("[monitor] train_multimodal trained without h5py")
+        if read_counts() != {"fused_mlp": 0, "lstm": 0} or list(work.rglob("epoch_metrics.json")):
+            raise AssertionError(f"[monitor] a step ran before the error: {read_counts()}")
+        say(f"[monitor] no h5py on this machine: train_multimodal.main stopped before its first "
+            f"step: {message}")
+        return {"h5py": False}
+    if train_multimodal.main(["--config", str(cfg_path), "--run_id", "1"]) != 0 or not list(
+            work.rglob("monitor_data.h5")):
+        raise AssertionError("[monitor] train_multimodal wrote no monitor_data.h5")
+    say("[monitor] h5py present: train_multimodal.main wrote monitor_data.h5")
+    return {"h5py": True}
+
+
+def phase17(dev, card: str, work: Path) -> dict:
+    """(a) the AVMNIST fine-tune and (b) UttFusion: the monitor's records on
+    the card against the CPU, its cost, and the CLI's stop without h5py."""
+    from mmtpu_torch.cli import common
+
+    _tf32_off()
+    out = {}
+    paths = {}
+    for kind, raw in monitor_configs(str(work / "monitor")).items():
+        paths[kind] = work / f"monitor_{kind}.json"
+        paths[kind].write_text(json.dumps(raw))
+        cfg = common.load_config(argparse.Namespace(config=str(paths[kind]), run_id=1, seed=None))
+        t0 = time.perf_counter()
+        check = phase_monitor_check(dev, kind, cfg)
+        t1 = time.perf_counter()
+        out[kind] = {"check": check, "cost": phase_monitor_cost(dev, card, kind, cfg)}
+        say(f"[monitor {kind}] check {t1 - t0:.1f} s, cost {time.perf_counter() - t1:.1f} s")
+    out["cli"] = phase_monitor_h5py(card, work / "monitor", paths["utt"])
+    return out
+
+
+def say_phase17(card: str, p17: dict, seconds: float) -> None:
+    for kind, label in (("avmnist", "AVMNIST fine-tune, B=128"), ("utt", "UttFusion, B=32")):
+        r = p17[kind]
+        cap = r["cost"]["capture"]
+        say_card(card, f"[summary] monitor {label}: train samples/s "
+                 + ", ".join(f"{k} {v:.1f}" for k, v in r["cost"]["samples_per_s"].items())
+                 + f"; {r['cost']['records_per_step']:.1f} records per step at 1 / 1; capture "
+                 f"host share gradients {cap['gradients']['host_share']:.3f}, activations "
+                 f"{cap['activations']['host_share']:.3f}; card vs CPU worst in float32 "
+                 + ", ".join(f"{k} {v:.3e}" for k, v in r["check"]["float32"].items())
+                 + ("" if r["check"]["float64"] is None else "; in float64 " + ", ".join(
+                     f"{k} {v:.3e}" for k, v in r["check"]["float64"].items()))
+                 + f"; launches {r['check']['launches']} in {MONITOR_STEPS} steps")
+    say(f"[summary] monitor without h5py: "
+        f"{'the CLI stops before its first step' if not p17['cli']['h5py'] else 'h5py present'}"
+        f"; phase 17 {seconds:.1f} s")
+
+
 def kernel_record(name: str, source: str, replaces: str, shape: str, kern: dict, t: dict,
                   pred: dict, srv: dict) -> dict:
     return {
@@ -7376,6 +7754,9 @@ def main(argv=None) -> int:
     parser.add_argument("--mesh-only", action="store_true",
                         help="build the kernels and run phase 16's data-parallel checks, "
                              "(a)-(g), alone (no kernels or ok line)")
+    parser.add_argument("--monitor-only", action="store_true",
+                        help="build the kernels and run phase 17's monitor checks alone (no "
+                             "kernels or ok line)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU",
@@ -7522,6 +7903,14 @@ def main(argv=None) -> int:
             shutil.rmtree(work, ignore_errors=True)
         return 0
 
+    if args.monitor_only:
+        try:
+            t0 = time.perf_counter()
+            say_phase17(smi, phase17(dev, smi, work), time.perf_counter() - t0)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        return 0
+
     mlp = phase_kernels_mlp(dev)
     lstm = phase_kernels_lstm(dev)
     members = phase_kernels_members(dev)
@@ -7571,10 +7960,13 @@ def main(argv=None) -> int:
         p15 = phase15(dev, smi, work)
         t_16 = time.perf_counter()
         p16 = phase16(dev, smi, work)
+        t_17 = time.perf_counter()
+        p17 = phase17(dev, smi, work)
         (t_train, t_utt, t_reader, t_shipped, t_cmam, t_msa, t_11, t_12, t_13, t_14, t_15,
-         t_16) = (t_utt - t_train, t_reader - t_utt, t_shipped - t_reader, t_cmam - t_shipped,
-                  t_msa - t_cmam, t_11 - t_msa, t_12 - t_11, t_13 - t_12, t_14 - t_13,
-                  t_15 - t_14, t_16 - t_15, time.perf_counter() - t_16)
+         t_16, t_17) = (t_utt - t_train, t_reader - t_utt, t_shipped - t_reader,
+                        t_cmam - t_shipped, t_msa - t_cmam, t_11 - t_msa, t_12 - t_11,
+                        t_13 - t_12, t_14 - t_13, t_15 - t_14, t_16 - t_15, t_17 - t_16,
+                        time.perf_counter() - t_17)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -7612,6 +8004,7 @@ def main(argv=None) -> int:
     say_phase14(smi, p14["mult"], p14["gcnet"], p14["ef"], t_14)
     say_phase15(smi, p15["resident"], p15["folds"], p15["runs"], t_15)
     say_phase16(smi, p16, t_16)
+    say_phase17(smi, p17, t_17)
     say(f"[summary] fused_mlp B=1024 {json.dumps(mlp['timings'][1024])}")
     for batch, t in mlp["mesh"].items():
         say_card(smi, f"[summary] fused_mlp {HEAD_DIMS} B={batch} (a rank's shard) "
@@ -7650,6 +8043,9 @@ def main(argv=None) -> int:
              **{f"folds_{k}": r["launches"]["fused_mlp"]
                 for k, r in p15["folds"]["runs"].items()}},
          "phase16_launches_per_rank": p16["avmnist"]["launches"]["fused_mlp"],
+         "phase17_launches": {"check_3_steps": p17["avmnist"]["check"]["launches"]["fused_mlp"],
+                              **{f"epoch_{k}": r["fused_mlp"] for k, r in
+                                 p17["avmnist"]["cost"]["launches"].items()}},
          "mesh_shapes": {f"B={b}": t for b, t in mlp["mesh"].items()}},
         {**kernel_record("lstm", "mmtpu_torch/ops/csrc/lstm.cu", "mmtpu/ops/lstm.py:61",
                          f"G={G}, B={B}, T={T}, H={H}, float32; library_ms is {G} nn.LSTM "
@@ -7681,6 +8077,9 @@ def main(argv=None) -> int:
          "phase16_driver_launches_per_rank": {
              kind: r["launches"]["lstm"] for kind, r in p16["drivers"].items()
              if "launches" in r},
+         "phase17_launches": {"check_3_steps": p17["utt"]["check"]["launches"]["lstm"],
+                              **{f"epoch_{k}": r["lstm"] for k, r in
+                                 p17["utt"]["cost"]["launches"].items()}},
          "wide_shapes": {"G={}, B={}, T={}, H={}".format(*k): lstm["timings"][k]
                          for k in WIDE_LSTM},
          "mesh_shapes": {"G={}, B={}, T={}, H={}".format(*k):

@@ -154,20 +154,27 @@ _INVERSE = tuple((re.compile(rf"(^|\.){re.escape(theirs)}(?=\.|$)"), ours)
                                             key=lambda kv: -len(kv[1])))
 
 
+def mmtpu_module_path(name: str) -> str:
+    """The `/`-joined path mmtpu gives the module that the port calls
+    `name` (`audio_encoder.layer1.0.downsample.1` →
+    `audio_encoder/layer1_0/downsample_bn`; the root "" stays "")."""
+    for ours, theirs in _NAME_RULES:
+        name = name.replace(theirs, ours)
+    for rx, ours in _INVERSE:
+        name = rx.sub(rf"\g<1>{ours}", name)
+    name = re.sub(r"layer(\d+)\.(\d+)", r"layer\1_\2", name)
+    return re.sub(r"(^|\.)input_encoders\.(\w+?)(?=\.|$)", r"\1input_encoders_\2",
+                  name).replace(".", "/")
+
+
 def mmtpu_param_path(name: str, param: torch.Tensor) -> str:
     """The `/`-joined path mmtpu gives the parameter that the port calls
     `name` (`audio_encoder.layer1.0.conv1.weight` →
     `audio_encoder/layer1_0/conv1/kernel`): the inverse of the mapping
     above, so optimizer group regexes written against mmtpu's paths select
     the same parameters in both packages."""
-    prefix, _, leaf = name.rpartition(".")
-    for ours, theirs in _NAME_RULES:
-        prefix = prefix.replace(theirs, ours)
-    for rx, ours in _INVERSE:
-        prefix = rx.sub(rf"\g<1>{ours}", prefix)
-    prefix = re.sub(r"layer(\d+)\.(\d+)", r"layer\1_\2", prefix)
-    prefix = re.sub(r"(^|\.)input_encoders\.(\w+?)(?=\.|$)", r"\1input_encoders_\2",
-                    prefix).replace(".", "/")
+    module, _, leaf = name.rpartition(".")
+    prefix = mmtpu_module_path(module)
     if prefix.endswith("_embeddings") and leaf == "weight":  # BERT's nn.Embed tables
         leaf = "embedding"
     elif leaf not in _RAW_LEAVES:

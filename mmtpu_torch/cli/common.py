@@ -65,16 +65,12 @@ def apply_precision(cfg) -> str:
     )
 
 
-ROADMAP_SYSTEMS = "ROADMAP.md §1 item 6, the systems layer"
-
-
 def finalize_config(cfg, args, mesh=None):
     """The post-load wiring every training entry point shares (mmtpu's
     `finalize_config`): --seed, a sweep member's seed offset, --dry-run,
     --epochs, --disable_monitoring, the precision, the output dirs and the
     run log `<log_path>/run_<run_id>.log`, which on a data-parallel `mesh`
-    rank 0 alone writes. A config that asks for the HDF5 monitor raises: it
-    is not ported."""
+    rank 0 alone writes."""
     if getattr(args, "seed", None) is not None:
         cfg.experiment.seed = args.seed
     # --stacked-runs member i trains with seed base + i (derive_member_args)
@@ -86,11 +82,7 @@ def finalize_config(cfg, args, mesh=None):
     if getattr(args, "epochs", None) is not None:
         cfg.training.epochs = int(args.epochs)
     if getattr(args, "disable_monitoring", False):
-        cfg.monitoring["enabled"] = False
-    if cfg.monitoring.get("enabled"):
-        raise NotImplementedError(
-            "monitoring.enabled: the HDF5 experiment monitor is not ported to mmtpu_torch "
-            f"({ROADMAP_SYSTEMS}); pass --disable_monitoring or set it false")
+        cfg.monitoring.enabled = False
     from mmtpu_torch.utils import configure_logger
 
     print(apply_precision(cfg), flush=True)
@@ -120,8 +112,7 @@ def standard_arg_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--skip-test", dest="skip_test", action="store_true")
     p.add_argument("--disable_monitoring", "--disable-monitoring", dest="disable_monitoring",
                    action="store_true",
-                   help="Set monitoring.enabled false (the HDF5 monitor is not ported: "
-                        "a config that enables it raises without this flag)")
+                   help="Set monitoring.enabled false: no <monitor_path>/monitor_data.h5")
     p.add_argument("--cpu", action="store_true", help="Run on the CPU instead of CUDA")
     p.add_argument("--data-parallel", "--data_parallel", dest="data_parallel", type=int,
                    default=None, metavar="N",
@@ -428,6 +419,21 @@ def make_recorder(cfg, mesh=None):
     return MetricRecorder(cfg.metrics,
                           tensorboard_path=cfg.logging.tensorboard_path if writes else None,
                           tb_record_only=cfg.logging.tb_record_only)
+
+
+def make_monitor(cfg, resume: bool = False, mesh=None):
+    """The HDF5 experiment monitor when `monitoring.enabled` and
+    `logging.monitor_path` are both set, else None (mmtpu's `make_monitor`).
+    `resume` appends to the previous run's `monitor_data.h5` instead of
+    truncating it. On a data-parallel `mesh` every rank keeps the cadence
+    and rank 0 alone opens the file. Without h5py this raises, before the
+    first step."""
+    if not cfg.monitoring.enabled or not cfg.logging.monitor_path:
+        return None
+    from mmtpu_torch.monitor import ExperimentMonitor
+
+    return ExperimentMonitor(cfg.monitoring, cfg.logging.monitor_path, resume=resume,
+                             writes=mesh is None or mesh.is_writer)
 
 
 def make_checkpoint_manager(cfg):

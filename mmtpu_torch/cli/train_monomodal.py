@@ -11,7 +11,9 @@ the raw (unmasked) modality, and on every best epoch writes the handoff
 `--stacked-runs K` runs the members run_id..run_id+K-1 (seed + i) one after
 another, as mmtpu's driver does (it has no stacking engine).
 `--data-parallel N`, N > 1, trains on N devices, one process per rank, as
-`train_multimodal` does; rank 0 alone writes the files.
+`train_multimodal` does; rank 0 alone writes the files. With
+`monitoring.enabled: true` and a `logging.monitor_path` the run writes
+mmtpu's `<monitor_path>/monitor_data.h5` (`mmtpu_torch/monitor`).
 """
 
 from __future__ import annotations
@@ -82,6 +84,7 @@ def run(args, mesh=None) -> int:
         metrics_postprocess=add_plain_accuracy,
         resume=args.resume,
         eval_batch_factor=getattr(args, "eval_batch_factor", None), mesh=mesh,
+        monitor=common.make_monitor(cfg, resume=args.resume, mesh=mesh),
     )
     if cfg.experiment.dry_run:
         recorder.close()

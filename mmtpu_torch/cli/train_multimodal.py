@@ -26,7 +26,10 @@ classifier) trains as a multilabel task (sigmoid > 0.5 predictions, the
 generator. Kinetics-Sounds (`kineticssounds`: the three-ConvBlock audio
 encoder and the video MLP over 400-d features, 26 classes, patterns over
 audio and video) trains as AVMNIST does, with a plain head: no kernel, as in
-mmtpu; its dropouts draw from the run's generator.
+mmtpu; its dropouts draw from the run's generator. With
+`monitoring.enabled: true` and a `logging.monitor_path`, the runs of the
+generic loop (every type above but MMIN, RedCore and Self-MM, as in mmtpu)
+write mmtpu's `<monitor_path>/monitor_data.h5` (`mmtpu_torch/monitor`).
 
 `experiment.cross_validation: K` runs K folds, each with `cv_no` set in
 every dataset's kwargs and its outputs under `fold_<k>/`, then writes the
@@ -195,6 +198,7 @@ def run_single(cfg, args, device, cv_no=None, json_nesting: str = "reference",
         print_interval=cfg.experiment.train_print_interval_epochs,
         json_nesting=json_nesting, run_id=args.run_id, resume=args.resume,
         eval_batch_factor=getattr(args, "eval_batch_factor", None), mesh=mesh,
+        monitor=common.make_monitor(cfg, resume=args.resume, mesh=mesh),
     )
     if cfg.experiment.dry_run:
         recorder.close()

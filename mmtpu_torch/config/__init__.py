@@ -12,6 +12,7 @@ from mmtpu_torch.config.data import (
 from mmtpu_torch.config.experiment import ExperimentConfig
 from mmtpu_torch.config.logging_ import LoggingConfig
 from mmtpu_torch.config.model import ModelConfig
+from mmtpu_torch.config.monitor import MonitorConfig
 from mmtpu_torch.config.spec import ModuleSpec, specs_from_dicts
 from mmtpu_torch.config.training import StandardMultimodalConfig, TrainingConfig
 
@@ -27,6 +28,7 @@ __all__ = [
     "LoggingConfig",
     "ModelConfig",
     "ModuleSpec",
+    "MonitorConfig",
     "specs_from_dicts",
     "StandardMultimodalConfig",
     "TrainingConfig",

@@ -8,8 +8,8 @@ assembles the same config from a plain dict (model tags spelled
 without PyYAML.
 The optimizer sections become `OptimizerConfig`s and the metrics section a
 `MetricConfig` (whose dotted metric names are resolved when a recorder is
-built, not at load: `predict` and `serve` never read them); the monitoring
-section stays a plain mapping (the monitor is not ported).
+built, not at load: `predict` and `serve` never read them), and the
+monitoring section a `MonitorConfig`.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ from mmtpu_torch.config.experiment import ExperimentConfig
 from mmtpu_torch.config.logging_ import LoggingConfig
 from mmtpu_torch.config.metrics import MetricConfig
 from mmtpu_torch.config.model import ModelConfig
+from mmtpu_torch.config.monitor import MonitorConfig
 from mmtpu_torch.config.optim import OptimizerConfig
 from mmtpu_torch.train.losses import LossFunctionGroup
 
@@ -80,7 +81,7 @@ class StandardMultimodalConfig(BaseConfig):
     logging: LoggingConfig
     training: TrainingConfig
     metrics: MetricConfig = field(default_factory=MetricConfig)
-    monitoring: Dict[str, Any] = field(default_factory=dict)
+    monitoring: MonitorConfig = field(default_factory=MonitorConfig)
 
     @classmethod
     def load(cls, path, run_id: int) -> "StandardMultimodalConfig":
@@ -111,7 +112,7 @@ class StandardMultimodalConfig(BaseConfig):
             logging=logging_cfg,
             training=TrainingConfig.from_dict(raw["training"]),
             metrics=MetricConfig.from_dict(raw.get("metrics") or {}),
-            monitoring=dict(raw.get("monitoring") or {}),
+            monitoring=MonitorConfig.from_dict(raw.get("monitoring") or {}),
         )
 
     def to_dict(self) -> Dict[str, Any]:

@@ -104,6 +104,11 @@ class MNISTImage(_MNISTEncoder):
 class AVMNIST(nn.Module):
     """Late-fusion audio+image classifier."""
 
+    # mmtpu declares the head's weights through modules that return their
+    # (kernel, bias) (its `_DenseParams`): the monitor records those as the
+    # modules' outputs
+    MMTPU_PARAM_MODULES = ("fc_fusion", "fc_intermediate", "fc_out")
+
     def __init__(
         self,
         audio_encoder: nn.Module,

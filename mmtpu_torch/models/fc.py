@@ -100,4 +100,4 @@ class MaxPoolFc(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # x: (B, seq, hidden) → max over seq → fc → relu
-        return torch.relu(self.fc(x.max(dim=1).values))
+        return torch.relu(self.fc(torch.amax(x, dim=1)))

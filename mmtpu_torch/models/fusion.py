@@ -36,7 +36,7 @@ class MaxOut(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.units(x).reshape(*x.shape[:-1], self.num_units, self.output_dim)
-        return y.max(dim=-2).values
+        return torch.amax(y, dim=-2)
 
 
 class GatedBiModalNetwork(nn.Module):

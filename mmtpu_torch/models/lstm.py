@@ -125,7 +125,9 @@ class LSTMEncoder(nn.Module):
         if self.embd_method == "maxpool":
             if valid is not None:
                 outputs = outputs.masked_fill(~valid[..., None], float("-inf"))
-            return outputs.max(dim=1).values
+            # amax splits the gradient of tied maxima evenly, as jnp.max does
+            # (max(dim).values gives it all to one step)
+            return torch.amax(outputs, dim=1)
         hidden = torch.tanh(self.attention_layer(outputs))
         scores = (hidden @ self.attention_vector_weight)[..., 0]  # (B, seq)
         if valid is not None:

@@ -34,6 +34,6 @@ class TextCNN(nn.Module):
         pooled = []
         for i in range(len(self.kernel_heights)):
             c = torch.relu(getattr(self, f"conv{i + 1}")(h)).squeeze(3)  # (B, out, seq-k+1)
-            pooled.append(c.max(dim=2).values)
+            pooled.append(torch.amax(c, dim=2))
         out = self.dropout(torch.cat(pooled, dim=1))
         return torch.relu(self.embd(out))

@@ -7,8 +7,15 @@ f1_*/MSA_* keys under their pattern, `avmnist` nesting every
 pattern-suffixed metric), early stopping, best checkpoints, the host-side
 LR scale, the rolling resume point, and the test-time restore of the best
 checkpoint. The step's outputs stay on the device until the epoch ends and
-are copied to the host once (the recorder's `_materialize`). mmtpu's
-monitor is not ported.
+are copied to the host once (the recorder's `_materialize`).
+
+With a `monitor` (`monitor.ExperimentMonitor`, mmtpu's `monitor=`) every
+split streams, as in mmtpu, and each train epoch runs mmtpu's order:
+`start_epoch`; per batch the step, with the gradient statistics taken
+between the all-reduce and the clip on the monitor's gradient steps, then
+the activation capture (one eval forward of the batch's masked inputs) on
+its activation steps, then `step()`; `end_epoch` (the weights) after the
+last batch. The monitor is closed at the end of `run`.
 
 The device-resident epoch (`train/device_loop.py`, mmtpu's scan path):
 with `device_resident` "auto" (the default) or "on", a loop with the
@@ -17,14 +24,18 @@ that fits once, train first, then validation, then the rest, against ONE
 cumulative budget ("auto"; "on" admits every split), and runs its epochs
 from the device; a split that does not fit streams. Eval on the resident
 path fuses `eval_batch_factor` loader batches per step (None: grow toward
-1024 rows, at most 8, `_auto_eval_factor`), with the same results.
+1024 rows, at most 8, `_auto_eval_factor`), with the same results. A loop
+with a monitor never uploads.
 
 On a data-parallel mesh (`mesh=`, a launched `parallel.mesh.Mesh`, as
 mmtpu's `mesh=`): the model starts from rank 0's weights; every step takes
 this rank's rows of the global batch and sums its gradients over the
 ranks; a split is resident only when the mesh divides its batch, and then
 every rank uploads all of it and keeps its rows of each step (mmtpu's
-scan-on-mesh). At each epoch's end the outputs are gathered into the
+scan-on-mesh). Under a monitor rank 0 records: its gradients are the
+all-reduced ones, and it captures the activations of the whole global
+batch, which every rank's loader holds, outside the mesh (the eval forward
+takes no collective); the others keep the cadence. At each epoch's end the outputs are gathered into the
 global batches' over the host group and the losses' shares summed, so the
 recorder, early stopping, the scheduler and the best checkpoint see and
 decide what one device does. Rank 0 alone writes (checkpoints, the JSON
@@ -61,7 +72,7 @@ from mmtpu_torch.train.early_stopping import EarlyStopping
 from mmtpu_torch.train.optim import LRController, set_lr_scale
 from mmtpu_torch.train.recorder import MetricRecorder
 from mmtpu_torch.train.state import TrainState
-from mmtpu_torch.train.step import make_eval_step, make_train_step
+from mmtpu_torch.train.step import apply_missing_mask, make_eval_step, make_train_step, to_device
 from mmtpu_torch.utils import flatten_leaves
 
 logger = logging.getLogger(__name__)
@@ -198,6 +209,7 @@ class TrainLoop:
         device_resident: str = "auto",
         eval_batch_factor: Optional[int] = None,
         mesh=None,
+        monitor=None,
     ) -> None:
         # vocab_override renames the recorder's pattern vocabulary (the
         # monomodal entry point records under the MODALITY name);
@@ -229,6 +241,10 @@ class TrainLoop:
             replicate(state.model, mesh)
             state.mesh = mesh
         # step_builders: (make_train(task, state, device), make_eval(task, device, mesh))
+        if monitor is not None and step_builders is not None:
+            raise ValueError("the monitor records the standard train step's gradients; "
+                             "a loop with step_builders takes none, as in mmtpu")
+        self.monitor = monitor
         make_train, make_eval = step_builders or (make_train_step, make_eval_step)
         self.train_step = make_train(task, state, device)
         self.eval_step = make_eval(task, device, mesh)
@@ -242,7 +258,7 @@ class TrainLoop:
         self._phase_terms: List[Dict[str, torch.Tensor]] = []
         self._resident: Dict[str, ResidentSplit] = {}
         if (device_resident in ("auto", "on") and step_builders is None
-                and record_fn is None):
+                and record_fn is None and monitor is None):
             self._admit(device_resident, eval_batch_factor)
 
     def _admit(self, mode: str, eval_batch_factor: Optional[int]) -> None:
@@ -358,7 +374,29 @@ class TrainLoop:
     def train_epoch(self, epoch: int) -> float:
         if "train" in self._resident:
             return self._resident_epoch("train", epoch)
-        return self._epoch("train", self.train_step)
+        if self.monitor is None:
+            return self._epoch("train", self.train_step)
+        self.monitor.start_epoch(epoch)
+        loss = self._epoch("train", self._monitored_step)
+        self.monitor.end_epoch(self.state.model)
+        return loss
+
+    def _monitored_step(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        """A train step under the monitor (mmtpu's order): the gradient
+        statistics inside the step, then the activation capture, then the
+        monitor's step counter."""
+        mon = self.monitor
+        hook = mon.record_gradients if mon.writes and mon.want_gradients else None
+        out = self.train_step(batch, grad_hook=hook)
+        if mon.writes and mon.want_activations:
+            keys = self.task.input_keys
+            host = {k: batch[k] for k in keys}
+            host.update({f"{k}_mask": batch[f"{k}_mask"] for k in keys if f"{k}_mask" in batch})
+            dev = to_device(host, self.device)
+            mon.record_activations(self.task.model, [
+                apply_missing_mask(dev[k], dev.get(f"{k}_mask")) for k in keys])
+        mon.step()
+        return out
 
     def eval_epoch(self, split: str) -> float:
         if split in self._resident:
@@ -460,6 +498,13 @@ class TrainLoop:
     # -- run ----------------------------------------------------------------------
 
     def run(self) -> Dict[str, Any]:
+        try:
+            return self._run()
+        finally:
+            if self.monitor is not None:
+                self.monitor.close()
+
+    def _run(self) -> Dict[str, Any]:
         best_metrics: Optional[Dict[str, Any]] = None
         start_epoch = 1
         if self.resume:

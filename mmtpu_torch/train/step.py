@@ -147,25 +147,31 @@ def on_mesh(mesh):
 
 
 def train_step_core(task: ClassificationTask, state: TrainState,
-                    batch: Mapping[str, torch.Tensor], padded: bool = True):
+                    batch: Mapping[str, torch.Tensor], padded: bool = True,
+                    grad_hook: Optional[Callable[[torch.nn.Module], None]] = None):
     """One gradient step on a batch already on the device (this rank's rows
     of the global batch under `state.mesh`). `padded`: the batch has padded
-    rows, so BatchNorm gets the sample mask. Returns (loss, logits,
-    sample_mask); the loss is detached, and under a mesh it is this rank's
-    share of the global loss."""
+    rows, so BatchNorm gets the sample mask. `grad_hook(model)` sees the
+    raw gradients (`apply_gradients`). Returns (loss, logits, sample_mask);
+    the loss is detached, and under a mesh it is this rank's share of the
+    global loss."""
     sample_mask = batch.get("sample_mask")
     with on_mesh(state.mesh):
         logits = task.apply(batch, train=True, bn_mask=sample_mask if padded else None)
         loss = task.loss(logits, batch, sample_mask=sample_mask)
-    apply_gradients(state, loss)
+    apply_gradients(state, loss, grad_hook)
     return loss.detach(), output_logits(logits).detach(), sample_mask
 
 
-def apply_gradients(state: TrainState, loss: torch.Tensor) -> None:
+def apply_gradients(state: TrainState, loss: torch.Tensor,
+                    grad_hook: Optional[Callable[[torch.nn.Module], None]] = None) -> None:
     """Backward from `loss`, the gradients summed over the ranks of
     `state.mesh` (one all-reduce of a flattened bucket), the optional
     global-norm clip, the optimizer's step: what every train step does once
-    its loss is computed."""
+    its loss is computed. `grad_hook(model)`, when given, runs between the
+    all-reduce and the clip, where the gradients are the raw global ones
+    (the monitor's gradient statistics, as mmtpu takes them before optax's
+    clip)."""
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
     # a parameter the loss does not reach (RedCore's AEs) has a gradient of
@@ -177,6 +183,8 @@ def apply_gradients(state: TrainState, loss: torch.Tensor) -> None:
         # each rank's gradient is that of its share of the global loss: the
         # sum is the global gradient, which the clip then sees, as in optax
         state.mesh.all_reduce_grads(state.model.parameters())
+    if grad_hook is not None:
+        grad_hook(state.model)
     if state.clip:
         clip_by_global_norm(state.model.parameters(), state.clip)
     state.optimizer.step()
@@ -198,11 +206,12 @@ def make_train_step(task: ClassificationTask, state: TrainState,
     """(numpy batch) → dict of tensors on `device`: loss, preds, labels,
     and pattern_id / sample_mask when the batch has them. Under
     `state.mesh` the step takes this rank's rows of the global batch, and
-    its outputs are those rows'."""
+    its outputs are those rows'. `step(batch, grad_hook=f)` calls `f(model)`
+    on the raw gradients (`apply_gradients`)."""
 
-    def step(batch: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    def step(batch: Mapping[str, np.ndarray], grad_hook=None) -> Dict[str, torch.Tensor]:
         batch, padded = rows_on_device(batch, state.mesh, device)
-        loss, logits, sample_mask = train_step_core(task, state, batch, padded)
+        loss, logits, sample_mask = train_step_core(task, state, batch, padded, grad_hook)
         return _outputs(task, batch, loss, logits, sample_mask)
 
     return step

@@ -15,6 +15,7 @@ import importlib
 import io
 import json
 import os
+import sys
 import tempfile
 from pathlib import Path
 
@@ -290,6 +291,25 @@ def fail_on_rank(bad: int, module: str, argv) -> int:
     return importlib.import_module(module).main(list(argv))
 
 
+def _spy_h5py(written: list):
+    """List every HDF5 file h5py opens for writing (it opens them in C);
+    returns the real `h5py.File` to put back, or None without h5py."""
+    try:
+        import h5py
+    except ImportError:
+        return None
+    real = h5py.File
+
+    class File(real):
+        def __init__(self, name, mode="r", *args, **kwargs):
+            if any(c in str(mode) for c in "wax+"):
+                written.append(str(name))
+            super().__init__(name, mode, *args, **kwargs)
+
+    h5py.File = File
+    return real
+
+
 @contextlib.contextmanager
 def probes(out: Path, tag: str, weights=None):
     """Inside the `with` body a training CLI runs with no dropout and ε = 0
@@ -320,6 +340,8 @@ def probes(out: Path, tag: str, weights=None):
         if isinstance(f, (str, os.PathLike)):
             seen["writes"].append(str(f))
         return real[2](obj, f, *args, **kwargs)
+
+    h5_file = _spy_h5py(seen["writes"])
 
     def init_model(model, seed, device):
         if not queue:
@@ -354,6 +376,8 @@ def probes(out: Path, tag: str, weights=None):
         (builtins.open, io.open, torch.save, common.init_model, redcore_step.advance_schedule,
          ManagerState.update_centers, rng.GeneratorDropout.forward,
          rng.GeneratorNormal.forward) = real
+        if h5_file is not None:
+            sys.modules["h5py"].File = h5_file
         torch.save(seen, Path(out) / f"{tag}.pt")
 
 

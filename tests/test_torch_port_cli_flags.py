@@ -9,7 +9,7 @@
   N ranks (`tests/test_torch_port_parallel*.py` train on it);
 - `--stacked-folds` on a cross-validation config reaches the stacked engine,
   and falls back to sequential folds with `--resume` or data_parallel;
-- `monitoring.enabled: true` raises unless `--disable_monitoring`;
+- `monitoring.enabled: true` writes the monitor's file unless `--disable_monitoring`;
 - `--profile` writes a torch.profiler trace and `tensorboard_path` a
   tfevents file through `train_multimodal.main`.
 """
@@ -146,13 +146,25 @@ def test_stacked_folds_raises_and_falls_back_as_mmtpu(tmp_path, monkeypatch):
 
 
 def test_monitoring_enabled_raises_unless_disabled(tmp_path):
-    cfg = _config(tmp_path, "synthetic_runs.yaml",
-                  [("monitoring:\n  enabled: false", "monitoring:\n  enabled: true")])
-    for module in ("train_multimodal", "train_avmnist"):
-        with pytest.raises(NotImplementedError, match="monitor.*ROADMAP.md §1 item 6"):
-            run_cli_inproc(f"mmtpu_torch.cli.{module}", cfg, run_id="1", extra=("--dry-run",))
-        assert run_cli_inproc(f"mmtpu_torch.cli.{module}", cfg, run_id="1",
+    """`monitoring.enabled: true` with a `monitor_path` writes
+    `<monitor_path>/monitor_data.h5` (it raised before the monitor was
+    ported); `--disable_monitoring` writes none."""
+    import h5py
+
+    cfg = _config(tmp_path, "synthetic_runs.yaml", [
+        ("monitoring:\n  enabled: false", "monitoring:\n  enabled: true"),
+        ('  save_metric: "loss"',
+         f'  save_metric: "loss"\n  monitor_path: "{tmp_path}/monitor/{{run_id}}"')])
+    for run_id, module in (("1", "train_multimodal"), ("2", "train_avmnist")):
+        assert run_cli_inproc(f"mmtpu_torch.cli.{module}", cfg, run_id=run_id,
+                              extra=("--epochs", "1")) == 0
+        with h5py.File(tmp_path / "monitor" / run_id / "monitor_data.h5", "r") as f:
+            assert sorted(f) == ["activations", "convergence", "gradients", "weights"]
+            assert "epoch_1" in f["weights"] and "epoch_1/step_0" in f["gradients"]
+        # a dry run builds the monitor, so it opens the file unless disabled
+        assert run_cli_inproc(f"mmtpu_torch.cli.{module}", cfg, run_id="3",
                               extra=("--dry-run", "--disable_monitoring")) == 0
+        assert not (tmp_path / "monitor" / "3" / "monitor_data.h5").exists()
 
 
 def test_profile_and_tensorboard_through_the_cli(tmp_path):

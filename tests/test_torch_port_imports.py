@@ -5,8 +5,9 @@ checkpoint readers are its own. The port may import PyYAML only inside its
 YAML loader, and never pandas, sklearn, matplotlib, msgpack or h5py (its
 metrics are its own numpy versions of sklearn's), except matplotlib inside
 the embedding report's plotting function and h5py inside the real MM-IMDb
-and IEMOCAP readers: the card's machine has no JAX, sklearn or h5py, so the
-port must not need them there."""
+and IEMOCAP readers and the monitor's storage (which its analyser calls):
+the card's machine has no JAX, sklearn or h5py, so the port must not need
+them there."""
 
 import ast
 from pathlib import Path
@@ -38,10 +39,12 @@ def test_no_jax_or_mmtpu_imports(path):
 
 # the exceptions, each imported inside the one function that needs it, as
 # mmtpu's: the embedding report draws its plots with matplotlib; the real
-# MM-IMDb and IEMOCAP readers open their HDF5 files with h5py
+# MM-IMDb and IEMOCAP readers open their HDF5 files with h5py, and so do the
+# monitor's storage and analyser (through the storage's `import_h5py`)
 LAZY_HOST_ONLY = {("mmtpu_torch/reports/report.py", "matplotlib"),
                   ("mmtpu_torch/data/mmimdb.py", "h5py"),
-                  ("mmtpu_torch/data/iemocap.py", "h5py")}
+                  ("mmtpu_torch/data/iemocap.py", "h5py"),
+                  ("mmtpu_torch/monitor/storage.py", "h5py")}
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
@@ -81,7 +84,14 @@ PARALLEL_SLICE = ("mmtpu_torch/parallel/__init__.py", "mmtpu_torch/parallel/mesh
                   "mmtpu_torch/parallel/launch.py")
 
 
-@pytest.mark.parametrize("rel", EXPORT_SLICE + RECURRENT_SLICE + PARALLEL_SLICE)
+# the monitor and the federated codec
+MONITOR_SLICE = ("mmtpu_torch/monitor/__init__.py", "mmtpu_torch/monitor/monitor.py",
+                 "mmtpu_torch/monitor/storage.py", "mmtpu_torch/monitor/analysis.py",
+                 "mmtpu_torch/config/monitor.py", "mmtpu_torch/federated/__init__.py",
+                 "mmtpu_torch/federated/federated_utils.py")
+
+
+@pytest.mark.parametrize("rel", EXPORT_SLICE + RECURRENT_SLICE + PARALLEL_SLICE + MONITOR_SLICE)
 def test_the_export_slice_is_scanned(rel):
     assert REPO / rel in PORT_FILES
 

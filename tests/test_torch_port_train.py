@@ -831,9 +831,9 @@ def test_padded_batch_publishes_the_mask_and_full_batch_does_not(monkeypatch):
     seen = []
     real = step_mod.train_step_core
 
-    def spy(task, state, batch, padded=True):
+    def spy(task, state, batch, padded=True, grad_hook=None):
         seen.append(padded)
-        return real(task, state, batch, padded)
+        return real(task, state, batch, padded, grad_hook)
 
     monkeypatch.setattr(step_mod, "train_step_core", spy)
     pm = build_module("fcclassifier", **FC)
