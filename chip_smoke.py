@@ -254,11 +254,12 @@ FcClassifier 192→[192, 64, 32]→3; batch 32, aligned T = 50):
              (cuDNN's NHWC algorithms, deterministic still);
              the same aggregate keys, `fused_mlp` once per stacked eval step
              for both folds (36). (c) UttFusion at the published widths
-             (dropout 0, no test pass) with `--stacked-runs 3` and `5` (6 and
-             10 `lstm` groups per launch, one launch per stacked step: 184)
+             (dropout 0, no test pass; 644 train samples, half the split) with
+             `--stacked-runs 3` and `5` (6 and 10 `lstm` groups per launch,
+             one launch per stacked step: 144)
              against the members run one after another at seed + i, each
              member's first three train steps within 1e-4 / 1e-3 of its
-             run's, the padded tail (step 41, 4 real rows) and epoch 2's
+             run's, the padded tail (step 21, 4 real rows) and epoch 2's
              first step teacher-forced as in (b), member 1 run again with
              PyTorch's own convolutions instead of cuDNN's (cuDNN
              deterministic throughout). Phase 2 also
@@ -283,9 +284,10 @@ FcClassifier 192→[192, 64, 32]→3; batch 32, aligned T = 50):
              process, every file written by rank 0 alone; the gradient
              all-reduce's bytes and time per step, and samples/s of two
              processes sharing one card. (b) phase 6's UttFusion (dropout 0,
-             float32) the same way: step 1 and the padded tail (4 real rows
-             of 32, none on rank 1) within 1e-5, steps 2-3 within 1e-3, step
-             1's gradients within 1e-4 of each norm, `lstm` 115 per rank. (c)
+             float32; 644 train samples, half the split) the same way: step 1 and
+             the padded tail (4 real rows of 32, none on rank 1) within 1e-5,
+             steps 2-3 within 1e-3, step 1's gradients within 1e-4 of each
+             norm, `lstm` 75 per rank. (c)
              (b)'s steps as one rank over NCCL, within 1e-5. (d) the CLI on
              one card: `--data-parallel 2` raises mmtpu's ValueError,
              `--data-parallel -1` trains in the one process. (e)-(g) the
@@ -330,6 +332,29 @@ FcClassifier 192→[192, 64, 32]→3; batch 32, aligned T = 50):
              epoch), and one profiled capture of each kind (its host share). `train_multimodal.main` with the monitor
              enabled must stop before its first step with the error that
              names h5py.
+18. model axis, UMAP — (a) phase 5's scratch fine-tune at full width
+             (ResNet18 / ResNet34, head 192-128-64-10, B = 128, dropout 0,
+             TF32 off, cuDNN deterministic) on a (2, 2) mesh: four ranks on
+             the one card over gloo, the head tensor-parallel
+             (`mmtpu_torch/parallel/tensor.py`), against one process from the
+             same seeded weights: float32 losses of step 1 within 1e-4 and
+             steps 2-3 within 1e-3; the float64 step-1 gradients, gathered,
+             within 1e-6 of each norm; the gathered parameters; one eval step's
+             logits within 1e-4, the clear predictions equal, `fused_mlp`
+             exactly 2 launches per eval step per rank (the shard pair
+             192-64-64, then the 64-10 tail), the shard pair's kernel within
+             1e-5 of its plain version; a model group's replicated parameters
+             bit-identical after every step; rank 0 alone writes the
+             checkpoint, the whole model's, which every rank reads back into
+             its shards; each rank's step time and the model group's
+             all-reduce bytes (four processes on one card: arithmetic, not
+             a scaling number); both shard shapes' kernel time beside the
+             plain chain's and the bound at B = 64 and 512. (b) UMAP on the
+             card (`mmtpu_torch/analysis/umap_lite.py`) against the port on
+             the CPU over 3,000 × 192 seeded embeddings: kNN and edges
+             equal, the fuzzy set within 1e-6, the float64 layout within
+             1e-4 after each of the first three epochs (the tenth printed),
+             the 200-epoch wall time.
 
     python3 chip_smoke.py --train-only    # build, then phases 5 and 6 alone
     python3 chip_smoke.py --reader-only   # build, the audio pretraining, phase 7
@@ -351,6 +376,7 @@ FcClassifier 192→[192, 64, 32]→3; batch 32, aligned T = 50):
     python3 chip_smoke.py --stacked-only  # build, phase 2's member axis, phase 15 (b), (c)
     python3 chip_smoke.py --mesh-only     # build, phase 16 (a)-(g)
     python3 chip_smoke.py --monitor-only  # build, phase 17 (a), (b)
+    python3 chip_smoke.py --model-axis-only  # build, phase 18 (a), (b)
 
 Prints a `kernels` JSON line, the card's name and power limit, and as the
 last line `{"ok": true, "device": {...}}`. Any failure exits non-zero
@@ -975,8 +1001,9 @@ def phase_kernels_lstm(dev) -> dict:
         slow = dict(iters=10, repeats=3, warmup=2)  # the scan is ~10 launches per step
         with torch.no_grad():
             long_call = event_ms(kernel, iters=2, repeats=1, warmup=1) > SLOW_CALL_MS
-            ev = slow if long_call else {}
-            hv = dict(iters=10, repeats=3) if long_call else {}
+            # a call above SLOW_CALL_MS (H >= 256) is timed over 3 × 2 calls, for room
+            ev = dict(iters=3, repeats=2, warmup=1) if long_call else {}
+            hv = dict(iters=3, repeats=2) if long_call else {}
             p1 = event_ms(plain, **slow)
             k1 = event_ms(kernel, **ev)
             k2 = event_ms(kernel, **ev)
@@ -1625,6 +1652,9 @@ def phase_train(dev, card: str, work: Path) -> dict:
 # synthetic_mosi at CMU-MOSI's split sizes, the file's batch, epochs, train
 # pattern and missing rates.
 UTT_SAMPLES = {"train": 1284, "validation": 229, "test": 686}
+# phases 15 (c) and 16 (b) train on half CMU-MOSI's train split, for room: 20
+# batches of 32 and the same tail of 4 real rows
+UTT_HALF_SAMPLES = {"train": 644, "validation": 229, "test": 686}
 UTT_BATCH = 32
 UTT_PATTERNS = 7  # validation and test: every pattern over {a, t, v}
 UTT_NAME = "Synthetic_MOSI_UttFusion"
@@ -1632,13 +1662,13 @@ UTT_LOSS_RTOL = 1e-5  # step 1 and the padded step, GPU (TF32 off) vs CPU
 UTT_GRAD_TOL = 1e-4  # of each parameter's gradient norm, step 1, float32
 
 
-def utt_train_config(out_root: str, dropout: bool = True) -> dict:
+def utt_train_config(out_root: str, dropout: bool = True, samples: dict = UTT_SAMPLES) -> dict:
     """configs/mosi/synthetic_utt_fusion.yaml at the published widths and
-    CMU-MOSI's split sizes; `dropout=False` sets TextCNN's and
-    FcClassifier's dropout to 0 (the GPU-vs-CPU check)."""
-    cfg = mosi_smoke_config(num_samples=UTT_SAMPLES["test"], batch_size=UTT_BATCH,
-                            out_root=out_root, train_samples=UTT_SAMPLES["train"],
-                            validation_samples=UTT_SAMPLES["validation"])
+    CMU-MOSI's split sizes (or `samples`); `dropout=False` sets TextCNN's
+    and FcClassifier's dropout to 0 (the GPU-vs-CPU check)."""
+    cfg = mosi_smoke_config(num_samples=samples["test"], batch_size=UTT_BATCH,
+                            out_root=out_root, train_samples=samples["train"],
+                            validation_samples=samples["validation"])
     cfg["training"]["epochs"] = TRAIN_EPOCHS
     if not dropout:
         for net in ("netT", "netC"):
@@ -1646,11 +1676,11 @@ def utt_train_config(out_root: str, dropout: bool = True) -> dict:
     return cfg
 
 
-def utt_expected_launches() -> dict:
+def utt_expected_launches(samples: dict = UTT_SAMPLES) -> dict:
     """`lstm` launches of the run: one per train batch and per fused eval
     step of the device-resident path (train one pattern, the others seven)."""
-    train = -(-UTT_SAMPLES["train"] // UTT_BATCH)
-    per = _eval_batches(UTT_SAMPLES, UTT_BATCH, UTT_PATTERNS)
+    train = -(-samples["train"] // UTT_BATCH)
+    per = _eval_batches(samples, UTT_BATCH, UTT_PATTERNS)
     return {"train": train, **per,
             "total": TRAIN_EPOCHS * (train + per["validation"]) + per["test"]}
 
@@ -6259,12 +6289,12 @@ def phase_stacked_folds(dev, card: str, work: Path) -> dict:
 
 
 def phase_stacked_runs(dev, card: str, work: Path) -> dict:
-    """Phase 15 (c): UttFusion at the published widths (1284/229/686, T =
-    50, batch 32, 2 epochs, dropout 0, `--skip-test`: phase 6 tests this
-    model) with `--stacked-runs 3` and `5`
+    """Phase 15 (c): UttFusion at the published widths (644/229/686, half
+    CMU-MOSI's train split for room, T = 50, batch 32, 2 epochs, dropout 0,
+    `--skip-test`: phase 6 tests this model) with `--stacked-runs 3` and `5`
     (6 and 10 lstm groups per launch) against its members run one after
     another at seed + i, cuDNN deterministic: each member's first three
-    train steps within 1e-4 / 1e-3; the padded tail (step 41, 4 real rows)
+    train steps within 1e-4 / 1e-3; the padded tail (step 21, 4 real rows)
     and epoch 2's first step teacher-forced (each member set to its
     sequential run's state before the step) within TEACHER_RTOL; the epoch
     losses beside them, and beside those member 1 run again with PyTorch's
@@ -6275,13 +6305,14 @@ def phase_stacked_runs(dev, card: str, work: Path) -> dict:
     from mmtpu_torch.cli import train_multimodal
 
     out_root = work / "stacked_runs"
-    cfg = utt_train_config(str(out_root), dropout=False)
+    samples = UTT_HALF_SAMPLES
+    cfg = utt_train_config(str(out_root), dropout=False, samples=samples)
     seed = int(cfg["experiment"]["seed"])
-    train = -(-UTT_SAMPLES["train"] // UTT_BATCH)
+    train = -(-samples["train"] // UTT_BATCH)
     at = (train - 1, train)  # the padded tail, epoch 2's first train step
-    stk_steps = _eval_batches(UTT_SAMPLES, UTT_BATCH, UTT_PATTERNS, fused=False)
+    stk_steps = _eval_batches(samples, UTT_BATCH, UTT_PATTERNS, fused=False)
     want_stk = TRAIN_EPOCHS * (train + stk_steps["validation"])
-    want_seq = TRAIN_EPOCHS * (train + utt_expected_launches()["validation"])
+    want_seq = TRAIN_EPOCHS * (train + utt_expected_launches(samples)["validation"])
 
     seq, steps_seq, seq_caps = [], [], []
     name = f"{UTT_NAME}_Sequential"
@@ -6354,8 +6385,8 @@ def phase_stacked_runs(dev, card: str, work: Path) -> dict:
         del stk_caps[:]
         epoch_s = json.loads((metrics / "1/epoch_metrics.json").read_text())[
             TRAIN_EPOCHS - 1]["train"]["timing"]["total_time"]
-        rates = {"stk": k * UTT_SAMPLES["train"] / epoch_s,
-                 "seq": k * UTT_SAMPLES["train"] / sum(r["epoch_s"] for r in seq[:k])}
+        rates = {"stk": k * samples["train"] / epoch_s,
+                 "seq": k * samples["train"] / sum(r["epoch_s"] for r in seq[:k])}
         stacked[k] = {"seconds": seconds, "launches": counts, "loss_rel": worst,
                       "first_steps_rel": first, "teacher": teacher, "samples_per_s": rates}
         say_card(card, f"[stacked runs {k}] {seconds:.2f} s through train_multimodal.main; "
@@ -6835,8 +6866,9 @@ def phase_mesh_avmnist(card: str, prepared: tuple, single: dict, ranks: list) ->
 
 
 def _mesh_utt_jobs(work: Path) -> tuple:
-    """Phase 16 (b)'s jobs: phase 6's UttFusion, dropout 0, float32."""
-    cfg = utt_train_config(str(work / "mesh_utt"), dropout=False)
+    """Phase 16 (b)'s jobs: phase 6's UttFusion, dropout 0, float32, on
+    half the train split, for room."""
+    cfg = utt_train_config(str(work / "mesh_utt"), dropout=False, samples=UTT_HALF_SAMPLES)
     names = [(f"{UTT_NAME}_Mesh", False)]
     return names, _mesh_jobs(work, "mesh_utt", [(names[0][0], cfg, False)],
                              {"float64": False, "pad_rows": None})
@@ -6881,15 +6913,16 @@ def phase_mesh_utt(card: str, prepared: tuple, single: dict, ranks: list,
     0, float32, the kernel's only type) in one process against two ranks on
     cuda:0 over gloo: step 1 and the padded tail (4 real rows of 32, none
     on rank 1) within 1e-5, steps 2-3 within 1e-3, step 1's gradients within
-    1e-4 of each norm, the states equal after each epoch, `lstm` 115 per
-    rank; then (c)'s one NCCL rank against the same steps, within 1e-5."""
+    1e-4 of each norm, the states equal after each epoch, `lstm` 75 per
+    rank (644 train samples); then (c)'s one NCCL rank against the same
+    steps, within 1e-5."""
     names, (out_root, _) = prepared
-    want = {"fused_mlp": 0, "lstm": utt_expected_launches()["total"]}
+    want = {"fused_mlp": 0, "lstm": utt_expected_launches(UTT_HALF_SAMPLES)["total"]}
     if ranks[0]["steps"]["padded"]["real_rows"] > UTT_BATCH // MESH_RANKS:
         raise AssertionError("[mesh utt] the padded tail has real rows on rank 1")
     res = _mesh_compare("[mesh utt]", card, out_root, names, single, ranks, want,
-                        UTT_SAMPLES["train"], (UTT_LOSS_RTOL, TRAIN_LATER_RTOL), UTT_GRAD_TOL,
-                        UTT_LOSS_RTOL)
+                        UTT_HALF_SAMPLES["train"], (UTT_LOSS_RTOL, TRAIN_LATER_RTOL),
+                        UTT_GRAD_TOL, UTT_LOSS_RTOL)
     nccl_rel = {k: abs(nccl["steps"][k]["loss"] - single["steps"][k]["loss"])
                 / abs(single["steps"][k]["loss"]) for k in single["steps"]}
     say(f"[mesh nccl] backend {nccl['backend']}, one rank: losses of step 1 and the padded "
@@ -7667,6 +7700,439 @@ def say_phase17(card: str, p17: dict, seconds: float) -> None:
         f"; phase 17 {seconds:.1f} s")
 
 
+# -- phase 18: the model axis, and UMAP on the card ------------------------------------
+
+AXIS_MESH = (2, 2)  # (data_parallel, model_parallel): four ranks sharing cuda:0 over gloo
+AXIS_STEPS = 3  # float32 train steps held against one process
+AXIS_EVAL_STEPS = 1  # eval steps of the test split (B = 128); one, for the script's room
+AXIS_LOGIT_TOL = 1e-4  # eval logits, the (2, 2) mesh vs one process, float32
+AXIS_SHAPES = ([192, 64, 64], [64, 10])  # a rank's shard pair at mp = 2, and the tail
+UMAP_SHAPE = (3000, 192, 10)  # points (the AVMNIST test pass), width, classes
+UMAP_FUZZY_TOL = 1e-6  # the fuzzy set's weights, card vs CPU
+UMAP_LAYOUT_TOL = 1e-4  # the float64 layout, card vs CPU, over the held epochs
+UMAP_EPOCHS = (1, 2, 3, 10)  # the first three held point for point, the tenth printed:
+# the repulsive steps amplify an ulp tenfold to a hundredfold per epoch (PERF.md §6)
+
+
+def axis_config(work: Path) -> Path:
+    """Phase 15's scratch fine-tune at full width (ResNet18 / ResNet34, head
+    192-128-64-10), dropout 0, as JSON."""
+    cfg = train_configs(str(work / "axis"))["scratch"]
+    cfg["model"]["dropout"] = 0.0
+    path = work / "axis.json"
+    path.write_text(json.dumps(cfg))
+    return path
+
+
+def _axis_model(cfg, dev, init: Optional[dict] = None):
+    """The fine-tune's whole model on `dev` (every rank the same): from the
+    seed, or holding `init` (a state_dict of it)."""
+    from mmtpu_torch.cli import common
+
+    model = common.build_model_from_config(cfg.model)
+    if init is None:
+        return common.init_model(model, SEED, dev)
+    model.load_state_dict(init)
+    return model.to(dev)
+
+
+def _axis_setup(cfg, model, mesh):
+    """`model` with its head sharded over `mesh`'s model axis; its state and
+    task."""
+    from mmtpu_torch.cli import common
+    from mmtpu_torch.models.avmnist import AVMNIST
+    from mmtpu_torch.parallel.tensor import shard_module
+    from mmtpu_torch.train.step import ClassificationTask
+
+    if mesh is not None:
+        shard_module(model, mesh, AVMNIST.TENSOR_PARALLEL_RULE)
+    state = common.make_state(model, cfg.training)
+    state.mesh = mesh
+    return model, state, ClassificationTask(model=model, loss_group=cfg.training.loss_functions,
+                                            input_keys=["audio", "image"])
+
+
+def _replicated_hash(model) -> str:
+    from mmtpu_torch.parallel.tensor import shard_dims
+
+    dims = shard_dims(model)
+    return _state_hash({k: v for k, v in model.state_dict().items() if k not in dims})
+
+
+def _whole_grads(model) -> dict:
+    """Every parameter's gradient as one process holds it: a shard's joined
+    over the model group (collective on a model axis)."""
+    from mmtpu_torch.parallel.tensor import join_shards, shard_dims, sharding
+
+    grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+    sh, dims = sharding(model), shard_dims(model)
+    if sh is not None:
+        grads.update(join_shards(sh.mesh.model_gather({k: grads[k] for k in dims}), dims))
+    return grads
+
+
+def _axis_job(job: dict) -> int:
+    """Phase 18 (a) in one process: a rank of the (2, 2) mesh (the launcher
+    runs it there) or the single process. From the seeded weights,
+    AXIS_EVAL_STEPS eval steps (global logits, `fused_mlp` launches) and
+    the shard pair's kernel against its plain version; then the fine-tune's
+    first AXIS_STEPS float32 steps (global losses, each step's wall time,
+    the replicated parameters' sha256, the model-group all-reduce's bytes),
+    the gathered state after steps 1 and 3, a checkpoint every rank saves
+    (who wrote it) and reads back into its shards; a float64 step from the
+    seeded weights (the gathered gradients and parameters). To
+    `<out>/<rank or single>.pt`."""
+    import itertools as it
+
+    import torch
+
+    from mmtpu_torch.checkpoints.manager import CheckpointManager
+    from mmtpu_torch.cli import common
+    from mmtpu_torch.ops import fused_mlp, fused_mlp_reference
+    from mmtpu_torch.parallel.mesh import get_default_mesh
+    from mmtpu_torch.parallel.tensor import gather_state_dict, sharding
+    from mmtpu_torch.train.step import make_eval_step, make_train_step
+
+    mesh = get_default_mesh()
+    dev = mesh.device if mesh is not None else torch.device(MESH_DEVICE)
+    _cudnn(True)
+    _tf32_off()
+    cfg, batches = _train_batches(Path(job["cfg"]), AXIS_STEPS)
+    tests = list(it.islice(cfg.data.build_loader("test", seed=cfg.experiment.seed),
+                           AXIS_EVAL_STEPS))
+    rec = {"losses": [], "step_s": [], "hashes": [], "reduce_bytes": [], "states": {}}
+
+    def gathered(value):
+        return value if mesh is None else mesh.gather(value)
+
+    model = _axis_model(cfg, dev)
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    model, state, task = _axis_setup(cfg, model, mesh)
+    nbytes = [0]
+    if mesh is not None:
+        reduce_model = mesh.model_all_reduce_
+
+        def counted(t):
+            nbytes[0] += t.numel() * t.element_size()
+            return reduce_model(t)
+
+        mesh.model_all_reduce_ = counted
+    evaluate = make_eval_step(task, dev, mesh)
+    reset_counts()
+    outs = [evaluate(b) for b in tests]
+    torch.cuda.synchronize()
+    rec["eval_launches"] = read_counts()["fused_mlp"]
+    rec["logits"] = [np.concatenate(gathered(o["logits"].cpu().numpy())) if mesh is not None
+                     else o["logits"].cpu().numpy() for o in outs]
+    sh = sharding(model)
+    if sh is not None:
+        with torch.inference_mode():
+            from mmtpu_torch.train.step import apply_missing_mask, rows_on_device
+
+            b, _ = rows_on_device(tests[0], mesh, dev)
+            model.eval()
+            x = torch.cat(model.encode(*(apply_missing_mask(b[k], b[f"{k}_mask"])
+                                         for k in ("audio", "image"))), dim=1).contiguous()
+            w = [model.fc_fusion.weight, model.fc_intermediate.weight]
+            bias = [model.fc_fusion.bias, torch.zeros_like(model.fc_intermediate.bias)]
+            got, want = fused_mlp(x, w, bias), fused_mlp_reference(x, w, bias)
+            torch.cuda.synchronize()
+            rec["shard_err"] = (got - want).abs().max().item()
+            rec["shard_shape"] = [x.shape[0], x.shape[1], *(t.shape[0] for t in w)]
+
+    step = make_train_step(task, state, dev)
+    for i, batch in enumerate(batches):
+        nbytes[0] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = float(step(batch)["loss"])
+        torch.cuda.synchronize()
+        rec["step_s"].append(time.perf_counter() - t0)
+        rec["losses"].append(float(sum(gathered(loss))) if mesh is not None else loss)
+        rec["hashes"].append(_replicated_hash(model))
+        rec["reduce_bytes"].append(nbytes[0])
+        if i in (0, AXIS_STEPS - 1):
+            whole = gather_state_dict(model)
+            if mesh is None or mesh.is_writer:
+                rec["states"][i + 1] = whole
+    if mesh is not None:
+        saved = []
+        real_save = torch.save
+
+        def save(obj, f, *args, **kwargs):
+            if isinstance(f, (str, Path)):
+                saved.append(str(f))
+            return real_save(obj, f, *args, **kwargs)
+
+        ckpt = CheckpointManager(Path(job["out"]) / "ckpt")
+        torch.save = save
+        try:
+            ckpt.save_checkpoint(state, AXIS_STEPS, 0.0)
+        finally:
+            torch.save = real_save
+        mesh.barrier()
+        own = {k: v.clone() for k, v in model.state_dict().items()}
+        with torch.no_grad():
+            for p in model.parameters():
+                p.zero_()
+        ckpt.load_checkpoint(state, "best")
+        rec["saved"] = saved
+        rec["restored"] = all(torch.equal(v, own[k]) for k, v in model.state_dict().items())
+
+    model, state, task = _axis_setup(cfg, _axis_model(cfg, dev, init).double(), mesh)
+    with _float64_losses():
+        make_train_step(task, state, dev)(_as_float64(batches[0]))
+    grads, whole = _whole_grads(model), gather_state_dict(model)
+    if mesh is None or mesh.is_writer:
+        rec["grads64"], rec["state64"] = grads, whole
+    torch.save(rec, Path(job["out"]) / (f"rank{mesh.rank}.pt" if mesh else "single.pt"))
+    return 0
+
+
+def _axis_kernel_shapes(dev, card: str) -> dict:
+    """The shard pair's chain and the one-layer tail on the card at a data
+    rank's B = 64 (a streamed batch of 128) and 512 (a fused step of 1024):
+    each against its plain version, and its time beside the plain chain's,
+    its bound and, for the tail, the one library call that computes it
+    (`torch.addmm`, x·Wᵀ + b; the pair has none)."""
+    import torch
+
+    from mmtpu_torch.ops import fused_mlp, fused_mlp_reference
+
+    g = torch.Generator().manual_seed(SEED + 18)
+    out = {}
+    for dims in AXIS_SHAPES:
+        ws = [(torch.randn(o, i, generator=g) / i ** 0.5).to(dev)
+              for i, o in zip(dims[:-1], dims[1:])]
+        bs = [(0.1 * torch.randn(o, generator=g)).to(dev) for o in dims[1:]]
+        for batch in MESH_MLP_BATCHES:
+            x = torch.randn(batch, dims[0], generator=g).to(dev)
+            err = (fused_mlp(x, ws, bs) - fused_mlp_reference(x, ws, bs)).abs().max().item()
+            p1 = event_ms(lambda: fused_mlp_reference(x, ws, bs))
+            k1 = event_ms(lambda: fused_mlp(x, ws, bs))
+            k2 = event_ms(lambda: fused_mlp(x, ws, bs))
+            p2 = event_ms(lambda: fused_mlp_reference(x, ws, bs))
+            kd = own_device_ms(lambda: fused_mlp(x, ws, bs), "fused_mlp")
+            pd = device_breakdown(lambda: [fused_mlp_reference(x, ws, bs)
+                                           for _ in range(100)])["device_ms"] / 100
+            bound, bound_by = mlp_bound_ms(batch, dims)
+            out[f"{dims} B={batch}"] = t = {
+                "ms": statistics.mean([k1, k2]), "plain_ms": statistics.mean([p1, p2]),
+                "device_ms": kd, "plain_device_ms": pd, "bound_ms": bound,
+                "bound_by": bound_by, "library_ms": None, "library_device_ms": None,
+                "max_abs_err": err}
+            line = (f"[axis] fused_mlp {dims} B={batch}: max |kernel - plain| {err:.3e}; per "
+                    f"call kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms; device "
+                    f"kernel {kd:.6f} ms, plain {pd:.6f} ms; bound {bound:.6f} ms ({bound_by})")
+            if len(ws) == 1:
+                def library():
+                    return torch.addmm(bs[0], x, ws[0].t())
+
+                diff = (library() - fused_mlp_reference(x, ws, bs)).abs().max().item()
+                if diff > LIBRARY_TOL:
+                    raise AssertionError(f"torch.addmm {dims} B={batch}: differs by {diff}")
+                l1, l2 = event_ms(library), event_ms(library)
+                ld = device_breakdown(lambda: [library() for _ in range(100)])["device_ms"] / 100
+                t.update(library_ms=statistics.mean([l1, l2]), library_device_ms=ld)
+                line += (f"; torch.addmm {l1:.4f}/{l2:.4f} ms, device {ld:.6f} ms, max "
+                         f"|difference| {diff:.3e}")
+            say_card(card, line)
+            if err > KERNEL_TOL:
+                raise AssertionError(f"fused_mlp {dims} B={batch}: error {err}")
+    return out
+
+
+def phase_model_axis(dev, card: str, work: Path) -> dict:
+    """Phase 18 (a): the full-width AVMNIST fine-tune on a (2, 2) mesh, four
+    ranks on cuda:0 over gloo, its head tensor-parallel, against one
+    process from the same seeded weights (dropout 0, TF32 off, cuDNN
+    deterministic): the eval logits from the seeded weights within 1e-4 and
+    the predictions equal where the top-2 margin is above 1e-3; `fused_mlp`
+    exactly 2 launches per eval step per rank (1 in one process); the shard
+    pair's kernel within 1e-5 of its plain version; float32 losses of step 1
+    within 1e-4 and steps 2-3 within 1e-3; the float64 step-1 gradients,
+    gathered, within 1e-6 of each parameter's norm, and the parameters after
+    it; the float32 parameters, gathered, printed (Adam moves an element
+    whose gradient is near 0 by ±lr on either side); a model group's
+    replicated parameters bit-identical after every step; rank 0 alone
+    writes the checkpoint, which holds the whole model and which every rank
+    reads back into its shards."""
+    import torch
+
+    from mmtpu_torch.parallel import MeshConfig, create_mesh
+    from mmtpu_torch.parallel.launch import launch
+
+    cfg = axis_config(work)
+    outs = {}
+    for tag in ("single", "mesh"):
+        outs[tag] = work / f"axis_{tag}"
+        outs[tag].mkdir()
+    t0 = time.perf_counter()
+    dp, mp = AXIS_MESH
+    mesh = create_mesh(MeshConfig(dp, mp), devices=[torch.device(MESH_DEVICE)] * (dp * mp))
+    flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+             torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    # the single process runs on a thread while the ranks start and run:
+    # its numbers are the reference, its step times only printed
+    with ThreadPoolExecutor(1) as pool:
+        single = pool.submit(_axis_job, {"cfg": str(cfg), "out": str(outs["single"])})
+        rc = launch(mesh, _axis_job, ({"cfg": str(cfg), "out": str(outs["mesh"])},),
+                    timeout=MESH_TIMEOUT_S)
+        if single.result() != 0:
+            raise AssertionError("[axis] the single process failed")
+    (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) = flags
+    if rc != 0:
+        raise AssertionError(f"[axis] a rank exited with code {rc}")
+    t2 = time.perf_counter()
+    one = torch.load(outs["single"] / "single.pt", weights_only=False)
+    ranks = [torch.load(outs["mesh"] / f"rank{r}.pt", weights_only=False)
+             for r in range(dp * mp)]
+
+    rel = [abs(a - b) / abs(b) for a, b in zip(ranks[0]["losses"], one["losses"])]
+    groups = [[r["hashes"] for r in ranks[d * mp:(d + 1) * mp]] for d in range(dp)]
+    if any(h != g[0] for g in groups for h in g):
+        raise AssertionError(f"[axis] a model group's replicated parameters differ: {groups}")
+    grad_err = _grad_errors(ranks[0]["grads64"], one["grads64"])
+    param64 = _grad_errors(*({k: v for k, v in st.items() if v.is_floating_point()}
+                             for st in (ranks[0]["state64"], one["state64"])))
+    param32 = {s: _whole_error(ranks[0]["states"][s], one["states"][s]) for s in one["states"]}
+    ckpt = torch.load(outs["mesh"] / "ckpt" / "best.pth", weights_only=True)
+    if not torch_equal(ckpt["model"], ranks[0]["states"][AXIS_STEPS]):
+        raise AssertionError("[axis] the checkpoint is not the gathered state")
+    if [Path(p).name for p in ranks[0]["saved"]] != ["epoch_3.pth.tmp", "best.pth.tmp"] or any(
+            r["saved"] for r in ranks[1:]) or not all(r["restored"] for r in ranks):
+        raise AssertionError(f"[axis] writes {[r['saved'] for r in ranks]}, restored "
+                             f"{[r['restored'] for r in ranks]}")
+    logits = np.concatenate(ranks[0]["logits"])
+    ref = np.concatenate(one["logits"])
+    logit_err = float(np.abs(logits - ref).max())
+    top2 = np.sort(ref, axis=1)[:, -2:]
+    clear = (top2[:, 1] - top2[:, 0]) > MARGIN
+    flips = int((logits.argmax(1) != ref.argmax(1))[clear].sum())
+    shard_err = max(r["shard_err"] for r in ranks)
+    launches = [r["eval_launches"] for r in ranks]
+    step_ms = [[round(s * 1e3, 3) for s in r["step_s"]] for r in ranks]
+    say(f"[axis] {dp * mp} ranks, a ({dp}, {mp}) mesh on {MESH_DEVICE} over gloo, beside "
+        f"the single process on a thread: {t2 - t0:.1f} s (process start-up included)")
+    say(f"[axis] train losses of steps 1-{AXIS_STEPS}: one process {one['losses']}, the mesh "
+        f"{ranks[0]['losses']}, relative {rel} (tolerances {TRAIN_LOSS_RTOL}, "
+        f"{TRAIN_LATER_RTOL}); gathered float32 parameters after steps "
+        f"{sorted(param32)} {[param32[s] for s in sorted(param32)]} of the model's norm "
+        f"(printed: Adam moves an element whose gradient is near 0 by ±lr on either side)")
+    say(f"[axis] float64 step 1: gradients worst {max(grad_err.values()):.3e} of a "
+        f"parameter's norm, {_worst(grad_err)}; parameters worst "
+        f"{max(param64.values()):.3e} (tolerance {TRAIN_GRAD64_TOL})")
+    say(f"[axis] eval from the seeded weights over {AXIS_EVAL_STEPS} test steps ({len(ref)} "
+        f"rows): logits "
+        f"{logit_err:.3e} (tolerance {AXIS_LOGIT_TOL}), {flips} clear predictions differ "
+        f"({int(clear.sum())} clear of {len(ref)}); fused_mlp launches per rank {launches}, "
+        f"one process {one['eval_launches']}; the shard pair {ranks[0]['shard_shape']} "
+        f"kernel vs plain {shard_err:.3e} (tolerance {KERNEL_TOL})")
+    say(f"[axis] replicated parameters' sha256 per step equal within each model group; "
+        f"rank 0 wrote {[Path(p).name for p in ranks[0]['saved']]}, ranks 1-3 nothing; every "
+        f"rank read its shards back")
+    say_card(card, f"[axis] step wall times per rank (ms; four processes sharing one card, "
+             f"not a scaling number) {step_ms}, the single process beside them "
+             f"{[round(s * 1e3, 3) for s in one['step_s']]}; model-group all-reduce bytes per "
+             f"train step per rank {ranks[0]['reduce_bytes']}")
+    if rel[0] > TRAIN_LOSS_RTOL or max(rel[1:]) > TRAIN_LATER_RTOL:
+        raise AssertionError(f"[axis] losses {rel}")
+    if max(grad_err.values()) > TRAIN_GRAD64_TOL or max(param64.values()) > TRAIN_GRAD64_TOL:
+        raise AssertionError(f"[axis] float64 gradients {_worst(grad_err)}, parameters "
+                             f"{_worst(param64)}")
+    if logit_err > AXIS_LOGIT_TOL or flips or shard_err > KERNEL_TOL:
+        raise AssertionError(f"[axis] logits {logit_err}, flips {flips}, shard {shard_err}")
+    if launches != [2 * AXIS_EVAL_STEPS] * (dp * mp) or one["eval_launches"] != AXIS_EVAL_STEPS:
+        raise AssertionError(f"[axis] fused_mlp launches {launches}, one process "
+                             f"{one['eval_launches']}")
+    return {"loss_rel": rel, "grad_err": max(grad_err.values()),
+            "param64": max(param64.values()), "param32": param32, "logit_err": logit_err,
+            "shard_err": shard_err, "launches_per_eval_step": launches[0] // AXIS_EVAL_STEPS,
+            "step_ms": step_ms, "reduce_bytes": ranks[0]["reduce_bytes"], "seconds": t2 - t0}
+
+
+def umap_points(seed: int = SEED) -> tuple:
+    """UMAP_SHAPE's seeded embeddings: one Gaussian cloud per class (the
+    AVMNIST test pass's 3,000 rows of a 192-wide fused embedding, ten
+    digits), and their labels."""
+    n, d, classes = UMAP_SHAPE
+    g = np.random.default_rng(seed)
+    labels = np.arange(n) % classes
+    centers = g.normal(scale=3.0, size=(classes, d))
+    return (centers[labels] + g.normal(size=(n, d))).astype(np.float32), labels
+
+
+def phase_umap(dev, card: str) -> dict:
+    """Phase 18 (b): `umap_embed`'s steps on the card against the port on
+    the CPU over UMAP_SHAPE's embeddings: the kNN indices equal, the fuzzy
+    set within 1e-6; the layout in float64 from the same start and
+    negative samples within 1e-4 after each of the first three epochs (the
+    tenth printed); the 200-epoch projection's wall time on the card."""
+    import torch
+
+    from mmtpu_torch.analysis import umap_lite as U
+
+    x, _ = umap_points()
+    k = 15
+    graphs = {}
+    for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        idx, dist = U._knn(torch.from_numpy(x).to(d), k)
+        graphs[name] = (idx.cpu(), *(t.cpu() for t in U._fuzzy_simplicial_set(idx, dist)))
+    (ci, ch, ct, cw), (hi, hh, ht, hw) = graphs["card"], graphs["cpu"]
+    same = torch.equal(ci, hi) and torch.equal(ch, hh) and torch.equal(ct, ht)
+    fuzzy = (cw - hw).abs().max().item() if same else float("inf")
+    a, b = U._find_ab(0.1)
+    start = U._pca_start(x, 2)
+    weight = hw.numpy()
+    keep = weight > weight.max() / 200
+    sel = torch.from_numpy(np.flatnonzero(keep))
+    head, tail = hh[sel], ht[sel]
+    drift = []
+    for epochs in UMAP_EPOCHS:
+        runs = [U._layout(torch.from_numpy(start).double().to(d), head.to(d), tail.to(d),
+                          weight[keep], a, b, 200, 1.0, 5, np.random.default_rng(SEED),
+                          epochs=epochs).cpu() for d in (dev, torch.device("cpu"))]
+        drift.append((runs[0] - runs[1]).abs().max().item())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    emb = U.umap_embed(x, random_state=SEED, device=dev)
+    wall = time.perf_counter() - t0
+    if emb.shape != (len(x), 2) or not np.isfinite(emb).all():
+        raise AssertionError(f"[umap] bad projection {emb.shape}")
+    say(f"[umap] {UMAP_SHAPE[0]} x {UMAP_SHAPE[1]} seeded embeddings, {len(cw)} fuzzy edges, "
+        f"{int(keep.sum())} kept: kNN and edges equal card vs CPU {same}; fuzzy set "
+        f"{fuzzy:.3e} (tolerance {UMAP_FUZZY_TOL}); float64 layout card vs CPU after epochs "
+        f"{UMAP_EPOCHS}: {[float(f'{v:.3e}') for v in drift]} (tolerance {UMAP_LAYOUT_TOL} "
+        f"over the first three)")
+    say_card(card, f"[umap] 200 epochs on the card, kNN to layout: {wall:.3f} s")
+    if not same or fuzzy > UMAP_FUZZY_TOL or max(drift[:3]) > UMAP_LAYOUT_TOL:
+        raise AssertionError(f"[umap] graph equal {same}, fuzzy {fuzzy}, layout {drift}")
+    return {"fuzzy": fuzzy, "drift": drift, "wall": wall, "edges": len(cw)}
+
+
+def phase18(dev, card: str, work: Path) -> dict:
+    """(a); the shard shapes' kernel times; (b)."""
+    return {"axis": {**phase_model_axis(dev, card, work),
+                     "shapes": _axis_kernel_shapes(dev, card)},
+            "umap": phase_umap(dev, card)}
+
+
+def say_phase18(card: str, p18: dict, seconds: float) -> None:
+    a, u = p18["axis"], p18["umap"]
+    say_card(card, f"[summary] model axis, a {AXIS_MESH} mesh on one card vs one process: "
+             f"steps 1-{AXIS_STEPS} {a['loss_rel']}, float64 gradients {a['grad_err']:.3e}, "
+             f"parameters {a['param64']:.3e}, float32 parameters {a['param32']}, eval logits "
+             f"{a['logit_err']:.3e}; fused_mlp {a['launches_per_eval_step']} per eval step per "
+             f"rank, the shard pair {a['shard_err']:.3e}; step ms per rank {a['step_ms']}; "
+             f"model-group all-reduce bytes per step {a['reduce_bytes']}; (a) "
+             f"{a['seconds']:.1f} s")
+    say_card(card, f"[summary] UMAP card vs CPU: fuzzy set {u['fuzzy']:.3e}, float64 layout "
+             f"after epochs {UMAP_EPOCHS} {[float(f'{v:.3e}') for v in u['drift']]}; 200 "
+             f"epochs on the card "
+             f"{u['wall']:.3f} s; phase 18 {seconds:.1f} s")
+
+
 def kernel_record(name: str, source: str, replaces: str, shape: str, kern: dict, t: dict,
                   pred: dict, srv: dict) -> dict:
     return {
@@ -7757,6 +8223,9 @@ def main(argv=None) -> int:
     parser.add_argument("--monitor-only", action="store_true",
                         help="build the kernels and run phase 17's monitor checks alone (no "
                              "kernels or ok line)")
+    parser.add_argument("--model-axis-only", action="store_true",
+                        help="build the kernels and run phase 18's model-axis and UMAP "
+                             "checks alone (no kernels or ok line)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU",
@@ -7911,6 +8380,14 @@ def main(argv=None) -> int:
             shutil.rmtree(work, ignore_errors=True)
         return 0
 
+    if args.model_axis_only:
+        try:
+            t0 = time.perf_counter()
+            say_phase18(smi, phase18(dev, smi, work), time.perf_counter() - t0)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        return 0
+
     mlp = phase_kernels_mlp(dev)
     lstm = phase_kernels_lstm(dev)
     members = phase_kernels_members(dev)
@@ -7962,11 +8439,13 @@ def main(argv=None) -> int:
         p16 = phase16(dev, smi, work)
         t_17 = time.perf_counter()
         p17 = phase17(dev, smi, work)
+        t_18 = time.perf_counter()
+        p18 = phase18(dev, smi, work)
         (t_train, t_utt, t_reader, t_shipped, t_cmam, t_msa, t_11, t_12, t_13, t_14, t_15,
-         t_16, t_17) = (t_utt - t_train, t_reader - t_utt, t_shipped - t_reader,
-                        t_cmam - t_shipped, t_msa - t_cmam, t_11 - t_msa, t_12 - t_11,
-                        t_13 - t_12, t_14 - t_13, t_15 - t_14, t_16 - t_15, t_17 - t_16,
-                        time.perf_counter() - t_17)
+         t_16, t_17, t_18) = (t_utt - t_train, t_reader - t_utt, t_shipped - t_reader,
+                              t_cmam - t_shipped, t_msa - t_cmam, t_11 - t_msa, t_12 - t_11,
+                              t_13 - t_12, t_14 - t_13, t_15 - t_14, t_16 - t_15, t_17 - t_16,
+                              t_18 - t_17, time.perf_counter() - t_18)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -8005,6 +8484,9 @@ def main(argv=None) -> int:
     say_phase15(smi, p15["resident"], p15["folds"], p15["runs"], t_15)
     say_phase16(smi, p16, t_16)
     say_phase17(smi, p17, t_17)
+    say_phase18(smi, p18, t_18)
+    mlp["max_err"] = max(mlp["max_err"], p18["axis"]["shard_err"],
+                         *(t["max_abs_err"] for t in p18["axis"]["shapes"].values()))
     say(f"[summary] fused_mlp B=1024 {json.dumps(mlp['timings'][1024])}")
     for batch, t in mlp["mesh"].items():
         say_card(smi, f"[summary] fused_mlp {HEAD_DIMS} B={batch} (a rank's shard) "
@@ -8046,7 +8528,9 @@ def main(argv=None) -> int:
          "phase17_launches": {"check_3_steps": p17["avmnist"]["check"]["launches"]["fused_mlp"],
                               **{f"epoch_{k}": r["fused_mlp"] for k, r in
                                  p17["avmnist"]["cost"]["launches"].items()}},
-         "mesh_shapes": {f"B={b}": t for b, t in mlp["mesh"].items()}},
+         "mesh_shapes": {f"B={b}": t for b, t in mlp["mesh"].items()},
+         "phase18_launches_per_eval_step_per_rank": p18["axis"]["launches_per_eval_step"],
+         "model_axis_shapes": p18["axis"]["shapes"]},
         {**kernel_record("lstm", "mmtpu_torch/ops/csrc/lstm.cu", "mmtpu/ops/lstm.py:61",
                          f"G={G}, B={B}, T={T}, H={H}, float32; library_ms is {G} nn.LSTM "
                          "calls, projection included (with_projection_ms is ours with it)",

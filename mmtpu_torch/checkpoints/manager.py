@@ -12,6 +12,11 @@
 - `encoder_{mod}_best.pth`: the monomodal → multimodal handoff, the bare
   encoder state_dict (parameters and BatchNorm statistics).
 
+On a mesh with a model axis the tree is the whole model's (`TrainState`
+joins the shards over the model group), so a file written by a (2, 2)
+mesh loads into one process; every rank builds it and rank 0 writes it. A
+sharded state that loads a file takes its shards.
+
 Configs name their handoff files as mmtpu writes them, `*.ckpt`;
 `resolve_checkpoint_path` takes a missing `.ckpt` name to its `.pth`
 sibling, and any other missing name to its `.ckpt` sibling (mmtpu's rule).
@@ -236,6 +241,19 @@ def load_encoder_checkpoint(path: Union[str, Path], target: nn.Module,
     return report
 
 
+def _tree(state: TrainState) -> Optional[Dict[str, Any]]:
+    """`state`'s tree where this process writes it (one device, or rank 0
+    of a mesh), else None. On a model axis every rank takes part in building
+    it (the shards are gathered over the model group) and rank 0 alone
+    writes it; the other ranks of a data-parallel mesh build nothing."""
+    mesh = state.mesh
+    if mesh is not None and not mesh.is_writer:
+        if mesh.model_size > 1:
+            state.state_dict()
+        return None
+    return state.state_dict()
+
+
 def rng_state(state: Optional[TrainState] = None) -> Dict[str, Any]:
     """This process's RNG states: torch's CPU and CUDA generators (dropout)
     and, given a state with one, the run's generator."""
@@ -256,10 +274,13 @@ class CheckpointManager:
     def save_checkpoint(self, state: TrainState, epoch: int,
                         metric_value: Optional[float] = None) -> Path:
         """Write epoch_{N}.pth and mirror it to best.pth. The caller decides
-        improvement (the loop saves on a new best only), as in mmtpu."""
+        improvement (the loop saves on a new best only), as in mmtpu; on a
+        mesh every rank calls it and rank 0 alone writes."""
         path = self.model_dir / f"epoch_{epoch}.pth"
         meta = json.dumps({"epoch": epoch, "metric": self.save_metric, "value": metric_value})
-        tree = state.state_dict()
+        tree = _tree(state)
+        if tree is None:
+            return path
         _save_atomic(tree, path)
         _write_text_atomic(self.model_dir / f"epoch_{epoch}.json", meta)
         _save_atomic(tree, self.model_dir / "best.pth")
@@ -280,7 +301,9 @@ class CheckpointManager:
         `rng`: every data-parallel rank's `rng_state`, in rank order (one
         process: its own RNG states)."""
         payload = json.dumps({"epoch": epoch, **(meta or {})})
-        tree = state.state_dict()
+        tree = _tree(state)
+        if tree is None:
+            return self.model_dir / "last.pth"
         tree["resume_meta"] = payload
         tree["rng"] = rng_state() if rng is None else {"ranks": rng}
         path = self.model_dir / "last.pth"

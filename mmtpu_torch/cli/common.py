@@ -219,10 +219,14 @@ def rank_mesh():
     """This process's data-parallel mesh: a launched rank's (set by
     `parallel/launch.py`), or None. The one place the CLIs read it: their
     entry hands it on to `resolve_device`, `finalize_config`, the drivers
-    and `TrainLoop`, whose steps publish it with `with mesh:`."""
+    and `TrainLoop`, whose steps publish it with `with mesh:`. A mesh with
+    a model axis raises: mmtpu's CLIs build `model_parallel=1` only."""
     from mmtpu_torch.parallel.mesh import get_default_mesh
+    from mmtpu_torch.parallel.tensor import refuse_model_axis
 
-    return get_default_mesh()
+    mesh = get_default_mesh()
+    refuse_model_axis(mesh, "a training CLI")
+    return mesh
 
 
 def run_ranks(args, device: torch.device, module: str, argv=None,
@@ -258,11 +262,11 @@ def check_rank(cfg, args, device: torch.device, mesh) -> None:
 def seed_rank_streams(mesh, seed: int, generator: Optional[torch.Generator] = None) -> None:
     """A data-parallel rank's random streams (dropout): torch's generator and
     the run's `generator`, where there is one, seeded with the run's seed
-    plus the rank, so the ranks' rows do not draw one mask pattern. (The
+    plus the data rank, so the ranks' rows do not draw one mask pattern. (The
     weights come from rank 0's, `parallel.mesh.replicate`.)"""
-    torch.manual_seed(int(seed) + mesh.rank)
+    torch.manual_seed(int(seed) + mesh.data_rank)
     if generator is not None:
-        generator.manual_seed(int(seed) + mesh.rank)
+        generator.manual_seed(int(seed) + mesh.data_rank)
 
 
 def derive_member_args(args, base_run: int, i: int) -> argparse.Namespace:

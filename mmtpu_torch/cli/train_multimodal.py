@@ -92,7 +92,7 @@ def _stacked_fallback_reason(cfg, args, flag: str = "--stacked-folds", mesh=None
     if dp is None:
         dp = cfg.experiment.data_parallel
     if mesh is not None:
-        dp = mesh.world_size
+        dp = mesh.data_size
     if dp and dp != 1:
         return f"stacking is single-device and data_parallel={dp} was requested"
     if getattr(args, "resume", False):

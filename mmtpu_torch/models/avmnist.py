@@ -28,6 +28,22 @@ zero embedding of its encoder's `hidden_dim`; `fused_head=False` takes the
 plain chain in eval mode too (the frozen teacher is differentiated with
 respect to a reconstructed embedding), `True` asks for the kernel, and
 `None` keeps the rule above.
+
+On a mesh with a model axis (`parallel.tensor.shard_module` with mmtpu's
+`TENSOR_PARALLEL_RULE`) the head is tensor-parallel: this rank holds
+`fc_fusion`'s rows W1_m, b1_m (column-parallel) and `fc_intermediate`'s
+columns W2_m (row-parallel). The input passes `copy_to_model`; the rank's
+partial sum s_m = relu(x·W1_mᵀ + b1_m)·W2_mᵀ is summed over the model
+group (`reduce_from_model`), then `fc_intermediate`'s bias is added once.
+In training that is the plain chain on the shards. The eval forward runs
+the shard pair through the kernel, `fused_mlp(x, (W1_m, W2_m), (b1_m, 0))`,
+sums it, and runs the last layer through the kernel again as a one-layer
+chain, `fused_mlp(relu(s + b2), (W3,), (b3,))`: two launches on a CUDA
+tensor (the plain chains on the CPU). Dropout in training draws one mask
+over the whole `fc_fusion` activation, as mmtpu does, and each rank keeps
+its columns: the ranks of a model group draw it alike, since torch's
+generator is seeded alike across a model group (`seed_rank_streams` seeds
+by the data rank; a launch that seeds every rank with one seed does too).
 """
 
 from __future__ import annotations
@@ -36,10 +52,12 @@ from typing import Any, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from mmtpu_torch.data.avmnist import AUDIO_SHAPE, IMAGE_SHAPE
 from mmtpu_torch.models.conv import ConvBlock, _as_args, _pair
 from mmtpu_torch.ops import fused_mlp
+from mmtpu_torch.parallel.tensor import copy_to_model, reduce_from_model, sharding
 
 NUM_CLASSES = 10
 
@@ -108,6 +126,8 @@ class AVMNIST(nn.Module):
     # (kernel, bias) (its `_DenseParams`): the monitor records those as the
     # modules' outputs
     MMTPU_PARAM_MODULES = ("fc_fusion", "fc_intermediate", "fc_out")
+    # mmtpu's PartitionSpecs over the model axis (tests/test_parallel.py:114-128)
+    TENSOR_PARALLEL_RULE = {"fc_fusion": "column", "fc_intermediate": "row"}
 
     def __init__(
         self,
@@ -146,6 +166,8 @@ class AVMNIST(nn.Module):
         image = I if is_embd_I else self.image_encoder(I)
         fused = torch.cat([audio, image], dim=1)
         use_fused = not self.training if fused_head is None else fused_head
+        if sharding(self) is not None:
+            return self._sharded_head(fused, use_fused)
         if use_fused:
             layers = (self.fc_fusion, self.fc_intermediate, self.fc_out)
             return fused_mlp(
@@ -155,6 +177,25 @@ class AVMNIST(nn.Module):
             )
         x = self.dropout(torch.relu(self.fc_fusion(fused)))
         x = torch.relu(self.fc_intermediate(x))
+        return self.fc_out(x)
+
+    def _sharded_head(self, fused: torch.Tensor, use_fused: bool) -> torch.Tensor:
+        """The head with `fc_fusion` and `fc_intermediate` sharded over the
+        model axis (see the module docstring)."""
+        mesh = sharding(self).mesh
+        w1, b1 = self.fc_fusion.weight, self.fc_fusion.bias
+        w2, b2 = self.fc_intermediate.weight, self.fc_intermediate.bias
+        x = copy_to_model(fused, mesh)
+        if use_fused:
+            s = fused_mlp(x.contiguous(), [w1, w2], [b1, b2.new_zeros(b2.shape)])
+            h = torch.relu(reduce_from_model(s, mesh) + b2)
+            return fused_mlp(h, [self.fc_out.weight], [self.fc_out.bias])
+        x = torch.relu(self.fc_fusion(x))
+        if self.training and self.dropout.p > 0:
+            n, m = x.shape[1], mesh.model_rank
+            keep = F.dropout(x.new_ones(x.shape[0], n * mesh.model_size), self.dropout.p)
+            x = x * keep[:, m * n:(m + 1) * n]
+        x = torch.relu(reduce_from_model(F.linear(x, w2), mesh) + b2)
         return self.fc_out(x)
 
     def encode(self, A: torch.Tensor, I: torch.Tensor):  # noqa: E741

@@ -9,8 +9,9 @@ and never the caller's. The ranks meet through a file in a fresh temporary
 directory (no fixed port: several launches may run at once). Each rank
 binds its device (`torch.cuda.set_device`, or on the CPU an equal share of
 the cores), joins the process group with `timeout` (which also bounds every
-collective), opens the gloo group for host objects, sets the default mesh
-and runs `fn`. Ranks other than 0 print nothing to standard output: rank 0
+collective), opens the gloo group for host objects and, on a (dp, mp)
+mesh, every data and model group (`_groups`), sets the default mesh and
+runs `fn`. Ranks other than 0 print nothing to standard output: rank 0
 writes the console lines, as it writes the run's files.
 
 The parent joins the ranks and returns 0, or the first non-zero exit code:
@@ -33,7 +34,7 @@ from typing import Any, Callable, Optional, Sequence
 
 import torch
 
-from mmtpu_torch.parallel.mesh import Mesh, set_default_mesh
+from mmtpu_torch.parallel.mesh import Mesh, get_default_mesh, set_default_mesh
 
 TIMEOUT_S = 600.0  # process-group set-up and every collective
 GRACE_S = 5.0  # after one rank fails, how long the others get to end on their own
@@ -104,14 +105,11 @@ def _rank_main(mesh: Mesh, rank: int, init: str, timeout: float, fn: Callable[..
         td = datetime.timedelta(seconds=timeout)
         dist.init_process_group(mesh.backend, init_method=init, rank=rank,
                                 world_size=mesh.world_size, timeout=td)
-        host = (dist.group.WORLD if mesh.backend == "gloo"
-                else dist.new_group(backend="gloo", timeout=td))
-        set_default_mesh(dataclasses.replace(mesh, rank=rank, group=dist.group.WORLD,
-                                             host_group=host))
+        set_default_mesh(dataclasses.replace(mesh, rank=rank, **_groups(mesh, rank, td)))
         rc = fn(*args)
         code = rc if isinstance(rc, int) else 0
         if code == 0:
-            dist.barrier(group=host)
+            get_default_mesh().barrier()
             dist.destroy_process_group()
     except SystemExit as e:
         code = e.code if isinstance(e.code, int) else (0 if e.code is None else 1)
@@ -123,6 +121,33 @@ def _rank_main(mesh: Mesh, rank: int, init: str, timeout: float, fn: Callable[..
     # a failed rank leaves without tearing the group down: its peers may be
     # inside a collective, and the parent ends them
     os._exit(code)
+
+
+def _groups(mesh: Mesh, rank: int, td: datetime.timedelta) -> dict:
+    """This rank's process groups. Without a model axis the data group is
+    the world, and the host and barrier groups are it too over gloo (a gloo
+    group beside it over NCCL). On a (dp, mp) mesh every rank creates every
+    data group (the ranks with one m), then every model group (the ranks
+    with one d), then their gloo twins over NCCL, in the same order:
+    `new_group` is collective over the world, and ranks that created them
+    in other orders would wait on each other for ever."""
+    import torch.distributed as dist
+
+    gloo = mesh.backend == "gloo"
+    mp, dp = mesh.model_size, mesh.data_size
+    if mp == 1:
+        host = dist.group.WORLD if gloo else dist.new_group(backend="gloo", timeout=td)
+        return {"group": dist.group.WORLD, "host_group": host, "world_group": host}
+    data_ranks = [[d * mp + m for d in range(dp)] for m in range(mp)]
+    model_ranks = [[d * mp + m for m in range(mp)] for d in range(dp)]
+    data = [dist.new_group(r, timeout=td) for r in data_ranks]
+    model = [dist.new_group(r, timeout=td) for r in model_ranks]
+    hosts = data if gloo else [dist.new_group(r, backend="gloo", timeout=td)
+                               for r in data_ranks]
+    world = dist.group.WORLD if gloo else dist.new_group(backend="gloo", timeout=td)
+    d, m = divmod(rank, mp)
+    return {"group": data[m], "host_group": hosts[m], "model_group": model[d],
+            "world_group": world}
 
 
 def _run_main(module: str, argv: Sequence[str]) -> int:

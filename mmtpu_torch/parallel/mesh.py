@@ -31,9 +31,20 @@ the step with `with mesh:` (as mmtpu's steps run under `with mesh:`).
 
 Outside a rank there is no default mesh: `get_default_mesh()` is None
 (mmtpu's builds one over every device). The CLIs read it once, at their
-entry (`cli/common.py`'s `rank_mesh`), and hand it on. `model_parallel > 1` (mmtpu's
-`model` axis, which only its tests and the graft entry reach) is not
-ported and raises.
+entry (`cli/common.py`'s `rank_mesh`), and hand it on.
+
+The model axis (mmtpu's `model`, `MeshConfig.model_parallel > 1`): the
+mesh is (dp, mp), rank r = d·mp + m, mmtpu's row-major `reshape(dp, mp)`.
+Rank r holds a data group, the dp ranks with its m, and a model group,
+the mp ranks with its d. Everything above is over the DATA group: `rows`,
+the collectives, `broadcast_` (from the group's first rank, d = 0),
+`gather`, and `data_size`, the divisor of `replicated_share`; the ranks of
+a model group see the same rows and compute the same values. The model
+group carries the tensor-parallel head's sums (`parallel/tensor.py`).
+`world_size` (dp·mp) is the launcher's count. mmtpu's CLIs always build
+`model_parallel=1`, so a model axis is a library surface here too: the
+CLIs, the resident epoch, the fused eval, the stacked engine and the
+monitor raise on one (`parallel/tensor.py`'s `refuse_model_axis`).
 """
 
 from __future__ import annotations
@@ -45,14 +56,13 @@ from typing import Any, Dict, Iterable, List, Optional, Sequence
 import numpy as np
 import torch
 
-ROADMAP_MODEL_AXIS = "ROADMAP.md §1 item 6, the model axis"
-
 _local = threading.local()
 
 
 @dataclasses.dataclass
 class MeshConfig:
-    """Shape of the mesh. data_parallel=-1 → every device given."""
+    """Shape of the mesh, (data_parallel, model_parallel).
+    data_parallel=-1 → every device given, over model_parallel."""
 
     data_parallel: int = -1
     model_parallel: int = 1
@@ -60,21 +70,43 @@ class MeshConfig:
 
 @dataclasses.dataclass(eq=False)
 class Mesh:
-    """N data-parallel ranks: `devices[r]` is rank r's device. Until the
-    launcher starts the ranks (`parallel/launch.py`), `rank` and the groups
-    are None; in a rank they hold its index, the process group of the
-    collectives (`group`, the backend's) and the gloo group for host
-    objects (`host_group`)."""
+    """A (dp, mp) mesh of dp·mp ranks: `devices[r]` is rank r's device,
+    `model_size` is mp. Until the launcher starts the ranks
+    (`parallel/launch.py`), `rank` and the groups are None; in a rank they
+    hold its index, the data group of the collectives (`group`, the
+    backend's), the gloo group for host objects over the same ranks
+    (`host_group`), the model group (`model_group`, the backend's; None
+    when mp = 1) and a gloo group over every rank (`world_group`, the
+    barrier's)."""
 
     devices: List[torch.device]
     backend: str
+    model_size: int = 1
     rank: Optional[int] = None
     group: Any = None
     host_group: Any = None
+    model_group: Any = None
+    world_group: Any = None
 
     @property
     def world_size(self) -> int:
+        """Every rank of the mesh, dp·mp: the launcher's count."""
         return len(self.devices)
+
+    @property
+    def data_size(self) -> int:
+        """The data axis's size, dp: the ranks a global batch is cut over."""
+        return len(self.devices) // self.model_size
+
+    @property
+    def data_rank(self) -> int:
+        """This rank's place on the data axis, d."""
+        return self.rank // self.model_size
+
+    @property
+    def model_rank(self) -> int:
+        """This rank's place on the model axis, m."""
+        return self.rank % self.model_size
 
     @property
     def launched(self) -> bool:
@@ -91,9 +123,9 @@ class Mesh:
 
     def rows(self, n: int) -> slice:
         """This rank's contiguous rows of a global batch of `n` rows."""
-        _check_divisible(n, self.world_size)
-        per = n // self.world_size
-        return slice(self.rank * per, (self.rank + 1) * per)
+        _check_divisible(n, self.data_size)
+        per = n // self.data_size
+        return slice(self.data_rank * per, (self.data_rank + 1) * per)
 
     # -- the active mesh of a step ------------------------------------------------
 
@@ -108,22 +140,22 @@ class Mesh:
     # -- collectives --------------------------------------------------------------
 
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
-        """The sum over the ranks, differentiable: its backward sums the
-        ranks' gradients (BatchNorm's global statistics)."""
+        """The sum over the data group, differentiable: its backward sums
+        the ranks' gradients (BatchNorm's global statistics)."""
         from torch.distributed.nn.functional import all_reduce
 
         return all_reduce(t, group=self.group)
 
     def all_reduce_(self, t: torch.Tensor) -> torch.Tensor:
-        """In-place sum over the ranks, outside autograd."""
+        """In-place sum over the data group, outside autograd."""
         import torch.distributed as dist
 
         dist.all_reduce(t, group=self.group)
         return t
 
     def all_reduce_grads(self, params: Iterable[torch.nn.Parameter]) -> int:
-        """Sum every gradient over the ranks, one flattened bucket per dtype;
-        returns the bytes reduced."""
+        """Sum every gradient over the data group, one flattened bucket per
+        dtype; returns the bytes reduced."""
         by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
         for p in params:
             if p.grad is not None:
@@ -140,40 +172,61 @@ class Mesh:
         return nbytes
 
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
-        """Every rank's (b, ...) rows as the (N·b, ...) global tensor, in
-        rank order, on every rank: this rank's rows written into its slot
-        of a zero buffer, then the buffer summed over the ranks (gloo's
+        """Every data rank's (b, ...) rows as the (dp·b, ...) global tensor,
+        in rank order, on every rank: this rank's rows written into its slot
+        of a zero buffer, then the buffer summed over the data group (gloo's
         `all_gather` takes CPU tensors only; a sum runs on every backend).
         Differentiable when `t` needs a gradient: each rank's rows get the
         sum over the ranks of their gradients."""
         b = t.shape[0]
         rest = tuple(t.shape[1:])
-        buf = torch.cat([t.new_zeros((self.rank * b,) + rest), t,
-                         t.new_zeros(((self.world_size - self.rank - 1) * b,) + rest)])
+        buf = torch.cat([t.new_zeros((self.data_rank * b,) + rest), t,
+                         t.new_zeros(((self.data_size - self.data_rank - 1) * b,) + rest)])
         if torch.is_grad_enabled() and t.requires_grad:
             return self.all_reduce(buf)
         return self.all_reduce_(buf)
 
     def broadcast_(self, tensors: Iterable[torch.Tensor]) -> None:
-        """Overwrite `tensors` with rank 0's, in place."""
+        """Overwrite `tensors` with the data group's first rank's (d = 0;
+        rank 0 without a model axis), in place."""
         import torch.distributed as dist
 
         for t in tensors:
-            dist.broadcast(t, src=0, group=self.group)
+            dist.broadcast(t, src=self.model_rank, group=self.group)
 
     def gather(self, obj: Any) -> List[Any]:
-        """Every rank's `obj` (host objects: numpy arrays, numbers), in rank
-        order, on every rank, over the gloo group."""
+        """Every data rank's `obj` (host objects: numpy arrays, numbers), in
+        rank order, on every rank, over the data group's gloo group."""
         import torch.distributed as dist
 
-        out: List[Any] = [None] * self.world_size
+        out: List[Any] = [None] * self.data_size
         dist.all_gather_object(out, obj, group=self.host_group)
         return out
 
     def barrier(self) -> None:
+        """Every rank of the mesh meets (rank 0 has written a file the
+        others read)."""
         import torch.distributed as dist
 
-        dist.barrier(group=self.host_group)
+        dist.barrier(group=self.world_group)
+
+    # -- the model axis -----------------------------------------------------------
+
+    def model_all_reduce_(self, t: torch.Tensor) -> torch.Tensor:
+        """In-place sum over the model group, outside autograd."""
+        import torch.distributed as dist
+
+        dist.all_reduce(t, group=self.model_group)
+        return t
+
+    def model_gather(self, obj: Any) -> List[Any]:
+        """Every model rank's `obj` (a dict of CPU tensors: a state's
+        shards), in model-rank order, on every rank of the model group."""
+        import torch.distributed as dist
+
+        out: List[Any] = [None] * self.model_size
+        dist.all_gather_object(out, obj, group=self.model_group)
+        return out
 
 
 def _check_divisible(n: int, dp: int) -> None:
@@ -196,27 +249,26 @@ def create_mesh(config: Optional[MeshConfig] = None,
                 devices: Optional[Sequence[torch.device]] = None,
                 backend: Optional[str] = None) -> Mesh:
     """The mesh to launch (mmtpu's `create_mesh`): `devices` default to
-    every visible CUDA device; `backend` to NCCL for distinct CUDA devices,
-    gloo otherwise. A device may appear more than once (ranks that share a
-    card), over gloo only."""
+    every visible CUDA device, laid out as (dp, mp) row-major, and dp·mp
+    must be their count (data_parallel=-1 → count // mp); `backend` to NCCL
+    for distinct CUDA devices, gloo otherwise. A device may appear more
+    than once (ranks that share a card), over gloo only."""
     config = config or MeshConfig()
-    if config.model_parallel > 1:
-        raise NotImplementedError(
-            f"model_parallel={config.model_parallel}: the model axis is not ported to "
-            f"mmtpu_torch ({ROADMAP_MODEL_AXIS})")
     if devices is None:
         devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
     devices = [torch.device(d) for d in devices]
-    dp = config.data_parallel if config.data_parallel > 0 else len(devices)
-    if dp != len(devices) or not devices:
-        raise ValueError(f"mesh {dp}x1 != {len(devices)} devices")
+    n = len(devices)
+    mp = max(1, config.model_parallel)
+    dp = config.data_parallel if config.data_parallel > 0 else n // mp
+    if dp * mp != n or not devices:
+        raise ValueError(f"mesh {dp}x{mp} != {n} devices")
     distinct = len(set(devices)) == len(devices)
     cuda = all(d.type == "cuda" for d in devices)
     backend = backend or ("nccl" if cuda and distinct else "gloo")
     if backend == "nccl" and not (cuda and distinct):
         raise ValueError("the NCCL backend needs one CUDA device per rank; "
                          f"got {[str(d) for d in devices]} (use gloo)")
-    return Mesh(devices=devices, backend=backend)
+    return Mesh(devices=devices, backend=backend, model_size=mp)
 
 
 _default_mesh: Optional[Mesh] = None  # set once per rank process by the launcher
@@ -241,7 +293,7 @@ def global_rows(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
 
 def shard_batch(batch: Dict[str, Any], mesh: Mesh) -> Dict[str, Any]:
     """This rank's rows of a host batch: every array's leading dim must be
-    divisible by the data-axis size (mmtpu's error otherwise); scalars are
+    divisible by the data axis's size (mmtpu's error otherwise); scalars are
     kept whole."""
     out = {}
     for k, v in batch.items():
@@ -251,8 +303,9 @@ def shard_batch(batch: Dict[str, Any], mesh: Mesh) -> Dict[str, Any]:
 
 
 def replicate(module: torch.nn.Module, mesh: Mesh) -> torch.nn.Module:
-    """Every parameter and buffer of `module` set to rank 0's (mmtpu's
-    replicated sharding)."""
+    """Every parameter and buffer of `module` set to its data group's first
+    rank's, rank 0's without a model axis (mmtpu's replicated sharding; a
+    model shard keeps its model rank's slice)."""
     with torch.no_grad():
         mesh.broadcast_(list(module.parameters()) + list(module.buffers()))
     return module

@@ -85,9 +85,10 @@ def moment_matching_loss(x: torch.Tensor, y: torch.Tensor, num_moments: int = 2,
 def global_permutation(n: int, generator: Optional[torch.Generator],
                        device: torch.device) -> torch.Tensor:
     """A permutation of the (global) batch's `n` rows from `generator`;
-    under a mesh, rank 0's draw, broadcast (the other ranks draw nothing)."""
+    under a mesh, the data group's first rank's draw, broadcast (the
+    other ranks draw nothing)."""
     mesh = active_mesh()
-    if mesh is not None and mesh.rank != 0:
+    if mesh is not None and mesh.data_rank != 0:
         perm = torch.empty(n, dtype=torch.long, device=device)
     else:
         if generator is None:

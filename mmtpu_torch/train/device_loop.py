@@ -180,7 +180,7 @@ def run_eval_epoch(task, data: DeviceResidentData, schedule: Dict[str, np.ndarra
                     raise NotImplementedError(
                         "fused eval: a model with an auxiliary loss (a dict output) has no "
                         "per-original-batch loss; use --eval-batch-factor 1")
-                rows = _sub_batch_rows(out.shape[0] * (mesh.world_size if mesh else 1),
+                rows = _sub_batch_rows(out.shape[0] * (mesh.data_size if mesh else 1),
                                        sub_batches, mesh)
                 loss = torch.stack([
                     task.loss(out[r], {"labels": batch["labels"][r]},

@@ -42,6 +42,13 @@ decide what one device does. Rank 0 alone writes (checkpoints, the JSON
 records, `on_best`), with every rank's RNG states in the rolling resume
 point; the others wait at a barrier before they read a checkpoint.
 
+On a mesh with a model axis (a model sharded by `parallel.tensor.
+shard_module`) the loop streams: the resident epoch, the fused eval and
+the monitor are not mmtpu's on a model axis and raise ("auto" streams).
+Writing a checkpoint gathers the shards over the model group, so every
+rank takes part and rank 0 writes the whole model's tree; a rank that
+reads one keeps its shard (`TrainState`).
+
 For other training tasks (C-MAM), as in mmtpu: `step_builders` replaces the
 train and eval step factories, `record_fn(recorder, out, vocab)` the
 recording of a step's outputs, and a step that returns `terms` (a dict of
@@ -238,6 +245,14 @@ class TrainLoop:
         # state onto the mesh here)
         self.mesh = mesh
         if mesh is not None:
+            from mmtpu_torch.parallel.tensor import refuse_model_axis
+
+            if monitor is not None:
+                refuse_model_axis(mesh, "the monitor")
+            if device_resident == "on" or (eval_batch_factor or 1) > 1:
+                refuse_model_axis(mesh, "the device-resident epoch and its fused eval")
+            if mesh.model_size > 1:
+                device_resident = "off"
             replicate(state.model, mesh)
             state.mesh = mesh
         # step_builders: (make_train(task, state, device), make_eval(task, device, mesh))
@@ -269,7 +284,7 @@ class TrainLoop:
 
         remaining = dl.DEFAULT_BUDGET_BYTES
         priority = {"train": 0, "validation": 1}
-        dp = self.mesh.world_size if self.mesh is not None else 1
+        dp = self.mesh.data_size if self.mesh is not None else 1
         for split, loader in sorted(self.loaders.items(),
                                     key=lambda kv: priority.get(kv[0], 2)):
             ds = getattr(loader, "dataset", None)
@@ -436,8 +451,6 @@ class TrainLoop:
         """Rolling last.pth + the loop's host-side state, every epoch; on a
         mesh rank 0 writes it with every rank's RNG states."""
         rng = self.mesh.gather(rng_state(self.state)) if self.mesh is not None else None
-        if not self.writes:
-            return
         lr = self.lr
         self.ckpt.save_rolling(self.state, epoch, rng=rng, meta=_jsonable({
             "early": {"best": self.early.best, "counter": self.early.counter,
@@ -462,7 +475,7 @@ class TrainLoop:
         if meta is None:
             return None
         self.ckpt.load_checkpoint(self.state, "last",
-                                  rank=self.mesh.rank if self.mesh is not None else None)
+                                  rank=self.mesh.data_rank if self.mesh is not None else None)
         epoch = int(meta["epoch"])
         for loader in self.loaders.values():
             loader.epoch = epoch
@@ -548,10 +561,9 @@ class TrainLoop:
             target = resolve_save_target(val_metrics, self.save_metric)
             if self.early.step(float(target)):
                 best_metrics = dict(val_metrics)
-                if self.writes:
-                    self.ckpt.save_checkpoint(self.state, epoch, float(target))
-                    if self.on_best is not None:
-                        self.on_best(self.state, epoch)
+                self.ckpt.save_checkpoint(self.state, epoch, float(target))
+                if self.writes and self.on_best is not None:
+                    self.on_best(self.state, epoch)
             if self.early.should_stop:
                 print(f"early stopping at epoch {epoch}", flush=True)
                 self._save_resume_point(epoch, best_metrics)

@@ -56,10 +56,10 @@ def global_count(weights: torch.Tensor) -> torch.Tensor:
 def replicated_share(value):
     """This rank's share of a value that every rank computes alike from the
     global batch (a term over the gathered rows, `parallel.mesh.global_rows`,
-    or a constant): 1/N of it under a mesh, so that the ranks' shares sum
+    or a constant): 1/dp of it under a mesh (the data axis's size), so that the ranks' shares sum
     to it as `_masked_reduce`'s do; the value itself otherwise."""
     mesh = active_mesh()
-    return value if mesh is None else value / mesh.world_size
+    return value if mesh is None else value / mesh.data_size
 
 
 def cross_entropy(logits, targets, weight=None, label_smoothing: float = 0.0,

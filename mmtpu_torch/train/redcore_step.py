@@ -91,7 +91,7 @@ def redcore_loss(task: RedCoreTask, res, batch, beta: torch.Tensor):
     sm = batch.get("sample_mask")
     mesh = active_mesh()
     if sm is None:
-        B = iA.shape[0] * (1 if mesh is None else mesh.world_size)
+        B = iA.shape[0] * (1 if mesh is None else mesh.data_size)
     else:
         B = torch.clamp(global_count(sm), min=1.0)
     ce_w = loss_weight(task.loss_group, "cross_entropy")

@@ -26,17 +26,31 @@ class TrainState:
     def state_dict(self) -> Dict[str, Any]:
         """Model, optimizer and step as CPU tensors and plain containers,
         the layout of the port's training checkpoints (and the generator's
-        state, where there is one)."""
-        model = {k: v.detach().cpu() for k, v in self.model.state_dict().items()}
-        out = {"model": model, "optimizer": _to_cpu(self.optimizer.state_dict()),
-               "step": int(self.step)}
+        state, where there is one). A model sharded over a model axis gives
+        the whole model's tree: its shards, and their optimizer moments, are
+        joined over the model group (collective: every rank calls it)."""
+        from mmtpu_torch.parallel import tensor
+
+        model = tensor.gather_state_dict(self.model)
+        optim = _to_cpu(self.optimizer.state_dict())
+        if tensor.sharding(self.model) is not None:
+            optim = tensor.gather_optimizer_state(self.model, self.optimizer, optim)
+        out = {"model": dict(model), "optimizer": optim, "step": int(self.step)}
         if self.generator is not None:
             out["generator"] = self.generator.get_state()
         return out
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
-        self.model.load_state_dict(state["model"], strict=True)
-        self.optimizer.load_state_dict(state["optimizer"])
+        """Restore a tree of `state_dict`'s layout; a sharded model takes
+        its shards of the whole model's tree."""
+        from mmtpu_torch.parallel import tensor
+
+        model, optim = state["model"], state["optimizer"]
+        if tensor.sharding(self.model) is not None:
+            model = tensor.shard_state_dict(self.model, model)
+            optim = tensor.shard_optimizer_state(self.model, self.optimizer, optim)
+        self.model.load_state_dict(model, strict=True)
+        self.optimizer.load_state_dict(optim)
         self.step = int(state.get("step", 0))
         if self.generator is not None and "generator" in state:
             self.generator.set_state(state["generator"])

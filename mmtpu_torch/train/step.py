@@ -28,7 +28,10 @@ In a data-parallel rank (`state.mesh`, or the eval step's `mesh`) a step
 takes its rows of the global batch and runs under `with mesh:`, so
 BatchNorm takes global-batch statistics and the loss is this rank's share
 of the global masked mean; `apply_gradients` sums the gradients over the
-ranks before the clip (`parallel/mesh.py`).
+ranks before the clip (`parallel/mesh.py`). On a mesh with a model axis
+the gradients are summed over the data group alone, and the clip's norm
+adds the sharded leaves' squares over the model group
+(`parallel/tensor.py`).
 """
 
 from __future__ import annotations
@@ -41,7 +44,8 @@ import numpy as np
 import torch
 
 from mmtpu_torch.models.norm import batch_mask
-from mmtpu_torch.parallel.mesh import shard_batch
+from mmtpu_torch.parallel.mesh import active_mesh, shard_batch
+from mmtpu_torch.parallel.tensor import shard_dim
 from mmtpu_torch.train.losses import LossFunctionGroup
 from mmtpu_torch.train.state import TrainState
 
@@ -186,16 +190,28 @@ def apply_gradients(state: TrainState, loss: torch.Tensor,
     if grad_hook is not None:
         grad_hook(state.model)
     if state.clip:
-        clip_by_global_norm(state.model.parameters(), state.clip)
+        with on_mesh(state.mesh):
+            clip_by_global_norm(state.model.parameters(), state.clip)
     state.optimizer.step()
     state.step += 1
 
 
 def clip_by_global_norm(params, max_norm: float) -> None:
     """optax.clip_by_global_norm: scale every gradient by max_norm / norm
-    when the global norm is at least max_norm."""
-    grads = [p.grad for p in params if p.grad is not None]
-    norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+    when the global norm is at least max_norm. A parameter sharded over the
+    model axis (`parallel.tensor.shard_dim`) adds its shards' squares over
+    the model group of the active mesh, so the norm is that of the whole
+    tensors."""
+    params = [p for p in params if p.grad is not None]
+    grads = [p.grad for p in params]
+    shards = [p.grad for p in params if shard_dim(p) is not None]
+    if shards:
+        squares = torch.stack([g.square().sum() for g in shards]).sum()
+        whole = [g.square().sum() for p, g in zip(params, grads) if shard_dim(p) is None]
+        norm = torch.sqrt(torch.stack(whole).sum() + active_mesh().model_all_reduce_(squares))
+    else:
+        norm = torch.linalg.vector_norm(
+            torch.stack([torch.linalg.vector_norm(g) for g in grads]))
     factor = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     for g in grads:
         g.mul_(factor)

@@ -105,7 +105,8 @@ def steps_case(work: Path, mesh) -> dict:
 def loop(mode: str, state_dict: dict, mesh=None, train_batch: int = 32, epochs: int = 2):
     """mmtpu's `tests/test_device_loop.py::build_loop` recipe in the port
     (AVMNIST over two FcEncoders, 96 train and 32 validation samples,
-    batch 32, Adam 1e-3), from mmtpu's initial weights."""
+    batch 32, Adam 1e-3), from mmtpu's initial weights; on a mesh with a
+    model axis, its head sharded."""
     from mmtpu_torch.checkpoints.manager import CheckpointManager
     from mmtpu_torch.config.metrics import MetricConfig, MetricDef
     from mmtpu_torch.config.optim import OptimizerConfig
@@ -129,6 +130,10 @@ def loop(mode: str, state_dict: dict, mesh=None, train_batch: int = 32, epochs: 
     model = AVMNIST(FcEncoder(3008, [16], dropout=0.0), FcEncoder(784, [16], dropout=0.0),
                     hidden_dim=16, dropout=0.0)
     model.load_state_dict(state_dict, strict=True)
+    if mesh is not None and mesh.model_size > 1:
+        from mmtpu_torch.parallel.tensor import shard_module
+
+        shard_module(model, mesh, AVMNIST.TENSOR_PARALLEL_RULE)
     optimizer, _ = build_optimizer(OptimizerConfig(name="Adam", default_kwargs={"lr": 1e-3}),
                                    model)
     task = ClassificationTask(model=model, loss_group=LossFunctionGroup.from_dict(
@@ -155,6 +160,126 @@ def loop_case(work: Path, mesh) -> dict:
         out[mode] = lp.epoch_metrics
         out[f"{mode}_state"] = {k: v.clone() for k, v in lp.state.model.state_dict().items()}
     out["indivisible_resident"] = sorted(loop("on", state_dict, mesh, train_batch=31)._resident)
+    return out
+
+
+# -- the model axis: model_axis_case on a (2, 2) mesh, or in one process --------------
+
+MODEL_AXIS_OPTIMIZERS = {
+    # mmtpu's tests/test_parallel.py:157 (two SGD steps), __graft_entry__.py:261
+    # (Adam with coupled L2), and a step whose global-norm clip binds
+    "sgd": ({"name": "SGD", "default_kwargs": {"lr": 1e-2}}, None, 2),
+    "adam": ({"name": "Adam", "default_kwargs": {"lr": 5e-4, "weight_decay": 1e-4}}, None, 2),
+    "clip": ({"name": "SGD", "default_kwargs": {"lr": 1e-2}}, 0.05, 1),
+}
+MODEL_AXIS_DROPOUT, MODEL_AXIS_DROPOUT_SEED = 0.5, 11
+
+
+def _gathered(mesh, value):
+    """A step's per-rank output over the data group: losses summed, arrays
+    joined in global order; the value itself in one process."""
+    if mesh is None:
+        return value
+    parts = mesh.gather(value)
+    return float(sum(parts)) if isinstance(value, float) else np.concatenate(parts)
+
+
+def model_axis_case(work: Path, mesh) -> dict:
+    """`model_axis.pt`'s conv AVMNIST (mmtpu's weights) with its head
+    sharded over the model axis of `mesh` (whole in one process): per
+    optimizer of MODEL_AXIS_OPTIMIZERS its steps' global losses and
+    predictions, the gathered state and this rank's own; after the SGD
+    steps the eval step's global predictions, the recorder's metrics, the
+    kernel calls per eval step, a checkpoint every rank saves (who wrote)
+    and reads back into its shards; a training forward's logits with
+    dropout."""
+    from mmtpu_torch.checkpoints.manager import CheckpointManager
+    from mmtpu_torch.config.metrics import MetricConfig, MetricDef
+    from mmtpu_torch.config.optim import OptimizerConfig
+    from mmtpu_torch.models import avmnist
+    from mmtpu_torch.parallel.tensor import gather_state_dict, shard_module
+    from mmtpu_torch.train.losses import LossFunctionGroup
+    from mmtpu_torch.train.optim import build_optimizer
+    from mmtpu_torch.train.recorder import MetricRecorder
+    from mmtpu_torch.train.state import TrainState
+    from mmtpu_torch.train.step import ClassificationTask, make_eval_step, make_train_step
+
+    data = torch.load(work / "model_axis.pt", weights_only=False)
+    out = {}
+    for name, (opt, clip, steps) in MODEL_AXIS_OPTIMIZERS.items():
+        model = steps_model(data["spec"])
+        if mesh is not None:
+            shard_module(model, mesh, avmnist.AVMNIST.TENSOR_PARALLEL_RULE)
+        optimizer, _ = build_optimizer(OptimizerConfig(**opt), model)
+        state = TrainState(model=model, optimizer=optimizer, mesh=mesh, clip=clip)
+        task = ClassificationTask(model=model, loss_group=LossFunctionGroup.from_dict(
+            {"ce": {"loss_name": "cross_entropy", "weight": 1.0}}), input_keys=("audio", "image"))
+        step = make_train_step(task, state, CPU)
+        rec = {"losses": [], "preds": []}
+        for _ in range(steps):
+            res = step(data["batch"])
+            rec["losses"].append(_gathered(mesh, float(res["loss"])))
+            rec["preds"].append(_gathered(mesh, res["preds"].numpy()))
+        rec["state"] = gather_state_dict(model)
+        rec["local"] = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        out[name] = rec
+        if name != "sgd":
+            continue
+        calls = []
+        real = avmnist.fused_mlp
+        avmnist.fused_mlp = lambda *a: calls.append(1) or real(*a)
+        try:
+            ev = make_eval_step(task, CPU, mesh)(data["batch"])
+        finally:
+            avmnist.fused_mlp = real
+        recorder = MetricRecorder(MetricConfig(
+            metrics={"accuracy": MetricDef(function="sklearn.metrics.accuracy_score")},
+            groups={"classification": ["accuracy"]}))
+        recorder.update_group_ids("classification", *(
+            torch.from_numpy(_gathered(mesh, ev[k].numpy()))
+            for k in ("preds", "labels", "pattern_id")), ["ai"], None)
+        rec["eval"] = {"preds": _gathered(mesh, ev["preds"].numpy()),
+                       "logits": _gathered(mesh, ev["logits"].numpy()),
+                       "metrics": recorder.calculate_all_groups()["classification"],
+                       "kernel_calls": len(calls)}
+        saved = []
+        real_save = torch.save
+        def save(obj, f, *args, **kwargs):
+            if isinstance(f, (str, Path)):  # not the gathers' in-memory pickles
+                saved.append(str(f))
+            return real_save(obj, f, *args, **kwargs)
+
+        torch.save = save
+        try:
+            CheckpointManager(work / ("ckpt" if mesh is not None else "ckpt_single")
+                              ).save_checkpoint(state, 1, 0.5)
+        finally:
+            torch.save = real_save
+        if mesh is not None:
+            mesh.barrier()
+        with torch.no_grad():
+            for p in model.parameters():
+                p.zero_()
+        CheckpointManager(work / ("ckpt" if mesh is not None else "ckpt_single")
+                          ).load_checkpoint(state, "best")
+        rec["saved"] = saved
+        rec["restored"] = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    # a training forward with dropout, the encoders in eval mode: one mask
+    # over the whole fusion activation, drawn after one seed on every rank
+    model = steps_model(data["spec"])
+    model.dropout.p = MODEL_AXIS_DROPOUT
+    if mesh is not None:
+        shard_module(model, mesh, avmnist.AVMNIST.TENSOR_PARALLEL_RULE)
+    model.train()
+    model.audio_encoder.eval()
+    model.image_encoder.eval()
+    torch.manual_seed(MODEL_AXIS_DROPOUT_SEED)
+    with torch.no_grad():
+        out["dropout"] = model(*(torch.from_numpy(data["batch"][k]) for k in ("audio", "image")))
+    if mesh is not None:
+        lp = loop("off", data["loop"], mesh)
+        lp.run()
+        out["loop"] = lp.epoch_metrics
     return out
 
 
@@ -222,7 +347,8 @@ def loss_case(work: Path, mesh) -> dict:
             for unit in LOSS_UNITS for variant in ("full", "padded")}
 
 
-CASES = {"bn": bn_case, "steps": steps_case, "loop": loop_case, "loss": loss_case}
+CASES = {"bn": bn_case, "steps": steps_case, "loop": loop_case, "loss": loss_case,
+         "model_axis": model_axis_case}
 
 
 def run_cases(work: str, names) -> int:

@@ -2,12 +2,13 @@
 imports JAX, flax, optax, transformers, safetensors or the `mmtpu` package
 (the name is matched exactly, so `mmtpu_torch` itself passes); its BERT and
 checkpoint readers are its own. The port may import PyYAML only inside its
-YAML loader, and never pandas, sklearn, matplotlib, msgpack or h5py (its
-metrics are its own numpy versions of sklearn's), except matplotlib inside
-the embedding report's plotting function and h5py inside the real MM-IMDb
-and IEMOCAP readers and the monitor's storage (which its analyser calls):
-the card's machine has no JAX, sklearn or h5py, so the port must not need
-them there."""
+YAML loader, and never pandas, sklearn, matplotlib, msgpack, h5py,
+seaborn, OpenCV or PIL (its metrics are its own numpy versions of
+sklearn's), except matplotlib inside the embedding report's plotting
+function, h5py inside the real MM-IMDb and IEMOCAP readers and the
+monitor's storage (which its analyser calls), and the analysis copy's
+libraries inside the functions that draw or tabulate with them: the card's
+machine has no JAX, sklearn or h5py, so the port must not need them there."""
 
 import ast
 from pathlib import Path
@@ -16,7 +17,7 @@ import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "mmtpu", "transformers", "safetensors"}
-HOST_ONLY = {"pandas", "sklearn", "matplotlib", "msgpack", "h5py"}
+HOST_ONLY = {"pandas", "sklearn", "matplotlib", "msgpack", "h5py", "seaborn", "cv2", "PIL"}
 PORT_FILES = sorted((REPO / "mmtpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
 
 
@@ -44,7 +45,15 @@ def test_no_jax_or_mmtpu_imports(path):
 LAZY_HOST_ONLY = {("mmtpu_torch/reports/report.py", "matplotlib"),
                   ("mmtpu_torch/data/mmimdb.py", "h5py"),
                   ("mmtpu_torch/data/iemocap.py", "h5py"),
-                  ("mmtpu_torch/monitor/storage.py", "h5py")}
+                  ("mmtpu_torch/monitor/storage.py", "h5py"),
+                  # the analysis copy (mmtpu/analysis/) draws and tabulates
+                  # offline: each library inside the functions that use it
+                  ("mmtpu_torch/analysis/processing.py", "pandas"),
+                  ("mmtpu_torch/analysis/plotting.py", "matplotlib"),
+                  ("mmtpu_torch/analysis/plotting.py", "sklearn"),
+                  ("mmtpu_torch/analysis/plotting.py", "cv2"),
+                  ("mmtpu_torch/analysis/plotting.py", "PIL"),
+                  ("mmtpu_torch/analysis/visualiser.py", "seaborn")}
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
@@ -84,6 +93,13 @@ PARALLEL_SLICE = ("mmtpu_torch/parallel/__init__.py", "mmtpu_torch/parallel/mesh
                   "mmtpu_torch/parallel/launch.py")
 
 
+# the model axis and the analysis copy
+MODEL_AXIS_SLICE = ("mmtpu_torch/parallel/tensor.py", "mmtpu_torch/analysis/__init__.py",
+                    "mmtpu_torch/analysis/processing.py", "mmtpu_torch/analysis/umap_lite.py",
+                    "mmtpu_torch/analysis/plotting.py", "mmtpu_torch/analysis/comparison_plots.py",
+                    "mmtpu_torch/analysis/visualiser.py")
+
+
 # the monitor and the federated codec
 MONITOR_SLICE = ("mmtpu_torch/monitor/__init__.py", "mmtpu_torch/monitor/monitor.py",
                  "mmtpu_torch/monitor/storage.py", "mmtpu_torch/monitor/analysis.py",
@@ -91,7 +107,8 @@ MONITOR_SLICE = ("mmtpu_torch/monitor/__init__.py", "mmtpu_torch/monitor/monitor
                  "mmtpu_torch/federated/federated_utils.py")
 
 
-@pytest.mark.parametrize("rel", EXPORT_SLICE + RECURRENT_SLICE + PARALLEL_SLICE + MONITOR_SLICE)
+@pytest.mark.parametrize("rel", EXPORT_SLICE + RECURRENT_SLICE + PARALLEL_SLICE + MONITOR_SLICE
+                         + MODEL_AXIS_SLICE)
 def test_the_export_slice_is_scanned(rel):
     assert REPO / rel in PORT_FILES
 

@@ -3,7 +3,7 @@ and against mmtpu's mesh on the CPU, with 2 and 4 gloo ranks
 (`mmtpu_torch.parallel.launch`; the ranks run `tests/_mesh_ranks.py`):
 
 - `resolve_mesh`'s cases with mmtpu's messages (the CUDA card count
-  monkeypatched), `create_mesh`'s, `model_parallel > 1`;
+  monkeypatched), `create_mesh`'s (a model axis needs dp·mp devices);
 - `shard_batch`'s slices and mmtpu's divisibility error;
 - the global-batch BatchNorm at N = 2 and 4 against one process: outputs,
   running statistics, input and weight gradients at 1e-6, a full batch and
@@ -231,10 +231,11 @@ def test_resolve_mesh_cases_follow_mmtpu(monkeypatch):
 
 
 def test_create_mesh_rules():
-    from mmtpu_torch.parallel.mesh import ROADMAP_MODEL_AXIS
-
-    with pytest.raises(NotImplementedError, match="model_parallel=2.*" + ROADMAP_MODEL_AXIS):
+    # a model axis needs dp·mp devices (tests/test_torch_port_model_axis.py runs one)
+    with pytest.raises(ValueError, match=r"mesh 2x2 != 2 devices"):
         create_mesh(MeshConfig(data_parallel=2, model_parallel=2), devices=[CPU] * 2)
+    assert create_mesh(MeshConfig(data_parallel=2, model_parallel=2),
+                       devices=[CPU] * 4).model_size == 2
     with pytest.raises(ValueError, match=r"mesh 3x1 != 2 devices"):
         create_mesh(MeshConfig(data_parallel=3), devices=[CPU] * 2)
     # ranks that share a card talk over gloo; NCCL needs a card per rank
