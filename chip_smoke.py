@@ -208,14 +208,14 @@ FcClassifier 192→[192, 64, 32]→3; batch 32, aligned T = 50):
              registry at the Multimodal-Transformer repository's CMU-MOSI
              defaults (attention 30, 5 heads, 5 layers, the class's dropouts,
              clip 0.8, Adam 1e-3, batch 24) on seeded inputs at the MOSI
-             twin's widths (audio 5, video 20, text 768, T = 50, 636
-             samples, half CMU-MOSI's 1284: 27 batches, a tail of
+             twin's widths (audio 5, video 20, text 768, T = 50, 324
+             samples, a quarter of CMU-MOSI's 1284: 14 batches, a tail of
              12 real rows as at 1284), through the port's
              generic `ClassificationTask` train step, without and with the
              discriminator (λ_d 0.1): two passes (samples/s of the second),
              a profiled window of 8 steps, neither kernel launched; steps
              1-3 and the padded tail GPU vs CPU (dropouts 0). (b) GCNet from
-             the registry on 120 seeded IEMOCAP-sized dialogues (features
+             the registry on 72 seeded IEMOCAP-sized dialogues (features
              130 + 1024 + 342, T = 110, lengths 20..110, two speakers, the
              seven missing-modality patterns; D_e 100, graph 100, windows
              2/2, 6 classes, dropout 0.5, time attention; batch 16, Adam
@@ -353,8 +353,16 @@ FcClassifier 192→[192, 64, 32]→3; batch 32, aligned T = 50):
              card (`mmtpu_torch/analysis/umap_lite.py`) against the port on
              the CPU over 3,000 × 192 seeded embeddings: kNN and edges
              equal, the fuzzy set within 1e-6, the float64 layout within
-             1e-4 after each of the first three epochs (the tenth printed),
-             the 200-epoch wall time.
+             1e-4 after each of the first three epochs, the 200-epoch wall
+             time.
+19. multihost — 18 (a)'s job on its (2, 2) mesh made of two separately
+             started launchers (`chip_smoke.py --axis-worker`, each
+             `parallel.launch.launch_process` of two ranks on the card,
+             meeting at a TCP store on a free local port): every rank's
+             record bit for bit 18 (a)'s single launch's (its files, not
+             recomputed), so within 18 (a)'s tolerances of its one process;
+             `fused_mlp` exactly 2 launches per eval step per rank; rank 0
+             alone writes the checkpoint.
 
     python3 chip_smoke.py --train-only    # build, then phases 5 and 6 alone
     python3 chip_smoke.py --reader-only   # build, the audio pretraining, phase 7
@@ -377,6 +385,7 @@ FcClassifier 192→[192, 64, 32]→3; batch 32, aligned T = 50):
     python3 chip_smoke.py --mesh-only     # build, phase 16 (a)-(g)
     python3 chip_smoke.py --monitor-only  # build, phase 17 (a), (b)
     python3 chip_smoke.py --model-axis-only  # build, phase 18 (a), (b)
+    python3 chip_smoke.py --multihost-only   # build, phase 18 (a), phase 19
 
 Prints a `kernels` JSON line, the card's name and power limit, and as the
 last line `{"ok": true, "device": {...}}`. Any failure exits non-zero
@@ -5071,7 +5080,7 @@ CROSS_ENTROPY = {"cross_entropy": {"loss_name": "cross_entropy", "weight": 1.0}}
 # dropouts, batch 24, clip 0.8, Adam 1e-3; inputs at the repo's MOSI twin widths
 MULT_DIMS = {"audio": 5, "video": 20, "text": 768}
 MULT_T = 50
-MULT_SAMPLES = 636  # half CMU-MOSI's train split of 1284: 26 batches of 24 and its tail of 12
+MULT_SAMPLES = 324  # a quarter of CMU-MOSI's train split of 1284: 13 batches of 24 and its tail of 12
 MULT_BATCH = 24
 MULT_MODEL = dict(attention_dim=30, num_heads=5, num_layers=5, output_dim=3)
 MULT_CLIP = 0.8
@@ -5082,7 +5091,7 @@ MULT_NO_DROPOUT = dict(attention_dropout=0.0, relu_dropout=0.0, embd_dropout=0.0
 # DialogueRNN's 120 IEMOCAP training dialogues, lengths seeded in 20..110;
 # D_e, the graph width, windows and batch are not published ones: GCNet's
 # IEMOCAP script is not in the repository
-GCNET_DIALOGUES = 120
+GCNET_DIALOGUES = 72  # 4 batches of 16 and a tail of 8 real rows
 GCNET_BATCH = 16
 GCNET_T = 110
 GCNET_LENGTHS = (20, 110)
@@ -5302,7 +5311,7 @@ def phase_mult(dev, card: str, discriminator: bool, batches: list) -> dict:
 
 
 def gcnet_batches(seed: int = SEED) -> list:
-    """IEMOCAP-sized conversations from seeded normals: 120 dialogues of T =
+    """IEMOCAP-sized conversations from seeded normals: GCNET_DIALOGUES of T =
     110 with lengths in 20..110, two speakers, each utterance missing the
     modalities of one of the seven patterns (zeroed in the input, kept in
     the reconstruction target); batches of 16, the last 8 real rows and 8
@@ -7710,7 +7719,7 @@ AXIS_SHAPES = ([192, 64, 64], [64, 10])  # a rank's shard pair at mp = 2, and th
 UMAP_SHAPE = (3000, 192, 10)  # points (the AVMNIST test pass), width, classes
 UMAP_FUZZY_TOL = 1e-6  # the fuzzy set's weights, card vs CPU
 UMAP_LAYOUT_TOL = 1e-4  # the float64 layout, card vs CPU, over the held epochs
-UMAP_EPOCHS = (1, 2, 3, 10)  # the first three held point for point, the tenth printed:
+UMAP_EPOCHS = (1, 2, 3)  # each held point for point:
 # the repulsive steps amplify an ulp tenfold to a hundredfold per epoch (PERF.md §6)
 
 
@@ -8067,8 +8076,8 @@ def phase_umap(dev, card: str) -> dict:
     """Phase 18 (b): `umap_embed`'s steps on the card against the port on
     the CPU over UMAP_SHAPE's embeddings: the kNN indices equal, the fuzzy
     set within 1e-6; the layout in float64 from the same start and
-    negative samples within 1e-4 after each of the first three epochs (the
-    tenth printed); the 200-epoch projection's wall time on the card."""
+    negative samples within 1e-4 after each of the first three epochs; the
+    200-epoch projection's wall time on the card."""
     import torch
 
     from mmtpu_torch.analysis import umap_lite as U
@@ -8131,6 +8140,118 @@ def say_phase18(card: str, p18: dict, seconds: float) -> None:
              f"after epochs {UMAP_EPOCHS} {[float(f'{v:.3e}') for v in u['drift']]}; 200 "
              f"epochs on the card "
              f"{u['wall']:.3f} s; phase 18 {seconds:.1f} s")
+
+
+# -- phase 19: the (2, 2) mesh of separately started processes -------------------------
+
+MULTIHOST_PROCESSES = 2  # separately started launchers of two ranks each, all on cuda:0
+MULTIHOST_UNTIMED = {"step_s", "saved"}  # wall times; paths (their names compared)
+
+
+def _multihost_worker(spec: dict) -> int:
+    """One launcher of phase 19 (`--axis-worker SPEC`): its ranks of 18 (a)'s
+    (2, 2) mesh through `launch_process`, meeting the other launcher's at
+    the coordinator; 18 (a)'s job in each."""
+    import torch
+
+    from mmtpu_torch.parallel import MeshConfig
+    from mmtpu_torch.parallel.launch import launch_process, process_mesh
+
+    dp, mp = AXIS_MESH
+    local = dp * mp // spec["processes"]
+    mesh = process_mesh(MeshConfig(dp, mp), spec["processes"],
+                        [torch.device(MESH_DEVICE)] * local)
+    return launch_process(mesh, _axis_job, ({"cfg": spec["cfg"], "out": spec["out"]},),
+                          coordinator=spec["coordinator"], num_processes=spec["processes"],
+                          process_id=spec["process_id"], timeout=MESH_TIMEOUT_S)
+
+
+def _bitwise(a, b) -> bool:
+    """`a` and `b` equal bit for bit: tensors, arrays, numbers, containers."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and a.dtype == b.dtype and torch.equal(a, b)
+    if isinstance(a, np.ndarray):
+        return isinstance(b, np.ndarray) and a.dtype == b.dtype and np.array_equal(a, b)
+    if isinstance(a, dict):
+        return isinstance(b, dict) and set(a) == set(b) and all(_bitwise(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_bitwise(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def phase19(dev, card: str, work: Path) -> dict:
+    """Phase 19: 18 (a)'s full-width job on its (2, 2) mesh, now made of two
+    separately started launchers (`chip_smoke.py --axis-worker`, each
+    `launch_process` of two ranks on cuda:0, meeting at a TCP store on a
+    free local port, gloo): every rank's record (eval logits and launches,
+    the shard pair's error, the float32 losses, the replicated parameters'
+    sha256 per step, the model group's bytes, the gathered states, the
+    float64 gradients and parameters, the checkpoint's writer and read-back)
+    bit for bit 18 (a)'s single launch's, read from 18 (a)'s files; so
+    within 18 (a)'s tolerances of its one-process reference; `fused_mlp`
+    exactly 2 per eval step per rank."""
+    import torch
+
+    from mmtpu_torch.parallel.multihost import free_port, wait_workers
+
+    dp, mp = AXIS_MESH
+    out = work / "axis_multihost"
+    out.mkdir()
+    spec = {"processes": MULTIHOST_PROCESSES, "coordinator": f"127.0.0.1:{free_port()}",
+            "cfg": str(work / "axis.json"), "out": str(out)}
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--axis-worker",
+                               json.dumps({**spec, "process_id": p})],
+                              cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for p in range(MULTIHOST_PROCESSES)]
+    outs = wait_workers(procs, MESH_TIMEOUT_S + 60)
+    seconds = time.perf_counter() - t0
+    for p, (rc, _, err) in enumerate(outs):
+        if rc != 0:
+            raise AssertionError(f"[multihost] launcher {p} exited with {rc}:\n{err[-3000:]}")
+    got = [torch.load(out / f"rank{r}.pt", weights_only=False) for r in range(dp * mp)]
+    once = [torch.load(work / "axis_mesh" / f"rank{r}.pt", weights_only=False)
+            for r in range(dp * mp)]
+    one = torch.load(work / "axis_single" / "single.pt", weights_only=False)
+    differ = {r: sorted(k for k in once[r] if k not in MULTIHOST_UNTIMED
+                        and not _bitwise(got[r].get(k), once[r][k])) for r in range(dp * mp)}
+    names = [[Path(f).name for f in r["saved"]] for r in got]
+    rel = [abs(a - b) / abs(b) for a, b in zip(got[0]["losses"], one["losses"])]
+    launches = [r["eval_launches"] for r in got]
+    step_ms = [[round(t * 1e3, 3) for t in r["step_s"]] for r in got]
+    say(f"[multihost] {MULTIHOST_PROCESSES} separately started launchers x "
+        f"{dp * mp // MULTIHOST_PROCESSES} ranks, a ({dp}, {mp}) mesh on {MESH_DEVICE} over "
+        f"gloo at {spec['coordinator']}: {seconds:.1f} s (process start-up included)")
+    say(f"[multihost] every rank's record against 18 (a)'s single launch, bit for bit: "
+        f"keys that differ per rank {differ}; losses {got[0]['losses']} (one process "
+        f"{one['losses']}, relative {rel}); model-group bytes per train step "
+        f"{got[0]['reduce_bytes']}; fused_mlp launches per rank {launches} over "
+        f"{AXIS_EVAL_STEPS} eval step(s); rank 0 wrote {names[0]}, ranks 1-3 "
+        f"{names[1:]}")
+    say_card(card, f"[multihost] step wall times per rank (ms; four processes of two "
+             f"launchers sharing one card) {step_ms}")
+    if any(differ.values()):
+        raise AssertionError(f"[multihost] not 18 (a)'s records: {differ}")
+    if names[0] != ["epoch_3.pth.tmp", "best.pth.tmp"] or any(names[1:]):
+        raise AssertionError(f"[multihost] writers {names}")
+    if launches != [2 * AXIS_EVAL_STEPS] * (dp * mp):
+        raise AssertionError(f"[multihost] fused_mlp launches {launches}")
+    if rel[0] > TRAIN_LOSS_RTOL or max(rel[1:]) > TRAIN_LATER_RTOL:
+        raise AssertionError(f"[multihost] losses {rel}")
+    return {"seconds": seconds, "launches_per_eval_step": launches[0] // AXIS_EVAL_STEPS,
+            "loss_rel": rel, "reduce_bytes": got[0]["reduce_bytes"], "step_ms": step_ms,
+            "shard_err": max(r["shard_err"] for r in got)}
+
+
+def say_phase19(card: str, p19: dict, seconds: float) -> None:
+    say_card(card, f"[summary] a ({AXIS_MESH[0]}, {AXIS_MESH[1]}) mesh of "
+             f"{MULTIHOST_PROCESSES} separately started launchers: bit for bit 18 (a)'s "
+             f"single launch; losses vs one process {p19['loss_rel']}; fused_mlp "
+             f"{p19['launches_per_eval_step']} per eval step per rank; model-group bytes per "
+             f"step {p19['reduce_bytes']}; step ms per rank {p19['step_ms']}; launchers "
+             f"{p19['seconds']:.1f} s; phase 19 {seconds:.1f} s")
 
 
 def kernel_record(name: str, source: str, replaces: str, shape: str, kern: dict, t: dict,
@@ -8226,11 +8347,18 @@ def main(argv=None) -> int:
     parser.add_argument("--model-axis-only", action="store_true",
                         help="build the kernels and run phase 18's model-axis and UMAP "
                              "checks alone (no kernels or ok line)")
+    parser.add_argument("--multihost-only", action="store_true",
+                        help="build the kernels and run phase 18 (a), then phase 19's "
+                             "mesh of separately started launchers against it (no kernels "
+                             "or ok line)")
+    parser.add_argument("--axis-worker", default=None, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU",
               file=sys.stderr)
         return 2
+    if args.axis_worker is not None:  # one of phase 19's launchers
+        return _multihost_worker(json.loads(args.axis_worker))
     t_start = time.perf_counter()
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
@@ -8388,6 +8516,15 @@ def main(argv=None) -> int:
             shutil.rmtree(work, ignore_errors=True)
         return 0
 
+    if args.multihost_only:
+        try:
+            phase_model_axis(dev, smi, work)
+            t0 = time.perf_counter()
+            say_phase19(smi, phase19(dev, smi, work), time.perf_counter() - t0)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        return 0
+
     mlp = phase_kernels_mlp(dev)
     lstm = phase_kernels_lstm(dev)
     members = phase_kernels_members(dev)
@@ -8441,11 +8578,13 @@ def main(argv=None) -> int:
         p17 = phase17(dev, smi, work)
         t_18 = time.perf_counter()
         p18 = phase18(dev, smi, work)
+        t_19 = time.perf_counter()
+        p19 = phase19(dev, smi, work)  # in turn, after 18 (a), whose files it reads
         (t_train, t_utt, t_reader, t_shipped, t_cmam, t_msa, t_11, t_12, t_13, t_14, t_15,
-         t_16, t_17, t_18) = (t_utt - t_train, t_reader - t_utt, t_shipped - t_reader,
-                              t_cmam - t_shipped, t_msa - t_cmam, t_11 - t_msa, t_12 - t_11,
-                              t_13 - t_12, t_14 - t_13, t_15 - t_14, t_16 - t_15, t_17 - t_16,
-                              t_18 - t_17, time.perf_counter() - t_18)
+         t_16, t_17, t_18, t_19) = (
+            t_utt - t_train, t_reader - t_utt, t_shipped - t_reader, t_cmam - t_shipped,
+            t_msa - t_cmam, t_11 - t_msa, t_12 - t_11, t_13 - t_12, t_14 - t_13, t_15 - t_14,
+            t_16 - t_15, t_17 - t_16, t_18 - t_17, t_19 - t_18, time.perf_counter() - t_19)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -8485,7 +8624,8 @@ def main(argv=None) -> int:
     say_phase16(smi, p16, t_16)
     say_phase17(smi, p17, t_17)
     say_phase18(smi, p18, t_18)
-    mlp["max_err"] = max(mlp["max_err"], p18["axis"]["shard_err"],
+    say_phase19(smi, p19, t_19)
+    mlp["max_err"] = max(mlp["max_err"], p18["axis"]["shard_err"], p19["shard_err"],
                          *(t["max_abs_err"] for t in p18["axis"]["shapes"].values()))
     say(f"[summary] fused_mlp B=1024 {json.dumps(mlp['timings'][1024])}")
     for batch, t in mlp["mesh"].items():
@@ -8530,6 +8670,7 @@ def main(argv=None) -> int:
                                  p17["avmnist"]["cost"]["launches"].items()}},
          "mesh_shapes": {f"B={b}": t for b, t in mlp["mesh"].items()},
          "phase18_launches_per_eval_step_per_rank": p18["axis"]["launches_per_eval_step"],
+         "phase19_launches_per_eval_step_per_rank": p19["launches_per_eval_step"],
          "model_axis_shapes": p18["axis"]["shapes"]},
         {**kernel_record("lstm", "mmtpu_torch/ops/csrc/lstm.cu", "mmtpu/ops/lstm.py:61",
                          f"G={G}, B={B}, T={T}, H={H}, float32; library_ms is {G} nn.LSTM "

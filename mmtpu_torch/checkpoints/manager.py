@@ -241,13 +241,20 @@ def load_encoder_checkpoint(path: Union[str, Path], target: nn.Module,
     return report
 
 
+def writes_checkpoints(mesh) -> bool:
+    """Whether this process writes checkpoints: one device, or the mesh's
+    global rank 0 (over every process of `launch_process`). The one place
+    that decides it: every rank calls the manager's writers."""
+    return mesh is None or mesh.is_writer
+
+
 def _tree(state: TrainState) -> Optional[Dict[str, Any]]:
-    """`state`'s tree where this process writes it (one device, or rank 0
-    of a mesh), else None. On a model axis every rank takes part in building
-    it (the shards are gathered over the model group) and rank 0 alone
-    writes it; the other ranks of a data-parallel mesh build nothing."""
+    """`state`'s tree where this process writes it (`writes_checkpoints`),
+    else None. On a model axis every rank takes part in building it (the
+    shards are gathered over the model group) and rank 0 alone writes it;
+    the other ranks of a data-parallel mesh build nothing."""
     mesh = state.mesh
-    if mesh is not None and not mesh.is_writer:
+    if not writes_checkpoints(mesh):
         if mesh.model_size > 1:
             state.state_dict()
         return None
@@ -265,11 +272,58 @@ def rng_state(state: Optional[TrainState] = None) -> Dict[str, Any]:
     return out
 
 
+def _host_tree(tree: Any) -> Any:
+    """mmtpu's host copy of a tree (a jax tree map): every mapping's keys
+    sorted, every leaf but a string an array."""
+    if isinstance(tree, Mapping):
+        return {k: _host_tree(tree[k]) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_host_tree(v) for v in tree)
+    if isinstance(tree, (str, bytes)):
+        return tree
+    return tree.detach().cpu().numpy() if isinstance(tree, torch.Tensor) else np.asarray(tree)
+
+
+def save_pytree(path: Path, tree: Dict[str, Any]) -> None:
+    """A tree of arrays as mmtpu's `.ckpt` bytes (flax's msgpack,
+    `checkpoints/msgpack.py`), written atomically."""
+    from mmtpu_torch.checkpoints.msgpack import to_bytes
+
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_name(path.name + ".tmp")
+    tmp.write_bytes(to_bytes(_host_tree(tree)))
+    os.replace(tmp, path)
+
+
+def load_pytree(path: Path, target: Optional[Any] = None) -> Any:
+    """A msgpack tree (mmtpu's `.ckpt`), restored onto `target`'s structure
+    when one is given."""
+    from mmtpu_torch.checkpoints.msgpack import from_state_dict, msgpack_restore
+
+    tree = msgpack_restore(Path(path).read_bytes())
+    return tree if target is None else from_state_dict(target, tree)
+
+
 class CheckpointManager:
-    def __init__(self, model_dir, save_metric: str = "loss") -> None:
+    def __init__(self, model_dir, save_metric: str = "loss", mode: str = "min") -> None:
         self.model_dir = Path(model_dir)
         self.model_dir.mkdir(parents=True, exist_ok=True)
         self.save_metric = save_metric
+        self.mode = mode
+        # the best metric saved so far, for standalone callers and as
+        # mmtpu keeps it; the caller decides what is saved
+        self.best_value: Optional[float] = None
+        self.best_epoch: Optional[int] = None
+
+    def is_better(self, value: float) -> bool:
+        if self.best_value is None:
+            return True
+        return value < self.best_value if self.mode == "min" else value > self.best_value
+
+    def wait(self) -> None:
+        """mmtpu's join of its queued writes: the port writes every file
+        before the call that writes it returns, so nothing is pending."""
 
     def save_checkpoint(self, state: TrainState, epoch: int,
                         metric_value: Optional[float] = None) -> Path:
@@ -278,6 +332,8 @@ class CheckpointManager:
         mesh every rank calls it and rank 0 alone writes."""
         path = self.model_dir / f"epoch_{epoch}.pth"
         meta = json.dumps({"epoch": epoch, "metric": self.save_metric, "value": metric_value})
+        if metric_value is not None and self.is_better(metric_value):
+            self.best_value, self.best_epoch = metric_value, epoch
         tree = _tree(state)
         if tree is None:
             return path
@@ -288,9 +344,12 @@ class CheckpointManager:
         logger.info(f"checkpoint saved: {path}")
         return path
 
-    def save_encoder(self, encoder: torch.nn.Module, modality: str) -> Path:
-        """The handoff: the encoder's state_dict, statistics included."""
+    def save_encoder(self, encoder: torch.nn.Module, modality: str, mesh=None) -> Path:
+        """The handoff: the encoder's state_dict, statistics included; on a
+        mesh every rank calls it and rank 0 alone writes."""
         path = self.model_dir / f"encoder_{modality}_best.pth"
+        if not writes_checkpoints(mesh):
+            return path
         _save_atomic({k: v.detach().cpu() for k, v in encoder.state_dict().items()}, path)
         return path
 

@@ -65,12 +65,25 @@ def apply_precision(cfg) -> str:
     )
 
 
+def promote_numpy_warnings() -> None:
+    """The numpy RuntimeWarnings the reference hardens into errors: a
+    degenerate metric slice, a division by zero, NaN in a product fail
+    loudly instead of poisoning the epoch's metrics (mmtpu's)."""
+    import warnings
+
+    for message in ("Degrees of freedom <= 0 for slice",
+                    "divide by zero encountered in divide",
+                    "invalid value encountered in multiply"):
+        warnings.filterwarnings("error", message=message, category=RuntimeWarning)
+
+
 def finalize_config(cfg, args, mesh=None):
     """The post-load wiring every training entry point shares (mmtpu's
     `finalize_config`): --seed, a sweep member's seed offset, --dry-run,
     --epochs, --disable_monitoring, the precision, the output dirs and the
     run log `<log_path>/run_<run_id>.log`, which on a data-parallel `mesh`
-    rank 0 alone writes."""
+    rank 0 alone writes; first the numpy-warning tripwire."""
+    promote_numpy_warnings()
     if getattr(args, "seed", None) is not None:
         cfg.experiment.seed = args.seed
     # --stacked-runs member i trains with seed base + i (derive_member_args)
@@ -447,16 +460,8 @@ def make_checkpoint_manager(cfg):
 
 
 def build_all_loaders(cfg, is_train: bool = True, is_test: bool = True) -> Dict[str, Any]:
-    """One loader per configured split; train and validation only when
-    training, test only when testing (mmtpu's `build_all_loaders`)."""
-    loaders = {}
-    for split in cfg.data.datasets:
-        if split in ("train", "trn", "validation") and not is_train:
-            continue
-        if split == "test" and not is_test:
-            continue
-        loaders[split] = cfg.data.build_loader(split, seed=cfg.experiment.seed)
-    return loaders
+    """`DataConfig.build_all_loaders` at the experiment's seed."""
+    return cfg.data.build_all_loaders(is_train, is_test, seed=cfg.experiment.seed)
 
 
 def infer_monomodal_modality(cfg) -> Modality:

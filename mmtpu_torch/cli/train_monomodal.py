@@ -77,7 +77,8 @@ def run(args, mesh=None) -> int:
         lr_controller=common.make_lr_controller(cfg.training),
         metrics_path=Path(cfg.logging.metrics_path),
         group_name=next(iter(cfg.metrics.groups), "classification"),
-        on_best=lambda st, epoch: ckpt.save_encoder(st.model.encoder, str(modality)),
+        on_best=lambda st, epoch: ckpt.save_encoder(st.model.encoder, str(modality),
+                                                    st.mesh),
         print_interval=cfg.experiment.train_print_interval_epochs,
         # metric keys carry the MODALITY name, not the pattern letter
         vocab_override=[str(modality)] * len(any_loader.pattern_vocab),

@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import dataclasses
+from pathlib import Path
 from typing import Any, Dict, Type, TypeVar
 
 T = TypeVar("T", bound="BaseConfig")
@@ -20,6 +21,17 @@ class BaseConfig:
         merged = {**data, **extra}
         names = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: v for k, v in merged.items() if k in names})
+
+    @classmethod
+    def from_yaml(cls: Type[T], path: str | Path) -> T:
+        """The section in a YAML file of its own, parsed with the port's
+        tags (`yaml_tags.load_yaml`)."""
+        from mmtpu_torch.config.yaml_tags import load_yaml
+
+        return cls.from_dict(load_yaml(path))
+
+    def get(self, key: str, default: Any = None) -> Any:
+        return getattr(self, key, default)
 
     @classmethod
     def _known_and_kwargs(cls, data: Dict[str, Any]) -> Dict[str, Any]:

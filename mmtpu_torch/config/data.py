@@ -52,6 +52,10 @@ class MissingPatternConfig(BaseConfig):
             for k, v in self.modalities.items()
         )
 
+    @property
+    def available_modalities(self):
+        return {str(m) for m in self.modalities} | {"multimodal"}
+
     def generate_patterns(self) -> Dict[str, Dict[Modality, float]]:
         """Pattern name → {modality: keep probability}."""
         mods = sorted(self.modalities.keys())
@@ -168,6 +172,19 @@ class DataConfig(BaseConfig):
             drop_last=cfg.drop_last,
             seed=seed,
         )
+
+    def build_all_loaders(self, is_train: bool = True, is_test: bool = True,
+                          seed: int = 0) -> Dict[str, Any]:
+        """One loader per configured split; train and validation only when
+        training, test only when testing."""
+        loaders: Dict[str, Any] = {}
+        for split in self.datasets:
+            if split in ("train", "trn", "validation") and not is_train:
+                continue
+            if split == "test" and not is_test:
+                continue
+            loaders[split] = self.build_loader(split, seed=seed)
+        return loaders
 
     def to_dict(self) -> Dict[str, Any]:
         return {"datasets": {k: v.to_dict() for k, v in self.datasets.items()}}

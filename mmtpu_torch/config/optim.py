@@ -10,6 +10,7 @@ lr / weight decay; a parameter matched by two groups is an error.
 
 from __future__ import annotations
 
+import re
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
@@ -22,6 +23,10 @@ class ParameterGroupConfig(BaseConfig):
     lr: Optional[float] = None
     weight_decay: Optional[float] = None
     kwargs: Dict[str, Any] = field(default_factory=dict)
+
+    def matches(self, param_path: str) -> bool:
+        """The group's regex finds the (mmtpu) parameter path."""
+        return re.search(self.pattern, param_path) is not None
 
     def effective_kwargs(self, defaults: Dict[str, Any]) -> Dict[str, Any]:
         out = dict(defaults)
@@ -44,6 +49,17 @@ class OptimizerConfig(BaseConfig):
             g if isinstance(g, ParameterGroupConfig) else ParameterGroupConfig.from_dict(g)
             for g in (self.parameter_groups or [])
         ]
+
+    def validate_no_overlap(self, param_paths: List[str]) -> None:
+        """Reject a parameter path matched by more than one group."""
+        seen: Dict[str, str] = {}
+        for group in self.parameter_groups:
+            for path in param_paths:
+                if group.matches(path):
+                    if path in seen:
+                        raise ValueError(f"Parameter {path!r} matched by both "
+                                         f"{seen[path]!r} and {group.pattern!r}")
+                    seen[path] = group.pattern
 
     def to_dict(self) -> Dict[str, Any]:
         return {"name": self.name, "default_kwargs": dict(self.default_kwargs),

@@ -44,3 +44,18 @@ def specs_from_dicts(obj: Any) -> Any:
     if isinstance(obj, (list, tuple)):
         return type(obj)(specs_from_dicts(v) for v in obj)
     return obj
+
+
+def is_spec(obj: Any) -> bool:
+    return isinstance(obj, ModuleSpec)
+
+
+def build_specs(obj: Any) -> Any:
+    """Recursively replace ModuleSpecs with built torch modules."""
+    if isinstance(obj, ModuleSpec):
+        return obj.build()
+    if isinstance(obj, dict):
+        return {k: build_specs(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(build_specs(v) for v in obj)
+    return obj

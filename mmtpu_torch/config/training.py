@@ -101,7 +101,11 @@ class StandardMultimodalConfig(BaseConfig):
     @classmethod
     def from_parsed(cls, raw: Dict[str, Any], run_id: int) -> "StandardMultimodalConfig":
         """Assemble from the parsed mapping (YAML or a plain dict)."""
+        from mmtpu_torch.utils import global_state
+
         experiment = ExperimentConfig.from_dict({**raw["experiment"], "run_id": run_id})
+        global_state.set_run_id(run_id)
+        global_state.set_experiment_name(experiment.name)
         logging_cfg = LoggingConfig.from_dict(
             raw["logging"], experiment_name=experiment.name, run_id=run_id
         )
@@ -114,6 +118,19 @@ class StandardMultimodalConfig(BaseConfig):
             metrics=MetricConfig.from_dict(raw.get("metrics") or {}),
             monitoring=MonitorConfig.from_dict(raw.get("monitoring") or {}),
         )
+
+    def save(self, path) -> None:
+        """The config in its plain-dict form: JSON for a `.json` path (what
+        `load` reads without PyYAML), YAML otherwise."""
+        if str(path).endswith(".json"):
+            import json
+
+            with open(path, "w") as f:
+                json.dump(self.to_dict(), f, indent=2)
+            return
+        from mmtpu_torch.config.yaml_tags import dump_yaml
+
+        dump_yaml(self.to_dict(), path)
 
     def to_dict(self) -> Dict[str, Any]:
         return {

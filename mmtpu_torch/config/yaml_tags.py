@@ -108,6 +108,26 @@ def _loader_class():
     return _LOADER
 
 
+def register_all() -> None:
+    """mmtpu's `register_all`: the port's tags on PyYAML's own SafeLoader
+    too, so `yaml.safe_load` reads a config as `load_yaml` does. Idempotent."""
+    import yaml
+
+    port = _loader_class()
+    for tag, constructor in port.yaml_constructors.items():
+        if isinstance(tag, str) and tag.startswith("!"):
+            yaml.SafeLoader.add_constructor(tag, constructor)
+
+
+def dump_yaml(data: Dict[str, Any], path: str | Path) -> None:
+    """Plain containers (a config's `to_dict`) as YAML, which `load_yaml`
+    reads back."""
+    import yaml
+
+    with open(path, "w") as f:
+        yaml.safe_dump(data, f, default_flow_style=False)
+
+
 def load_yaml(path: str | Path) -> Dict[str, Any]:
     """Parse a config file into plain mappings, Modalities and ModuleSpecs."""
     import yaml

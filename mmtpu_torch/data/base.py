@@ -49,7 +49,7 @@ class MultimodalArrayDataset:
             target_modality = Modality(target_modality)
         self.target_modality = target_modality
 
-        self.missing_patterns = missing_patterns
+        self.missing_patterns = missing_patterns or self.default_patterns()
         if selected_patterns is not None:
             self.selected_patterns = self.validate_patterns(selected_patterns)
         else:
@@ -62,6 +62,18 @@ class MultimodalArrayDataset:
         self.labels: np.ndarray = np.zeros((0,), np.int64)
         self.masks: Dict[str, Dict[Modality, np.ndarray]] = {}
         self._mask_cache: Dict[tuple, np.ndarray] = {}
+
+    @classmethod
+    def default_patterns(cls) -> Dict[str, Dict[Modality, float]]:
+        """Every pattern of the powerset, keep 1 for a present modality and
+        0 for an absent one (mmtpu's, when a dataset is given none)."""
+        mods = list(cls.AVAILABLE_MODALITIES.values())
+        out = {}
+        for r in range(1, len(mods) + 1):
+            for combo in combinations(sorted(mods), r):
+                name = "".join(sorted(str(m)[0] for m in combo))
+                out[name] = {m: (1.0 if m in combo else 0.0) for m in mods}
+        return out
 
     @classmethod
     def get_all_possible_patterns(cls) -> List[str]:

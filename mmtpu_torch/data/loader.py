@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Dict, Iterator, List
+from typing import Any, Dict, Iterator, List, Optional
 
 import numpy as np
 
@@ -166,3 +166,67 @@ class BatchLoader:
             batch["pattern_id"] = pids.astype(np.int32)
             batch["sample_mask"] = (idx >= 0).astype(np.float32)
             yield batch
+
+
+def build_loader(dataset: MultimodalArrayDataset, batch_size: int, shuffle: bool = False,
+                 drop_last: bool = False, seed: int = 0) -> BatchLoader:
+    return BatchLoader(dataset, batch_size=batch_size, shuffle=shuffle, drop_last=drop_last,
+                       seed=seed)
+
+
+class DevicePrefetcher:
+    """Wrap a BatchLoader: each batch's arrays on the device (this rank's
+    rows under a launched `mesh`), copied one batch ahead of the consumer
+    (mmtpu's `DevicePrefetcher`). `device` defaults to the mesh rank's, else
+    the card. `transfer_dtype` ("bfloat16") halves the copy of the float32
+    arrays named in `transfer_keys` (opt-in: some float32 payloads carry
+    integer content, BERT token ids, that bfloat16 would corrupt)."""
+
+    def __init__(self, loader: BatchLoader, mesh=None, transfer_dtype=None,
+                 transfer_keys=None, device=None) -> None:
+        import torch
+
+        self.loader = loader
+        self.mesh = mesh
+        self.transfer_dtype = transfer_dtype
+        self.transfer_keys = set(transfer_keys or ())
+        self.device = torch.device(device if device is not None else
+                                   mesh.device if mesh is not None else "cuda")
+
+    def __len__(self) -> int:
+        return len(self.loader)
+
+    @property
+    def pattern_vocab(self):
+        return self.loader.pattern_vocab
+
+    def _put(self, batch: Dict[str, np.ndarray]) -> Dict[str, Any]:
+        import torch
+
+        from mmtpu_torch.parallel.mesh import shard_batch
+
+        if self.mesh is not None:
+            batch = shard_batch(batch, self.mesh)
+        dtype = None
+        if self.transfer_dtype is not None and self.transfer_keys:
+            dtype = (torch.bfloat16 if self.transfer_dtype in ("bfloat16", "bf16")
+                     else getattr(torch, str(self.transfer_dtype)))
+        out = {}
+        for k, v in batch.items():
+            t = torch.from_numpy(np.ascontiguousarray(v))
+            if dtype is not None and k in self.transfer_keys and t.dtype == torch.float32:
+                t = t.to(dtype)
+            if self.device.type == "cuda":
+                t = t.pin_memory()
+            out[k] = t.to(self.device, non_blocking=True)
+        return out
+
+    def __iter__(self) -> Iterator[Dict[str, Any]]:
+        prev: Optional[Dict[str, Any]] = None
+        for host_batch in self.loader:
+            nxt = self._put(host_batch)
+            if prev is not None:
+                yield prev
+            prev = nxt
+        if prev is not None:
+            yield prev

@@ -38,6 +38,14 @@ DEFAULT_MSA_PATTERNS = {
 
 class MultimodalSentimentDataset(MultimodalArrayDataset):
     NUM_CLASSES = 3
+
+    @staticmethod
+    def normalize_features(features: np.ndarray, eps: float = 1e-8) -> np.ndarray:
+        """Per-feature z-score over the rows (ddof 1, the std floored at
+        `eps`)."""
+        mean = features.mean(axis=0, keepdims=True)
+        std = np.clip(features.std(axis=0, keepdims=True, ddof=1), eps, None)
+        return (features - mean) / std
     AVAILABLE_MODALITIES = {
         "audio": Modality.AUDIO,
         "video": Modality.VIDEO,
@@ -105,9 +113,17 @@ class MultimodalSentimentDataset(MultimodalArrayDataset):
 class MOSI(MultimodalSentimentDataset):
     """CMU-MOSI."""
 
+    @staticmethod
+    def get_num_classes(is_classification: bool = True) -> int:
+        return 3 if is_classification else 1
+
 
 class MOSEI(MultimodalSentimentDataset):
     """CMU-MOSEI (same pickle layout)."""
+
+    @staticmethod
+    def get_num_classes(is_classification: bool = True) -> int:
+        return 3 if is_classification else 1
 
 
 class SyntheticMOSI(MultimodalSentimentDataset):

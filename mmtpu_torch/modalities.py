@@ -27,12 +27,26 @@ class Modality(str):
         cls._registry[key] = obj
         return obj
 
+    @classmethod
+    def from_str(cls, name: str) -> "Modality":
+        """A registered modality by name; an unknown one raises (the
+        constructor registers it)."""
+        key = name.lower()
+        if key not in cls._registry:
+            raise ValueError(f"Unknown modality: {name!r}. Registered: {sorted(cls._registry)}")
+        return cls._registry[key]
+
     @property
     def name(self) -> str:  # enum-like accessor
         return str(self).upper()
 
     def __repr__(self) -> str:  # noqa: D105
         return f"Modality.{self.name}"
+
+
+def modality_initials(mods: Sequence[str]) -> str:
+    """Canonical pattern name: sorted first letters (audio+image → 'ai')."""
+    return "".join(sorted(str(m)[0] for m in mods))
 
 
 def add_modality(name: str) -> Modality:

@@ -53,6 +53,10 @@ class AssociationNetwork(nn.Module):
 class InputEncoders(dict):
     """Modality → encoder module or spec (YAML `!InputEncoders`)."""
 
+    @classmethod
+    def from_dict(cls, data: Dict[str, Any]) -> "InputEncoders":
+        return cls(data)
+
 
 def _coerce_encoders(input_encoders) -> Dict[str, Any]:
     """Keys normalised through Modality; specs built into modules."""

@@ -162,3 +162,15 @@ def build_module(name: str, **kwargs: Any) -> Any:
             f"Module {name!r} is not ported to mmtpu_torch yet. Available: {sorted(reg)}"
         )
     return reg[key](**_build_nested(kwargs))
+
+
+def resolve_model_name(name: str) -> Callable[..., Any]:
+    """String → model factory (mmtpu's `resolve_model_name`)."""
+    key = name.lower()
+    if key not in _factories():
+        raise ValueError(f"Unknown model type: {name}")
+    return lambda **kw: build_module(key, **kw)
+
+
+def resolve_encoder(name: str) -> Callable[..., Any]:
+    return resolve_model_name(name)

@@ -28,6 +28,10 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(1.702 * x)
+
 from mmtpu_torch.models.rng import GeneratorDropout, GeneratorNormal
 
 LN_EPS = 1e-6  # flax's LayerNorm epsilon (torch's default is 1e-5)

@@ -8,7 +8,10 @@ ranks that share a card). The arithmetic is mmtpu's, the single-device
 run's:
 
 - every rank cuts the same global batch and keeps its contiguous rows
-  [r·B/N, (r+1)·B/N) (`shard_batch`, mmtpu's `put_global` contract);
+  [r·B/N, (r+1)·B/N) (`shard_batch`): mmtpu's `put_global` contract, which
+  `put_global(x, NamedSharding(mesh, spec))` gives for any global value
+  (or a callback over the global index), each dimension on DATA_AXIS, on
+  MODEL_AXIS or whole, as mmtpu's `P(...)` names them;
 - the parameters and buffers start from rank 0's (`replicate`);
 - the loss is the global masked mean: a rank's loss is its masked sum over
   the GLOBAL count (`train/losses.py`), so a rank without a real row adds
@@ -51,12 +54,15 @@ from __future__ import annotations
 
 import dataclasses
 import threading
-from typing import Any, Dict, Iterable, List, Optional, Sequence
+from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 _local = threading.local()
+
+DATA_AXIS = "data"
+MODEL_AXIS = "model"
 
 
 @dataclasses.dataclass
@@ -247,12 +253,14 @@ def active_mesh() -> Optional[Mesh]:
 
 def create_mesh(config: Optional[MeshConfig] = None,
                 devices: Optional[Sequence[torch.device]] = None,
-                backend: Optional[str] = None) -> Mesh:
+                backend: Optional[str] = None, processes: int = 1) -> Mesh:
     """The mesh to launch (mmtpu's `create_mesh`): `devices` default to
     every visible CUDA device, laid out as (dp, mp) row-major, and dp·mp
     must be their count (data_parallel=-1 → count // mp); `backend` to NCCL
     for distinct CUDA devices, gloo otherwise. A device may appear more
-    than once (ranks that share a card), over gloo only."""
+    than once (ranks that share a card), over gloo only. A mesh of
+    `processes` separately started processes (`launch.process_mesh`) lists
+    each process's devices in turn: the NCCL rule holds within each."""
     config = config or MeshConfig()
     if devices is None:
         devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
@@ -262,7 +270,10 @@ def create_mesh(config: Optional[MeshConfig] = None,
     dp = config.data_parallel if config.data_parallel > 0 else n // mp
     if dp * mp != n or not devices:
         raise ValueError(f"mesh {dp}x{mp} != {n} devices")
-    distinct = len(set(devices)) == len(devices)
+    if processes < 1 or n % processes:
+        raise ValueError(f"{n} devices do not divide over {processes} processes")
+    local = n // processes
+    distinct = all(len(set(devices[i:i + local])) == local for i in range(0, n, local))
     cuda = all(d.type == "cuda" for d in devices)
     backend = backend or ("nccl" if cuda and distinct else "gloo")
     if backend == "nccl" and not (cuda and distinct):
@@ -284,6 +295,18 @@ def get_default_mesh() -> Optional[Mesh]:
     return _default_mesh
 
 
+def data_mesh(mesh: Mesh) -> Mesh:
+    """A launched (dp, mp) mesh's ranks as a pure data-parallel mesh
+    (dp·mp, 1) of the same processes: every rank its own rows, the world
+    its data group (mmtpu's second `create_mesh` over the same devices)."""
+    import torch.distributed as dist
+
+    if mesh.model_size == 1:
+        return mesh
+    return dataclasses.replace(mesh, model_size=1, group=dist.group.WORLD,
+                               host_group=mesh.world_group, model_group=None)
+
+
 def global_rows(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     """Under the active mesh, `t`'s rows of every rank, the global batch's
     (`Mesh.all_gather`); `t` itself (None too) otherwise."""
@@ -291,21 +314,85 @@ def global_rows(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     return t if mesh is None or t is None else mesh.all_gather(t)
 
 
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """How a global value lies on a launched mesh, mmtpu's
+    `NamedSharding(mesh, P(...))`: per leading dimension the axis it is cut
+    over, DATA_AXIS (the data group's ranks hold contiguous equal row
+    blocks), MODEL_AXIS (the model group's ranks hold contiguous equal
+    slices) or None (whole on every rank); dimensions past `spec` are
+    whole. `spec=()` is replicated."""
+
+    mesh: Mesh
+    spec: Tuple[Optional[str], ...] = ()
+
+    def index(self, shape: Sequence[int]) -> Tuple[slice, ...]:
+        """This rank's index into a global value of `shape`."""
+        if len(self.spec) > len(shape):
+            raise ValueError(f"sharding {self.spec} has more dimensions than {tuple(shape)}")
+        out = []
+        for n, axis in zip(shape, self.spec):
+            if axis == DATA_AXIS:
+                out.append(self.mesh.rows(n))
+            elif axis == MODEL_AXIS:
+                size = self.mesh.model_size
+                if n % size:
+                    raise ValueError(f"dimension of {n} does not divide over "
+                                     f"model_parallel={size}")
+                out.append(slice(self.mesh.model_rank * (n // size),
+                                 (self.mesh.model_rank + 1) * (n // size)))
+            elif axis is None:
+                out.append(slice(None))
+            else:
+                raise ValueError(f"no mesh axis {axis!r} ({DATA_AXIS!r}, {MODEL_AXIS!r})")
+        return tuple(out) + (slice(None),) * (len(shape) - len(self.spec))
+
+
+def batch_sharding(mesh: Mesh, ndim: int = 2) -> NamedSharding:
+    """Dimension 0 (the batch) over the data axis, the rest whole."""
+    return NamedSharding(mesh, (DATA_AXIS,) + (None,) * (ndim - 1))
+
+
+def put_global(x: Union[Any, Callable[[Tuple[slice, ...]], Any]], sharding: NamedSharding,
+               shape: Optional[Sequence[int]] = None,
+               device: Optional[torch.device] = None) -> torch.Tensor:
+    """This rank's shard of a global value, on its device (`device`, by
+    default the rank's): mmtpu's `put_global`. `x` is the whole value (an
+    array or a tensor, as every process holds it), or, as
+    `jax.make_array_from_callback` takes it, a function of the global index
+    that returns that index's block of a value of `shape`: then no process
+    builds more than its own ranks' blocks."""
+    if callable(x):
+        if shape is None:
+            raise ValueError("put_global(callback, ...) needs the global shape")
+        block = x(sharding.index(tuple(shape)))
+    else:
+        x = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x))
+        block = x[sharding.index(tuple(x.shape))]
+    block = block if isinstance(block, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(block))
+    return block.contiguous().to(device or sharding.mesh.device)
+
+
 def shard_batch(batch: Dict[str, Any], mesh: Mesh) -> Dict[str, Any]:
-    """This rank's rows of a host batch: every array's leading dim must be
-    divisible by the data axis's size (mmtpu's error otherwise); scalars are
-    kept whole."""
+    """This rank's rows of a host batch, on the host: `put_global`'s block
+    under `batch_sharding` before its copy to the device (the step copies
+    it). Every array's leading dim must be divisible by the data axis's
+    size (mmtpu's error otherwise); scalars are kept whole (replicated)."""
     out = {}
     for k, v in batch.items():
         v = np.asarray(v)
-        out[k] = v if v.ndim == 0 else v[mesh.rows(v.shape[0])]
+        out[k] = v if v.ndim == 0 else v[batch_sharding(mesh, v.ndim).index(v.shape)]
     return out
 
 
 def replicate(module: torch.nn.Module, mesh: Mesh) -> torch.nn.Module:
     """Every parameter and buffer of `module` set to its data group's first
     rank's, rank 0's without a model axis (mmtpu's replicated sharding; a
-    model shard keeps its model rank's slice)."""
+    model shard keeps its model rank's slice). Where every process holds the
+    same whole value, `put_global(value, NamedSharding(mesh))` gives each
+    rank its copy without a collective; this broadcast also makes ranks
+    that drew different values agree."""
     with torch.no_grad():
         mesh.broadcast_(list(module.parameters()) + list(module.buffers()))
     return module

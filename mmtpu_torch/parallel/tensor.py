@@ -25,11 +25,15 @@ collectives out, as Megatron-LM does:
   (the same keys and shapes, as mmtpu's device_get of a sharded state
   yields whole arrays); `TrainState` gathers the optimizer's moments the
   same way for a checkpoint and takes its shard of both when it loads one;
-- a shard records the dimension it is split along, `shard_dim(p)` (the one
-  record: `shard_dims(model)` reads it by name): the step's global-norm
-  clip, which sees parameters only, sums the shards' squares over the
+- the model's `Sharding` is the one record of which parameters are
+  sharded and along which dimension (`dims`, by name; `shard_dims(model)`
+  reads it): the step's global-norm clip sums the shards' squares over the
   model group (`train/step.py`), so that the norm is optax's norm of the
   whole tensors;
+- a shard is `mesh.put_global` of the whole tensor under the
+  `NamedSharding` whose dimension `dim` lies on MODEL_AXIS
+  (`leaf_sharding`), the slice mmtpu's `P(None, MODEL)` / `P(MODEL, None)`
+  gives a device;
 - `refuse_model_axis(mesh, what)` raises for a path that mmtpu never runs
   on a model axis (ROADMAP §1 lists them).
 
@@ -47,6 +51,8 @@ from typing import Any, Dict, List, Mapping, Optional
 import torch
 from torch import nn
 
+from mmtpu_torch.parallel.mesh import MODEL_AXIS, NamedSharding, put_global
+
 # where the paths that mmtpu never runs on a model axis are listed
 NOT_ON_A_MODEL_AXIS = "ROADMAP.md §1, what raises on a model axis"
 
@@ -58,10 +64,11 @@ SPLITS = {"column": {"weight": 0, "bias": 0}, "row": {"weight": 1}}
 @dataclasses.dataclass(eq=False)
 class Sharding:
     """That `shard_module` sharded a model: the mesh whose model group
-    holds the other shards (each shard records its own dimension,
-    `shard_dim`)."""
+    holds the other shards, and {name of a sharded parameter: the dimension
+    it is split along}, the one record of both."""
 
     mesh: Any
+    dims: Dict[str, int] = dataclasses.field(default_factory=dict)
 
 
 def refuse_model_axis(mesh, what: str) -> None:
@@ -73,15 +80,18 @@ def refuse_model_axis(mesh, what: str) -> None:
             f"with model_parallel=1 only ({NOT_ON_A_MODEL_AXIS})")
 
 
-def shard_dim(p: torch.Tensor) -> Optional[int]:
-    """The dimension a sharded parameter is split along, None for a
-    replicated one."""
-    return getattr(p, "model_axis_dim", None)
-
-
 def shard_dims(model: nn.Module) -> Dict[str, int]:
-    """{name of a sharded parameter: the dimension it is split along}."""
-    return {n: shard_dim(p) for n, p in model.named_parameters() if shard_dim(p) is not None}
+    """{name of a sharded parameter: the dimension it is split along}; {}
+    for a model that is whole."""
+    sh = sharding(model)
+    return dict(sh.dims) if sh is not None else {}
+
+
+def sharded_parameters(model: nn.Module) -> List[nn.Parameter]:
+    """The model's sharded parameters (the clip sums their squares over the
+    model group)."""
+    dims = shard_dims(model)
+    return [p for n, p in model.named_parameters() if n in dims]
 
 
 def sharding(model: nn.Module) -> Optional[Sharding]:
@@ -89,14 +99,15 @@ def sharding(model: nn.Module) -> Optional[Sharding]:
     return getattr(model, "sharding", None)
 
 
-def shard_tensor(t: torch.Tensor, dim: int, rank: int, size: int) -> torch.Tensor:
-    """Model rank `rank`'s contiguous slice of `t` along `dim`, of `size`
-    equal ones."""
-    n = t.shape[dim]
-    if n % size:
-        raise ValueError(f"dimension {dim} of {tuple(t.shape)} does not divide over "
-                         f"model_parallel={size}")
-    return t.narrow(dim, rank * (n // size), n // size).contiguous()
+def leaf_sharding(mesh, dim: int) -> NamedSharding:
+    """A leaf split along `dim` over the model axis, whole along the rest."""
+    return NamedSharding(mesh, (None,) * dim + (MODEL_AXIS,))
+
+
+def shard_tensor(t: torch.Tensor, dim: int, mesh) -> torch.Tensor:
+    """This model rank's contiguous slice of `t` along `dim`, where `t`
+    lies."""
+    return put_global(t, leaf_sharding(mesh, dim), device=t.device)
 
 
 def shard_module(model: nn.Module, mesh, rule: Mapping[str, str]) -> nn.Module:
@@ -109,6 +120,7 @@ def shard_module(model: nn.Module, mesh, rule: Mapping[str, str]) -> nn.Module:
                          f"the rule {dict(rule)}")
     if sharding(model) is not None:
         raise ValueError("the model is sharded already")
+    dims = {}
     for prefix, kind in rule.items():
         if kind not in SPLITS:
             raise ValueError(f"{prefix}: no split {kind!r} (column or row)")
@@ -117,12 +129,11 @@ def shard_module(model: nn.Module, mesh, rule: Mapping[str, str]) -> nn.Module:
             whole = getattr(layer, attr)
             if whole is None:
                 continue
-            part = nn.Parameter(shard_tensor(whole.detach(), dim, mesh.model_rank,
-                                             mesh.model_size).clone(),
+            part = nn.Parameter(shard_tensor(whole.detach(), dim, mesh).clone(),
                                 requires_grad=whole.requires_grad)
-            part.model_axis_dim = dim
             setattr(layer, attr, part)
-    model.sharding = Sharding(mesh)
+            dims[f"{prefix}.{attr}"] = dim
+    model.sharding = Sharding(mesh, dims)
     return model
 
 
@@ -149,7 +160,8 @@ def gather_state_dict(model: nn.Module) -> "OrderedDict[str, torch.Tensor]":
 def optimizer_dims(model: nn.Module, optimizer: torch.optim.Optimizer) -> Dict[int, int]:
     """{index of a sharded parameter in the optimizer's state_dict: its
     dimension}."""
-    ids = {id(p): shard_dim(p) for p in model.parameters() if shard_dim(p) is not None}
+    dims = shard_dims(model)
+    ids = {id(p): dims[n] for n, p in model.named_parameters() if n in dims}
     flat = [p for group in optimizer.param_groups for p in group["params"]]
     return {i: ids[id(p)] for i, p in enumerate(flat) if id(p) in ids}
 
@@ -183,7 +195,7 @@ def shard_optimizer_state(model: nn.Module, optimizer: torch.optim.Optimizer,
     out = {**state, "state": {i: dict(e) for i, e in state["state"].items()}}
     for i, dim in optimizer_dims(model, optimizer).items():
         for k, v in _moments(out["state"].get(i, {})).items():
-            out["state"][i][k] = shard_tensor(v, dim, mesh.model_rank, mesh.model_size)
+            out["state"][i][k] = shard_tensor(v, dim, mesh)
     return out
 
 
@@ -192,8 +204,7 @@ def shard_state_dict(model: nn.Module, state: Mapping[str, torch.Tensor]
     """A whole model's state_dict cut to this rank's shards of `model`."""
     mesh, dims = sharding(model).mesh, shard_dims(model)
     return OrderedDict(
-        (k, shard_tensor(v, dims[k], mesh.model_rank, mesh.model_size)
-         if k in dims else v) for k, v in state.items())
+        (k, shard_tensor(v, dims[k], mesh) if k in dims else v) for k, v in state.items())
 
 
 class _CopyToModel(torch.autograd.Function):

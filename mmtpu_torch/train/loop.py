@@ -38,9 +38,10 @@ batch, which every rank's loader holds, outside the mesh (the eval forward
 takes no collective); the others keep the cadence. At each epoch's end the outputs are gathered into the
 global batches' over the host group and the losses' shares summed, so the
 recorder, early stopping, the scheduler and the best checkpoint see and
-decide what one device does. Rank 0 alone writes (checkpoints, the JSON
-records, `on_best`), with every rank's RNG states in the rolling resume
-point; the others wait at a barrier before they read a checkpoint.
+decide what one device does. Rank 0 alone writes (the JSON records here;
+checkpoints and the handoffs of `on_best`, which every rank calls, as
+`CheckpointManager` decides), with every rank's RNG states in the rolling
+resume point; the others wait at a barrier before they read a checkpoint.
 
 On a mesh with a model axis (a model sharded by `parallel.tensor.
 shard_module`) the loop streams: the resident epoch, the fused eval and
@@ -562,7 +563,7 @@ class TrainLoop:
             if self.early.step(float(target)):
                 best_metrics = dict(val_metrics)
                 self.ckpt.save_checkpoint(self.state, epoch, float(target))
-                if self.writes and self.on_best is not None:
+                if self.on_best is not None:
                     self.on_best(self.state, epoch)
             if self.early.should_stop:
                 print(f"early stopping at epoch {epoch}", flush=True)

@@ -165,6 +165,11 @@ _register("cycle", mse)
 _register("na", identity_loss)
 
 
+def register_criterion(name: str, factory: Callable[..., Callable]) -> None:
+    """Extension hook: a criterion factory under `name` (lowercased)."""
+    _CRITERIA[name.lower()] = factory
+
+
 def resolve_criterion(name: str) -> Callable[..., Callable]:
     key = name.lower()
     if key == "cmam":

@@ -29,7 +29,8 @@ from typing import Dict, Optional
 
 import torch
 
-CENTER_ORDER = ("multimodal", "audio", "video", "text")
+MULTIMODAL = "multimodal"
+CENTER_ORDER = (MULTIMODAL, "audio", "video", "text")
 
 
 @dataclasses.dataclass

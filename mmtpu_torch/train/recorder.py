@@ -69,6 +69,24 @@ class MetricRecorder:
         if group_name not in self.config.groups:
             raise ValueError(f"Unknown metric group: {group_name}")
 
+    def update_group(self, group_name: str, predictions, targets, modality) -> None:
+        """One host batch of one pattern (`modality`, its name); the shapes
+        must agree (mmtpu raises at update time too)."""
+        self._check_group(group_name)
+        predictions, targets = np.asarray(predictions), np.asarray(targets)
+        if predictions.shape != targets.shape:
+            raise ValueError(f"Shape mismatch between predictions {predictions.shape} "
+                             f"and targets {targets.shape}")
+        self.group_data[group_name][str(modality)].append((predictions, targets))
+
+    def update_group_all(self, group_name: str, predictions, targets, m_types) -> None:
+        """A host batch split by its per-sample pattern names."""
+        m_types = np.asarray(m_types)
+        predictions, targets = np.asarray(predictions), np.asarray(targets)
+        for m_type in np.unique(m_types):
+            mask = m_types == m_type
+            self.update_group(group_name, predictions[mask], targets[mask], m_type)
+
     def update_group_ids(self, group_name: str, predictions, targets, pattern_ids,
                          vocab: Sequence[str], sample_mask=None) -> None:
         """Store (still asynchronous) device tensors; the pattern split

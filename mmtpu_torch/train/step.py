@@ -45,8 +45,8 @@ import torch
 
 from mmtpu_torch.models.norm import batch_mask
 from mmtpu_torch.parallel.mesh import active_mesh, shard_batch
-from mmtpu_torch.parallel.tensor import shard_dim
-from mmtpu_torch.train.losses import LossFunctionGroup
+from mmtpu_torch.parallel.tensor import sharded_parameters
+from mmtpu_torch.train.losses import LossFunctionGroup, _masked_reduce
 from mmtpu_torch.train.state import TrainState
 
 
@@ -58,6 +58,12 @@ def apply_missing_mask(x: torch.Tensor, mask, invert: bool = False) -> torch.Ten
         return torch.zeros_like(x) if invert else x
     m = mask.reshape(mask.shape[0], *([1] * (x.dim() - 1))).to(x.dtype)
     return x * ((1.0 - m) if invert else m)
+
+
+def masked_mean(per_sample, sample_mask):
+    """Mean over the real rows only; the plain mean without a mask (the
+    losses' reduction)."""
+    return _masked_reduce(per_sample, sample_mask)
 
 
 def to_device(batch: Mapping[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:
@@ -191,23 +197,26 @@ def apply_gradients(state: TrainState, loss: torch.Tensor,
         grad_hook(state.model)
     if state.clip:
         with on_mesh(state.mesh):
-            clip_by_global_norm(state.model.parameters(), state.clip)
+            shards = sharded_parameters(state.model)
+            extra = (shards,) if shards else ()  # a whole model: optax's two arguments
+            clip_by_global_norm(state.model.parameters(), state.clip, *extra)
     state.optimizer.step()
     state.step += 1
 
 
-def clip_by_global_norm(params, max_norm: float) -> None:
+def clip_by_global_norm(params, max_norm: float, sharded=()) -> None:
     """optax.clip_by_global_norm: scale every gradient by max_norm / norm
-    when the global norm is at least max_norm. A parameter sharded over the
-    model axis (`parallel.tensor.shard_dim`) adds its shards' squares over
-    the model group of the active mesh, so the norm is that of the whole
-    tensors."""
+    when the global norm is at least max_norm. A parameter of `sharded`
+    (split over the model axis, `parallel.tensor.sharded_parameters`) adds
+    its shards' squares over the model group of the active mesh, so the
+    norm is that of the whole tensors."""
     params = [p for p in params if p.grad is not None]
     grads = [p.grad for p in params]
-    shards = [p.grad for p in params if shard_dim(p) is not None]
+    split = {id(p) for p in sharded}
+    shards = [p.grad for p in params if id(p) in split]
     if shards:
         squares = torch.stack([g.square().sum() for g in shards]).sum()
-        whole = [g.square().sum() for p, g in zip(params, grads) if shard_dim(p) is None]
+        whole = [g.square().sum() for p, g in zip(params, grads) if id(p) not in split]
         norm = torch.sqrt(torch.stack(whole).sum() + active_mesh().model_all_reduce_(squares))
     else:
         norm = torch.linalg.vector_norm(

@@ -1,14 +1,16 @@
-"""Helpers (own copy of the pieces of `mmtpu/utils/utils.py` the port
-needs): path templating, the reference's metric flatten, checkpoint
-retention, the run log file. `tb_writer` is the TensorBoard event writer."""
+"""Helpers (own copy of `mmtpu/utils/utils.py`): path templating, the
+metric flattens, checkpoint retention, nested lookups. `logging` is the run
+log file (`configure_logger`, re-exported here), `global_state` the run's
+identity, `tb_writer` the TensorBoard event writer."""
 
 from __future__ import annotations
 
-import logging
 import os
 import re
 from pathlib import Path
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Iterable, Optional
+
+import numpy as np
 
 
 class SafeDict(dict):
@@ -63,21 +65,39 @@ def clean_checkpoints(directory) -> int:
     return len(files) - 1
 
 
-def configure_logger(log_path: Optional[str] = None, suffix: Optional[str] = None,
-                     level: int = logging.INFO) -> logging.Logger:
-    """(Re)configure the package's logger, as mmtpu's `configure_logger`:
-    with a `log_path`, its records go to `<log_path>/<suffix>.log` (the
-    training CLIs pass `run_<run_id>`); an earlier call's file is closed."""
-    logger = logging.getLogger("mmtpu_torch")
-    logger.setLevel(level)
-    for handler in list(logger.handlers):
-        logger.removeHandler(handler)
-        handler.close()
-    if log_path is not None:
-        path = Path(log_path)
-        path.mkdir(parents=True, exist_ok=True)
-        handler = logging.FileHandler(path / (f"{suffix}.log" if suffix else "mmtpu_torch.log"))
-        handler.setFormatter(logging.Formatter(
-            "%(asctime)s | %(levelname)s | %(name)s | %(message)s"))
-        logger.addHandler(handler)
-    return logger
+def flatten_dict(d: Dict[str, Any], parent_key: str = "", sep: str = "_") -> Dict[str, Any]:
+    """Flatten nested dicts: {'a': {'b': 1}} → {'a_b': 1}."""
+    items: Dict[str, Any] = {}
+    for k, v in d.items():
+        key = f"{parent_key}{sep}{k}" if parent_key else str(k)
+        if isinstance(v, dict):
+            items.update(flatten_dict(v, key, sep=sep))
+        else:
+            items[key] = v
+    return items
+
+
+def to_numpy(x: Any) -> np.ndarray:
+    """A tensor (on any device), array or list on the host."""
+    if hasattr(x, "detach"):
+        x = x.detach().cpu()
+    return np.asarray(x)
+
+
+def nested_get(d: Dict[str, Any], keys: Iterable[Any], default: Optional[Any] = None) -> Any:
+    """Safe nested lookup (the reference's NestedDictAccess)."""
+    cur: Any = d
+    for k in keys:
+        if isinstance(cur, dict):
+            if k not in cur:
+                return default
+            cur = cur[k]
+        else:
+            try:
+                cur = cur[k]
+            except Exception:  # noqa: BLE001 — any failed step is the default
+                return default
+    return cur
+
+
+from mmtpu_torch.utils.logging import configure_logger  # noqa: E402,F401 — re-export

@@ -517,3 +517,50 @@ def probed_main(module: str, argv, out: str, weights_file=None) -> int:
     weights = torch.load(weights_file, weights_only=False) if weights_file else None
     with probes(Path(out), "single" if mesh is None else f"rank{mesh.rank}", weights):
         return importlib.import_module(module).main(list(argv))
+
+
+# -- the multi-process mesh: `python -c` workers of tests/test_torch_port_multihost.py --
+
+
+def multihost_audited(job: dict) -> int:
+    """`parallel.multihost.rank_job` with this rank's `torch.save` paths and
+    its calls of the head's kernel wrapper listed in
+    `<out>/audit_procs{P}_rank{r}.json`."""
+    from mmtpu_torch.models import avmnist
+    from mmtpu_torch.parallel import multihost
+
+    rank = get_default_mesh().rank
+    saved, calls = [], []
+    real_save, real_mlp = torch.save, avmnist.fused_mlp
+
+    def save(obj, f, *args, **kwargs):
+        if isinstance(f, (str, os.PathLike)):
+            saved.append(str(f))
+        return real_save(obj, f, *args, **kwargs)
+
+    torch.save = save
+    avmnist.fused_mlp = lambda *a: calls.append(1) or real_mlp(*a)
+    try:
+        rc = multihost.rank_job(job)
+    finally:
+        torch.save, avmnist.fused_mlp = real_save, real_mlp
+    Path(job["out"], f"audit_procs{job['procs']}_rank{rank}.json").write_text(
+        json.dumps({"saved": saved, "fused_mlp_calls": len(calls)}))
+    return rc
+
+
+def multihost_failing(job: dict) -> int:
+    """Global rank 2 raises; every other rank waits in a barrier that rank
+    never reaches."""
+    mesh = get_default_mesh()
+    if mesh.rank == 2:
+        raise RuntimeError("rank 2 fails on purpose")
+    mesh.barrier()
+    return 0
+
+
+def multihost_main(argv, job: str = "multihost_audited") -> int:
+    """One worker of `parallel.multihost` running `job` of this module."""
+    from mmtpu_torch.parallel import multihost
+
+    return multihost.main(list(argv), job=globals()[job])

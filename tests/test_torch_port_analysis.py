@@ -33,6 +33,7 @@ from mmtpu_torch.analysis import plotting as pplot
 from mmtpu_torch.analysis import processing as pproc
 from mmtpu_torch.analysis import umap_lite as pumap
 from mmtpu_torch.analysis.visualiser import ExperimentVisualiser as PVisualiser
+from _torch_threads import few_threads  # noqa: E402,F401 — in-process comparisons only
 
 TOL = 1e-12
 FUZZY_TOL = 1e-6

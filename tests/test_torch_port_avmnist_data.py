@@ -32,6 +32,7 @@ from mmtpu.modalities import Modality as JaxModality
 from mmtpu_torch.checkpoints import from_jax_variables
 from mmtpu_torch.data import AVMNIST, resolve_dataset_name
 from mmtpu_torch.modalities import Modality
+from _torch_threads import few_threads  # noqa: E402,F401 — in-process comparisons only
 
 TOL = 1e-4
 SPEC_SHAPES = [(32, 94), (32, 120), (20, 94), (40, 100), (32, 94), (31, 50), (32, 94),

@@ -34,6 +34,7 @@ from mmtpu_torch.checkpoints import from_jax_variables
 from mmtpu_torch.checkpoints.hf_bert import read_bert_dir, read_safetensors
 from mmtpu_torch.models.bert_text import BertConfig, BertModel, BertTextEncoder
 from mmtpu_torch.models.rng import use_generator
+from _torch_threads import few_threads  # noqa: E402,F401 — in-process comparisons only
 
 TOL = 1e-5
 SIZES = dict(vocab_size=100, hidden_size=32, num_hidden_layers=2, num_attention_heads=2,

@@ -46,6 +46,7 @@ from mmtpu_torch.checkpoints import (
 from mmtpu_torch.checkpoints.msgpack import msgpack_restore
 from mmtpu_torch.checkpoints.torch_interop import as_state_dict, read_object
 from mmtpu_torch.models import build_module
+from _torch_threads import few_threads  # noqa: E402,F401 — in-process comparisons only
 
 TOL = 1e-5
 ARGS = [(1, 32), (32, 32), (32, 64), (64, 64)]

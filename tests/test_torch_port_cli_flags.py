@@ -27,6 +27,7 @@ CONFIGS = REPO / "configs" / "avmnist"
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from _cli_harness import run_cli_inproc  # noqa: E402
+from _torch_threads import passive_children  # noqa: E402,F401 — its ranks wait passively
 
 
 def _parsers():

@@ -49,6 +49,7 @@ from mmtpu_torch.metrics import classification as port_metrics
 from mmtpu_torch.models import build_module
 from mmtpu_torch.train import cmam_loss as cl
 from mmtpu_torch.train import cmam_step as cs
+from _torch_threads import few_threads  # noqa: E402,F401 — in-process comparisons only
 
 CPU = torch.device("cpu")
 LOSS_TOL = 1e-6

@@ -38,6 +38,7 @@ from mmtpu_torch.cli import common
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from _cli_harness import run_cli_inproc  # noqa: E402
+from _torch_threads import few_threads  # noqa: E402,F401 — in-process comparisons only
 
 BASE, CMAM = "Tiny_AVMNIST_Base", "Tiny_AVMNIST_CMAM_A_to_I"
 VALUE_TOL = 1e-4

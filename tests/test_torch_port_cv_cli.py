@@ -29,6 +29,7 @@ CONFIGS = REPO / "configs" / "avmnist"
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from _cli_harness import run_cli_inproc  # noqa: E402
+from _torch_threads import few_threads  # noqa: E402,F401 — in-process comparisons only
 
 
 def _config(root: Path, src: str) -> Path:

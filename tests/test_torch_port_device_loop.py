@@ -46,6 +46,7 @@ from mmtpu_torch.train.optim import LRController, build_optimizer  # noqa: E402
 from mmtpu_torch.train.recorder import MetricRecorder  # noqa: E402
 from mmtpu_torch.train.state import TrainState  # noqa: E402
 from mmtpu_torch.train.step import ClassificationTask  # noqa: E402
+from _torch_threads import few_threads  # noqa: E402,F401 — in-process comparisons only
 
 CPU = torch.device("cpu")
 TOL = 1e-5

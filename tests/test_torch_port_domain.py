@@ -27,6 +27,7 @@ from mmtpu_torch.models import domain as dom
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from _recurrent_parity import check, neutralise  # noqa: E402
+from _torch_threads import few_threads  # noqa: E402,F401 — in-process comparisons only
 
 B, T = 6, 7
 LENGTHS = np.array([3, 7, 12, 1, 7, 30], np.int32)  # below T, at T and past it

@@ -41,6 +41,7 @@ from mmtpu_torch.train import cmam_loss as cl
 from mmtpu_torch.train import cmam_step as cs
 from mmtpu_torch.train.step import ClassificationTask
 from test_torch_port_cmam import _avmnist, _carry, _dual, _mnist, _perturb, _utt_base
+from _torch_threads import few_threads  # noqa: E402,F401 — in-process comparisons only
 
 CPU = torch.device("cpu")
 TOL = 1e-5

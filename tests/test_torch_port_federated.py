@@ -11,6 +11,7 @@ tuples (which flax writes as maps keyed by index)."""
 import numpy as np
 import pytest
 import torch
+from _torch_threads import few_threads  # noqa: E402,F401 — in-process comparisons only
 
 
 def _model_params():

@@ -41,6 +41,7 @@ from mmtpu_torch.train import gcnet_loss
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from _recurrent_parity import check as _check  # noqa: E402
+from _torch_threads import few_threads  # noqa: E402,F401 — in-process comparisons only
 
 B, T = 3, 8
 ADIM, TDIM, VDIM = 3, 4, 2

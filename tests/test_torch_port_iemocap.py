@@ -39,6 +39,7 @@ from mmtpu_torch.data import iemocap as port_iemocap
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from _cli_harness import run_cli_inproc  # noqa: E402
+from _torch_threads import few_threads  # noqa: E402,F401 — in-process comparisons only
 
 DIMS = {"A": ("comparE", 6), "V": ("denseface", 5), "T": ("bert_large", 8)}
 SPLITS = {"trn": 16, "val": 8, "tst": 8}

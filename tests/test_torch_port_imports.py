@@ -107,8 +107,13 @@ MONITOR_SLICE = ("mmtpu_torch/monitor/__init__.py", "mmtpu_torch/monitor/monitor
                  "mmtpu_torch/federated/federated_utils.py")
 
 
+# the mesh of separately started processes and the rest of mmtpu's surface
+MULTIHOST_SLICE = ("mmtpu_torch/parallel/multihost.py", "mmtpu_torch/utils/global_state.py",
+                   "mmtpu_torch/utils/logging.py", "mmtpu_torch/models/tools.py")
+
+
 @pytest.mark.parametrize("rel", EXPORT_SLICE + RECURRENT_SLICE + PARALLEL_SLICE + MONITOR_SLICE
-                         + MODEL_AXIS_SLICE)
+                         + MODEL_AXIS_SLICE + MULTIHOST_SLICE)
 def test_the_export_slice_is_scanned(rel):
     assert REPO / rel in PORT_FILES
 

@@ -54,6 +54,7 @@ from test_torch_port_export import _ks
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from _cli_harness import run_cli_inproc  # noqa: E402
+from _torch_threads import few_threads  # noqa: E402,F401 — in-process comparisons only
 
 REPO = Path(__file__).resolve().parent.parent
 KS_DIR = REPO / "DATA/kinetics-sounds"

@@ -29,6 +29,7 @@ from mmtpu_torch.ops.lstm import (
     lstm_stacked_reference,
     smem_bytes,
 )
+from _torch_threads import few_threads  # noqa: E402,F401 — in-process comparisons only
 
 TOL = 1e-5  # fp32 values; XLA and PyTorch sum h·wh in different orders
 GRAD_TOL = 1e-4  # gradients pass through T dependent steps twice

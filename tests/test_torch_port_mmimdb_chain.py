@@ -58,6 +58,7 @@ GOLDEN = REPO / "tests/golden/reference_cmam"
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from _cli_harness import run_cli_inproc  # noqa: E402
 from _redcore_neutral import _NoDropoutLinen  # noqa: E402
+from _torch_threads import few_threads  # noqa: E402,F401 — in-process comparisons only
 
 PRETRAIN = "MMIMDb_Text_Encoder_Pretrain"
 CMAM = "MM_IMDb_C_MAM_Image_To_Text"

@@ -51,6 +51,7 @@ from mmtpu_torch.ops import lstm as lstm_ops
 from mmtpu_torch.train import mmin_step as ms
 from mmtpu_torch.train import step as step_mod
 from mmtpu_torch.train.losses import LossFunctionGroup
+from _torch_threads import few_threads  # noqa: E402,F401 — in-process comparisons only
 
 CPU = torch.device("cpu")
 LOSS_TOL = 1e-6

@@ -45,6 +45,7 @@ from mmtpu_torch.models import ConvBlock, build_module
 from mmtpu_torch.models.norm import batch_mask
 from mmtpu_torch.train import losses
 from mmtpu_torch.train.step import ClassificationTask, make_train_step
+from _torch_threads import few_threads  # noqa: E402,F401 — in-process comparisons only
 
 TOL = 1e-4
 STEP_TOL = 1e-5

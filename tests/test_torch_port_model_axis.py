@@ -53,6 +53,7 @@ from mmtpu_torch.models.fc import FcEncoder  # noqa: E402
 from mmtpu_torch.parallel import MeshConfig, create_mesh, shard_batch  # noqa: E402
 from mmtpu_torch.parallel.launch import launch  # noqa: E402
 from mmtpu_torch.parallel.tensor import join_shards, shard_dims, shard_module  # noqa: E402
+from _torch_threads import passive_children  # noqa: E402,F401 — its ranks wait passively
 
 CPU = torch.device("cpu")
 LOSS_RTOL = 1e-5

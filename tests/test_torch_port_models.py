@@ -17,6 +17,7 @@ from mmtpu.models import resnet as jax_resnet
 from mmtpu_torch.checkpoints import from_jax_variables, save_pth
 from mmtpu_torch.models import AVMNIST, ResNetEncoder, build_module
 from mmtpu_torch.models.resnet import BasicBlock, Bottleneck
+from _torch_threads import few_threads  # noqa: E402,F401 — in-process comparisons only
 
 TOL = 1e-4  # fp32 convolutions sum in different orders in XLA and PyTorch
 

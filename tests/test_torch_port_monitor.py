@@ -40,6 +40,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 import _mesh_ranks  # noqa: E402
 from _cli_harness import run_cli_inproc  # noqa: E402
+from _torch_threads import passive_children  # noqa: E402,F401 — its ranks wait passively
 
 REPO = Path(__file__).resolve().parent.parent
 VALUES = slice(0, 11)  # l2 … p95

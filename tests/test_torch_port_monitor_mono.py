@@ -13,6 +13,7 @@ import pytest
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from test_torch_port_monitor import check_monitored_file, monitored_runs  # noqa: E402
+from _torch_threads import few_threads  # noqa: E402,F401 — in-process comparisons only
 
 
 @pytest.fixture(scope="module")

@@ -34,6 +34,7 @@ from mmtpu_torch.cli import common
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from _cli_harness import run_cli_inproc  # noqa: E402
+from _torch_threads import few_threads  # noqa: E402,F401 — in-process comparisons only
 
 REPO = Path(__file__).resolve().parent.parent
 MOSI_YAML = REPO / "configs/mosi/synthetic_utt_fusion.yaml"

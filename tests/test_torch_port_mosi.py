@@ -21,6 +21,7 @@ import torch
 from flax.traverse_util import flatten_dict, unflatten_dict
 
 from mmtpu_torch.checkpoints import from_jax_variables
+from _torch_threads import few_threads  # noqa: E402,F401 — in-process comparisons only
 
 REPO = Path(__file__).resolve().parent.parent
 SYNTH_YAML = REPO / "configs/mosi/synthetic_utt_fusion.yaml"

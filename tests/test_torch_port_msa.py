@@ -17,6 +17,7 @@ import torch
 from mmtpu.metrics import corr as jax_corr
 from mmtpu.metrics import msa as jax_msa
 from mmtpu_torch.metrics import corr, msa
+from _torch_threads import few_threads  # noqa: E402,F401 — in-process comparisons only
 
 EXACT = 1e-12
 # the seven MOSI patterns, spelled with 'z' for a missing modality as the

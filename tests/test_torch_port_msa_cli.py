@@ -40,6 +40,7 @@ REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from _cli_harness import run_cli_inproc  # noqa: E402
 from _redcore_neutral import neutralised  # noqa: E402
+from _torch_threads import few_threads  # noqa: E402,F401 — in-process comparisons only
 
 MMIN_CFG = REPO / "configs/mosi/synthetic_mmin.yaml"
 TEACHER_CFG = REPO / "configs/mosi/synthetic_mmin_teacher.yaml"

@@ -39,6 +39,7 @@ from mmtpu_torch.train.step import ClassificationTask, make_eval_step, make_trai
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from _recurrent_parity import check as _check  # noqa: E402
+from _torch_threads import few_threads  # noqa: E402,F401 — in-process comparisons only
 
 B, T = 4, 8
 DIMS = dict(orig_dim_a=5, orig_dim_t=6, orig_dim_v=4)

@@ -26,6 +26,7 @@ from mmtpu_torch.ops.fused_mlp import (
     recompute_grads,
     weight_stride,
 )
+from _torch_threads import few_threads  # noqa: E402,F401 — in-process comparisons only
 
 TOL = 1e-5  # fp32; XLA and PyTorch sum in different orders
 DIMS = [[192, 128, 64, 10], [32, 16, 8]]

@@ -26,6 +26,7 @@ from mmtpu_torch.checkpoints import from_jax_variables
 from mmtpu_torch.config.optim import OptimizerConfig
 from mmtpu_torch.models import build_module
 from mmtpu_torch.train.optim import OptaxTransform, build_optimizer, set_lr_scale
+from _torch_threads import few_threads  # noqa: E402,F401 — in-process comparisons only
 
 RTOL = 1e-6
 LR_SCALE = 0.5

@@ -57,6 +57,7 @@ from mmtpu_torch.models.fc import FcEncoder  # noqa: E402
 from mmtpu_torch.models.norm import BatchNorm, batch_mask  # noqa: E402
 from mmtpu_torch.parallel import Mesh, MeshConfig, create_mesh, shard_batch  # noqa: E402
 from mmtpu_torch.parallel.launch import launch  # noqa: E402
+from _torch_threads import passive_children  # noqa: E402,F401 — its ranks wait passively
 
 CPU = torch.device("cpu")
 BN_TOL = 1e-6

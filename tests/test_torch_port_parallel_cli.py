@@ -38,6 +38,7 @@ from _cli_harness import run_cli_inproc  # noqa: E402
 
 from mmtpu_torch.parallel import MeshConfig, create_mesh  # noqa: E402
 from mmtpu_torch.parallel.launch import launch  # noqa: E402
+from _torch_threads import passive_children  # noqa: E402,F401 — its ranks wait passively
 
 REPO = Path(__file__).resolve().parent.parent
 CPU = torch.device("cpu")

@@ -34,6 +34,7 @@ from test_torch_port_msa_cli import REDCORE, _redcore_yaml  # noqa: E402
 
 from mmtpu_torch.parallel import MeshConfig, create_mesh  # noqa: E402
 from mmtpu_torch.parallel.launch import launch  # noqa: E402
+from _torch_threads import passive_children  # noqa: E402,F401 — its ranks wait passively
 
 REPO = Path(__file__).resolve().parent.parent
 CPU = torch.device("cpu")

@@ -38,6 +38,7 @@ from test_torch_port_parallel_drivers import (  # noqa: E402
 from mmtpu.cli import common as jax_common  # noqa: E402
 from mmtpu_torch.parallel import MeshConfig, create_mesh  # noqa: E402
 from mmtpu_torch.parallel.launch import launch  # noqa: E402
+from _torch_threads import passive_children  # noqa: E402,F401 — its ranks wait passively
 
 CPU = torch.device("cpu")
 

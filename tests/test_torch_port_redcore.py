@@ -57,6 +57,7 @@ from mmtpu_torch.train.losses import LossFunctionGroup
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from _redcore_neutral import neutralised  # noqa: E402
+from _torch_threads import few_threads  # noqa: E402,F401 — in-process comparisons only
 
 CPU = torch.device("cpu")
 LOSS_TOL = 1e-6

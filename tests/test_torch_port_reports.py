@@ -22,6 +22,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from _torch_threads import few_threads  # noqa: E402,F401 — in-process comparisons only
 
 METRICS = {"metrics": {
     "accuracy": {"function": "sklearn.metrics.accuracy_score", "kwargs": {}},

@@ -49,6 +49,7 @@ from mmtpu_torch.models.lstm import flip_sequences
 from mmtpu_torch.ops import lstm as lstm_ops
 from mmtpu_torch.train import managers
 from mmtpu_torch.train import self_mm_step as step
+from _torch_threads import few_threads  # noqa: E402,F401 — in-process comparisons only
 
 CPU = torch.device("cpu")
 TOL = 1e-5

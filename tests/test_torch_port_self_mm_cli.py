@@ -32,6 +32,7 @@ from mmtpu_torch.cli import common, train_self_mm
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from _cli_harness import run_cli_inproc  # noqa: E402
+from _torch_threads import few_threads  # noqa: E402,F401 — in-process comparisons only
 
 CFG = REPO / "configs/mosi/synthetic_self_mm.yaml"
 NAME = "Synthetic_MOSI_SelfMM"

@@ -36,6 +36,7 @@ from mmtpu_torch.models.transformer import MultiHeadAttention
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from _recurrent_parity import check as _check  # noqa: E402
+from _torch_threads import few_threads  # noqa: E402,F401 — in-process comparisons only
 
 B, T, TK = 3, 7, 5
 NO_DROPOUT = dict(attn_dropout=0.0, relu_dropout=0.0, res_dropout=0.0)

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 from flax.traverse_util import flatten_dict, unflatten_dict
+from _torch_threads import few_threads  # noqa: E402,F401 — in-process comparisons only
 
 REPO = Path(__file__).resolve().parent.parent
 SYNTH_YAML = REPO / "configs/avmnist/synthetic_multimodal_pretrained.yaml"

@@ -41,6 +41,7 @@ SHIPPED = sorted(CONFIGS.glob("shipped_wheights_*.yaml"))
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from _cli_harness import run_cli_inproc  # noqa: E402
 from test_torch_port_checkpoints import reference_state  # noqa: E402
+from _torch_threads import few_threads  # noqa: E402,F401 — in-process comparisons only
 
 
 def _jax_config(path):

@@ -58,6 +58,7 @@ from mmtpu_torch.train.stacked import (  # noqa: E402
 )
 from mmtpu_torch.train.state import TrainState  # noqa: E402
 from mmtpu_torch.train.step import ClassificationTask, make_eval_step, make_train_step  # noqa: E402
+from _torch_threads import few_threads  # noqa: E402,F401 — in-process comparisons only
 
 ops_mlp = importlib.import_module("mmtpu_torch.ops.fused_mlp")
 ops_lstm = importlib.import_module("mmtpu_torch.ops.lstm")

@@ -42,6 +42,7 @@ from mmtpu_torch.train.early_stopping import EarlyStopping
 from mmtpu_torch.train.optim import LRController, build_optimizer, param_labels
 from mmtpu_torch.train.state import TrainState
 from mmtpu_torch.train.step import ClassificationTask, make_train_step
+from _torch_threads import few_threads  # noqa: E402,F401 — in-process comparisons only
 
 TOL = 1e-5
 CPU = torch.device("cpu")

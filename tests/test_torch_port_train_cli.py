@@ -2,7 +2,9 @@
 monomodal audio pretraining → the pretrained late-fusion fine-tune
 (`train_multimodal`, reference nesting) and the same through
 `train_avmnist` (AVMNIST nesting), from the repo's synthetic configs cut to
-a few dozen samples and narrow ResNet18 encoders.
+a few dozen samples and LeNet encoders in their ResNets' place (what is held
+here is the output API, which the encoders do not touch; the ResNets are
+held against mmtpu in `tests/test_torch_port_models.py` and on the card).
 
 The two packages draw different initial weights, so values differ; what is
 held equal is the output API: the key structure of every metrics JSON
@@ -28,6 +30,7 @@ MONO, MULTI, LATE = ("Synthetic_AVMNIST_Audio_Encoder", "Synthetic_AVMNIST_Multi
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from _cli_harness import run_cli_inproc  # noqa: E402
+from _torch_threads import few_threads  # noqa: E402,F401 — in-process comparisons only
 
 
 def structure(obj):
@@ -41,7 +44,7 @@ def structure(obj):
 
 def _tiny_config(src: str, dst: Path, out_root: Path, encoder_root: Path,
                  name: str = None) -> Path:
-    """The repo's synthetic config with ResNet18 encoders of width 16 (audio)
+    """The repo's synthetic config with LeNet encoders of width 16 (audio)
     and 24 (image), a head of 32, 40 train and 24 eval samples in batches
     of 16 (so every split ends in a padded tail), outputs under `out_root`
     and the handoff read from `encoder_root`."""
@@ -49,7 +52,8 @@ def _tiny_config(src: str, dst: Path, out_root: Path, encoder_root: Path,
     subs = [
         ('audio: "./experiments_output', f'audio: "{encoder_root}'),
         ("./experiments_output", str(out_root)),
-        ("!ResNet34", "!ResNet18"),
+        ("!ResNet34", "!LeNetEncoder"),
+        ("!ResNet18", "!LeNetEncoder"),
         ("    hidden_dim: 128", "    hidden_dim: 24"),
         ("\n  hidden_dim: 128", "\n  hidden_dim: 32"),
         ("hidden_dim: 64", "hidden_dim: 16"),
@@ -94,8 +98,8 @@ class _Spy:
 def runs(tmp_path_factory):
     """mono → multi → avmnist, once through mmtpu's CLIs and once through
     the port's; the port's multi run also with its in-memory model kept.
-    The checkpoints (full ResNet18 widths, optimizer state included: about
-    5 GB in all) are deleted when the module's tests are done."""
+    The checkpoints (optimizer state included) are deleted when the
+    module's tests are done."""
     mp = pytest.MonkeyPatch()
     out = {}
     try:

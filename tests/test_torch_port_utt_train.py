@@ -48,6 +48,7 @@ from mmtpu_torch.train.step import ClassificationTask, make_train_step
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from _cli_harness import run_cli_inproc  # noqa: E402
+from _torch_threads import passive_children  # noqa: E402,F401 — its ranks wait passively
 
 TOL = 1e-5
 CPU = torch.device("cpu")

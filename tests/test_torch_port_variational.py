@@ -26,6 +26,7 @@ from mmtpu_torch.models.rng import use_generator
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from _recurrent_parity import check, neutralise  # noqa: E402
+from _torch_threads import few_threads  # noqa: E402,F401 — in-process comparisons only
 
 B, T, I, H = 6, 7, 5, 4
 LENGTHS = {"none": None,
