@@ -20,7 +20,9 @@ FcClassifier 192→[192, 64, 32]→3; batch 32, aligned T = 50):
              `torch.nn.LSTM` as the library's call, and its gradient against
              autograd through the plain scan. The LSTM is timed at the main
              shape, at H >= 256 and at the ranks' shards (every shape is held
-             against the plain scan). Every profiled window records the
+             against the plain scan, with the design that runs it: narrow,
+             cluster or grid), and at the crossover shapes on every design
+             that takes them, in turns. Every profiled window records the
              device activity alone (not the ATen operators);
 3. predict — the `predict` entry over a synthetic test split, once per
              model (AVMNIST: 1000 samples × ai/a/i, batch 128; UttFusion:
@@ -387,6 +389,13 @@ FcClassifier 192→[192, 64, 32]→3; batch 32, aligned T = 50):
     python3 chip_smoke.py --model-axis-only  # build, phase 18 (a), (b)
     python3 chip_smoke.py --multihost-only   # build, phase 18 (a), phase 19
 
+The whole script runs phases 1-4 alone, then phases 11, 12 (b), (c), 13 and
+14 in a second process of its own (`chip_smoke.py --side-worker`) while
+this one runs phases 5-10, 12 (a), 15 and 17, then phases 16, 18 and 19
+alone: the card is idle most of the time in every one of them, the two
+streams share no file, and the multi-rank phases keep the card and the host
+to themselves. The second process's output follows its end.
+
 Prints a `kernels` JSON line, the card's name and power limit, and as the
 last line `{"ok": true, "device": {...}}`. Any failure exits non-zero
 without that line. There is no CPU path: without a GPU it fails. Imports
@@ -607,6 +616,21 @@ def say(msg: str) -> None:
     print(msg, flush=True)
 
 
+def _host_cpus() -> str:
+    """The CPUs this process may use, as the OS, the affinity mask, the
+    cgroup quota and torch's intra-op pool see them."""
+    import os
+
+    import torch
+
+    try:
+        quota = Path("/sys/fs/cgroup/cpu.max").read_text().strip()
+    except OSError:
+        quota = "unknown"
+    return (f"os.cpu_count {os.cpu_count()}, affinity {len(os.sched_getaffinity(0))}, "
+            f"cgroup cpu.max {quota!r}, torch threads {torch.get_num_threads()}")
+
+
 def kernel_counters() -> dict:
     """Kernel name → the wrapper that counts its launches."""
     from mmtpu_torch.ops import fused_mlp, lstm_sequence_stacked
@@ -617,13 +641,33 @@ def kernel_counters() -> dict:
 def reset_counts() -> None:
     for wrapper in kernel_counters().values():
         wrapper.launches = 0
+    designs = kernel_counters()["lstm"].design_launches
+    for design in designs:
+        designs[design] = 0
 
 
 def read_counts() -> dict:
     return {name: wrapper.launches for name, wrapper in kernel_counters().items()}
 
 
-def event_ms(fn, iters: int = 200, repeats: int = 7, warmup: int = 20) -> float:
+def design_counts() -> dict:
+    """The `lstm` launches since the last reset_counts by design: `narrow`
+    (csrc/lstm.cu), `cluster` and `grid` (csrc/lstm_wide.cu)."""
+    return dict(kernel_counters()["lstm"].design_launches)
+
+
+# the wide designs' launches on the paths that run them (phase 13 (c)'s
+# forwards, phase 14's GCNet epochs and EFModelAL forward), summed for the
+# `kernels` line: design → launches
+WIDE_LAUNCHES = {"cluster": 0, "grid": 0}
+
+
+def count_wide(designs: dict) -> None:
+    for design in WIDE_LAUNCHES:
+        WIDE_LAUNCHES[design] += designs[design]
+
+
+def event_ms(fn, iters: int = 50, repeats: int = 5, warmup: int = 10) -> float:
     """Median over `repeats` of the CUDA-event time per call of `iters`
     back-to-back calls (what a caller pays per call, launch included)."""
     import torch
@@ -644,7 +688,7 @@ def event_ms(fn, iters: int = 200, repeats: int = 7, warmup: int = 20) -> float:
     return statistics.median(times)
 
 
-def host_ms(fn, iters: int = 200, repeats: int = 5) -> float:
+def host_ms(fn, iters: int = 50, repeats: int = 5) -> float:
     """Median over `repeats` of the host's wall time per call of `iters`
     back-to-back calls with no synchronisation: what a launch costs the
     caller's thread (checks, allocation, the launch itself)."""
@@ -856,7 +900,7 @@ def phase_kernels_mlp(dev) -> dict:
 
 # LSTM shapes: (G, B, T, H, lengths in [0, T], non-zero h0/c0, tolerance, timed).
 # Every shape is held against the plain scan; the script times the main shape,
-# the widths where the kernel loses to `nn.LSTM` (H >= 256) and the ranks'
+# the widths where the narrow design lost to `nn.LSTM` (H >= 256), now wide, and the ranks'
 # shards, to stay inside its time (the other shapes' times stand in PERF.md §6;
 # `True` in a case's last field times it again)
 LSTM_CASES = [
@@ -885,9 +929,26 @@ LSTM_CASES = [
     (1, 16, 50, 64, False, False, KERNEL_TOL, False),  # DualCMAM's and MMIN's G=1 nets, 2 ranks
     (1, 16, 50, 16, False, False, KERNEL_TOL, False),  # Self-MM's audio AuViSubNet on 2 ranks
     (1, 16, 50, 32, False, False, KERNEL_TOL, False),  # Self-MM's video AuViSubNet on 2 ranks
+    # the wide designs (csrc/lstm_wide.cu): the four wide shapes with lengths
+    # (0 and T among them) and a state; ragged unit slices (342, 300 over 8 or
+    # 16 blocks) with a batch that no tile divides; the member fold at a wide
+    # H; 400 steps; the grid design at a batch of 37
+    (1, 128, 64, 256, True, True, KERNEL_TOL, False),
+    (2, 128, 64, 342, True, True, KERNEL_TOL, False),
+    (2, 128, 64, 1024, True, True, KERNEL_TOL, False),
+    (2, 16, 110, 300, True, True, KERNEL_TOL, False),
+    (2, 50, 30, 342, True, True, KERNEL_TOL, False),
+    (2, 37, 20, 1024, True, True, KERNEL_TOL, False),
+    (64, 3, 20, 300, True, True, KERNEL_TOL, False),
+    (1, 16, 400, 256, True, False, LSTM_TOL_LONG, False),
 ]
-# the widths where the kernel loses to `nn.LSTM` (ROADMAP §2's perf_opt item)
+# the widths where the narrow design lost to `nn.LSTM` until the wide designs
 WIDE_LSTM = ((1, 128, 64, 256), (2, 128, 64, 342), (2, 128, 64, 1024), (2, 16, 110, 300))
+# the crossover between the narrow and the wide designs, and the cluster
+# design against the grid design: each shape timed on every design that
+# takes it, in turns
+CROSSOVER_LSTM = ((2, 32, 50, 64), (2, 16, 110, 100), (2, 128, 64, 128), (2, 128, 64, 130),
+                  (1, 128, 64, 256), (2, 16, 110, 300), (2, 128, 64, 342))
 # phase 16's shards: each of two ranks holds half of a global batch ((a)-(b):
 # UttFusion's, timed; (e)-(g): the C-MAM, MMIN and Self-MM launches, MMIN's
 # student pair being UttFusion's shape, checked against the plain scan and
@@ -921,6 +982,8 @@ def _lstm_inputs(dev, G, B, T, H, with_len, with_state, seed):
     wh = (g.normal(size=(G, H, 4 * H)) / np.sqrt(H)).astype(np.float32)
     state = (0.5 * g.normal(size=(2, G, B, H))).astype(np.float32) * float(with_state)
     lengths = g.integers(0, T + 1, size=(G, B)).astype(np.int32) if with_len else None
+    if lengths is not None and B >= 2:  # the edges: a row that never runs, one that never stops
+        lengths[:, 0], lengths[:, -1] = 0, T
     to = lambda a: None if a is None else torch.from_numpy(a).to(dev)  # noqa: E731
     return to(xw), to(wh), to(state[0]), to(state[1]), to(lengths)
 
@@ -971,12 +1034,29 @@ def phase_kernels_lstm(dev) -> dict:
     the plain scan and nn.LSTM."""
     import torch
 
-    from mmtpu_torch.ops import lstm_sequence_stacked, lstm_stacked_reference
-    from mmtpu_torch.ops.lstm import _launch as lstm_launch
+    from mmtpu_torch.ops import _build, lstm_sequence_stacked, lstm_stacked_reference
+    from mmtpu_torch.ops.lstm import (MAX_GROUPS, NARROW_MAX_HIDDEN, _launch as lstm_launch,
+                                      max_active_clusters, wide_plan)
 
     torch.backends.cudnn.allow_tf32 = False  # nn.LSTM in fp32, as the kernel
+    index, sms = _build.sm90_device(dev, "lstm")
+    occupancy = max_active_clusters(index)
+    say(f"[kernels] lstm: cudaOccupancyMaxActiveClusters (S, clusters), a block per SM: "
+        f"{occupancy}; narrow design at H <= {NARROW_MAX_HIDDEN}")
+
+    def plan_of(G, B, H, design=None):
+        wide = design not in (None, "narrow") or (design is None and H > NARROW_MAX_HIDDEN)
+        return wide_plan(min(G, MAX_GROUPS), B, H, sms, occupancy if wide else (), design)
+
+    def describe(plan):
+        active = dict(occupancy).get(plan.cluster)
+        return (f"{plan.design} design, S={plan.cluster}, Bt={plan.rows}, {plan.blocks} blocks "
+                f"of {plan.threads} threads, {plan.smem} B shared"
+                + (f", {active} clusters of {plan.cluster} resident at once"
+                   if plan.design == "cluster" else ""))
+
     max_err = 0.0
-    timings, errors = {}, {}
+    timings, errors, plans = {}, {}, {}
     for seed, (G, B, T, H, with_len, with_state, tol, timed) in enumerate(LSTM_CASES):
         xw, wh, h0, c0, lengths = _lstm_inputs(dev, G, B, T, H, with_len, with_state, seed)
         if not with_state:  # as the encoders call it: no state tensor at all
@@ -990,8 +1070,9 @@ def phase_kernels_lstm(dev) -> dict:
         errs = [(a - b).abs().max().item() for a, b in ((out, want), (h, want_h), (c, want_c))]
         shape = f"G={G} B={B} T={T} H={H}" + (" lengths" if with_len else "") \
             + (" h0/c0≠0" if with_state else "")
+        plan = plans[(G, B, T, H)] = plan_of(G, B, H)
         say(f"[kernels] lstm {shape}: max |kernel - plain| outputs {errs[0]:.3e}, "
-            f"hT {errs[1]:.3e}, cT {errs[2]:.3e} (tolerance {tol})")
+            f"hT {errs[1]:.3e}, cT {errs[2]:.3e} (tolerance {tol}); {describe(plan)}")
         if max(errs) > tol:
             raise AssertionError(f"lstm {shape}: error {max(errs)} > {tol}")
         max_err = max(max_err, *errs)
@@ -1007,12 +1088,13 @@ def phase_kernels_lstm(dev) -> dict:
         def plain():
             return lstm_stacked_reference(xw, wh, h0, c0, lengths)
 
-        slow = dict(iters=10, repeats=3, warmup=2)  # the scan is ~10 launches per step
+        slow = dict(iters=5, repeats=3, warmup=2)  # the scan is ~10 launches per step
         with torch.no_grad():
             long_call = event_ms(kernel, iters=2, repeats=1, warmup=1) > SLOW_CALL_MS
             # a call above SLOW_CALL_MS (H >= 256) is timed over 3 × 2 calls, for room
+            # (its host time over 20 × 3, which a few long calls leave noisy)
             ev = dict(iters=3, repeats=2, warmup=1) if long_call else {}
-            hv = dict(iters=3, repeats=2) if long_call else {}
+            hv = dict(iters=20, repeats=3) if long_call else {}
             p1 = event_ms(plain, **slow)
             k1 = event_ms(kernel, **ev)
             k2 = event_ms(kernel, **ev)
@@ -1025,8 +1107,11 @@ def phase_kernels_lstm(dev) -> dict:
         bound, bound_by = lstm_bound_ms(G, B, T, H, lengths)
         t = {"ms": statistics.mean([k1, k2]), "plain_ms": statistics.mean([p1, p2]),
              "device_ms": kd, "plain_device_ms": pd, "host_ms": kh, "op_host_ms": oh,
-             "direct_host_ms": dh, "bound_ms": bound, "bound_by": bound_by, "serial_steps": T}
-        line = (f"[kernels] lstm {shape}: per call kernel {k1:.4f}/{k2:.4f} ms, plain "
+             "direct_host_ms": dh, "bound_ms": bound, "bound_by": bound_by, "serial_steps": T,
+             "design": plan.design, "cluster": plan.cluster, "rows_per_tile": plan.rows,
+             "blocks": plan.blocks}
+        line = (f"[kernels] lstm {shape} ({describe(plan)}): per call kernel "
+                f"{k1:.4f}/{k2:.4f} ms, plain "
                 f"{p1:.4f}/{p2:.4f} ms (events); host per launch {kh:.4f} ms (wall, no sync), "
                 f"through the operator {oh:.4f} ms, _launch alone {dh:.4f} ms; "
                 f"device time kernel {kd} ms, plain {pd} ms "
@@ -1035,7 +1120,7 @@ def phase_kernels_lstm(dev) -> dict:
             library, ours, diff = _lstm_library(dev, G, B, T, H, seed)
             if diff > LIBRARY_TOL:
                 raise AssertionError(f"lstm {shape}: nn.LSTM differs by {diff}")
-            lib_calls = 10 if long_call else 100
+            lib_calls = 10  # a profiled window of 100 nn.LSTM calls holds ~10^4 events
             l1 = event_ms(library, **ev)
             o1 = event_ms(ours, **ev)
             o2 = event_ms(ours, **ev)
@@ -1049,6 +1134,36 @@ def phase_kernels_lstm(dev) -> dict:
                      f"max |difference| {diff:.3e}")
         say(line)
         timings[(G, B, T, H)] = t
+
+    # the crossover: each shape on every design that takes it, in turns
+    # (narrow, cluster, grid, grid, cluster, narrow)
+    crossover = {}
+    for G, B, T, H in CROSSOVER_LSTM:
+        designs = []
+        for design in ("narrow", "cluster", "grid"):
+            try:
+                designs.append((design, plan_of(G, B, H, design)))
+            except ValueError:  # no layout of this design takes the shape
+                pass
+        xw, wh, _, _, _ = _lstm_inputs(dev, G, B, T, H, False, False, 7)
+        xws, whs = list(xw), list(wh)
+        runs = {}
+        with torch.no_grad():
+            want, _ = lstm_stacked_reference(xw, wh)
+            for design, _ in designs + designs[::-1]:
+                out = lstm_launch(xws, whs, None, None, None, design)[0]
+                err = (out - want).abs().max().item()
+                if err > KERNEL_TOL:
+                    raise AssertionError(f"lstm crossover {design} G={G} B={B} T={T} H={H}: "
+                                         f"error {err}")
+                runs.setdefault(design, []).append(event_ms(
+                    lambda: lstm_launch(xws, whs, None, None, None, design),
+                    iters=5, repeats=3, warmup=2))
+        crossover[(G, B, T, H)] = {d: statistics.mean(v) for d, v in runs.items()}
+        say(f"[kernels] lstm designs at G={G} B={B} T={T} H={H}, per call (events), in turns: "
+            + "; ".join(f"{d} {runs[d][0]:.4f}/{runs[d][1]:.4f} ms ({describe(pl)})"
+                        for d, pl in designs)
+            + f"; chosen: {plan_of(G, B, H).design}")
 
     # gradient: kernel forward + plain recompute vs autograd through the plain scan
     grad_err = 0.0
@@ -1074,7 +1189,8 @@ def phase_kernels_lstm(dev) -> dict:
             f"the plain scan| = {err:.3e} (tolerance {LSTM_GRAD_TOL})")
         if err > LSTM_GRAD_TOL:
             raise AssertionError(f"lstm gradient at {shape} differs by {err}")
-    return {"max_err": max_err, "grad_err": grad_err, "timings": timings, "errors": errors}
+    return {"max_err": max_err, "grad_err": grad_err, "timings": timings, "errors": errors,
+            "plans": plans, "crossover": crossover, "occupancy": occupancy}
 
 
 # What the predict and serve phases need to know of each model's path.
@@ -5433,7 +5549,7 @@ def _twin_check(dev, module, args, tag: str, launches: int, train: bool = False,
         module.double()
         args = [x.double() if x is not None and x.is_floating_point() else x for x in args]
     twins = {"cpu": module, "gpu": copy.deepcopy(module).to(dev)}
-    outs, grads, stats, seconds, counted = {}, {}, {}, {}, None
+    outs, grads, stats, seconds, counted, designs = {}, {}, {}, {}, None, None
     for label, m in twins.items():
         device = cpu if label == "cpu" else dev
         inputs = [None if x is None else x.detach().to(device).requires_grad_(x.requires_grad)
@@ -5444,7 +5560,8 @@ def _twin_check(dev, module, args, tag: str, launches: int, train: bool = False,
         with batch_mask(mask):
             leaves = _output_leaves(m(*inputs))
         if label == "gpu":
-            counted = read_counts()
+            counted, designs = read_counts(), design_counts()
+            count_wide(designs)
         gen = torch.Generator().manual_seed(SEED)
         cots = [torch.randn(x.shape, generator=gen).to(device) for x in leaves]
         sum((x * c).sum() for x, c in zip(leaves, cots)).backward()
@@ -5467,7 +5584,8 @@ def _twin_check(dev, module, args, tag: str, launches: int, train: bool = False,
         f"{max(errs.values()):.3e} of its norm (tolerance {TWIN_GRAD_TOL}), {_worst(errs, 2)}"
         + (f"; running statistics {stat_err:.3e} of their scale" if stats["cpu"] else "")
         + (f"; no gradient reaches {unreached} on either device" if unreached else "")
-        + f"; lstm launches in the forward {counted['lstm']} (derived {launches}); "
+        + f"; lstm launches in the forward {counted['lstm']} (derived {launches}; by "
+        + f"design {designs}); "
         + ("float64" if float64 else "float32, TF32 off")
         + f"; GPU {seconds['gpu']:.2f} s, CPU {seconds['cpu']:.2f} s")
     if counted != {"fused_mlp": 0, "lstm": launches}:
@@ -5478,7 +5596,7 @@ def _twin_check(dev, module, args, tag: str, launches: int, train: bool = False,
         raise AssertionError(f"{tag}: GPU and CPU differ: forward {fwd_err}, statistics "
                              f"{stat_err}, gradients {_worst(errs)}")
     return {"fwd_err": fwd_err, "grad_err": max(errs.values()), "stat_err": stat_err,
-            "launches": counted["lstm"], "unreached": unreached}
+            "launches": counted["lstm"], "designs": designs, "unreached": unreached}
 
 
 ATTENTION_B = 4  # dialogues in the lone MatchingAttention check
@@ -5532,12 +5650,16 @@ def phase_gcnet(dev, card: str) -> dict:
         losses = [step(b) for b in batches]
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
-    counts = read_counts()
+    counts, designs = read_counts(), design_counts()
+    count_wide(designs)
     losses = [float(x) for x in losses]
     want = {"fused_mlp": 0, "lstm": 2 * len(batches) * GCNET_LSTM_PER_FORWARD["LSTM"]}
-    if not all(np.isfinite(losses)) or counts != want:
+    # the base layers (H = D_e = 100) on the narrow design, the fusion
+    # layers (H = 2·D_e + graph hidden = 300) on the cluster design
+    want_designs = {"narrow": 2 * len(batches) * 2, "cluster": 2 * len(batches) * 4, "grid": 0}
+    if not all(np.isfinite(losses)) or counts != want or designs != want_designs:
         raise AssertionError(f"[gcnet] losses finite {all(np.isfinite(losses))}, launches "
-                             f"{counts}, derived {want}")
+                             f"{counts} by design {designs}, derived {want}, {want_designs}")
     utterances = int(sum(int(b["lengths"].sum()) for b in batches))
     rates = {"conversations_per_s": GCNET_DIALOGUES / seconds[1],
              "utterances_per_s": utterances / seconds[1]}
@@ -5548,7 +5670,8 @@ def phase_gcnet(dev, card: str) -> dict:
              f"{seconds[0]:.3f} s and {seconds[1]:.3f} s; "
              f"epoch 2: {rates['conversations_per_s']:.1f} conversations/s, "
              f"{rates['utterances_per_s']:.1f} utterances/s; epoch-2 mean loss "
-             f"{np.mean(losses):.4f}; launches {counts} (derived {want})")
+             f"{np.mean(losses):.4f}; launches {counts} (derived {want}), lstm by design "
+             f"{designs}")
     window = batches[:GCNET_PROFILE_STEPS]
     profile = _profile_steps(card, "[gcnet profile]", lambda: [step(b) for b in window],
                              len(window))
@@ -5556,8 +5679,8 @@ def phase_gcnet(dev, card: str) -> dict:
         raise AssertionError(f"[gcnet] profiled launches {profile['counts']}")
     checks = {base: phase_gcnet_check(dev, base, batches) for base in ("LSTM", "GRU")}
     attention = phase_matching_attention(dev, batches)
-    return {**rates, "seconds": seconds, "launches": counts, "profile": profile,
-            "checks": checks, "attention": attention}
+    return {**rates, "seconds": seconds, "launches": counts, "designs": designs,
+            "profile": profile, "checks": checks, "attention": attention}
 
 
 def phase_ef(dev, card: str) -> dict:
@@ -8278,6 +8401,145 @@ def kernel_record(name: str, source: str, replaces: str, shape: str, kern: dict,
     }
 
 
+# the shape at which each wide design's `kernels` entry gives its times: the
+# GCNet fusion layer's (phase 14 runs it 4 times a forward) and SeqEncoder's
+# text stream (phase 13 (c))
+WIDE_RECORD_SHAPES = {"cluster": (2, 16, 110, 300), "grid": (2, 128, 64, 1024)}
+
+
+def wide_record(design: str, lstm: dict, shape: tuple) -> dict:
+    """The `kernels` entry of a wide design of csrc/lstm_wide.cu. Its launches
+    are those of the paths that run it (WIDE_LAUNCHES; the main path's H = 64
+    takes the narrow design); it fails if they launched it no time."""
+    if not WIDE_LAUNCHES[design]:
+        raise AssertionError(f"lstm {design} design: no launch in phases 13 (c) and 14")
+    t = lstm["timings"][shape]
+    if t["design"] != design:
+        raise AssertionError(f"lstm {shape}: {t['design']} design, not {design}")
+    return {
+        "name": f"lstm_{design}",
+        "route": "cuda",
+        "source": "mmtpu_torch/ops/csrc/lstm_wide.cu",
+        "replaces": "mmtpu/ops/lstm.py:61",
+        "launches": WIDE_LAUNCHES[design],
+        "launches_of": "phase 13 (c)'s forwards, phase 14's GCNet two epochs and EFModelAL "
+                       "forward",
+        "max_abs_err": max(e for k, e in lstm["errors"].items()
+                           if lstm["plans"][k].design == design),
+        **{key: t[key] for key in ("ms", "plain_ms", "device_ms", "plain_device_ms", "host_ms",
+                                   "op_host_ms", "direct_host_ms", "bound_ms", "bound_by",
+                                   "cluster", "rows_per_tile", "blocks")},
+        "library_ms": t.get("library_ms"),
+        "library_device_ms": t.get("library_device_ms"),
+        "shape": "G={}, B={}, T={}, H={}, float32; library_ms is G nn.LSTM calls, projection "
+                 "included".format(*shape),
+    }
+
+
+# -- the second process: phases 11, 12 (b), (c), 13 and 14 -----------------------------
+
+SIDE_TIMEOUT_S = 1100  # the second process's limit, inside the script's own
+
+
+def _portable(obj):
+    """`obj` with its tensors on the CPU and anything pickle cannot take as
+    its repr, for the second process's results file."""
+    import pickle
+
+    import torch
+
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu()
+    if isinstance(obj, dict):
+        return {k: _portable(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_portable(v) for v in obj)
+    try:
+        pickle.dumps(obj)
+    except Exception:  # noqa: BLE001 - a lambda, a module, an open handle: its repr
+        return repr(obj)
+    return obj
+
+
+def _side_worker(spec: dict) -> int:
+    """The second process (`--side-worker SPEC`): phases 11, 12 (b), (c), 13
+    and 14 in their order, under `spec["work"]`, with TF32 off as phases 2
+    and 8 leave it for the phases after them in one process; their results,
+    the wide designs' launches and each phase's seconds into
+    `results.pt` there."""
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev, card, work = torch.device("cuda"), spec["card"], Path(spec["work"])
+    t0 = time.perf_counter()
+    self_mm = phase_self_mm(dev, card, work)
+    mmimdb = phase_mmimdb(dev, card, work)
+    t1 = time.perf_counter()
+    ks = phase_ks(dev, card, work)
+    mono = phase_mono(dev, card, work)
+    t2 = time.perf_counter()
+    pool = iemocap_pool()
+    iemocap = phase_iemocap(dev, card, work, pool)
+    chain = phase_mmimdb_chain(dev, card, work,
+                               mono["runs"]["mmimdb"]["models"] / "encoder_text_best.pth")
+    recurrent = phase_recurrent(dev, pool)
+    t3 = time.perf_counter()
+    p14 = phase14(dev, card)
+    t4 = time.perf_counter()
+    torch.save(_portable({
+        "self_mm": self_mm, "mmimdb": mmimdb, "ks": ks, "mono": mono, "iemocap": iemocap,
+        "chain": chain, "recurrent": recurrent, "p14": p14, "wide": dict(WIDE_LAUNCHES),
+        "seconds": {"11": t1 - t0, "12": t2 - t1, "13": t3 - t2, "14": t4 - t3}}),
+        work / "results.pt")
+    return 0
+
+
+class SideProcess:
+    """`_side_worker` in a process of its own, its output into a file that
+    `finish` (or `stop`, on a failure) copies to this one's."""
+
+    def __init__(self, work: Path, card: str):
+        self.work = work
+        work.mkdir()
+        self.log = work / "output.txt"
+        self.echoed = False
+        self.t0 = time.perf_counter()
+        with self.log.open("w") as out:
+            self.proc = subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--side-worker",
+                 json.dumps({"work": str(work), "card": card})],
+                cwd=ROOT, stdout=out, stderr=subprocess.STDOUT)
+
+    def _echo(self) -> None:
+        if not self.echoed:
+            self.echoed = True
+            say("[side] the second process's output (phases 11, 12 (b), (c), 13, 14):")
+            sys.stdout.write(self.log.read_text(errors="replace"))
+            sys.stdout.flush()
+
+    def finish(self) -> dict:
+        """Wait for it; its results, or an AssertionError if it failed."""
+        import torch
+
+        try:
+            rc = self.proc.wait(timeout=max(1.0, SIDE_TIMEOUT_S - (time.perf_counter() - self.t0)))
+        except subprocess.TimeoutExpired:
+            self.stop()
+            raise AssertionError(f"[side] the second process ran past {SIDE_TIMEOUT_S} s")
+        self._echo()
+        if rc != 0:
+            raise AssertionError(f"[side] the second process exited with {rc}")
+        say(f"[side] ended after {time.perf_counter() - self.t0:.1f} s")
+        return torch.load(self.work / "results.pt", weights_only=False)
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self._echo()
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -8352,6 +8614,7 @@ def main(argv=None) -> int:
                              "mesh of separately started launchers against it (no kernels "
                              "or ok line)")
     parser.add_argument("--axis-worker", default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--side-worker", default=None, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU",
@@ -8359,6 +8622,8 @@ def main(argv=None) -> int:
         return 2
     if args.axis_worker is not None:  # one of phase 19's launchers
         return _multihost_worker(json.loads(args.axis_worker))
+    if args.side_worker is not None:  # phases 11-14 beside this process's 5-10, 15, 17
+        return _side_worker(json.loads(args.side_worker))
     t_start = time.perf_counter()
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
@@ -8366,7 +8631,8 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
-    say(f"[device] {name}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    say(f"[device] {name}; torch {torch.__version__}, CUDA {torch.version.cuda}; host "
+        f"{_host_cpus()}")
 
     phase_build()
     cache = ROOT / ".cache"
@@ -8525,11 +8791,18 @@ def main(argv=None) -> int:
             shutil.rmtree(work, ignore_errors=True)
         return 0
 
+    t_2 = time.perf_counter()
     mlp = phase_kernels_mlp(dev)
+    t_lstm = time.perf_counter()
     lstm = phase_kernels_lstm(dev)
+    t_members = time.perf_counter()
     members = phase_kernels_members(dev)
+    t_3 = time.perf_counter()
+    say(f"[summary] phase 2 {t_3 - t_2:.1f} s: fused_mlp {t_lstm - t_2:.1f} s, lstm "
+        f"{t_members - t_lstm:.1f} s, member axis {t_3 - t_members:.1f} s")
     for kern, rows in ((mlp, members["mlp"]), (lstm, members["lstm"])):
         kern["max_err"] = max(kern["max_err"], *(t["max_abs_err"] for t in rows.values()))
+    side = None
     try:
         av_cfg = work / "avmnist.json"
         av_cfg.write_text(json.dumps(smoke_config(out_root=str(work / "out"))))
@@ -8540,6 +8813,8 @@ def main(argv=None) -> int:
         mosi_pred = phase_predict(dev, work, mosi_cfg, MOSI_PATH)
         mosi_srv = phase_serve(mosi_cfg, MOSI_PATH, mosi_requests())
         t_train = time.perf_counter()
+        say(f"[summary] phases 3-4 (predict, serve) {t_train - t_3:.1f} s")
+        side = SideProcess(work / "side", smi)  # phases 11, 12 (b), (c), 13, 14
         train = phase_train(dev, smi, work)
         t_utt = time.perf_counter()
         utt = phase_train_utt(dev, smi, work)
@@ -8553,39 +8828,40 @@ def main(argv=None) -> int:
                            "dual": utt["run"]["models"] / "best.pth"})
         t_msa = time.perf_counter()
         msa = phase_msa(dev, smi, work, utt["run"]["models"] / "best.pth")
-        t_11 = time.perf_counter()
-        self_mm = phase_self_mm(dev, smi, work)
-        mmimdb = phase_mmimdb(dev, smi, work)
         t_12 = time.perf_counter()
         export = phase_export(dev, smi, work, av_cfg, train["scratch"]["models"] / "best.pth",
                               mosi_cfg, utt["run"]["models"] / "best.pth",
                               utt["run"]["models"] / "best.pth", av_srv["requests_per_s"])
-        ks = phase_ks(dev, smi, work)
-        mono = phase_mono(dev, smi, work)
-        t_13 = time.perf_counter()
-        pool = iemocap_pool()
-        iemocap = phase_iemocap(dev, smi, work, pool)
-        chain = phase_mmimdb_chain(dev, smi, work,
-                                   mono["runs"]["mmimdb"]["models"] / "encoder_text_best.pth")
-        recurrent = phase_recurrent(dev, pool)
-        t_14 = time.perf_counter()
-        p14 = phase14(dev, smi)
         t_15 = time.perf_counter()
         p15 = phase15(dev, smi, work)
-        t_16 = time.perf_counter()
-        p16 = phase16(dev, smi, work)
         t_17 = time.perf_counter()
         p17 = phase17(dev, smi, work)
+        t_side = time.perf_counter()
+        got = side.finish()
+        t_16 = time.perf_counter()
+        say(f"[summary] phases 5-10, 12 (a), 15 and 17 {t_side - t_train:.1f} s beside phases "
+            f"11, 12 (b), (c), 13 and 14 in the second process "
+            f"{sum(got['seconds'].values()):.1f} s; {t_16 - t_side:.1f} s waited for it")
+        self_mm, mmimdb, ks, mono, iemocap, chain, recurrent, p14 = (
+            got[k] for k in ("self_mm", "mmimdb", "ks", "mono", "iemocap", "chain",
+                             "recurrent", "p14"))
+        for design, n in got["wide"].items():
+            WIDE_LAUNCHES[design] += n
+        p16 = phase16(dev, smi, work)
         t_18 = time.perf_counter()
         p18 = phase18(dev, smi, work)
         t_19 = time.perf_counter()
         p19 = phase19(dev, smi, work)  # in turn, after 18 (a), whose files it reads
+        side_s = got["seconds"]
         (t_train, t_utt, t_reader, t_shipped, t_cmam, t_msa, t_11, t_12, t_13, t_14, t_15,
          t_16, t_17, t_18, t_19) = (
             t_utt - t_train, t_reader - t_utt, t_shipped - t_reader, t_cmam - t_shipped,
-            t_msa - t_cmam, t_11 - t_msa, t_12 - t_11, t_13 - t_12, t_14 - t_13, t_15 - t_14,
-            t_16 - t_15, t_17 - t_16, t_18 - t_17, t_19 - t_18, time.perf_counter() - t_19)
+            t_msa - t_cmam, t_12 - t_msa, side_s["11"], t_15 - t_12 + side_s["12"],
+            side_s["13"], side_s["14"], t_17 - t_15, t_18 - t_16, t_side - t_17, t_19 - t_18,
+            time.perf_counter() - t_19)
     finally:
+        if side is not None:
+            side.stop()
         shutil.rmtree(work, ignore_errors=True)
 
     for label, pred, srv in (("AVMNIST", av_pred, av_srv), ("UttFusion", mosi_pred, mosi_srv)):
@@ -8712,7 +8988,11 @@ def main(argv=None) -> int:
                          for k in MESH_LSTM},
          "with_projection_ms": lstm["timings"][LSTM_MAIN]["with_projection_ms"],
          "grad_max_abs_err": lstm["grad_err"],
-         "serial_steps": T},
+         "serial_steps": T,
+         "design": "narrow (csrc/lstm.cu, H <= 100): the main path's H = 64",
+         "crossover": {"G={}, B={}, T={}, H={}".format(*k): v
+                       for k, v in lstm["crossover"].items()}},
+        *[wide_record(design, lstm, shape) for design, shape in WIDE_RECORD_SHAPES.items()],
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

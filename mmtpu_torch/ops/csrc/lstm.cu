@@ -71,8 +71,15 @@
 // times the special-function work for one shuffle round less);
 // tanh.approx.f32 (2^-11 cannot hold 1e-5). Not built: tensor cores
 // (mma.sync.m16n8k8 TF32 with a 3-pass hi/lo split) pay only when a block
-// owns 16 rows or more, which no shape has while blocks < SMs; a thread-block
-// cluster that splits wh across SMs for H > 128.
+// owns 16 rows or more, which no shape has while blocks < SMs.
+//
+// Where this design stops: every block holds all of wh, so past the rows
+// that fit beside the state (H > 128) each block reads the rest from L2 at
+// every step, blocks × T × (H, 4H) floats, and at small B one SM walks an
+// H × 4H product per step. The wrapper (ops/lstm.py `wide_plan`) therefore
+// takes this design only at H ≤ 100, where it was measured faster than the
+// cluster design (H = 64 and 100; at H = 128 the cluster design was faster:
+// PERF.md §6), and the weight-stationary designs of lstm_wide.cu above.
 
 #include <cuda_runtime.h>
 

@@ -8,9 +8,19 @@ per group — `pre = xw[:, t] + h·wh`, gates `[i, f, g, o]` = σ, σ, tanh, σ,
 takes a leading group dimension, so that `lstm_sequence` is its G = 1 call
 and `lstm_sequence_stacked` its G ≥ 1 call. (mmtpu runs the stacked form as
 a plain XLA scan and chooses between kernel and scan by shape; both rules
-answer the TPU. Here every CUDA call launches the one kernel.) What bounds
-it on the H100 and what its design does about that is noted at the top of
-the CUDA source.
+answer the TPU. Here every CUDA call launches one kernel.)
+
+Three designs, chosen by shape (`wide_plan`), one launch per call each:
+- `narrow` (`csrc/lstm.cu`, H ≤ NARROW_MAX_HIDDEN): blocks split the batch
+  and each holds all of wh in registers and shared memory;
+- `cluster` (`csrc/lstm_wide.cu`): wh split by hidden units across the S ≤ 16
+  blocks of a thread-block cluster, resident in shared memory for all T
+  steps, h exchanged through distributed shared memory;
+- `grid` (`csrc/lstm_wide.cu`): where no cluster holds wh (H = 1024), one
+  cooperative launch whose blocks own unit slices and stream h and their
+  slice of wh through shared memory each step, one grid barrier per step.
+What bounds each on the H100 and what its design does about that is noted
+at the top of its CUDA source.
 
 The input projection `x·Wi + b` is the caller's (`nn.Linear`), as in mmtpu.
 
@@ -25,11 +35,11 @@ at all, and the caller allocates and zero-fills none.
 Dispatch, by where `xw` lies (through the operator `mmtpu::lstm` of
 `ops/library.py` when no gradient is needed):
 - CPU tensors → `lstm_stacked_reference`, the plain PyTorch scan;
-- CUDA tensors → the kernel, or an error. There is no fallback: a CUDA input
-  the kernel does not take raises (dtype other than float32, a
-  non-contiguous tensor, tensors on different devices, an architecture other
-  than sm_90, or a hidden size whose state for one batch row, about 12·H
-  bytes, exceeds the 227 KB of shared memory a block may use). A call of
+- CUDA tensors → the planned design's kernel, or an error. There is no
+  fallback, to another design or to the scan: a CUDA input the kernel does
+  not take raises (dtype other than float32, a non-contiguous tensor,
+  tensors on different devices, an architecture other than sm_90), and so
+  does a launch the design's kernel refuses. A call of
   more than MAX_GROUPS groups (the pointer tables are kernel parameters)
   launches once per MAX_GROUPS groups, each launch counted.
 
@@ -40,9 +50,11 @@ contiguous slices of the batched tensors, handed over by pointer without a
 copy (`fold_groups`).
 
 A launch costs the host little beside the launch itself: the device's
-properties are read once, the plan is cached by (G, B, H, SMs), the pointer
-tables are preallocated, and the device is switched only when it is not the
-current one.
+properties and its cluster occupancy are read once, the plan is cached by
+(G, B, H, SMs, occupancy), the pointer tables are preallocated, and the
+device is switched only when it is not the current one. The grid design
+allocates its scratch (the double-buffered h and the transposed wh, which
+the kernel's prologue writes) with one `torch.empty`.
 
 Only the forward is a kernel, as in mmtpu. Its backward (`_LSTM`) recomputes
 through the plain scan (`lstm_recompute_stacked_grads`, mmtpu's `_bwd` for
@@ -66,6 +78,32 @@ MAX_THREADS = 1024
 KREG_THREADS = 512  # most threads of a block that holds rows of wh in registers
 ROW_TILES = (1, 2, 4, 8)  # batch rows per block the kernel is built for
 SMEM_LIMIT = 232_448  # bytes of shared memory a block may use on sm_90 (227 KB)
+
+# the wide designs (csrc/lstm_wide.cu). The crossover: larger H takes a wide
+# design; on an H100 the narrow design was faster at H = 64 and 100, the
+# cluster design at H = 128, 130 and 256 (chip_smoke.py phase 2, PERF.md §6)
+NARROW_MAX_HIDDEN = 100
+WIDE_MAX_THREADS = 512
+# (rows per thread, k-slices) the wide kernels are built for
+WIDE_VARIANTS = ((4, 1), (4, 2), (4, 4), (8, 1), (8, 2), (8, 4), (8, 8))
+CLUSTER_SIZES = (16, 8, 4, 2)  # 16 needs the non-portable cluster size
+GRID_CHUNK = 64  # k per chunk the grid design streams: MMTPU_GRID_CHUNK
+GRID_STAGES = 3  # MMTPU_GRID_STAGES
+GRID_UNITS = (8, 16, 32)  # unit slots of a grid design's block
+# the planner's step model, in SM cycles, fitted to phase 2's times on an
+# H100 (PERF.md §6): 80 fp32 FMAs per cycle and SM (of 128), one 128-byte
+# wavefront of shared memory per cycle, of which half overlaps the FMAs; the
+# fixed part of a step (cluster: barrier, exchange and gates; grid: the grid
+# barrier, the first chunks' latency and the update); a grid chunk's
+# barrier; the L2's rate shared by all SMs (about 5 TB/s at 1.75 GHz)
+FMA_PER_CYCLE = 80
+STEP_CYCLES = {"cluster": 3000, "grid": 12000}
+# the cluster step's fixed part grows with the block's warps and with the
+# peers each h value is written to
+WARP_STEP_CYCLES = 100
+PEER_STEP_CYCLES = 60
+CHUNK_CYCLES = 300
+L2_BYTES_PER_CYCLE = 2800
 
 Grouped = Union[torch.Tensor, Sequence[torch.Tensor]]
 
@@ -174,6 +212,175 @@ def launch_plan(groups: int, batch: int, hidden: int, num_sms: int) -> LaunchPla
     return LaunchPlan(rows, kreg, stage_k, h_stride, threads)
 
 
+def wide_max_threads(design: str, rpt: int, ks: int) -> int:
+    """The thread limit a wide variant is compiled for (csrc/lstm_wide.cu
+    `max_threads`): 256 where a cluster design's lane keeps the state of four
+    rows or more in registers for all T steps, or where a grid design's
+    lane holds eight rows' operands; else WIDE_MAX_THREADS."""
+    if (design == "cluster" and rpt // ks >= 4) or (design == "grid" and rpt == 8):
+        return 256
+    return WIDE_MAX_THREADS
+
+
+def unit_split(hidden: int, slices: int) -> list:
+    """The hidden units [u0, u1) of each of `slices` blocks, as the wide
+    kernels compute them: u0 = s·H // slices, ragged by at most one unit."""
+    return [(s * hidden // slices, (s + 1) * hidden // slices) for s in range(slices)]
+
+
+def lane_order(k_rel: int, unit: int, units: int, ks: int) -> int:
+    """Where the float4 of wh (the four gates of unit slot `unit`, row k0 +
+    k_rel) lies in a lane-ordered block of wh in shared memory: lane q of
+    the k-split takes k_rel = 4(q + ks·j) + i, stored at k-step 4j + i, slot
+    unit·ks + q (csrc/lstm_wide.cu `lane_order`)."""
+    c4 = k_rel // 4
+    q, j = c4 % ks, c4 // ks
+    return (4 * j + k_rel % 4) * (units * ks) + unit * ks + q
+
+
+class WidePlan(NamedTuple):
+    """How one launch is laid out, by design (see the CUDA sources)."""
+
+    design: str     # "narrow", "cluster" or "grid"
+    cluster: int    # S: blocks of a cluster (1 outside the cluster design)
+    rows: int       # Bt: batch rows of a block's tile (narrow: rows per block)
+    rpt: int        # rows per thread of the wide designs (0 for narrow)
+    ks: int         # k-slices of the wide designs (0 for narrow)
+    units: int      # unit slots of a block (narrow: H)
+    slices: int     # unit slices of one group (S for cluster, 1 for narrow)
+    threads: int
+    smem: int       # bytes of dynamic shared memory of a block
+    blocks: int     # blocks launched
+    h_pad: int      # H padded to the k-split (cluster) or the chunk (grid)
+    h_stride: int   # floats between rows of h in shared memory (cluster, narrow)
+    narrow: Optional[LaunchPlan] = None
+
+    def unit_slices(self, hidden: int) -> list:
+        return unit_split(hidden, self.slices)
+
+    def tiles(self, batch: int) -> list:
+        """The batch rows [r0, r1) of each tile."""
+        return [(r, min(batch, r + self.rows)) for r in range(0, batch, self.rows)]
+
+
+def _row_groups(rpt: int, batch: int):
+    """Row groups per block: the tile (rpt·n rows) stops at the first that
+    covers the batch."""
+    n = 1
+    while True:
+        yield n
+        if rpt * n >= batch:
+            return
+        n *= 2
+
+
+def _product_cycles(rows: int, rpt: int, ks: int, units: int, h_pad: int,
+                    threads: int) -> float:
+    """SM cycles of one block's product over h_pad k: its FMAs over the fp32
+    lanes plus half its shared-memory wavefronts (a warp's float4 loads of
+    wh: its distinct slots; of h: its k-slices times the row groups it
+    spans), stretched where fewer than eight warps hide the latency."""
+    warps = threads / 32
+    lanes_rg = units * ks  # lanes of one row group
+    rgs_per_warp = max(1, 32 // lanes_rg)
+    w_wf = max(1, min(32, lanes_rg) * 16 // 128)
+    h_wf = max(1, ks * rgs_per_warp * 16 // 128)
+    smem = warps * (h_pad / ks * w_wf + rpt * h_pad / (4 * ks) * h_wf)
+    fma = rows * h_pad * 4 * units / FMA_PER_CYCLE
+    return (fma + smem / 2) * max(1.0, 8 * 32 / threads)
+
+
+def _cluster_plans(G, B, H, max_active_clusters):
+    for S, active in max_active_clusters:
+        if S > H or active < 1:
+            continue
+        u_max = -(-H // S)
+        for rpt, ks in WIDE_VARIANTS:
+            nj = -(-H // (4 * ks))
+            h_pad = 4 * ks * nj
+            h_stride = h_pad + 4
+            for nrg in _row_groups(rpt, B):
+                rows = rpt * nrg
+                units = u_max
+                while nrg * units * ks % 32:
+                    units += 1
+                threads = nrg * units * ks
+                smem = h_pad * units * 16 + 8 * rows * h_stride
+                clusters = G * -(-B // rows)
+                if threads > wide_max_threads("cluster", rpt, ks) or smem > SMEM_LIMIT:
+                    continue
+                # clusters beyond those resident at once run in further waves
+                cycles = -(-clusters // active) * (
+                    _product_cycles(rows, rpt, ks, units, h_pad, threads)
+                    + STEP_CYCLES["cluster"] + WARP_STEP_CYCLES * threads // 32
+                    + PEER_STEP_CYCLES * S)
+                yield (cycles, clusters * S, threads), WidePlan(
+                    "cluster", S, rows, rpt, ks, units, S, threads, smem, clusters * S,
+                    h_pad, h_stride)
+
+
+def _grid_plans(G, B, H, sms):
+    h_pad = -(-H // GRID_CHUNK) * GRID_CHUNK
+    for units in GRID_UNITS:
+        slices = -(-H // units)
+        for rpt, ks in WIDE_VARIANTS:
+            if GRID_CHUNK % (4 * ks):
+                continue
+            for nrg in _row_groups(rpt, B):
+                rows = rpt * nrg
+                threads = nrg * units * ks
+                smem = GRID_STAGES * (GRID_CHUNK * units * 16 + rows * (GRID_CHUNK + 4) * 4)
+                if threads % 32 or threads > wide_max_threads("grid", rpt, ks) \
+                        or smem > SMEM_LIMIT:
+                    continue
+                items = G * -(-B // rows) * slices
+                blocks = min(items, sms)
+                l2_bytes = items * (rows * h_pad * 4 + h_pad * units * 16)
+                per_item = (_product_cycles(rows, rpt, ks, units, h_pad, threads)
+                            + h_pad // GRID_CHUNK * CHUNK_CYCLES)
+                cycles = max(-(-items // blocks) * per_item,
+                             l2_bytes / L2_BYTES_PER_CYCLE) + STEP_CYCLES["grid"]
+                yield (cycles, blocks, threads), WidePlan(
+                    "grid", 1, rows, rpt, ks, units, slices, threads, smem, blocks, h_pad, 0)
+
+
+@functools.lru_cache(maxsize=256)
+def wide_plan(groups: int, batch: int, hidden: int, sms: int,
+              max_active_clusters: Tuple[Tuple[int, int], ...],
+              design: Optional[str] = None) -> WidePlan:
+    """The design and layout of a launch over (groups, batch) rows of hidden
+    size H; computed once per argument tuple and kept.
+
+    `max_active_clusters`: (S, clusters) pairs, how many clusters of S blocks
+    the device holds at once when each block takes a whole SM
+    (`cudaOccupancyMaxActiveClusters`; 16-block clusters need 16 SMs of one
+    GPC). `design` forces one (the crossover's measurement); None chooses:
+    `narrow` (`launch_plan`) at H ≤ NARROW_MAX_HIDDEN; above it the cluster
+    design wherever one of its layouts fits shared memory (its slice of wh
+    and two buffers of its tile's h), since on the H100 it beat the grid
+    design at every shape both took (PERF.md §6), else the grid design,
+    which takes any shape (its blocks walk the work items). Within a design
+    the layout with the fewest modelled cycles per step wins; clusters
+    beyond those resident at once run in further waves, each as long as the
+    first, which the model counts. Raises where the forced design has no
+    layout."""
+    if design is None:
+        design = "narrow" if hidden <= NARROW_MAX_HIDDEN else "wide"
+    if design == "narrow":
+        lp = launch_plan(groups, batch, hidden, sms)
+        return WidePlan("narrow", 1, lp.rows, 0, 0, hidden, 1, lp.threads,
+                        lp.smem_bytes(hidden), groups * -(-batch // lp.rows), hidden,
+                        lp.h_stride, lp)
+    plans = []
+    if design in ("wide", "cluster"):
+        plans = list(_cluster_plans(groups, batch, hidden, max_active_clusters))
+    if design == "grid" or (design == "wide" and not plans):
+        plans = list(_grid_plans(groups, batch, hidden, sms))
+    if not plans:
+        raise ValueError(f"lstm: no {design} layout for G={groups}, B={batch}, H={hidden}")
+    return min(plans, key=lambda kp: kp[0])[1]
+
+
 def _check(xws, whs, h0, c0, lengths, max_groups: Optional[int] = MAX_GROUPS
            ) -> Tuple[int, int, int, int]:
     """Shapes, dtypes, devices and layouts the kernel takes → (G, B, T, H).
@@ -222,6 +429,8 @@ def _check(xws, whs, h0, c0, lengths, max_groups: Optional[int] = MAX_GROUPS
 
 _launch_lock = threading.Lock()
 _kernel = None
+_wide = None  # (cluster entry, grid entry, occupancy query) of csrc/lstm_wide.cu
+_occupancy: dict = {}  # device index → max_active_clusters for wide_plan
 # the two pointer tables a launch hands over, written anew under _launch_lock
 _c_xw = (ctypes.c_void_p * MAX_GROUPS)()
 _c_wh = (ctypes.c_void_p * MAX_GROUPS)()
@@ -238,14 +447,51 @@ def _kernel_fn():
     return _kernel
 
 
+def _wide_fns():
+    """The wide designs' C entry points, built and bound on first use."""
+    global _wide
+    if _wide is None:
+        lib = _build.load("lstm_wide")
+        cluster, grid, occ = (lib.mmtpu_lstm_cluster_forward, lib.mmtpu_lstm_grid_forward,
+                              lib.mmtpu_lstm_wide_occupancy)
+        cluster.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+        grid.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+        occ.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+        for fn in (cluster, grid, occ):
+            fn.restype = ctypes.c_int
+        _wide = cluster, grid, occ
+    return _wide
+
+
+def max_active_clusters(index: int) -> Tuple[Tuple[int, int], ...]:
+    """(S, clusters) for each cluster size: how many clusters of S blocks of
+    the cluster kernel device `index` holds at once when each block takes a
+    whole SM (all the shared memory a block may use). Queried once per device."""
+    got = _occupancy.get(index)
+    if got is None:
+        occ = _wide_fns()[2]
+        n = ctypes.c_int(0)
+        pairs = []
+        with _build.on_device(index):
+            for S in CLUSTER_SIZES:
+                rc = occ(0, 8, 8, S, 256, SMEM_LIMIT, ctypes.byref(n))
+                if rc != 0:
+                    raise RuntimeError(f"lstm: cluster occupancy query failed with CUDA "
+                                       f"error {rc} (S={S})")
+                pairs.append((S, n.value))
+        got = _occupancy[index] = tuple(pairs)
+    return got
+
+
 def _at(t: Optional[torch.Tensor], offset: int):
     """The address `offset` 4-byte elements into `t`; None stays None."""
     return None if t is None else t.data_ptr() + 4 * offset
 
 
-def _launch(xws, whs, h0, c0, lengths):
+def _launch(xws, whs, h0, c0, lengths, design: Optional[str] = None):
     """The kernel over all groups → (out (G, B, T, H), hT, cT): one launch,
-    or one per MAX_GROUPS groups beyond that."""
+    or one per MAX_GROUPS groups beyond that, of the design `wide_plan`
+    chooses; `design` forces one (the crossover's measurement)."""
     G, B, T, H = _check(xws, whs, h0, c0, lengths, max_groups=None)
     dev = xws[0].device
     index, num_sms = _build.sm90_device(dev, "lstm")
@@ -259,24 +505,41 @@ def _launch(xws, whs, h0, c0, lengths):
             else:
                 dst.copy_(src)
         return out, hT, cT
-    fn = _kernel or _kernel_fn()
+    wide = design not in (None, "narrow") or (design is None and H > NARROW_MAX_HIDDEN)
+    occupancy = max_active_clusters(index) if wide else ()
     for g0 in range(0, G, MAX_GROUPS):
         n = min(MAX_GROUPS, G - g0)
-        plan = launch_plan(n, B, H, num_sms)
+        plan = wide_plan(n, B, H, num_sms, occupancy, design)
         state = g0 * B * H
+        scratch = None
+        if plan.design == "grid":  # h twice (2, n, B, Hp), then wh transposed (n, Hp, H, 4)
+            scratch = torch.empty(2 * n * B * plan.h_pad + 4 * n * plan.h_pad * H,
+                                  device=dev, dtype=torch.float32)
         with _launch_lock, _build.on_device(index):
             for g in range(n):
                 _c_xw[g] = xws[g0 + g].data_ptr()
                 _c_wh[g] = whs[g0 + g].data_ptr()
-            rc = fn(_c_xw, _c_wh, _at(h0, state), _at(c0, state), _at(lengths, g0 * B),
-                    _at(out, state * T), _at(hT, state), _at(cT, state),
-                    n, B, T, H, *plan, _build.current_stream(index))
+            args = (_c_xw, _c_wh, _at(h0, state), _at(c0, state), _at(lengths, g0 * B),
+                    _at(out, state * T), _at(hT, state), _at(cT, state))
+            stream = _build.current_stream(index)
+            if plan.design == "narrow":
+                rc = (_kernel or _kernel_fn())(*args, n, B, T, H, *plan.narrow, stream)
+            elif plan.design == "cluster":
+                rc = _wide_fns()[0](*args, n, B, T, H, plan.cluster, plan.rows, plan.rpt,
+                                    plan.ks, plan.units, plan.h_pad, plan.h_stride,
+                                    plan.threads, plan.smem, stream)
+            else:
+                rc = _wide_fns()[1](*args, _at(scratch, 0),
+                                    _at(scratch, 2 * n * B * plan.h_pad), n, B, T, H,
+                                    plan.slices, plan.rows, plan.rpt, plan.ks, plan.units,
+                                    plan.h_pad, plan.blocks, plan.threads, plan.smem, stream)
             if rc == 0:
                 lstm_sequence_stacked.launches += 1
+                lstm_sequence_stacked.design_launches[plan.design] += 1
         if rc != 0:
             raise RuntimeError(
-                f"lstm: kernel launch failed with CUDA error {rc} (G={n} of {G}, B={B}, "
-                f"T={T}, H={H}, {plan}, smem {plan.smem_bytes(H)} B)"
+                f"lstm: {plan.design} kernel launch failed with CUDA error {rc} (G={n} of "
+                f"{G}, B={B}, T={T}, H={H}, {plan})"
             )
     return out, hT, cT
 
@@ -392,7 +655,8 @@ def lstm_sequence_stacked(
     A call that needs no gradient goes through the operator `mmtpu::lstm`
     (`ops/library.py`) on either device, so a traced graph holds it: on
     CUDA it launches the kernel once for all groups (counted in
-    `lstm_sequence_stacked.launches`) or raises, on the CPU it is the plain
+    `lstm_sequence_stacked.launches`, and by design in its
+    `design_launches`) or raises, on the CPU it is the plain
     scan. An eager call on CUDA launches the same kernel without the
     dispatcher (`_build.direct_launch`). A call that needs a gradient takes
     the plain scan on the CPU and `_LSTM` on CUDA. Under a `torch.func`
@@ -417,6 +681,8 @@ def lstm_sequence_stacked(
 
 
 lstm_sequence_stacked.launches = 0
+# the same launches by design (`wide_plan`)
+lstm_sequence_stacked.design_launches = {"narrow": 0, "cluster": 0, "grid": 0}
 
 
 def lstm_sequence(
